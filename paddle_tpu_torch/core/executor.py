@@ -1,0 +1,217 @@
+"""Executor: runs a Program eagerly, one op at a time, over a Scope.
+
+The JAX package traces a whole block into one XLA computation and
+keeps a per-op interpreter as its debug path
+(``paddle_tpu/core/executor.py`` ``_block_plan`` / ``_interpret_block``).
+PyTorch runs eagerly, so here the interpreter IS the execution path, the
+reference's own design (reference: paddle/fluid/framework/executor.cc:195
+Executor::Run — a loop dispatching one kernel per op). Per-op resolution
+(op-def lookup, non-empty slots, the in-place plan below) is computed once
+per program version and cached on the executor.
+
+In-place arenas. The decode and inject programs persist the KV arenas
+with ``scatter(arena, rows, new) -> assign(out, output=arena)``. The JAX
+package donates the arena buffers so XLA updates them in place
+(``paddle_tpu/core/lowering.py`` ``lower_step``). Eagerly, the scatter
+would clone the whole ``[R, H]`` arena per K and V per layer per step;
+instead the plan marks such a scatter ``_inplace`` when its ``X`` is a
+persistable that the same program re-assigns from the scatter's output
+and no other op of the program reads or writes ``X``. The scatter then
+writes into ``X``'s tensor, and the assign hands back that same tensor.
+"""
+
+import numpy as np
+import torch
+
+from paddle_tpu_torch.core.ir import default_main_program
+from paddle_tpu_torch.core.places import default_place
+from paddle_tpu_torch.core.registry import get_op_def
+from paddle_tpu_torch.core.scope import global_scope
+from paddle_tpu_torch.utils.enforce import EnforceError
+
+# pseudo-ops that the executor elides (feed/fetch are direct env access here)
+ELIDED_OPS = {"feed", "fetch"}
+
+
+class _OpStep:
+    """One op's pre-resolved execution plan: op-def lookup, attrs (with
+    the in-place mark applied) and the non-empty input/output slots."""
+
+    __slots__ = ("op", "op_def", "attrs", "inputs", "outputs")
+
+    def __init__(self, op, op_def, attrs, inputs, outputs):
+        self.op = op
+        self.op_def = op_def
+        self.attrs = attrs
+        self.inputs = inputs
+        self.outputs = outputs
+
+
+def _inplace_scatter(ops, i, block):
+    """Whether ``ops[i]`` (a scatter) may write into its ``X``: ``X`` is a
+    persistable, a later ``assign`` copies the scatter's ``Out`` back into
+    ``X``, and no other op of the program reads or writes ``X`` — so no
+    reader can see the old value change under it."""
+    op = ops[i]
+    x, out = op.input("X"), op.output("Out")
+    if len(x) != 1 or len(out) != 1:
+        return False
+    var = block._find_var_recursive(x[0])
+    if var is None or not var.persistable:
+        return False
+    persisted = False
+    for j, other in enumerate(ops):
+        if j == i:
+            continue
+        if (j > i and not persisted and other.type == "assign"
+                and other.input("X") == out and other.output("Out") == x):
+            persisted = True
+            continue
+        if x[0] in other.input_names() or x[0] in other.output_names():
+            return False
+    return persisted
+
+
+def block_plan(block):
+    """The per-op plan of ``block`` (uncached; ``Executor`` caches it per
+    program version)."""
+    ops = [op for op in block.ops if op.type not in ELIDED_OPS]
+    plan = []
+    for i, op in enumerate(ops):
+        attrs = op.attrs
+        if op.type == "scatter" and _inplace_scatter(ops, i, block):
+            attrs = dict(attrs, _inplace=True)
+        plan.append(_OpStep(
+            op, get_op_def(op.type), attrs,
+            [(slot, names) for slot, names in op.inputs.items() if names],
+            list(op.outputs.items()),
+        ))
+    return plan
+
+
+class Executor:
+    """Feeds a Program, runs it and returns its fetches (reference:
+    python/paddle/fluid/executor.py:432).
+
+    ``place`` defaults to ``CUDAPlace(0)`` and raises when there is no
+    card; pass ``CPUPlace()`` to run on the CPU. Random ops draw from one
+    ``torch.Generator`` on the executor's device, seeded with ``seed``."""
+
+    def __init__(self, place=None, seed=0):
+        self.place = default_place(place)
+        self.device = self.place.device
+        self._seed = int(seed)
+        self._generator = None
+        self._plans = {}
+
+    def _plan(self, program):
+        key = (program._uid, program._version)
+        plan = self._plans.get(key)
+        if plan is None:
+            if len(self._plans) >= 64:
+                self._plans.clear()
+            block = program.global_block()
+            persistable = [
+                v.name for v in block.vars.values() if v.persistable
+            ]
+            plan = (block_plan(block), persistable)
+            self._plans[key] = plan
+        return plan
+
+    def _generator_for(self, attrs):
+        seed = attrs.get("seed", 0)
+        if seed:
+            return torch.Generator(device=self.device).manual_seed(int(seed))
+        if self._generator is None:
+            self._generator = torch.Generator(device=self.device)
+            self._generator.manual_seed(self._seed)
+        return self._generator
+
+    def _to_device(self, value, var):
+        if isinstance(value, torch.Tensor):
+            return value.to(self.device)
+        arr = np.asarray(value)
+        if var is not None and var.dtype is not None:
+            arr = arr.astype(var.dtype, copy=False)
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _from_scope(self, scope, name, block):
+        owner = scope._find_owner(name)
+        if owner is None:
+            raise EnforceError(
+                f"variable '{name}' is read by the program but not "
+                "initialized in scope (run the startup program first?)"
+            )
+        v = owner._vars[name]
+        if not isinstance(v, torch.Tensor) or v.device != self.device:
+            # commit once: later runs find the tensor on the device, and
+            # in-place updates land in the scope's own tensor
+            v = self._to_device(v, block._find_var_recursive(name))
+            owner.set(name, v)
+        return v
+
+    def run(self, program=None, feed=None, fetch_list=None, scope=None,
+            return_numpy=True):
+        program = program if program is not None else default_main_program()
+        feed = feed or {}
+        fetch_names = [
+            f if isinstance(f, str) else f.name for f in (fetch_list or [])
+        ]
+        scope = scope if scope is not None else global_scope()
+        block = program.global_block()
+        env = {
+            name: self._to_device(value, block.vars.get(name))
+            for name, value in feed.items()
+        }
+        steps, persistable = self._plan(program)
+        for step in steps:
+            ins = {}
+            for slot, names in step.inputs:
+                vals = []
+                for n in names:
+                    v = env.get(n)
+                    if v is None:
+                        v = env[n] = self._from_scope(scope, n, block)
+                    vals.append(v)
+                ins[slot] = vals
+            if step.op_def.stateful:
+                ins["__generator__"] = [self._generator_for(step.attrs)]
+            if step.op_def.creates:
+                ins["__device__"] = [self.device]
+            try:
+                outs = step.op_def.lowering()(ins, step.attrs)
+            except EnforceError:
+                raise
+            except Exception as e:
+                raise EnforceError(
+                    f"lowering failed: {e}",
+                    op_type=step.op.type,
+                    op_callstack=step.op.attrs.get("op_callstack"),
+                ) from e
+            for slot, names in step.outputs:
+                vals = outs.get(slot)
+                if vals is None:
+                    continue
+                for name, val in zip(names, vals):
+                    if val is not None:
+                        env[name] = val
+        for name in persistable:
+            if name in env:
+                (scope._find_owner(name) or scope).set(name, env[name])
+        fetches = []
+        for n in fetch_names:
+            if n in env:
+                fetches.append(env[n])
+            elif scope.has_var(n):
+                fetches.append(self._from_scope(scope, n, block))
+            else:
+                raise EnforceError(
+                    f"fetch variable '{n}' is not produced by the program, "
+                    "fed, or present in scope"
+                )
+        if return_numpy:
+            return [f.detach().cpu().numpy() for f in fetches]
+        return fetches
+
+    def close(self):
+        self._plans.clear()

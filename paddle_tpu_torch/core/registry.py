@@ -1,0 +1,82 @@
+"""Operator registry.
+
+Analog of the reference's OpInfoMap/OpRegistry (reference:
+paddle/fluid/framework/op_registry.h:68). An op registers:
+
+  * ``lower``  — a torch lowering rule ``(inputs, attrs) -> outputs`` on
+                 tensors. The executor calls it eagerly, one op at a
+                 time; shape inference calls it on ``meta`` tensors.
+  * ``kernel`` — optional lowering that routes the op through a
+                 hand-written CUDA kernel (``paddle_tpu_torch/kernels/``).
+                 It takes the place of the JAX package's ``pallas`` slot.
+
+Inputs/outputs are dicts: slot name -> list of tensors, mirroring the
+reference's named variable lists on OpDesc. Two flags ask the executor
+for run-time context: ``stateful`` ops receive the run's
+``torch.Generator`` as ``ins["__generator__"]``, and ``creates`` ops
+(which have no tensor input to take a device from) receive the target
+``torch.device`` as ``ins["__device__"]``.
+"""
+
+from paddle_tpu_torch.utils.enforce import EnforceError
+
+
+class OpDef:
+    def __init__(self, type, lower, kernel=None, stateful=False,
+                 creates=False):
+        self.type = type
+        self.lower = lower
+        self.kernel = kernel
+        self.stateful = stateful
+        self.creates = creates
+
+    def lowering(self):
+        """What the executor runs: the kernel lowering when the op has
+        one, else the plain one."""
+        return self.kernel if self.kernel is not None else self.lower
+
+
+class OpRegistry:
+    _ops = {}
+
+    @classmethod
+    def register(cls, op_def):
+        if op_def.type in cls._ops:
+            raise EnforceError(f"op {op_def.type} registered twice")
+        cls._ops[op_def.type] = op_def
+
+    @classmethod
+    def get(cls, type):
+        try:
+            return cls._ops[type]
+        except KeyError:
+            raise EnforceError(f"op {type} is not registered") from None
+
+    @classmethod
+    def has(cls, type):
+        return type in cls._ops
+
+    @classmethod
+    def all_types(cls):
+        return sorted(cls._ops)
+
+
+def register_op(type, kernel=None, stateful=False, creates=False):
+    """Decorator form:  @register_op("relu")  def _(ins, attrs): ..."""
+
+    def deco(fn):
+        OpRegistry.register(
+            OpDef(type, fn, kernel=kernel, stateful=stateful,
+                  creates=creates)
+        )
+        return fn
+
+    return deco
+
+
+def get_op_def(type):
+    return OpRegistry.get(type)
+
+
+def has_op_def(type):
+    return OpRegistry.has(type)

@@ -1,0 +1,84 @@
+"""Parameter initializers — emitted as startup-program ops.
+
+Same architecture as the reference (reference: python/paddle/fluid/
+initializer.py — initializers append fill_constant/uniform_random/... ops
+to the startup program). The port carries the initializers the decode
+engine's builders use: constant and (Xavier-)uniform.
+"""
+
+import math
+
+from paddle_tpu_torch.utils.enforce import enforce
+
+
+class Initializer:
+    def __call__(self, var, block):
+        raise NotImplementedError
+
+
+class ConstantInitializer(Initializer):
+    def __init__(self, value=0.0):
+        self.value = value
+
+    def __call__(self, var, block):
+        block.append_op(
+            "fill_constant",
+            outputs={"Out": [var.name]},
+            attrs={"shape": list(var.shape), "dtype": var.dtype, "value": self.value},
+        )
+
+
+class UniformInitializer(Initializer):
+    def __init__(self, low=-1.0, high=1.0, seed=0):
+        self.low, self.high, self.seed = low, high, seed
+
+    def __call__(self, var, block):
+        block.append_op(
+            "uniform_random",
+            outputs={"Out": [var.name]},
+            attrs={
+                "shape": list(var.shape),
+                "dtype": var.dtype,
+                "min": self.low,
+                "max": self.high,
+                "seed": self.seed,
+            },
+        )
+
+
+def _fan_in_out(var):
+    """reference: python/paddle/fluid/initializer.py _compute_fans — FC
+    weights are [in, out]; conv filters are [out_c, in_c, *receptive]."""
+    shape = var.shape
+    enforce(len(shape) >= 1, "initializer needs a shaped variable")
+    if len(shape) == 1:
+        return shape[0], shape[0]
+    if len(shape) == 2:
+        return shape[0], shape[1]
+    receptive = 1
+    for d in shape[2:]:
+        receptive *= d
+    return shape[1] * receptive, shape[0] * receptive
+
+
+class XavierInitializer(Initializer):
+    """reference: python/paddle/fluid/initializer.py XavierInitializer
+    (the uniform form; the normal form needs ``gaussian_random``, which
+    the port does not lower yet)."""
+
+    def __init__(self, uniform=True, fan_in=None, fan_out=None, seed=0):
+        enforce(uniform, "XavierInitializer(uniform=False) is not ported yet")
+        self.fan_in, self.fan_out, self.seed = fan_in, fan_out, seed
+
+    def __call__(self, var, block):
+        fin, fout = _fan_in_out(var)
+        fin = self.fan_in if self.fan_in is not None else fin
+        fout = self.fan_out if self.fan_out is not None else fout
+        limit = math.sqrt(6.0 / (fin + fout))
+        UniformInitializer(-limit, limit, self.seed)(var, block)
+
+
+# public aliases matching the reference API surface
+Constant = ConstantInitializer
+Uniform = UniformInitializer
+Xavier = XavierInitializer

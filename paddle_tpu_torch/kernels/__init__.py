@@ -1,0 +1,16 @@
+"""Hand-written CUDA kernels behind the op registry.
+
+``registry`` holds the mode (``auto``/``off``) and the launch counters,
+``build`` compiles ``csrc/*.cu`` with ``nvcc`` at first use, and
+``attention`` holds the paged/cached decode-attention wrappers with their
+plain PyTorch versions. Importing this package builds nothing.
+"""
+
+from paddle_tpu_torch.kernels import registry  # noqa: F401
+from paddle_tpu_torch.kernels.registry import (  # noqa: F401
+    KERNELS,
+    launches,
+    mode,
+    reset_launches,
+    scoped_mode,
+)

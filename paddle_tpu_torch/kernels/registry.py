@@ -1,0 +1,93 @@
+"""Kernel registry: which hand-written CUDA kernels exist, whether ops use
+them, and how many times each was launched.
+
+Modes, from ``PADDLE_TPU_TORCH_KERNELS`` or ``scoped_mode``:
+
+* ``auto`` (default) — a kernel-backed op launches its CUDA kernel on
+  CUDA tensors; on CPU tensors the wrapper computes the kernel's plain
+  PyTorch version (that is the CPU path, not a fallback).
+* ``off`` — every kernel-backed op computes the plain version, on any
+  device. It is the caller's explicit opt-out, the counterpart of the
+  JAX package's ``PADDLE_TPU_KERNELS=off``; nothing switches to it on its
+  own when a build or a launch fails — those raise.
+
+Each wrapper calls ``note_launch`` once per kernel launch and nowhere
+else, so ``launches()`` shows whether a run really went through the
+kernels.
+"""
+
+import os
+import threading
+from collections import namedtuple
+
+__all__ = ["KERNELS", "MODE_ENV", "mode", "scoped_mode", "note_launch",
+           "launches", "reset_launches"]
+
+MODE_ENV = "PADDLE_TPU_TORCH_KERNELS"
+_MODES = ("auto", "off")
+
+#: one entry per wrapper: the CUDA source it launches (repo-relative)
+#: and the JAX package's Pallas kernel it replaces
+KernelInfo = namedtuple("KernelInfo", ["source", "replaces"])
+
+KERNELS = {
+    "paged_attention": KernelInfo(
+        "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
+        "paddle_tpu/kernels/attention.py:122"),
+    "decode_attention": KernelInfo(
+        "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
+        "paddle_tpu/kernels/attention.py:122"),
+}
+
+_lock = threading.Lock()
+_mode_stack = []
+_launches = {name: 0 for name in KERNELS}
+
+
+def mode():
+    """The innermost ``scoped_mode``, else the env var, else ``auto``.
+    An unknown value raises: a typo must not silently change the path."""
+    with _lock:
+        if _mode_stack:
+            return _mode_stack[-1]
+    raw = os.environ.get(MODE_ENV, "").strip().lower() or "auto"
+    if raw not in _MODES:
+        raise ValueError(f"{MODE_ENV}={raw!r}: unknown mode (want one of {_MODES})")
+    return raw
+
+
+class scoped_mode:
+    """Swap the process-wide kernel mode for a ``with`` block. Not
+    thread-local: an engine's scheduler thread sees the same mode."""
+
+    def __init__(self, m):
+        if m not in _MODES:
+            raise ValueError(f"unknown kernel mode {m!r} (want {_MODES})")
+        self._m = m
+
+    def __enter__(self):
+        with _lock:
+            _mode_stack.append(self._m)
+        return self
+
+    def __exit__(self, *exc):
+        with _lock:
+            _mode_stack.pop()
+        return False
+
+
+def note_launch(name):
+    with _lock:
+        _launches[name] += 1
+
+
+def launches(name=None):
+    """Launch count of one kernel, or a dict of all counts."""
+    with _lock:
+        return _launches[name] if name is not None else dict(_launches)
+
+
+def reset_launches():
+    with _lock:
+        for name in _launches:
+            _launches[name] = 0

@@ -1,0 +1,433 @@
+"""DecodeModel: the fixed-shape program contract of the paged decode engine.
+
+A generation model is served through THREE (optionally FOUR) fixed-shape
+programs that share one scope (weights by name) and one **paged KV
+arena**: per layer, one flat persistable ``[R, H]`` row matrix per K and
+per V, where ``R = num_blocks * block_size``. Block tables live on the
+host (serving/decode/pool.py); programs see only **row-index feeds**, so
+memory scales with *used* tokens while every program shape stays
+static:
+
+* **decode step** — the per-iteration hot path. ONE static shape: token
+  ``[S, 1]`` + position ``[S, 1]`` + attention bias ``[S, 1, L]`` + a
+  gather row map ``[S * L]`` (position ``p`` of slot ``s`` reads arena
+  row ``rows[s * L + p]``) + a scatter row ``[S]`` naming where each
+  slot's new K/V row lands (``R`` = "write nowhere", dropped — retired
+  slots are bit-invisible, admitted slots join mid-flight, and the
+  program never sees the batch change). The executor writes the
+  arenas in place (core/executor.py): the scatter is an in-place
+  device update.
+* **prefill** — whole-prompt forward at ``[1, L]`` with a causal
+  additive bias, fetching per-layer K/V rows ``[1, L, H]`` and logits
+  ``[1, L, V]``. Stateless (it writes no arena): its outputs are
+  host-cacheable, which is what feeds both the prefill cache and the
+  copy-on-write bytes of shared partial blocks.
+* **inject** — scatters up to ``L`` prefill K/V rows into arbitrary
+  arena rows by a row map ``[L]`` (rows >= ``R`` dropped). Shared-prefix
+  admissions inject ONLY their non-shared suffix — shared blocks
+  already hold byte-identical rows.
+* **chunk prefill** (built when ``chunk_tokens`` is set) — ``[1, C]``
+  prompt chunk against the paged arena: scatters the chunk's own K/V
+  rows, gathers the full ``[L]`` context view back, and attends under a
+  host-fed bias that opens exactly the causal prefix. Long prompts
+  stream through it one budgeted chunk per engine iteration instead of
+  stalling the decode batch.
+
+All shapes are static. Every parameter, feed, and arena var name is
+derived from the ``(name, version)`` prefix, and the programs are a
+copy of the JAX package's ``serving/decode/model.py``: both packages
+build the same programs with the same var names, so weights carry
+across by name (``paddle_tpu_torch/convert.py``).
+
+Exactness: gather/scatter move rows byte-for-byte and the additive
+``-1e9`` bias zeroes masked positions exactly. On a CUDA card the
+decode step's attention runs the hand-written paged-attention kernel,
+which sums in another order than the prefill's matmuls, so decode and
+offline logits agree to a tolerance there, not bit for bit.
+"""
+
+import numpy as np
+
+__all__ = ["DecodeModel", "build_decoder_model"]
+
+# additive-mask value: exp(-1e9) underflows to exactly 0.0 (the repo-wide
+# padding contract), so masked cache positions are bit-invisible
+NEG_INF = -1e9
+
+
+class DecodeModel:
+    """The paged programs + their naming contract and geometry.
+
+    ``state_names`` lists per-layer ``(k_arena, v_arena)`` var names
+    (each ``[R, H]``); ``prefill_kv_fetches`` the matching per-layer
+    ``(k_rows, v_rows)`` fetch names of the prefill program. ``builder``
+    (optional) is a zero-arg callable that re-creates a content-identical
+    DecodeModel."""
+
+    # feed-name contract (fixed; the engine builds these arrays)
+    DEC_TOKEN = "dec_token"
+    DEC_POSITION = "dec_position"
+    DEC_BIAS = "dec_bias"
+    DEC_ROWS = "dec_rows"
+    DEC_WRITE_ROWS = "dec_write_rows"
+    DEC_MASK = "dec_mask"
+    PRE_TOKENS = "pre_tokens"
+    PRE_POSITIONS = "pre_positions"
+    PRE_BIAS = "pre_bias"
+    INJ_ROWS = "inj_rows"
+    CHU_TOKENS = "chu_tokens"
+    CHU_POSITIONS = "chu_positions"
+    CHU_BIAS = "chu_bias"
+    CHU_ROWS = "chu_rows"
+    CHU_WRITE_ROWS = "chu_write_rows"
+
+    def __init__(self, *, decode_program, prefill_program, inject_program,
+                 startup_program, slots, max_len, vocab_size, hidden,
+                 state_names, logits_fetch, prefill_logits_fetch,
+                 prefill_kv_fetches, inject_kv_feeds, block_size,
+                 num_blocks, chunk_program=None, chunk_tokens=None,
+                 chunk_logits_fetch=None, eos_id=None, name="model",
+                 version="1", builder=None, logits_mask=False):
+        self.decode_program = decode_program
+        self.prefill_program = prefill_program
+        self.inject_program = inject_program
+        self.chunk_program = chunk_program
+        self.startup_program = startup_program
+        self.slots = int(slots)
+        self.max_len = int(max_len)
+        self.vocab_size = int(vocab_size)
+        self.hidden = int(hidden)
+        self.block_size = int(block_size)
+        self.num_blocks = int(num_blocks)
+        self.chunk_tokens = int(chunk_tokens) if chunk_tokens else None
+        self.state_names = list(state_names)
+        self.logits_fetch = logits_fetch
+        self.prefill_logits_fetch = prefill_logits_fetch
+        self.chunk_logits_fetch = chunk_logits_fetch
+        self.prefill_kv_fetches = list(prefill_kv_fetches)
+        self.inject_kv_feeds = list(inject_kv_feeds)
+        self.eos_id = eos_id
+        self.name = str(name)
+        self.version = str(version)
+        self.builder = builder
+        self.logits_mask = bool(logits_mask)
+
+    @property
+    def key(self):
+        return (self.name, self.version)
+
+    @property
+    def label(self):
+        return f"{self.name}@{self.version}"
+
+    @property
+    def rows(self):
+        """Physical arena rows: the paged pool's capacity in tokens."""
+        return self.num_blocks * self.block_size
+
+    def arena_bytes(self):
+        """Exact bytes of the paged KV pool: 2 arenas x layers x
+        ``[R, H]`` float32.
+        The slotted design's ``S * max_len`` rows become
+        ``num_blocks * block_size``, sized to USED tokens."""
+        per = self.rows * self.hidden * 4
+        return per * 2 * len(self.state_names)
+
+    def slotted_equivalent_bytes(self):
+        """What a dense slotted design would reserve for the same
+        ``(slots, max_len)`` grid."""
+        per = self.slots * self.max_len * self.hidden * 4
+        return per * 2 * len(self.state_names)
+
+    # -- feed signatures (ordered like each program's feed list) ---------
+    def decode_feed_sig(self):
+        s, l = self.slots, self.max_len
+        sig = [
+            (self.DEC_TOKEN, (s, 1), "int64"),
+            (self.DEC_POSITION, (s, 1), "int64"),
+            (self.DEC_BIAS, (s, 1, l), "float32"),
+            (self.DEC_ROWS, (s * l,), "int64"),
+            (self.DEC_WRITE_ROWS, (s,), "int64"),
+        ]
+        if self.logits_mask:
+            # grammar-constrained decode: per-step [S, 1, V] additive
+            # logits mask, fed as DATA (zeros when no grammar is active
+            # — IEEE x + 0.0 == x keeps unconstrained slots bit-exact)
+            sig.append((self.DEC_MASK, (s, 1, self.vocab_size), "float32"))
+        return tuple(sig)
+
+    def prefill_feed_sig(self):
+        l = self.max_len
+        return (
+            (self.PRE_TOKENS, (1, l), "int64"),
+            (self.PRE_POSITIONS, (1, l), "int64"),
+            (self.PRE_BIAS, (1, l, l), "float32"),
+        )
+
+    def inject_feed_sig(self):
+        l, h = self.max_len, self.hidden
+        sig = [(self.INJ_ROWS, (l,), "int64")]
+        for kn, vn in self.inject_kv_feeds:
+            sig.append((kn, (1, l, h), "float32"))
+            sig.append((vn, (1, l, h), "float32"))
+        return tuple(sig)
+
+    def chunk_feed_sig(self):
+        c, l = self.chunk_tokens, self.max_len
+        return (
+            (self.CHU_TOKENS, (1, c), "int64"),
+            (self.CHU_POSITIONS, (1, c), "int64"),
+            (self.CHU_BIAS, (1, c, l), "float32"),
+            (self.CHU_ROWS, (l,), "int64"),
+            (self.CHU_WRITE_ROWS, (c,), "int64"),
+        )
+
+
+def _state_var(main_program, startup_program, name, shape):
+    """A persistable float32 state var declared in ``main_program`` and
+    zero-initialized ONCE in the shared startup (create_global_var would
+    append a duplicate fill per program that declares the arena)."""
+    mblock = main_program.global_block()
+    var = mblock.vars.get(name)
+    if var is None:
+        var = mblock.create_var(name=name, shape=list(shape),
+                                dtype="float32", persistable=True)
+        var.stop_gradient = True
+    sblock = startup_program.global_block()
+    if name not in sblock.vars:
+        sblock.create_var(name=name, shape=list(shape), dtype="float32",
+                          persistable=True)
+        sblock.append_op(
+            "fill_constant", {}, {"Out": [name]},
+            {"shape": list(shape), "dtype": "float32", "value": 0.0},
+        )
+    return var
+
+
+def build_decoder_model(vocab_size, hidden=16, num_layers=2, ffn_dim=None,
+                        slots=4, max_len=32, eos_id=None, name="decoder",
+                        version="1", block_size=None, num_blocks=None,
+                        chunk_tokens=None, fused_attention=True,
+                        logits_mask=False):
+    """Build the canonical cached-attention decoder as a paged
+    DecodeModel.
+
+    Residual transformer decoder: token+position embeddings, per layer
+    (q/k/v projection -> paged cached attention -> output projection ->
+    residual -> relu FFN -> residual), logits head. Offline/prefill and
+    decode paths share every weight by explicit name: one set of
+    parameters, two access patterns.
+
+    ``block_size`` defaults to ``min(8, max_len)``; ``num_blocks``
+    defaults to FULL capacity (``slots * ceil(max_len / block_size)``),
+    so by default nothing can run out of blocks — size it DOWN (with
+    the analysis/memory.py gate) to get the paged memory win.
+    ``chunk_tokens`` >= 2 additionally builds the chunk-prefill program.
+
+    ``logits_mask`` (default False — opt-in, as in the JAX package)
+    adds a fixed-shape ``[S, 1, V]`` additive mask feed applied to the
+    decode step's logits (``layers.logits_mask_add``): the
+    grammar-constrained decode contract. Per-step masks enter as data;
+    an all-zeros mask is a bit-exact no-op for every unconstrained
+    slot.
+
+    ``fused_attention`` (default True) routes the decode step's
+    attention through ONE ``paged_attention`` op — the row-index feeds
+    enter the op directly, so the kernel registry
+    (paddle_tpu_torch/kernels/) serves it with the CUDA kernel that
+    never materializes the dense ``[S, L, H]`` gather view in device
+    memory. ``fused_attention=False`` emits the gather + matmul/softmax
+    composite instead.
+    """
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.ir import Program, program_guard
+    from paddle_tpu_torch.utils import unique_name
+
+    V, H, S, L = int(vocab_size), int(hidden), int(slots), int(max_len)
+    NL = int(num_layers)
+    FFN = int(ffn_dim) if ffn_dim else 4 * H
+    if L < 2:
+        raise ValueError(f"max_len {L} leaves no room to generate")
+    BS = int(block_size) if block_size else min(8, L)
+    per_slot = -(-L // BS)                      # ceil: blocks per full slot
+    NB = int(num_blocks) if num_blocks else S * per_slot
+    R = NB * BS
+    C = int(chunk_tokens) if chunk_tokens else None
+    if C is not None and not (2 <= C <= L):
+        # C == 1 would route the chunk's projections through the GEMV
+        # path, whose summation order differs from the prefill GEMM
+        raise ValueError(f"chunk_tokens must be in [2, {L}], got {C}")
+    prefix = f"{name}_v{version}"
+
+    def attr(suffix):
+        return fluid.ParamAttr(name=f"{prefix}.{suffix}")
+
+    def proj(h, size, suffix, act=None):
+        return fluid.layers.fc(
+            h, size, num_flatten_dims=2, act=act,
+            param_attr=attr(suffix + ".w"), bias_attr=attr(suffix + ".b"),
+        )
+
+    def embed(toks, pos):
+        te = fluid.layers.embedding(toks, size=(V, H),
+                                    param_attr=attr("tok_emb"))
+        pe = fluid.layers.embedding(pos, size=(L, H),
+                                    param_attr=attr("pos_emb"))
+        return fluid.layers.elementwise_add(te, pe)
+
+    def ffn_block(h, i):
+        ff = proj(h, FFN, f"l{i}.ffn1", act="relu")
+        return fluid.layers.elementwise_add(h, proj(ff, H, f"l{i}.ffn2"))
+
+    sm_scale = 1.0 / float(np.sqrt(H))
+    state_names = [(f"{prefix}.kcache{i}", f"{prefix}.vcache{i}")
+                   for i in range(NL)]
+    startup = Program()
+
+    # -- prefill: whole-prompt causal forward at [1, L] ------------------
+    prefill = Program()
+    kv_fetches = []
+    # unique_name.guard(): auto-named temp vars restart per program, so a
+    # rebuild ANYWHERE in a process is textually identical
+    with unique_name.guard(), program_guard(prefill, startup):
+        toks = fluid.data(DecodeModel.PRE_TOKENS, [1, L], dtype="int64")
+        pos = fluid.data(DecodeModel.PRE_POSITIONS, [1, L], dtype="int64")
+        bias = fluid.data(DecodeModel.PRE_BIAS, [1, L, L], dtype="float32")
+        h = embed(toks, pos)
+        for i in range(NL):
+            q = proj(h, H, f"l{i}.q")
+            k = proj(h, H, f"l{i}.k")
+            v = proj(h, H, f"l{i}.v")
+            scores = fluid.layers.matmul(q, k, transpose_y=True,
+                                         alpha=sm_scale)
+            att = fluid.layers.softmax(
+                fluid.layers.elementwise_add(scores, bias), axis=-1)
+            ctx = fluid.layers.matmul(att, v)
+            h = fluid.layers.elementwise_add(h, proj(ctx, H, f"l{i}.out"))
+            h = ffn_block(h, i)
+            kv_fetches.append((k.name, v.name))
+        pre_logits = proj(h, V, "head")
+
+    # -- decode step: one token per slot at [S, 1], paged arena ----------
+    decode = Program()
+    with unique_name.guard(), program_guard(decode, startup):
+        tok = fluid.data(DecodeModel.DEC_TOKEN, [S, 1], dtype="int64")
+        pos = fluid.data(DecodeModel.DEC_POSITION, [S, 1], dtype="int64")
+        bias = fluid.data(DecodeModel.DEC_BIAS, [S, 1, L], dtype="float32")
+        rows = fluid.data(DecodeModel.DEC_ROWS, [S * L], dtype="int64")
+        wrows = fluid.data(DecodeModel.DEC_WRITE_ROWS, [S], dtype="int64")
+        lmask = (fluid.data(DecodeModel.DEC_MASK, [S, 1, V],
+                            dtype="float32") if logits_mask else None)
+        h = embed(tok, pos)
+        for i in range(NL):
+            kc = _state_var(decode, startup, state_names[i][0], [R, H])
+            vc = _state_var(decode, startup, state_names[i][1], [R, H])
+            q = proj(h, H, f"l{i}.q")
+            k = proj(h, H, f"l{i}.k")
+            v = proj(h, H, f"l{i}.v")
+            nk = fluid.layers.block_scatter_write(
+                kc, wrows, fluid.layers.squeeze(k, [1]))
+            nv = fluid.layers.block_scatter_write(
+                vc, wrows, fluid.layers.squeeze(v, [1]))
+            # persist: the executor scatters into the arena in place,
+            # so this is an in-place device update, not a copy
+            fluid.layers.assign(nk, output=kc)
+            fluid.layers.assign(nv, output=vc)
+            if fused_attention:
+                ctx = fluid.layers.paged_attention(
+                    fluid.layers.squeeze(q, [1]), nk, nv, rows, bias,
+                    S, L, sm_scale=sm_scale)
+            else:
+                gk = fluid.layers.block_gather(nk, rows, S, L)
+                gv = fluid.layers.block_gather(nv, rows, S, L)
+                ctx = fluid.layers.cached_attention(
+                    fluid.layers.squeeze(q, [1]), gk, gv, bias,
+                    sm_scale=sm_scale)
+            ctx = fluid.layers.unsqueeze(ctx, [1])
+            h = fluid.layers.elementwise_add(h, proj(ctx, H, f"l{i}.out"))
+            h = ffn_block(h, i)
+        dec_logits = proj(h, V, "head")
+        if lmask is not None:
+            dec_logits = fluid.layers.logits_mask_add(dec_logits, lmask)
+
+    # -- inject: scatter prefill rows into arbitrary arena rows ----------
+    inject = Program()
+    inj_feeds = []
+    with unique_name.guard(), program_guard(inject, startup):
+        irows = fluid.data(DecodeModel.INJ_ROWS, [L], dtype="int64")
+        for i in range(NL):
+            kc = _state_var(inject, startup, state_names[i][0], [R, H])
+            vc = _state_var(inject, startup, state_names[i][1], [R, H])
+            kn, vn = f"inj_k{i}", f"inj_v{i}"
+            rk = fluid.data(kn, [1, L, H], dtype="float32")
+            rv = fluid.data(vn, [1, L, H], dtype="float32")
+            nk = fluid.layers.block_scatter_write(
+                kc, irows, fluid.layers.squeeze(rk, [0]))
+            nv = fluid.layers.block_scatter_write(
+                vc, irows, fluid.layers.squeeze(rv, [0]))
+            fluid.layers.assign(nk, output=kc)
+            fluid.layers.assign(nv, output=vc)
+            inj_feeds.append((kn, vn))
+
+    # -- chunk prefill: [1, C] prompt chunk against the paged arena ------
+    chunk = None
+    chu_logits_name = None
+    if C is not None:
+        chunk = Program()
+        with unique_name.guard(), program_guard(chunk, startup):
+            toks = fluid.data(DecodeModel.CHU_TOKENS, [1, C], dtype="int64")
+            pos = fluid.data(DecodeModel.CHU_POSITIONS, [1, C],
+                             dtype="int64")
+            bias = fluid.data(DecodeModel.CHU_BIAS, [1, C, L],
+                              dtype="float32")
+            crows = fluid.data(DecodeModel.CHU_ROWS, [L], dtype="int64")
+            cwrows = fluid.data(DecodeModel.CHU_WRITE_ROWS, [C],
+                                dtype="int64")
+            h = embed(toks, pos)
+            for i in range(NL):
+                kc = _state_var(chunk, startup, state_names[i][0], [R, H])
+                vc = _state_var(chunk, startup, state_names[i][1], [R, H])
+                q = proj(h, H, f"l{i}.q")
+                k = proj(h, H, f"l{i}.k")
+                v = proj(h, H, f"l{i}.v")
+                nk = fluid.layers.block_scatter_write(
+                    kc, cwrows, fluid.layers.squeeze(k, [0]))
+                nv = fluid.layers.block_scatter_write(
+                    vc, cwrows, fluid.layers.squeeze(v, [0]))
+                fluid.layers.assign(nk, output=kc)
+                fluid.layers.assign(nv, output=vc)
+                # gather AFTER the scatter: the context view includes the
+                # chunk's own rows; the host bias opens exactly the
+                # causal prefix per chunk position
+                gk = fluid.layers.block_gather(nk, crows, 1, L)
+                gv = fluid.layers.block_gather(nv, crows, 1, L)
+                scores = fluid.layers.matmul(q, gk, transpose_y=True,
+                                             alpha=sm_scale)
+                att = fluid.layers.softmax(
+                    fluid.layers.elementwise_add(scores, bias), axis=-1)
+                ctx = fluid.layers.matmul(att, gv)
+                h = fluid.layers.elementwise_add(
+                    h, proj(ctx, H, f"l{i}.out"))
+                h = ffn_block(h, i)
+            chu_logits = proj(h, V, "head")
+            chu_logits_name = chu_logits.name
+
+    kwargs = dict(vocab_size=V, hidden=H, num_layers=NL, ffn_dim=FFN,
+                  slots=S, max_len=L, eos_id=eos_id, name=name,
+                  version=version, block_size=BS, num_blocks=NB,
+                  chunk_tokens=C, fused_attention=fused_attention,
+                  logits_mask=logits_mask)
+    return DecodeModel(
+        decode_program=decode, prefill_program=prefill,
+        inject_program=inject, chunk_program=chunk,
+        startup_program=startup,
+        slots=S, max_len=L, vocab_size=V, hidden=H,
+        block_size=BS, num_blocks=NB, chunk_tokens=C,
+        state_names=state_names, logits_fetch=dec_logits.name,
+        prefill_logits_fetch=pre_logits.name,
+        chunk_logits_fetch=chu_logits_name,
+        prefill_kv_fetches=kv_fetches, inject_kv_feeds=inj_feeds,
+        eos_id=eos_id, name=name, version=version,
+        builder=lambda: build_decoder_model(**kwargs),
+        logits_mask=logits_mask,
+    )

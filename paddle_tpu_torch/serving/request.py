@@ -1,0 +1,128 @@
+"""Request/Response futures and structured serving errors.
+
+Every way a request can fail short of an answer is a typed error with a
+machine-readable `code`, so front-ends (Python, C, Go via the C ABI) can
+branch on failure class without parsing prose: `rejected` means back off
+and retry after `retry_after_s` (admission backpressure), `deadline`
+means the SLO expired while queued, `request_failed` means THIS request
+was bad — its batchmates were served normally.
+"""
+
+import threading
+import time
+
+__all__ = [
+    "Priority",
+    "ServingError",
+    "RejectedError",
+    "DeadlineExceededError",
+    "RequestError",
+    "ReplicaLostError",
+    "Response",
+]
+
+
+class Priority:
+    """Admission lanes, drained strictly in order (HIGH before NORMAL
+    before LOW). An SLO-critical interactive request overtakes queued
+    batch traffic at dispatch time; within a lane, FIFO."""
+
+    HIGH = 0
+    NORMAL = 1
+    LOW = 2
+    LANES = (HIGH, NORMAL, LOW)
+
+
+class ServingError(RuntimeError):
+    """Base of all structured serving failures. `code` is stable API."""
+
+    code = "serving_error"
+
+    def to_dict(self):
+        return {"code": self.code, "message": str(self)}
+
+
+class RejectedError(ServingError):
+    """Admission refused (queue full, engine draining, or inadmissible
+    shape). Backpressure is explicit: `retry_after_s` estimates when the
+    queue will have drained enough to admit — callers should retry after
+    that, not hammer."""
+
+    code = "rejected"
+
+    def __init__(self, message, retry_after_s=0.0):
+        super().__init__(message)
+        self.retry_after_s = float(retry_after_s)
+
+    def to_dict(self):
+        d = super().to_dict()
+        d["retry_after_s"] = self.retry_after_s
+        return d
+
+
+class DeadlineExceededError(ServingError):
+    """The request's deadline expired while it waited in the queue; it
+    was never dispatched (no device time was spent on a dead answer)."""
+
+    code = "deadline"
+
+
+class RequestError(ServingError):
+    """This request failed during batch assembly or execution. Isolation
+    guarantee: a RequestError never propagates to batchmates."""
+
+    code = "request_failed"
+
+
+class ReplicaLostError(RequestError):
+    """The REPLICA failed while this request was in flight (a donated
+    decode step or arena inject died, or the process hosting it went
+    away) — the request itself was fine. Distinguished from
+    `RequestError` because the fleet router's failover treats the two
+    oppositely: a replica-lost request is transparently re-dispatched to
+    a healthy replica (decode is bit-deterministic, so the retried
+    answer is byte-identical), while a request-attributed failure is
+    delivered — retrying a poison request elsewhere just spreads it."""
+
+    code = "replica_lost"
+
+
+class Response:
+    """Write-once future for one request's outputs.
+
+    The engine thread completes it exactly once with either a
+    {fetch_name: np.ndarray} dict or a ServingError; callers block in
+    `result()` or poll with `done()` (the C ABI's poll entry maps onto
+    exactly this surface)."""
+
+    __slots__ = ("_event", "_outputs", "_error", "finish_time")
+
+    def __init__(self):
+        self._event = threading.Event()
+        self._outputs = None
+        self._error = None
+        self.finish_time = None
+
+    def _complete(self, outputs=None, error=None):
+        if self._event.is_set():  # write-once; late completions are bugs
+            raise RuntimeError("response completed twice")
+        self._outputs = outputs
+        self._error = error
+        self.finish_time = time.perf_counter()
+        self._event.set()
+
+    def done(self):
+        return self._event.is_set()
+
+    def error(self):
+        """The ServingError, or None (call after done())."""
+        return self._error
+
+    def result(self, timeout=None):
+        """Block until served; returns {fetch_name: np.ndarray} or raises
+        the structured ServingError."""
+        if not self._event.wait(timeout):
+            raise TimeoutError("response not ready")
+        if self._error is not None:
+            raise self._error
+        return self._outputs

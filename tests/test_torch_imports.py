@@ -1,0 +1,48 @@
+"""The PyTorch port stands alone: it imports neither ``jax`` nor anything
+of the JAX package ``paddle_tpu`` (it keeps its own copies), and
+``chip_smoke.py`` imports neither either."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "paddle_tpu_torch"
+
+_PROBE = """
+import sys
+import paddle_tpu_torch
+import paddle_tpu_torch.convert
+import paddle_tpu_torch.kernels.attention
+import paddle_tpu_torch.kernels.build
+import paddle_tpu_torch.serving.decode.engine
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "paddle_tpu" or m.startswith("paddle_tpu."))
+print(bad)
+assert not bad, bad
+"""
+
+_IMPORT = re.compile(
+    r"^\s*(?:import|from)\s+(jax|jaxlib|paddle_tpu)(?![\w])", re.M)
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference_module():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize(
+    "path", sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
+    + ["chip_smoke.py"])
+def test_source_has_no_jax_or_reference_import(path):
+    text = (ROOT / path).read_text()
+    assert not _IMPORT.findall(text), path

@@ -1,0 +1,137 @@
+"""Op lowerings of the PyTorch port against the JAX package's, one case per
+op type the port lowers: the same numpy inputs go through
+``paddle_tpu.core.registry.OpRegistry.get(t).lower`` and the port's
+``paddle_tpu_torch.core.registry.OpRegistry.get(t).lower``.
+
+Float results agree within rtol=atol=1e-6 (float32 sums in another
+order: torch's CPU matmul vs XLA's); integer results and every shape
+agree exactly. ``uniform_random`` draws from two different generators,
+so its case compares shape, dtype and range only.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu  # noqa: F401  (registers the JAX lowerings)
+import paddle_tpu_torch  # noqa: F401  (registers the port's lowerings)
+from paddle_tpu.core.registry import OpRegistry as JaxOps
+from paddle_tpu_torch.core.registry import OpRegistry as TorchOps
+
+R = np.random.RandomState(7)
+
+
+def f32(*shape):
+    return R.randn(*shape).astype(np.float32)
+
+
+def _bias(seqs, length, cursors):
+    b = np.full((seqs, 1, length), -1e9, np.float32)
+    for s, c in enumerate(cursors):
+        if c is not None:
+            b[s, 0, :c + 1] = 0.0
+    return b
+
+
+# op type -> (inputs {slot: [np arrays]}, attrs)
+CASES = {
+    "lookup_table_v2": ({"W": [f32(10, 4)],
+                         "Ids": [np.array([[1, 2], [9, 2], [0, 5]], np.int64)]},
+                        {"padding_idx": 2}),
+    "elementwise_add": ({"X": [f32(2, 3, 4)], "Y": [f32(3)]}, {"axis": 1}),
+    "mul": ({"X": [f32(2, 3, 4)], "Y": [f32(4, 5)]},
+            {"x_num_col_dims": 2, "y_num_col_dims": 1}),
+    "relu": ({"X": [f32(3, 4)]}, {}),
+    "squeeze2": ({"X": [f32(3, 1, 4)]}, {"axes": [1]}),
+    "unsqueeze2": ({"X": [f32(3, 4)]}, {"axes": [0, 2]}),
+    # ids 6 and 9 are >= R (dropped); -1 counts from the end
+    "scatter": ({"X": [f32(6, 3)],
+                 "Ids": [np.array([1, 6, 4, 9, -1], np.int64)],
+                 "Updates": [f32(5, 3)]},
+                {"overwrite": True, "mode": "drop"}),
+    "assign": ({"X": [f32(4, 2)]}, {}),
+    "paged_attention": ({"Q": [f32(3, 8)], "KArena": [f32(12, 8)],
+                         "VArena": [f32(12, 8)],
+                         "Rows": [np.array([0, 1, 2, 3, 0, 1, 7, 9,
+                                            11, 10, 4, 5], np.int64)],
+                         "Bias": [_bias(3, 4, [1, 3, None])]},
+                        {"sm_scale": 0.35, "seqs": 3, "length": 4}),
+    "matmul": ({"X": [f32(2, 3, 4)], "Y": [f32(2, 5, 4)]},
+               {"transpose_X": False, "transpose_Y": True, "alpha": 0.5}),
+    "softmax": ({"X": [f32(2, 5) * 4]}, {"axis": -1}),
+    "fill_constant": ({}, {"shape": [2, 3], "dtype": "float32",
+                           "value": 1.5}),
+    "uniform_random": ({}, {"shape": [64, 32], "dtype": "float32",
+                            "min": -0.25, "max": 0.25, "seed": 0}),
+    "gather": ({"X": [f32(6, 3)], "Index": [np.array([5, 0, 0, 2], np.int64)]},
+               {"axis": 0}),
+    "reshape2": ({"X": [f32(2, 6)]}, {"shape": [0, 3, -1]}),
+    "cached_attention": ({"Q": [f32(3, 8)], "KCache": [f32(3, 4, 8)],
+                          "VCache": [f32(3, 4, 8)],
+                          "Bias": [_bias(3, 4, [0, 2, None])]},
+                         {"sm_scale": 0.35}),
+}
+
+
+def _run_jax(op_type, ins, attrs):
+    jins = {k: [jnp.asarray(a) for a in v] for k, v in ins.items()}
+    if JaxOps.get(op_type).stateful:
+        jins["__rng_key__"] = [jax.random.PRNGKey(0)]
+    out = JaxOps.get(op_type).lower(jins, dict(attrs))
+    return {k: [np.asarray(a) for a in (v if isinstance(v, (list, tuple)) else [v])]
+            for k, v in out.items()}
+
+
+def _run_torch(op_type, ins, attrs):
+    op_def = TorchOps.get(op_type)
+    tins = {k: [torch.from_numpy(a.copy()) for a in v] for k, v in ins.items()}
+    if op_def.stateful:
+        tins["__generator__"] = [torch.Generator().manual_seed(0)]
+    if op_def.creates:
+        tins["__device__"] = [torch.device("cpu")]
+    out = op_def.lower(tins, dict(attrs))
+    return {k: [t.numpy() for t in v] for k, v in out.items()}
+
+
+def test_cases_cover_every_ported_op_type():
+    assert sorted(CASES) == TorchOps.all_types()
+
+
+@pytest.mark.parametrize("op_type", sorted(CASES))
+def test_op_matches_jax_lowering(op_type):
+    ins, attrs = CASES[op_type]
+    want = _run_jax(op_type, ins, attrs)
+    got = _run_torch(op_type, ins, attrs)
+    assert sorted(got) == sorted(want)
+    for slot in want:
+        for w, g in zip(want[slot], got[slot]):
+            assert g.shape == w.shape, (slot, g.shape, w.shape)
+            if slot == "XShape":
+                continue            # a shape record: only its shape matters
+            if op_type == "uniform_random":
+                assert g.dtype == np.float32
+                assert g.min() >= attrs["min"] and g.max() < attrs["max"]
+                assert abs(float(g.mean())) < 0.05
+                continue
+            if np.issubdtype(w.dtype, np.floating):
+                np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6)
+            else:
+                np.testing.assert_array_equal(g, w)
+
+
+def test_scatter_in_place_writes_into_x():
+    """``_inplace`` (set by the executor's plan) updates X's own tensor and
+    returns it; without it X is untouched."""
+    x = torch.zeros(4, 2)
+    ids = torch.tensor([0, 4, 2])
+    upd = torch.ones(3, 2)
+    scatter = TorchOps.get("scatter").lower
+    out = scatter({"X": [x], "Ids": [ids], "Updates": [upd]},
+                  {"overwrite": True, "mode": "drop"})["Out"][0]
+    assert out is not x and float(x.sum()) == 0.0
+    out = scatter({"X": [x], "Ids": [ids], "Updates": [upd]},
+                  {"overwrite": True, "mode": "drop", "_inplace": True})["Out"][0]
+    assert out is x
+    np.testing.assert_array_equal(x.numpy()[:, 0], [1, 0, 1, 0])
