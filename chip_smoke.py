@@ -6,16 +6,19 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds every CUDA kernel from the sources in the checkout, holds each
-kernel against its plain PyTorch version at the decode engine's shapes,
-then serves requests through the port's entry points at the full width
-of the slice's model and checks the tokens against the port's offline
-reference. Any failure exits non-zero. It imports nothing of JAX or of
+kernel against its plain PyTorch version at the shapes its path gives
+it, then serves requests through the port's entry points at the full
+width of the decoder and checks the tokens against the port's offline
+reference, and trains full-size BERT-base with the flash-attention
+kernels against the same steps with the kernels off. Any failure exits
+non-zero. It imports nothing of JAX or of
 the JAX package, and it refuses to run without a CUDA device (or outside
 a checkout of the repository).
 
 Phases:
 
-1. build — ``nvcc`` for the kernels' source, then load it.
+1. build — one ``nvcc`` per kernel source, all started together, then
+   load them.
 2. parity — each kernel against its plain version on the same inputs
    (S=8 slots, L=1024 positions, H=768, R=8192 arena rows, random block
    row maps with rows shared between slots, random cursors, one retired
@@ -29,9 +32,29 @@ Phases:
    layers, FFN 3072, 8 slots, context 1024, blocks of 16). Launch
    counters are zeroed just before and read just after; 4 requests are
    checked against ``offline_decode`` on the card.
+2b. flash parity — the flash-attention forward (K1), dK/dV (K2a) and dQ
+   (K2b) kernels against their plain versions on the same inputs: at
+   BERT-base's training shape (B=32, H=12, S=128, D=64, padding-mask
+   bias, not causal), timed beside the plain version, the card's bound
+   and one PyTorch library call (``scaled_dot_product_attention``
+   forward; its backward for dq + dk + dv together), and at S=512
+   (BERT's longest position), causal, with padding, for parity only.
 4. dense — a program with one fused ``cached_attention`` op (the dense
    slotted-cache form, served by ``decode_attention``) through
    ``Executor.run``, counters zeroed before and read after.
+5. train — ``build_bert_pretrain(BertConfig.base())`` with flash
+   attention, no dropout, seq 128, P=20, float32, run by ``Executor()``
+   on the default place: startup, the step counter set to the end of the
+   lr warmup (so every step applies the full lr of 1e-4), then 4 steps at
+   batch 32 on one synthetic batch, launch counters zeroed before and
+   read after (K1 at least 24 launches a step, K2a and K2b 12); the loss
+   finite and the parameters changed. Then 2 steps from the same starting
+   state (a snapshot, in its own scope) with the kernels off: the loss
+   streams, every ``param@GRAD`` of the first step and the whole training
+   state after 2 steps (parameters, Adam moments and beta powers, the step
+   counter) agree within the stated tolerances. Prints the step time
+   (p50 of the steps after the first), device memory peak, tokens/s and
+   the parameter count.
 
 The last lines are the card's name and power limit, one JSON line of
 per-kernel results, and ``{"ok": true, "device": {...}}``.
@@ -42,6 +65,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -59,6 +83,42 @@ NEG_INF = -1e9
 # such sums stays near 1e-6; 1e-4 leaves two orders of margin and still
 # catches any wrong row, weight or mask.
 PARITY_ATOL = 1e-4
+# Flash attention: the plain versions compute the same float32 function
+# with cuBLAS products and one softmax, the kernels with FFMA over tiles in
+# another order, so both sit within float32 rounding of each other (about
+# 1e-6 relative). The bars are the CPU tests' (O and LSE rtol = atol =
+# 1e-5, the JAX test's; grads rtol 1e-4, atol 1e-5), applied elementwise.
+FLASH_SHAPES = (dict(B=32, H=12, S=128, D=64, causal=False, timed=True),
+                dict(B=32, H=12, S=512, D=64, causal=True, timed=False))
+FWD_TOL, BWD_TOL = (1e-5, 1e-5), (1e-4, 1e-5)
+# Training: BERT-base pretraining as the JAX package's benchmark runs it
+# (bench.py:106-133), float32, no dropout.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_P, TRAIN_STEPS, OFF_STEPS = 32, 128, 20, 4, 2
+# build_bert_pretrain warms the learning rate up from 0 over 10000 steps.
+# Both runs start with the step counter there, so every step applies the
+# full rate and the comparison below sees real updates.
+TRAIN_LR, WARMED_UP = 1e-4, 10000.0
+COUNTER = "@LR_DECAY_COUNTER@"
+# kernels on vs off over BERT-base: every step sums float32 over 4096
+# tokens and 12 layers in another order, so losses agree to about 1e-6
+# relative; a grad agrees to about 1e-5 of its own largest value. The bars
+# (loss rtol 1e-4, atol 1e-5, the CPU test's; each grad within 1e-3 of its
+# largest value, plus 1e-6 of the largest value of any grad for the grads
+# that are zero in exact arithmetic and hold rounding noise alone, such as
+# the key projection's bias, which softmax ignores) keep a wide margin and
+# still catch a wrong head, row or mask, which moves a grad by the order
+# of the grad itself.
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = (1e-4, 1e-5), (1e-3, 1e-6)
+# The whole training state after OFF_STEPS steps, kernels on vs off. Adam
+# divides each element by its own running grad size, so an element whose
+# grad sits at rounding level can move by a different step in the two
+# runs; such elements are few. So each parameter's update and each Adam
+# moment is compared in norm: ||on - off|| within 1e-2 of ||off update||
+# (moments: of ||off||), where a wrong update differs by the order of the
+# update itself. The parameters whose grads are rounding noise alone (below
+# the grad floor above) have updates of noise and are left out, counted in
+# the log. Beta powers and the step counter must be equal.
+TRAIN_STATE_TOL = 1e-2
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
 # outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -98,14 +158,18 @@ def check_environment():
 def phase_build():
     from paddle_tpu_torch.kernels import KERNELS, build
 
-    for source in sorted({os.path.basename(k.source) for k in KERNELS.values()}):
-        t0 = time.perf_counter()
-        out = build.build(source)
+    sources = sorted({os.path.basename(k.source) for k in KERNELS.values()})
+    t0 = time.perf_counter()
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(sources)) as pool:
+        outputs = dict(zip(sources, pool.map(build.build, sources)))
+    for source in sources:
         build.load(source)
-        log(f"[build] {source}: {time.perf_counter() - t0:.2f}s")
+    log(f"[build] {', '.join(sources)}: {time.perf_counter() - t0:.2f}s")
+    for source, out in outputs.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {line.strip()}")
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"[build]   {source}: {line.strip()}")
 
 
 # -- phase 2 ----------------------------------------------------------------
@@ -275,6 +339,132 @@ def phase_parity():
     return results
 
 
+# -- phase 2b ---------------------------------------------------------------
+def _check_close(name, got, want, tol):
+    """Max abs error of ``got`` against ``want``; raises past
+    |got - want| <= atol + rtol * |want| anywhere."""
+    import torch
+
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite kernel output")
+    rtol, atol = tol
+    diff = (got - want).abs()
+    if not bool((diff <= atol + rtol * want.abs()).all()):
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"max abs err {float(diff.max()):.3e}")
+    return float(diff.max())
+
+
+def flash_inputs(gen, dev, B, H, S, D):
+    """q, k, v, dO ~ N(0, 1) and a padding-mask bias: batch row b keeps
+    its first n_b keys (n_b random in [S/2, S]) and gives the rest
+    BERT's -10000."""
+    import torch
+
+    def randn():
+        return torch.randn(B, H, S, D, generator=gen, device=dev)
+
+    q, k, v, dout = randn(), randn(), randn(), randn()
+    keep = torch.randint(S // 2, S + 1, (B, 1), generator=gen, device=dev)
+    cols = torch.arange(S, device=dev)[None, :]
+    bias = torch.where(cols < keep, 0.0, -10000.0).contiguous()
+    return q, k, v, dout, bias
+
+
+def flash_bounds(B, H, S, D):
+    """(bound_ms, bound_by) of K1, K2a and K2b, non-causal: the larger of
+    each input read once and each output written once at the card's
+    memory rate, and its multiply-adds (two FLOPs each) at the f32 rate."""
+    tensor = B * H * S * D * 4
+    row = B * H * S * 4
+    bias = B * S * 4
+    work = {"flash_attention_fwd": (4, 3 * tensor + bias + tensor + row),
+            "flash_attention_bwd_dkdv": (8, 4 * tensor + 2 * row + bias
+                                         + 2 * tensor + row),
+            "flash_attention_bwd_dq": (6, 4 * tensor + 2 * row + bias + tensor)}
+    out = {}
+    for name, (mults, bytes_) in work.items():
+        t_ops = mults * B * H * S * S * D / PEAK_F32_FLOPS * 1e3
+        t_bytes = bytes_ / PEAK_BYTES_S * 1e3
+        out[name] = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return out
+
+
+def phase_flash():
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_attention as FA
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    names = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
+             "flash_attention_bwd_dq")
+    errs = {n: 0.0 for n in names}
+    results = {}
+    for shape in FLASH_SHAPES:
+        B, H, S, D, causal = (shape[k] for k in ("B", "H", "S", "D", "causal"))
+        scale = 1.0 / float(np.sqrt(D))
+        q, k, v, dout, bias = flash_inputs(gen, dev, B, H, S, D)
+        tag = f"S={S}{' causal' if causal else ''}"
+        o, lse = FA.flash_attention_fwd(q, k, v, bias, causal, scale)
+        o_p, lse_p = FA.flash_attention_composite(q, k, v, bias, causal, scale)
+        torch.cuda.synchronize()
+        errs[names[0]] = max(errs[names[0]],
+                             _check_close(f"K1 O {tag}", o, o_p, FWD_TOL),
+                             _check_close(f"K1 LSE {tag}", lse, lse_p, FWD_TOL))
+        delta = (dout * o_p).sum(-1)
+        args = (q, k, v, bias, dout, lse_p, delta, causal, scale)
+        dk, dv, db = FA.flash_attention_bwd_dkdv(*args)
+        dk_p, dv_p, db_p = FA.flash_attention_bwd_dkdv_composite(*args)
+        dq = FA.flash_attention_bwd_dq(*args)
+        dq_p = FA.flash_attention_bwd_dq_composite(*args)
+        torch.cuda.synchronize()
+        errs[names[1]] = max(errs[names[1]],
+                             _check_close(f"K2a dK {tag}", dk, dk_p, BWD_TOL),
+                             _check_close(f"K2a dV {tag}", dv, dv_p, BWD_TOL),
+                             _check_close(f"K2a dbias {tag}", db, db_p, BWD_TOL))
+        errs[names[2]] = max(errs[names[2]],
+                             _check_close(f"K2b dQ {tag}", dq, dq_p, BWD_TOL))
+        log(f"[flash] {tag}: max abs err K1 {errs[names[0]]:.3e} "
+            f"K2a {errs[names[1]]:.3e} K2b {errs[names[2]]:.3e}")
+        if not shape["timed"]:
+            continue
+        mask4 = bias[:, None, None, :]
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask4,
+                                                 scale=scale)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            lib_out, (ql, kl, vl), dout, retain_graph=True), 10)
+        timed = {
+            names[0]: (lambda: FA.flash_attention_fwd(q, k, v, bias, causal, scale),
+                       lambda: FA.flash_attention_composite(q, k, v, bias, causal,
+                                                            scale),
+                       time_ms(lambda: F.scaled_dot_product_attention(
+                           q, k, v, attn_mask=mask4, scale=scale), 10)),
+            names[1]: (lambda: FA.flash_attention_bwd_dkdv(*args),
+                       lambda: FA.flash_attention_bwd_dkdv_composite(*args),
+                       lib_bwd),
+            names[2]: (lambda: FA.flash_attention_bwd_dq(*args),
+                       lambda: FA.flash_attention_bwd_dq_composite(*args),
+                       lib_bwd),
+        }
+        bounds = flash_bounds(B, H, S, D)
+        for name, (kernel, plain, lib_ms) in timed.items():
+            results[name] = dict(ms=time_ms(kernel, 10), plain_ms=time_ms(plain, 10),
+                                 bound_ms=bounds[name][0], bound_by=bounds[name][1],
+                                 library_ms=lib_ms)
+        del lib_out, ql, kl, vl
+    for name in names:
+        r = results[name]
+        r["max_abs_err"] = errs[name]
+        log(f"[flash] {name}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={r['library_ms']:.4f}"
+            f"{' (sdpa backward, dq+dk+dv together)' if name != names[0] else ''} "
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+    return results
+
+
 # -- phase 3 ----------------------------------------------------------------
 def make_prompts(vocab):
     rng = np.random.RandomState(SEED)
@@ -411,6 +601,160 @@ def phase_dense():
     return launches
 
 
+# -- phase 5 ----------------------------------------------------------------
+def _train_steps(exe, main, scope, batch, loss, grads, steps):
+    """``steps`` steps on ``batch``: the losses, the first step's grads (on
+    the card), each step's host time, which ends in the loss's copy to the
+    host, and the whole training state after OFF_STEPS steps."""
+    import torch
+
+    from paddle_tpu_torch.convert import persistables_to_numpy
+
+    losses, first_grads, seconds, state = [], None, [], None
+    for step in range(steps):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=batch, fetch_list=[loss] + (grads if step == 0
+                                                             else []),
+                      scope=scope, return_numpy=False)
+        losses.append(float(out[0].reshape(-1)[0]))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        if step == 0:
+            first_grads = out[1:]
+        if step + 1 == OFF_STEPS:
+            state = persistables_to_numpy(scope, main)
+    return losses, first_grads, seconds, state
+
+
+def phase_train():
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.convert import load_params, persistables_to_numpy
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.base()
+    cfg.use_flash_attention = True
+    cfg.hidden_dropout_prob = 0.0
+    cfg.attention_probs_dropout_prob = 0.0
+    main, startup, _, fetches = bert.build_bert_pretrain(
+        cfg, seq_len=TRAIN_SEQ, lr=TRAIN_LR, max_predictions_per_seq=TRAIN_P)
+    loss = fetches[0]
+    params = main.all_parameters()
+    grads = [p.name + "@GRAD" for p in params]
+    n_params = sum(int(np.prod(p.shape)) for p in params)
+    batch = bert.synthetic_batch(np.random.RandomState(SEED), TRAIN_BATCH,
+                                 TRAIN_SEQ, cfg, TRAIN_P)
+    exe = fluid.Executor(seed=SEED)               # CUDAPlace(0) by default
+    scope = fluid.Scope()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    load_params(scope, {COUNTER: np.full([1], WARMED_UP, np.float32)})
+    torch.cuda.synchronize()
+    snapshot = persistables_to_numpy(scope, main)
+    log(f"[train] place={exe.place} {len(main.global_block().ops)} ops, "
+        f"{len(params)} parameters ({n_params} values), startup "
+        f"{time.perf_counter() - t0:.2f}s")
+
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()          # weights, Adam state, ...
+    kernels.reset_launches()
+    losses, grads_on, seconds, state_on = _train_steps(
+        exe, main, scope, batch, loss, grads, TRAIN_STEPS)
+    launches = kernels.launches()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {n: launches[n] / TRAIN_STEPS for n in
+                ("flash_attention_fwd", "flash_attention_bwd_dkdv",
+                 "flash_attention_bwd_dq")}
+    log(f"[train] losses {losses}, launches {launches}")
+    layers = cfg.num_hidden_layers
+    if (launches["flash_attention_fwd"] < 2 * layers * TRAIN_STEPS
+            or launches["flash_attention_bwd_dkdv"] < layers * TRAIN_STEPS
+            or launches["flash_attention_bwd_dq"] < layers * TRAIN_STEPS):
+        raise AssertionError(f"flash kernels under-launched over {TRAIN_STEPS} "
+                             f"steps of {layers} layers: {launches}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    changed = {p.name: not torch.equal(scope.find_var(p.name).cpu(),
+                                       torch.from_numpy(snapshot[p.name]))
+               for p in params}
+    still = [p.name for p in params if len(p.shape) == 2 and not changed[p.name]]
+    if still:
+        raise AssertionError(f"weight matrices unchanged by training: {still}")
+    step_ms = float(np.median(seconds[1:])) * 1e3
+    log(f"[train] step p50 {step_ms:.2f} ms (first {seconds[0] * 1e3:.2f} ms, "
+        f"all {[round(x * 1e3, 2) for x in seconds]}), "
+        f"{TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.1f} tokens/s, device "
+        f"memory peak {peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB held "
+        f"before the steps), {sum(changed.values())} of "
+        f"{len(params)} "
+        f"parameters changed, launches per step {per_step}")
+
+    off_scope = fluid.Scope()
+    exe.run(startup, scope=off_scope)
+    load_params(off_scope, snapshot)
+    with kernels.scoped_mode("off"):
+        kernels.reset_launches()
+        off_losses, grads_off, off_seconds, state_off = _train_steps(
+            exe, main, off_scope, batch, loss, grads, OFF_STEPS)
+        if any(kernels.launches().values()):
+            raise AssertionError("a kernel launched with the kernels off")
+    rtol, atol = TRAIN_LOSS_TOL
+    loss_err = max(abs(a - b) for a, b in zip(losses, off_losses))
+    if not all(abs(a - b) <= atol + rtol * abs(b)
+               for a, b in zip(losses, off_losses)):
+        raise AssertionError(f"loss streams disagree, kernels on {losses[:OFF_STEPS]}"
+                             f" off {off_losses}")
+    worst = 0.0
+    rel, floor = TRAIN_GRAD_TOL
+    floor *= max(float(g.abs().max()) for g in grads_off)
+    for name, g_on, g_off in zip(grads, grads_on, grads_off):
+        scale = float(g_off.abs().max())
+        err = float((g_on - g_off).abs().max())
+        if not err <= rel * scale + floor:
+            raise AssertionError(f"{name}: kernels on/off differ by {err:.3e} "
+                                 f"(largest value {scale:.3e})")
+        worst = max(worst, err / (rel * scale + floor))
+    noise = {p.name for p, g in zip(params, grads_off)
+             if float(g.abs().max()) <= floor}
+    worst_state = _compare_states(state_on, state_off, snapshot,
+                                  {p.name for p in params}, noise)
+    log(f"[train] kernels off: losses {off_losses} (max diff {loss_err:.3e}), "
+        f"step p50 {float(np.median(off_seconds[1:])) * 1e3:.2f} ms; "
+        f"{len(grads)} grads agree, worst error {worst:.3e} of its bar; "
+        f"{len(state_off)} persistables after {OFF_STEPS} steps agree, worst "
+        f"{worst_state:.3e} of its bar ({len(noise)} parameters with grads "
+        f"of rounding noise left out: {sorted(noise)})")
+    return launches
+
+
+def _compare_states(on, off, start, params, noise):
+    """Kernels on vs off after OFF_STEPS steps, as TRAIN_STATE_TOL says.
+    Returns the worst error as a share of its bar."""
+    if set(on) != set(off):
+        raise AssertionError("the two runs hold different persistables")
+    worst = 0.0
+    for name in sorted(off):
+        a, b = on[name].astype(np.float64), off[name].astype(np.float64)
+        if name == COUNTER or "_pow_acc_" in name:
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{name}: kernels on {a.ravel()[:4]} off "
+                                     f"{b.ravel()[:4]}")
+            continue
+        if name in noise or name.rsplit("_moment", 1)[0] in noise:
+            continue
+        ref = b - start[name] if name in params else b
+        bar = TRAIN_STATE_TOL * float(np.linalg.norm(ref))
+        err = float(np.linalg.norm(a - b))
+        if not (bar > 0 and err <= bar):
+            raise AssertionError(f"{name}: kernels on/off differ by {err:.3e} "
+                                 f"in norm after {OFF_STEPS} steps (bar "
+                                 f"{bar:.3e})")
+        worst = max(worst, err / bar)
+    return worst
+
+
 def main():
     check_environment()
     import torch
@@ -423,10 +767,14 @@ def main():
         f"device {torch.cuda.get_device_name(0)}")
     phase_build()
     parity = phase_parity()
+    parity.update(phase_flash())
     engine_launches = phase_engine()
     dense_launches = phase_dense()
+    train_launches = phase_train()
     path_launches = {"paged_attention": engine_launches["paged_attention"],
                      "decode_attention": dense_launches["decode_attention"]}
+    path_launches.update({n: train_launches[n] for n in KERNELS
+                          if n.startswith("flash_attention")})
     rows = []
     for name, info in KERNELS.items():
         r = parity[name]

@@ -1,16 +1,18 @@
-"""Carry weights into the port by name.
+"""Carry weights and training state into and out of the port by name.
 
-The port's ``build_decoder_model`` is a copy of the JAX package's, so
-both packages name every parameter the same way
-(``{name}_v{version}.l{i}.q.w``, ...). Arrays read off the JAX engine's
-scope by those names load into the port's scope as they are, and the two
-packages then compute the same function.
+The port's builders (``build_decoder_model``, ``build_bert_pretrain``) are
+copies of the JAX package's, so both packages name every parameter and
+optimizer accumulator the same way (``{name}_v{version}.l{i}.q.w``,
+``word_embedding_moment1_0``, ``@LR_DECAY_COUNTER@``, ...). Arrays read
+off the JAX package's scope by those names load into the port's scope as
+they are, and the two packages then compute the same function;
+``persistables_to_numpy`` reads a program's whole state back out.
 """
 
 import numpy as np
 import torch
 
-__all__ = ["params_from_numpy", "load_params"]
+__all__ = ["params_from_numpy", "load_params", "persistables_to_numpy"]
 
 
 def params_from_numpy(arrays, device):
@@ -36,3 +38,15 @@ def load_params(scope, arrays):
             raise ValueError(f"'{name}': array shape {a.shape} != scope "
                              f"shape {tuple(old.shape)}")
         scope.set(name, torch.tensor(a, dtype=old.dtype, device=old.device))
+
+
+def persistables_to_numpy(scope, program):
+    """``{name: np.ndarray}`` of every persistable var of ``program``'s
+    global block that ``scope`` holds: parameters and, for a training
+    program, the optimizer's moments and beta powers and the learning-rate
+    step counter. Each array is a copy; ``load_params`` takes it back."""
+    out = {}
+    for v in program.global_block().vars.values():
+        if v.persistable and scope.has_var(v.name):
+            out[v.name] = scope.find_var(v.name).detach().cpu().numpy().copy()
+    return out

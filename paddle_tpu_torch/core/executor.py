@@ -7,7 +7,14 @@ PyTorch runs eagerly, so here the interpreter IS the execution path, the
 reference's own design (reference: paddle/fluid/framework/executor.cc:195
 Executor::Run — a loop dispatching one kernel per op). Per-op resolution
 (op-def lookup, non-empty slots, the in-place plan below) is computed once
-per program version and cached on the executor.
+per program version and cached on the executor. ``*_grad`` op types
+resolve through ``core/backward.py``'s ``resolve_op_def``, which
+synthesizes their lowerings. Ops run under ``torch.no_grad()``: a grad
+lowering turns autograd on for its own recomputed forward only.
+
+Persistables written by the program — the optimizer's ``ParamOut`` /
+``Moment*Out`` and the step counter's ``increment``, whose output names
+equal their input names — go back to the scope at the end of ``run``.
 
 In-place arenas. The decode and inject programs persist the KV arenas
 with ``scatter(arena, rows, new) -> assign(out, output=arena)``. The JAX
@@ -23,9 +30,9 @@ writes into ``X``'s tensor, and the assign hands back that same tensor.
 import numpy as np
 import torch
 
+from paddle_tpu_torch.core.backward import resolve_op_def
 from paddle_tpu_torch.core.ir import default_main_program
 from paddle_tpu_torch.core.places import default_place
-from paddle_tpu_torch.core.registry import get_op_def
 from paddle_tpu_torch.core.scope import global_scope
 from paddle_tpu_torch.utils.enforce import EnforceError
 
@@ -81,8 +88,12 @@ def block_plan(block):
         attrs = op.attrs
         if op.type == "scatter" and _inplace_scatter(ops, i, block):
             attrs = dict(attrs, _inplace=True)
+        if op.type.endswith("_grad"):
+            # the generic grad lowering differentiates only what the op emits
+            attrs = dict(attrs, __grad_outputs__=[
+                slot for slot, names in op.outputs.items() if names])
         plan.append(_OpStep(
-            op, get_op_def(op.type), attrs,
+            op, resolve_op_def(op.type), attrs,
             [(slot, names) for slot, names in op.inputs.items() if names],
             list(op.outputs.items()),
         ))
@@ -150,20 +161,7 @@ class Executor:
             owner.set(name, v)
         return v
 
-    def run(self, program=None, feed=None, fetch_list=None, scope=None,
-            return_numpy=True):
-        program = program if program is not None else default_main_program()
-        feed = feed or {}
-        fetch_names = [
-            f if isinstance(f, str) else f.name for f in (fetch_list or [])
-        ]
-        scope = scope if scope is not None else global_scope()
-        block = program.global_block()
-        env = {
-            name: self._to_device(value, block.vars.get(name))
-            for name, value in feed.items()
-        }
-        steps, persistable = self._plan(program)
+    def _run_steps(self, steps, env, scope, block):
         for step in steps:
             ins = {}
             for slot, names in step.inputs:
@@ -195,6 +193,23 @@ class Executor:
                 for name, val in zip(names, vals):
                     if val is not None:
                         env[name] = val
+
+    def run(self, program=None, feed=None, fetch_list=None, scope=None,
+            return_numpy=True):
+        program = program if program is not None else default_main_program()
+        feed = feed or {}
+        fetch_names = [
+            f if isinstance(f, str) else f.name for f in (fetch_list or [])
+        ]
+        scope = scope if scope is not None else global_scope()
+        block = program.global_block()
+        env = {
+            name: self._to_device(value, block.vars.get(name))
+            for name, value in feed.items()
+        }
+        steps, persistable = self._plan(program)
+        with torch.no_grad():
+            self._run_steps(steps, env, scope, block)
         for name in persistable:
             if name in env:
                 (scope._find_owner(name) or scope).set(name, env[name])

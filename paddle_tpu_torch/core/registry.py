@@ -9,24 +9,31 @@ paddle/fluid/framework/op_registry.h:68). An op registers:
   * ``kernel`` — optional lowering that routes the op through a
                  hand-written CUDA kernel (``paddle_tpu_torch/kernels/``).
                  It takes the place of the JAX package's ``pallas`` slot.
+  * ``grad``   — optional hand-written grad lowering for the op's
+                 ``<type>_grad`` (``register_grad``); without one,
+                 ``core/backward.py`` differentiates the forward lowering
+                 with ``torch.autograd``.
 
 Inputs/outputs are dicts: slot name -> list of tensors, mirroring the
-reference's named variable lists on OpDesc. Two flags ask the executor
-for run-time context: ``stateful`` ops receive the run's
-``torch.Generator`` as ``ins["__generator__"]``, and ``creates`` ops
-(which have no tensor input to take a device from) receive the target
-``torch.device`` as ``ins["__device__"]``.
+reference's named variable lists on OpDesc. ``nondiff_inputs`` names the
+input slots that never receive gradients (indices, labels, masks). Two
+flags ask the executor for run-time context: ``stateful`` ops receive
+the run's ``torch.Generator`` as ``ins["__generator__"]``, and
+``creates`` ops (which have no tensor input to take a device from)
+receive the target ``torch.device`` as ``ins["__device__"]``.
 """
 
 from paddle_tpu_torch.utils.enforce import EnforceError
 
 
 class OpDef:
-    def __init__(self, type, lower, kernel=None, stateful=False,
-                 creates=False):
+    def __init__(self, type, lower, kernel=None, grad=None,
+                 nondiff_inputs=(), stateful=False, creates=False):
         self.type = type
         self.lower = lower
         self.kernel = kernel
+        self.grad = grad
+        self.nondiff_inputs = frozenset(nondiff_inputs)
         self.stateful = stateful
         self.creates = creates
 
@@ -61,14 +68,27 @@ class OpRegistry:
         return sorted(cls._ops)
 
 
-def register_op(type, kernel=None, stateful=False, creates=False):
+def register_op(type, kernel=None, nondiff_inputs=(), stateful=False,
+                creates=False):
     """Decorator form:  @register_op("relu")  def _(ins, attrs): ..."""
 
     def deco(fn):
         OpRegistry.register(
-            OpDef(type, fn, kernel=kernel, stateful=stateful,
-                  creates=creates)
+            OpDef(type, fn, kernel=kernel, nondiff_inputs=nondiff_inputs,
+                  stateful=stateful, creates=creates)
         )
+        return fn
+
+    return deco
+
+
+def register_grad(fwd_type):
+    """Attach a hand-written grad lowering to an already-registered op: it
+    serves ``<fwd_type>_grad`` in place of the generic one (the calling
+    convention is in ``core/backward.py``)."""
+
+    def deco(fn):
+        OpRegistry.get(fwd_type).grad = fn
         return fn
 
     return deco

@@ -2,8 +2,8 @@
 
 Same architecture as the reference (reference: python/paddle/fluid/
 initializer.py — initializers append fill_constant/uniform_random/... ops
-to the startup program). The port carries the initializers the decode
-engine's builders use: constant and (Xavier-)uniform.
+to the startup program). The port carries the initializers its builders
+use: constant, (Xavier-)uniform and truncated normal.
 """
 
 import math
@@ -46,6 +46,27 @@ class UniformInitializer(Initializer):
         )
 
 
+class TruncatedNormalInitializer(Initializer):
+    """Normal draws truncated to two standard deviations, as the
+    ``truncated_gaussian_random`` op (``ops/tensor.py``) makes them."""
+
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        block.append_op(
+            "truncated_gaussian_random",
+            outputs={"Out": [var.name]},
+            attrs={
+                "shape": list(var.shape),
+                "dtype": var.dtype,
+                "mean": self.loc,
+                "std": self.scale,
+                "seed": self.seed,
+            },
+        )
+
+
 def _fan_in_out(var):
     """reference: python/paddle/fluid/initializer.py _compute_fans — FC
     weights are [in, out]; conv filters are [out_c, in_c, *receptive]."""
@@ -81,4 +102,5 @@ class XavierInitializer(Initializer):
 # public aliases matching the reference API surface
 Constant = ConstantInitializer
 Uniform = UniformInitializer
+TruncatedNormal = TruncatedNormalInitializer
 Xavier = XavierInitializer

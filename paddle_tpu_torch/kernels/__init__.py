@@ -1,9 +1,11 @@
 """Hand-written CUDA kernels behind the op registry.
 
 ``registry`` holds the mode (``auto``/``off``) and the launch counters,
-``build`` compiles ``csrc/*.cu`` with ``nvcc`` at first use, and
-``attention`` holds the paged/cached decode-attention wrappers with their
-plain PyTorch versions. Importing this package builds nothing.
+``build`` compiles ``csrc/*.cu`` with ``nvcc`` at first use,
+``attention`` holds the paged/cached decode-attention wrappers and
+``flash_attention`` the training attention's forward and backward
+wrappers, each with its plain PyTorch version. Importing this package
+builds nothing.
 """
 
 from paddle_tpu_torch.kernels import registry  # noqa: F401

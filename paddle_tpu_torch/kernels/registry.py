@@ -37,6 +37,15 @@ KERNELS = {
     "decode_attention": KernelInfo(
         "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
         "paddle_tpu/kernels/attention.py:122"),
+    "flash_attention_fwd": KernelInfo(
+        "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+        "paddle_tpu/ops/pallas/flash_attention.py:167"),
+    "flash_attention_bwd_dkdv": KernelInfo(
+        "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+        "paddle_tpu/ops/pallas/flash_attention.py:378"),
+    "flash_attention_bwd_dq": KernelInfo(
+        "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+        "paddle_tpu/ops/pallas/flash_attention.py:419"),
 }
 
 _lock = threading.Lock()

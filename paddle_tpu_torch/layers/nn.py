@@ -1,17 +1,29 @@
 """Neural-net layer functions (reference: python/paddle/fluid/layers/nn.py).
 
-The builders the decode engine's programs use, copied from the JAX
-package's ``layers/nn.py`` so both packages emit the same op types,
-attributes and variable names. Every function appends OpDescs to the
-current block via LayerHelper; no computation happens at build time.
+The builders the decode engine's and BERT's programs use, copied from
+the JAX package's ``layers/nn.py`` so both packages emit the same op
+types, attributes and variable names. Every function appends OpDescs to
+the current block via LayerHelper; no computation happens at build time.
 """
 
+import math
+
+from paddle_tpu_torch.initializer import ConstantInitializer
 from paddle_tpu_torch.layer_helper import LayerHelper
 from paddle_tpu_torch.utils.enforce import enforce
 
 __all__ = [
     "fc",
     "embedding",
+    "layer_norm",
+    "scaled_dot_product_attention",
+    "softmax_with_cross_entropy",
+    "scale",
+    "mean",
+    "reduce_sum",
+    "clip",
+    "elementwise_div",
+    "elementwise_max",
     "cached_attention",
     "paged_attention",
     "block_gather",
@@ -106,6 +118,108 @@ def embedding(
         {"W": [w.name], "Ids": [input.name]},
         {"Out": [out.name]},
         {"padding_idx": -1 if padding_idx is None else padding_idx},
+    )
+    return out
+
+
+def layer_norm(
+    input,
+    scale=True,
+    shift=True,
+    begin_norm_axis=1,
+    epsilon=1e-5,
+    param_attr=None,
+    bias_attr=None,
+    act=None,
+    name=None,
+):
+    helper = LayerHelper(
+        "layer_norm", param_attr=param_attr, bias_attr=bias_attr, act=act, name=name
+    )
+    dtype = input.dtype
+    in_shape = list(input.shape) if input.shape is not None else None
+    enforce(
+        in_shape is not None,
+        "layer_norm input has no inferred shape; build it from layers "
+        "that propagate shape (fluid.data, fc, elementwise ops)",
+    )
+    if begin_norm_axis < 0:
+        begin_norm_axis += len(in_shape)
+    enforce(
+        0 < begin_norm_axis < len(in_shape),
+        f"begin_norm_axis {begin_norm_axis} out of range for input rank "
+        f"{len(in_shape)}",
+    )
+    norm_dims = in_shape[begin_norm_axis:]
+    if scale or shift:
+        # the scale/bias parameter is sized by the normalized region — a
+        # dynamic (-1) dim there has no buildable parameter shape
+        enforce(
+            all(int(d) > 0 for d in norm_dims),
+            f"layer_norm normalizes over dims {norm_dims} "
+            f"(begin_norm_axis={begin_norm_axis}) which contain a dynamic "
+            "-1 dim, so the Scale/Bias parameter size is unknown at build "
+            "time. Normalize over trailing static dims (e.g. "
+            "begin_norm_axis=-1 for the feature axis) or pass "
+            "scale=False, shift=False",
+        )
+    norm_shape = [int(math.prod(norm_dims))]
+    inputs = {"X": [input.name]}
+    if scale:
+        s = helper.create_parameter(
+            helper.param_attr,
+            shape=norm_shape,
+            dtype=dtype,
+            default_initializer=ConstantInitializer(1.0),
+        )
+        inputs["Scale"] = [s.name]
+    if shift:
+        b = helper.create_parameter(
+            helper.bias_attr, shape=norm_shape, dtype=dtype, is_bias=True
+        )
+        inputs["Bias"] = [b.name]
+    out = helper.create_variable_for_type_inference(dtype)
+    mean = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    var = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    helper.append_op(
+        "layer_norm",
+        inputs,
+        {"Y": [out.name], "Mean": [mean.name], "Variance": [var.name]},
+        {"begin_norm_axis": begin_norm_axis, "epsilon": epsilon},
+    )
+    # layer_norm is shape-preserving: guarantee the output shape even when
+    # abstract evaluation could not run (dynamic dims), so fc and friends
+    # stacked on top can always read .shape at build time
+    if out.shape is None:
+        out.shape = tuple(in_shape)
+    if mean.shape is None:
+        mean.shape = tuple(in_shape[:begin_norm_axis])
+        var.shape = tuple(in_shape[:begin_norm_axis])
+    return helper.append_activation(out)
+
+
+def scaled_dot_product_attention(q, k, v, bias=None, causal=False,
+                                 sm_scale=None, seq_parallel=None,
+                                 seq_axis="seq", name=None):
+    """Fused attention over [B, H, S, D] tensors; ``bias`` is an optional
+    [B, S] additive key bias (padding mask). On a CUDA tensor the op runs
+    the hand-written flash-attention kernels (``kernels/flash_attention.py``)
+    and its grad their backward kernels; otherwise the plain composite.
+    ``seq_parallel`` is recorded for parity with the JAX package; the port
+    has no mesh, so the plain single-shard path runs (identical math)."""
+    helper = LayerHelper("scaled_dot_product_attention", name=name)
+    out = helper.create_variable_for_type_inference(q.dtype)
+    inputs = {"Q": [q.name], "K": [k.name], "V": [v.name]}
+    if bias is not None:
+        inputs["Bias"] = [bias.name]
+    attrs = {"causal": causal}
+    if sm_scale is not None:
+        attrs["sm_scale"] = float(sm_scale)
+    if seq_parallel:
+        attrs["seq_parallel"] = seq_parallel
+        attrs["seq_axis"] = seq_axis
+    helper.append_op(
+        "scaled_dot_product_attention", inputs, {"Out": [out.name]}, attrs
     )
     return out
 
@@ -207,6 +321,66 @@ def elementwise_op(op_type, x, y, axis=-1, act=None, name=None):
 
 def elementwise_add(x, y, axis=-1, act=None, name=None):
     return elementwise_op("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_max", x, y, axis, act, name)
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
+    helper = LayerHelper("scale", act=act, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        "scale",
+        {"X": [x.name]},
+        {"Out": [out.name]},
+        {"scale": scale, "bias": bias, "bias_after_scale": bias_after_scale},
+    )
+    return helper.append_activation(out)
+
+
+def mean(x, name=None):
+    return _single_op("mean", x, name=name)
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    attrs = {
+        "dim": dim if dim is not None else [0],
+        "keep_dim": keep_dim,
+        "reduce_all": dim is None,
+    }
+    return _single_op("reduce_sum", input, attrs, name=name)
+
+
+def clip(x, min, max, name=None):
+    return _single_op("clip", x, {"min": min, "max": max}, name=name)
+
+
+def softmax_with_cross_entropy(
+    logits,
+    label,
+    soft_label=False,
+    ignore_index=-100,
+    return_softmax=False,
+    axis=-1,
+    name=None,
+):
+    helper = LayerHelper("softmax_with_cross_entropy", name=name)
+    softmax_out = helper.create_variable_for_type_inference(logits.dtype)
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    helper.append_op(
+        "softmax_with_cross_entropy",
+        {"Logits": [logits.name], "Label": [label.name]},
+        {"Softmax": [softmax_out.name], "Loss": [loss.name]},
+        {"soft_label": soft_label, "ignore_index": ignore_index, "axis": axis},
+    )
+    if return_softmax:
+        return loss, softmax_out
+    return loss
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):

@@ -1,19 +1,28 @@
 """Tensor creation/manipulation layer functions
 (reference: python/paddle/fluid/layers/tensor.py). The builders the
-decode engine's programs use, copied from the JAX package's
+decode engine's and BERT's programs use, copied from the JAX package's
 ``layers/tensor.py`` so both packages emit the same ops and names."""
 
 from paddle_tpu_torch.core.dtypes import convert_dtype
-from paddle_tpu_torch.core.ir import default_main_program
+from paddle_tpu_torch.core.ir import default_main_program, default_startup_program
 from paddle_tpu_torch.layer_helper import LayerHelper
+from paddle_tpu_torch.utils import unique_name
 
 __all__ = [
     "data",
     "fill_constant",
     "assign",
+    "cast",
     "reshape",
+    "transpose",
+    "slice",
     "gather",
+    "batched_gather",
     "scatter",
+    "where",
+    "create_global_var",
+    "not_equal",
+    "less_than",
 ]
 
 
@@ -62,6 +71,16 @@ def assign(input, output=None, name=None):
     return output
 
 
+def cast(x, dtype, name=None):
+    helper = LayerHelper("cast", name=name)
+    dtype = convert_dtype(dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "cast", {"X": [x.name]}, {"Out": [out.name]}, {"out_dtype": dtype}
+    )
+    return out
+
+
 def reshape(x, shape, inplace=False, name=None):
     helper = LayerHelper("reshape2", name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
@@ -71,6 +90,44 @@ def reshape(x, shape, inplace=False, name=None):
         {"X": [x.name]},
         {"Out": [out.name], "XShape": [xshape.name]},
         {"shape": list(shape)},
+    )
+    return out
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose2", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype, stop_gradient=True)
+    helper.append_op(
+        "transpose2",
+        {"X": [x.name]},
+        {"Out": [out.name], "XShape": [xshape.name]},
+        {"axis": list(perm)},
+    )
+    return out
+
+
+def slice(input, axes, starts, ends, name=None):
+    helper = LayerHelper("slice", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "slice",
+        {"Input": [input.name]},
+        {"Out": [out.name]},
+        {"axes": list(axes), "starts": list(starts), "ends": list(ends)},
+    )
+    return out
+
+
+def batched_gather(x, index, name=None):
+    """X [B, S, ...] + Index [B, P] -> [B, P, ...] (rows per batch)."""
+    helper = LayerHelper("batched_gather", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        "batched_gather",
+        {"X": [x.name], "Index": [index.name]},
+        {"Out": [out.name]},
+        {},
     )
     return out
 
@@ -102,3 +159,57 @@ def scatter(input, index, updates, overwrite=True, mode=None, name=None):
         attrs,
     )
     return out
+
+
+def where(condition, x, y, name=None):
+    helper = LayerHelper("where", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        "where",
+        {"Condition": [condition.name], "X": [x.name], "Y": [y.name]},
+        {"Out": [out.name]},
+    )
+    return out
+
+
+def create_global_var(
+    shape, value, dtype, persistable=False, force_cpu=False, name=None
+):
+    """reference: python/paddle/fluid/layers/tensor.py create_global_var —
+    value lives in the startup program, var in the main program."""
+    name = name or unique_name.generate("global_var")
+    sblock = default_startup_program().global_block()
+    sblock.create_var(name=name, shape=shape, dtype=dtype, persistable=persistable)
+    sblock.append_op(
+        "fill_constant",
+        {},
+        {"Out": [name]},
+        {"shape": list(shape), "dtype": convert_dtype(dtype), "value": value},
+    )
+    mblock = default_main_program().global_block()
+    var = mblock.create_var(
+        name=name, shape=shape, dtype=dtype, persistable=persistable
+    )
+    var.stop_gradient = True
+    return var
+
+
+def _make_compare(op_type):
+    def fn(x, y, cond=None, name=None):
+        # `cond` names an existing output var — the reference uses this to
+        # rewrite the loop condition inside While blocks
+        helper = LayerHelper(op_type, name=name)
+        out = cond if cond is not None else helper.create_variable_for_type_inference(
+            "bool", stop_gradient=True
+        )
+        helper.append_op(
+            op_type, {"X": [x.name], "Y": [y.name]}, {"Out": [out.name]}
+        )
+        return out
+
+    fn.__name__ = op_type
+    return fn
+
+
+not_equal = _make_compare("not_equal")
+less_than = _make_compare("less_than")

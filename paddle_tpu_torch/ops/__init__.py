@@ -1,3 +1,4 @@
 """Op lowerings: importing this package registers them."""
 
-from paddle_tpu_torch.ops import math, nn, tensor  # noqa: F401
+from paddle_tpu_torch.ops import (  # noqa: F401
+    control_flow, math, nn, optimizers, tensor)

@@ -22,6 +22,15 @@ def broadcast_y(x, y, axis):
     return y.reshape((1,) * axis + tuple(y.shape) + (1,) * trailing)
 
 
+def reduce_axes(attrs, ndim):
+    if attrs.get("reduce_all", False):
+        return tuple(range(ndim))
+    dims = attrs.get("dim", [0])
+    if isinstance(dims, int):
+        dims = [dims]
+    return tuple(d % ndim for d in dims)
+
+
 def xshape(x):
     """The ``XShape`` output of the ``*2`` reshape ops: an empty tensor
     whose shape records ``x``'s, as the JAX package emits it."""

@@ -1,20 +1,27 @@
-"""Elementwise / matmul op lowerings, with the semantics of the JAX
-package's ``ops/math.py``. Matrix products go to ``torch.matmul``: the
-JAX package leaves them to XLA, outside any Pallas kernel."""
+"""Elementwise / matmul / reduction op lowerings, with the semantics of
+the JAX package's ``ops/math.py`` (Paddle's ``axis`` broadcasting for the
+elementwise ops). Matrix products go to ``torch.matmul``: the JAX package
+leaves them to XLA, outside any Pallas kernel."""
 
 import math
 
 import torch
 
 from paddle_tpu_torch.core.registry import register_op
-from paddle_tpu_torch.ops.common import broadcast_y, first
+from paddle_tpu_torch.ops.common import broadcast_y, first, maybe, reduce_axes
 
 
-@register_op("elementwise_add")
-def _elementwise_add(ins, attrs):
-    x, y = first(ins, "X"), first(ins, "Y")
-    y = broadcast_y(x, y, attrs.get("axis", -1))
-    return {"Out": [torch.add(x, y)]}
+def _elementwise(name, fn):
+    @register_op(name)
+    def _lower(ins, attrs, _fn=fn):
+        x, y = first(ins, "X"), first(ins, "Y")
+        y = broadcast_y(x, y, attrs.get("axis", -1))
+        return {"Out": [_fn(x, y)]}
+
+
+_elementwise("elementwise_add", torch.add)
+_elementwise("elementwise_div", torch.div)
+_elementwise("elementwise_max", torch.maximum)
 
 
 @register_op("matmul")
@@ -43,3 +50,43 @@ def _mul(ins, attrs):
     y2 = y.reshape(math.prod(ys[:ync]), -1)
     out = x2 @ y2
     return {"Out": [out.reshape(xs[:xnc] + ys[ync:])]}
+
+
+@register_op("scale")
+def _scale(ins, attrs):
+    x = first(ins, "X")
+    scale = maybe(ins, "ScaleTensor", attrs.get("scale", 1.0))
+    bias = attrs.get("bias", 0.0)
+    if attrs.get("bias_after_scale", True):
+        return {"Out": [x * scale + bias]}
+    return {"Out": [(x + bias) * scale]}
+
+
+@register_op("sum")
+def _sum(ins, attrs):
+    xs = ins["X"]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {"Out": [out]}
+
+
+@register_op("clip")
+def _clip(ins, attrs):
+    return {"Out": [torch.clamp(first(ins, "X"), attrs.get("min"),
+                                attrs.get("max"))]}
+
+
+@register_op("mean")
+def _mean(ins, attrs):
+    return {"Out": [first(ins, "X").mean().reshape((1,))]}
+
+
+@register_op("reduce_sum")
+def _reduce_sum(ins, attrs):
+    x = first(ins, "X")
+    out = torch.sum(x, dim=reduce_axes(attrs, x.dim()),
+                    keepdim=attrs.get("keep_dim", False))
+    if out.dim() == 0 and not attrs.get("keep_scalar", False):
+        out = out.reshape((1,))
+    return {"Out": [out]}

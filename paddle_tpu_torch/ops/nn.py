@@ -1,19 +1,22 @@
-"""Neural-network op lowerings: activation, softmax, embedding, and the
-two decode-attention ops, with the semantics of the JAX package's
-``ops/nn.py``.
+"""Neural-network op lowerings: activation, softmax, normalisation,
+loss, embedding, and the three attention ops, with the semantics of the
+JAX package's ``ops/nn.py``.
 
-``cached_attention`` and ``paged_attention`` register their plain
-composite as ``lower`` (what shape inference and the ``off`` mode run)
-and a ``kernel`` lowering that goes through the CUDA kernel wrappers in
-``kernels/attention.py``.
+``scaled_dot_product_attention``, ``cached_attention`` and
+``paged_attention`` register their plain composite as ``lower`` (what
+shape inference and the ``off`` mode run) and a ``kernel`` lowering that
+goes through the CUDA kernel wrappers in ``kernels/``.
 """
+
+import math
 
 import torch
 
 from paddle_tpu_torch.core.registry import OpDef, OpRegistry, register_op
 from paddle_tpu_torch.kernels import attention as fused
+from paddle_tpu_torch.kernels import flash_attention as flash
 from paddle_tpu_torch.kernels import registry as kernel_registry
-from paddle_tpu_torch.ops.common import first
+from paddle_tpu_torch.ops.common import first, maybe
 
 
 @register_op("relu")
@@ -21,12 +24,70 @@ def _relu(ins, attrs):
     return {"Out": [torch.relu(first(ins, "X"))]}
 
 
+@register_op("tanh")
+def _tanh(ins, attrs):
+    return {"Out": [torch.tanh(first(ins, "X"))]}
+
+
+@register_op("gelu")
+def _gelu(ins, attrs):
+    approximate = "tanh" if attrs.get("approximate", False) else "none"
+    return {"Out": [torch.nn.functional.gelu(first(ins, "X"),
+                                             approximate=approximate)]}
+
+
 @register_op("softmax")
 def _softmax(ins, attrs):
     return {"Out": [torch.softmax(first(ins, "X"), dim=attrs.get("axis", -1))]}
 
 
-@register_op("lookup_table_v2")
+@register_op("layer_norm")
+def _layer_norm(ins, attrs):
+    """Statistics in float32 over the axes from ``begin_norm_axis`` on,
+    ``(x - mean) / sqrt(var + eps)`` with the biased variance."""
+    x = first(ins, "X")
+    begin = attrs.get("begin_norm_axis", 1)
+    eps = attrs.get("epsilon", 1e-5)
+    axes = tuple(range(begin, x.dim()))
+    compute = x.to(torch.float32)
+    mean = compute.mean(dim=axes, keepdim=True)
+    var = (compute - mean).square().mean(dim=axes, keepdim=True)
+    y = (compute - mean) / torch.sqrt(var + eps)
+    scale, bias = maybe(ins, "Scale"), maybe(ins, "Bias")
+    norm_shape = tuple(x.shape[begin:])
+    if scale is not None:
+        y = y * scale.reshape(norm_shape).to(torch.float32)
+    if bias is not None:
+        y = y + bias.reshape(norm_shape).to(torch.float32)
+    stat_shape = tuple(x.shape[:begin])
+    return {"Y": [y.to(x.dtype)], "Mean": [mean.reshape(stat_shape)],
+            "Variance": [var.reshape(stat_shape)]}
+
+
+@register_op("softmax_with_cross_entropy", nondiff_inputs=("Label",))
+def _softmax_with_ce(ins, attrs):
+    """Numerically stable through log-softmax. A label equal to
+    ``ignore_index`` (-1 in BERT's MLM head) gives a zero loss and a zero
+    grad: it is replaced by class 0 before the gather (``torch.gather``
+    raises on -1, where the JAX package wraps it) and its loss zeroed
+    after."""
+    logits, label = first(ins, "Logits"), first(ins, "Label")
+    axis = attrs.get("axis", -1) % logits.dim()
+    log_probs = torch.log_softmax(logits, dim=axis)
+    softmax = torch.exp(log_probs)
+    if attrs.get("soft_label", False):
+        loss = -(label * log_probs).sum(dim=axis, keepdim=True)
+    else:
+        squeezed = label.squeeze(axis) if label.dim() == logits.dim() else label
+        ignored = (squeezed == attrs.get("ignore_index", -100)).unsqueeze(axis)
+        idx = torch.where(ignored, torch.zeros_like(squeezed.unsqueeze(axis)),
+                          squeezed.unsqueeze(axis)).to(torch.int64)
+        picked = torch.gather(log_probs, axis, idx)
+        loss = torch.where(ignored, torch.zeros_like(picked), -picked)
+    return {"Softmax": [softmax], "Loss": [loss]}
+
+
+@register_op("lookup_table_v2", nondiff_inputs=("Ids",))
 def _lookup_table(ins, attrs):
     """reference: paddle/fluid/operators/lookup_table_op.cc. A dense row
     gather; ids at ``padding_idx`` read zeros."""
@@ -57,7 +118,7 @@ def _cached_attention_kernel(ins, attrs):
 
 OpRegistry.register(OpDef(
     "cached_attention", _cached_attention_reference,
-    kernel=_cached_attention_kernel,
+    kernel=_cached_attention_kernel, nondiff_inputs=("Bias",),
 ))
 
 
@@ -79,5 +140,30 @@ def _paged_attention_kernel(ins, attrs):
 
 OpRegistry.register(OpDef(
     "paged_attention", _paged_attention_reference,
-    kernel=_paged_attention_kernel,
+    kernel=_paged_attention_kernel, nondiff_inputs=("Rows", "Bias"),
+))
+
+
+def _sdpa_args(ins, attrs):
+    q, k, v = first(ins, "Q"), first(ins, "K"), first(ins, "V")
+    scale = attrs.get("sm_scale") or 1.0 / math.sqrt(q.shape[-1])
+    return q, k, v, maybe(ins, "Bias"), bool(attrs.get("causal", False)), scale
+
+
+def _sdpa_reference(ins, attrs):
+    """Unfused attention: q, k, v ``[B, H, S, D]``, optional additive key
+    bias ``[B, S]``, causal fill -1e30 — the flash kernels' plain version."""
+    return {"Out": [flash.flash_attention_composite(*_sdpa_args(ins, attrs))[0]]}
+
+
+def _sdpa_kernel(ins, attrs):
+    if kernel_registry.mode() == "off":
+        return _sdpa_reference(ins, attrs)
+    q, k, v, bias, causal, scale = _sdpa_args(ins, attrs)
+    return {"Out": [flash.flash_attention(q, k, v, bias=bias, causal=causal,
+                                          sm_scale=scale)]}
+
+
+OpRegistry.register(OpDef(
+    "scaled_dot_product_attention", _sdpa_reference, kernel=_sdpa_kernel,
 ))

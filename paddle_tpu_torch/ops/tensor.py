@@ -1,5 +1,7 @@
-"""Tensor creation / manipulation / random op lowerings, with the
-semantics of the JAX package's ``ops/tensor.py``."""
+"""Tensor creation / manipulation / comparison / random op lowerings,
+with the semantics of the JAX package's ``ops/tensor.py``."""
+
+import math
 
 import torch
 
@@ -14,6 +16,22 @@ def _fill_constant(ins, attrs):
         tuple(attrs.get("shape", [1])), attrs.get("value", 0.0),
         dtype=to_torch_dtype(attrs.get("dtype", "float32")),
         device=first(ins, "__device__"))]}
+
+
+@register_op("fill_zeros_like")
+def _fill_zeros_like(ins, attrs):
+    return {"Out": [torch.zeros_like(first(ins, "X"))]}
+
+
+@register_op("assign_value", creates=True)
+def _assign_value(ins, attrs):
+    dtype = to_torch_dtype(attrs.get("dtype", "float32"))
+    device = first(ins, "__device__")
+    shape = tuple(attrs["shape"])
+    if device.type == "meta":
+        return {"Out": [torch.empty(shape, dtype=dtype, device=device)]}
+    values = torch.tensor(attrs["values"], dtype=dtype).reshape(shape)
+    return {"Out": [values.to(device)]}
 
 
 @register_op("assign")
@@ -56,14 +74,67 @@ def _unsqueeze2(ins, attrs):
     return {"Out": [out], "XShape": [xshape(x)]}
 
 
-@register_op("gather")
+@register_op("transpose2")
+def _transpose2(ins, attrs):
+    # a strided view: consumers that need contiguous memory (the flash
+    # attention wrapper) copy it themselves
+    x = first(ins, "X")
+    return {"Out": [x.permute(*attrs["axis"])], "XShape": [xshape(x)]}
+
+
+@register_op("slice")
+def _slice(ins, attrs):
+    x = first(ins, "Input")
+    idx = [slice(None)] * x.dim()
+    for a, s, e in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
+        dim = x.shape[a]
+        s = max(s + dim, 0) if s < 0 else min(s, dim)
+        e = max(e + dim, 0) if e < 0 else min(e, dim)
+        idx[a] = slice(s, e)
+    return {"Out": [x[tuple(idx)]]}
+
+
+@register_op("batched_gather", nondiff_inputs=("Index",))
+def _batched_gather(ins, attrs):
+    """Per-row gather along axis 1: X [B, S, ...] + Index [B, P] ->
+    [B, P, ...]. Indices must lie in [0, S): torch raises on one outside
+    it (the JAX package clamps)."""
+    x = first(ins, "X")
+    idx = first(ins, "Index").to(torch.int64)
+    idx_e = idx.reshape(tuple(idx.shape) + (1,) * (x.dim() - 2))
+    return {"Out": [torch.gather(
+        x, 1, idx_e.expand(tuple(idx.shape) + tuple(x.shape[2:])))]}
+
+
+@register_op("cast")
+def _cast(ins, attrs):
+    return {"Out": [first(ins, "X").to(to_torch_dtype(attrs["out_dtype"]))]}
+
+
+@register_op("where", nondiff_inputs=("Condition",))
+def _where(ins, attrs):
+    return {"Out": [torch.where(first(ins, "Condition"), first(ins, "X"),
+                                first(ins, "Y"))]}
+
+
+def _compare(name, fn):
+    @register_op(name, nondiff_inputs=("X", "Y"))
+    def _lower(ins, attrs, _fn=fn):
+        return {"Out": [_fn(first(ins, "X"), first(ins, "Y"))]}
+
+
+_compare("not_equal", torch.ne)
+_compare("less_than", torch.lt)
+
+
+@register_op("gather", nondiff_inputs=("Index",))
 def _gather(ins, attrs):
     x, index = first(ins, "X"), first(ins, "Index")
     return {"Out": [torch.index_select(x, attrs.get("axis", 0),
                                        index.reshape(-1))]}
 
 
-@register_op("scatter")
+@register_op("scatter", nondiff_inputs=("Ids",))
 def _scatter(ins, attrs):
     """Row scatter into ``X``. Negative ids count from the end; with
     ``mode="drop"`` ids outside ``[0, R)`` write nowhere — the paged
@@ -101,4 +172,22 @@ def _uniform_random(ins, attrs):
     if not out.is_meta:
         out.uniform_(attrs.get("min", -1.0), attrs.get("max", 1.0),
                      generator=gen)
+    return {"Out": [out.to(to_torch_dtype(attrs.get("dtype", "float32")))]}
+
+
+@register_op("truncated_gaussian_random", stateful=True, creates=True)
+def _truncated_gaussian_random(ins, attrs):
+    """``mean + std * z`` with ``z`` a standard normal truncated to
+    [-2, 2], by inverse-CDF sampling from the executor's
+    ``torch.Generator``. The JAX package draws the same distribution from
+    threefry keys, so the two give different numbers for one seed."""
+    shape = tuple(attrs.get("shape"))
+    out = torch.empty(shape, dtype=torch.float32,
+                      device=first(ins, "__device__"))
+    if not out.is_meta:
+        lo, hi = (0.5 * (1.0 + math.erf(b / math.sqrt(2.0))) for b in (-2.0, 2.0))
+        out.uniform_(2.0 * lo - 1.0, 2.0 * hi - 1.0,
+                     generator=first(ins, "__generator__"))
+        out.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+        out.mul_(attrs.get("std", 1.0)).add_(attrs.get("mean", 0.0))
     return {"Out": [out.to(to_torch_dtype(attrs.get("dtype", "float32")))]}

@@ -1,0 +1,171 @@
+"""Optimizers: append_backward + update ops, as program transforms.
+
+Same architecture as the JAX package's ``optimizer.py`` and the reference
+(reference: python/paddle/fluid/optimizer.py:54 Optimizer — backward :608,
+apply_gradients :672, minimize :780): ``minimize()`` rewrites the program
+with grad ops, then appends one update op per parameter, with
+accumulators as persistable vars initialized in the startup program. Var
+names and op attributes follow the JAX package's, so both packages build
+the same training program. The port carries ``AdamOptimizer``; gradient
+clipping and regularization are not ported yet (ROADMAP M1b).
+"""
+
+from paddle_tpu_torch.core.backward import append_backward
+from paddle_tpu_torch.core.ir import (
+    Variable, default_main_program, default_startup_program)
+from paddle_tpu_torch.layer_helper import LayerHelper
+from paddle_tpu_torch.layers import tensor as tensor_layers
+from paddle_tpu_torch.utils import unique_name
+
+__all__ = ["Optimizer", "AdamOptimizer", "Adam"]
+
+_OP_ROLE_OPTIMIZE = 2
+
+
+class Optimizer:
+    def __init__(self, learning_rate, regularization=None, grad_clip=None,
+                 name=None):
+        if regularization is not None or grad_clip is not None:
+            raise NotImplementedError(
+                "regularization and grad_clip are not ported yet (ROADMAP M1b)")
+        self._learning_rate = learning_rate
+        self._name = name
+        self._accumulators = {}
+        self._lr_var = None
+        self.helper = None
+
+    # -- learning rate ------------------------------------------------
+    def _create_global_learning_rate(self):
+        if self._lr_var is not None:
+            return
+        if isinstance(self._learning_rate, Variable):
+            self._lr_var = self._learning_rate
+        else:
+            self._lr_var = tensor_layers.create_global_var(
+                shape=[1],
+                value=float(self._learning_rate),
+                dtype="float32",
+                persistable=True,
+                name=unique_name.generate("learning_rate"),
+            )
+
+    def _param_lr(self, param):
+        if param.optimize_attr.get("learning_rate", 1.0) != 1.0:
+            raise NotImplementedError(
+                "per-parameter learning rates are not ported yet (ROADMAP M1b)")
+        return self._lr_var
+
+    # -- accumulators -------------------------------------------------
+    def _add_accumulator(self, name, param, fill_value=0.0, dtype="float32",
+                         shape=None):
+        acc = self._accumulators.setdefault(name, {})
+        if param.name in acc:
+            return acc[param.name]
+        var_name = unique_name.generate(f"{param.name}_{name}")
+        shape = shape if shape is not None else list(param.shape)
+        main_block = default_main_program().global_block()
+        var = main_block.create_var(
+            name=var_name, shape=shape, dtype=dtype, persistable=True
+        )
+        var.stop_gradient = True
+        sblock = default_startup_program().global_block()
+        sblock.create_var(name=var_name, shape=shape, dtype=dtype, persistable=True)
+        sblock.append_op(
+            "fill_constant",
+            {},
+            {"Out": [var_name]},
+            {"shape": shape, "dtype": dtype, "value": fill_value},
+        )
+        acc[param.name] = var
+        return var
+
+    def _get_accumulator(self, name, param):
+        return self._accumulators[name][param.name]
+
+    def _create_accumulators(self, block, parameters):
+        pass
+
+    # -- pipeline -----------------------------------------------------
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        return append_backward(loss, parameter_list, no_grad_set)
+
+    def apply_gradients(self, params_grads):
+        block = default_main_program().global_block()
+        start = len(block.ops)
+        self._create_accumulators(block, [p for p, _ in params_grads])
+        ops = []
+        for p, g in params_grads:
+            if g is None:
+                continue
+            ops.append(self._append_optimize_op(block, (p, g)))
+        # everything appended here is the optimize region
+        for op in block.ops[start:]:
+            op.attrs["op_role"] = _OP_ROLE_OPTIMIZE
+        return ops
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        self.helper = LayerHelper(self.__class__.__name__)
+        self._create_global_learning_rate()
+        params_grads = self.backward(
+            loss, startup_program, parameter_list, no_grad_set
+        )
+        optimize_ops = self.apply_gradients(params_grads)
+        return optimize_ops, params_grads
+
+    def _append_optimize_op(self, block, param_and_grad):
+        raise NotImplementedError
+
+
+class AdamOptimizer(Optimizer):
+    _op_type = "adam"
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, lazy_mode=False, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment1", p)
+            self._add_accumulator("moment2", p)
+            self._add_accumulator("beta1_pow_acc", p, fill_value=self._beta1,
+                                  shape=[1])
+            self._add_accumulator("beta2_pow_acc", p, fill_value=self._beta2,
+                                  shape=[1])
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m1 = self._get_accumulator("moment1", p)
+        m2 = self._get_accumulator("moment2", p)
+        b1p = self._get_accumulator("beta1_pow_acc", p)
+        b2p = self._get_accumulator("beta2_pow_acc", p)
+        return block.append_op(
+            self._op_type,
+            {
+                "Param": [p.name],
+                "Grad": [g.name],
+                "Moment1": [m1.name],
+                "Moment2": [m2.name],
+                "Beta1Pow": [b1p.name],
+                "Beta2Pow": [b2p.name],
+                "LearningRate": [self._param_lr(p).name],
+            },
+            {
+                "ParamOut": [p.name],
+                "Moment1Out": [m1.name],
+                "Moment2Out": [m2.name],
+                "Beta1PowOut": [b1p.name],
+                "Beta2PowOut": [b2p.name],
+            },
+            {
+                "beta1": self._beta1,
+                "beta2": self._beta2,
+                "epsilon": self._epsilon,
+                "op_role": _OP_ROLE_OPTIMIZE,
+            },
+        )
+
+
+Adam = AdamOptimizer

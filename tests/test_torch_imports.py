@@ -17,8 +17,12 @@ _PROBE = """
 import sys
 import paddle_tpu_torch
 import paddle_tpu_torch.convert
+import paddle_tpu_torch.core.backward
 import paddle_tpu_torch.kernels.attention
 import paddle_tpu_torch.kernels.build
+import paddle_tpu_torch.kernels.flash_attention
+import paddle_tpu_torch.models.bert
+import paddle_tpu_torch.optimizer
 import paddle_tpu_torch.serving.decode.engine
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
