@@ -9,9 +9,11 @@ It builds every CUDA kernel from the sources in the checkout, holds each
 kernel against its plain PyTorch version at the shapes its path gives
 it, then serves requests through the port's entry points at the full
 width of the decoder and checks the tokens against the port's offline
-reference, and trains full-size BERT-base with the flash-attention
-kernels against the same steps with the kernels off. Any failure exits
-non-zero. It imports nothing of JAX or of
+reference, trains full-size BERT-base with the flash-attention
+kernels against the same steps with the kernels off, and trains the two
+CTR configurations (Wide&Deep over the two-tier embedding engine, and CTR
+with on-device tables and sparse SGD) against the same steps with the
+kernels off. Any failure exits non-zero. It imports nothing of JAX or of
 the JAX package, and it refuses to run without a CUDA device (or outside
 a checkout of the repository).
 
@@ -55,6 +57,30 @@ Phases:
    counter) agree within the stated tolerances. Prints the step time
    (p50 of the steps after the first), device memory peak, tokens/s and
    the parameter count.
+
+2c. ctr kernels — the embedding admission kernel (K5) and the sparse row
+   update kernel (K6) against their plain versions, bit for bit, rows the
+   call does not name untouched: K5 at slab [4096, 16] and [4096, 1] with
+   buckets of 256 and 1024 (pad slots included) and at [1048576, 16] with
+   4096 rows; K6 at [1048576, 16] and [1048576, 1] with the unique ids of
+   12288 draws, and with id 0 among the ids and fill rows past the unique
+   count. Timed beside the plain version, the card's bound and one PyTorch
+   library call (``index_copy_`` for K5, ``index_add_`` for K6).
+6. wide&deep — ``models/wide_deep.py`` (the JAX example's widths: 4 slots
+   x 5 ids, wide dim 1 and deep dim 16 tables, MLP 64-32-1, Adam on the
+   dense half, row-sparse SGD on the slabs, capacity 4096, ep 2) at batch
+   4096 for 24 click-log steps through ``Executor()`` and
+   ``EmbeddingEngine``: K5 launched once per table on every step with
+   misses, evictions and writebacks, no whole-slab copy to the host; then
+   the same steps with the kernels off and at capacity 65536 give the
+   same losses, host tier and persistables bit for bit. Prints step time,
+   the host time of ``engine.prepare_feed`` alone, examples/s, device
+   memory peak, host syncs of one step and the engine's stats.
+7. dense ctr — ``build_ctr_train(ps_mode=False, vocab_size=2**20, SGD)``
+   with ``FLAGS_pallas_sparse_update`` on, 8 steps at batch 4096: K6
+   launched 16 times a step; the same steps with the kernels off give the
+   same losses and tables bit for bit; every table changed and the
+   untouched rows keep their values.
 
 The last lines are the card's name and power limit, one JSON line of
 per-kernel results, and ``{"ok": true, "device": {...}}``.
@@ -119,6 +145,17 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = (1e-4, 1e-5), (1e-3, 1e-6)
 # the grad floor above) have updates of noise and are left out, counted in
 # the log. Beta powers and the step counter must be equal.
 TRAIN_STATE_TOL = 1e-2
+# CTR: Wide&Deep at the JAX example's widths (examples/wide_deep.py), the
+# batch raised from its CPU demo's 32; dense CTR at models/ctr.py's widths
+# over 2^20-row tables
+WD_BATCH, WD_STEPS, WD_CAPACITY, WD_BIG_CAPACITY = 4096, 24, 4096, 65536
+CTR_VOCAB, CTR_BATCH, CTR_STEPS = 2 ** 20, 4096, 8
+# dense CTR, kernels on vs off: K6 equals its plain version bit for bit,
+# and every other op is the same deterministic call in both runs, so the
+# loss streams and every table must agree bit for bit (a looser bar, such
+# as the JAX package's rtol 1e-5 / atol 1e-6 against its own kernel, is as
+# large as a deep-table row's whole update over the run and would let a
+# wrong K6 through)
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
 # outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -755,6 +792,381 @@ def _compare_states(on, off, start, params, noise):
     return worst
 
 
+# -- phase 2c ---------------------------------------------------------------
+def _bytes_bound(n_bytes):
+    return n_bytes / PEAK_BYTES_S * 1e3, "bytes"
+
+
+def phase_ctr_kernels():
+    """K5 and K6 against their plain versions on the card, bit for bit."""
+    import torch
+
+    from paddle_tpu_torch.kernels import embedding as KE
+    from paddle_tpu_torch.kernels import sparse_update as KS
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(SEED + 3)
+    results = {}
+
+    # K5: (capacity, dim, admitted rows); the bucket pads the rest with
+    # slot == capacity. The first case is the one timed in the JSON line:
+    # a deep table of the Wide&Deep path at its largest bucket.
+    for cap, dim, n, timed in ((4096, 16, 700, True), (4096, 16, 200, False),
+                               (4096, 1, 700, False), (4096, 1, 200, False),
+                               (1 << 20, 16, 4096, False)):
+        slab = torch.randn(cap, dim, device=dev)
+        slots, rows = KE.pad_slots(rng.choice(cap, n, replace=False),
+                                   rng.randn(n, dim).astype(np.float32), cap,
+                                   dim, np.float32)
+        s_dev = torch.from_numpy(slots).to(dev)
+        r_dev = torch.from_numpy(rows).to(dev)
+        got, want = slab.clone(), slab.clone()
+        KE.scatter_rows(got, slots, rows)
+        KE.scatter_rows_plain(want, slots, rows)
+        torch.cuda.synchronize()
+        keep = np.ones(cap, bool)
+        keep[slots[slots < cap]] = False
+        keep_t = torch.from_numpy(keep).to(dev)
+        if not (torch.equal(got, want)
+                and torch.equal(got[keep_t], slab[keep_t])):
+            raise AssertionError(f"K5 [{cap}, {dim}] bucket {len(slots)}: "
+                                 "kernel and plain version differ")
+        log(f"[ctr-kernels] K5 slab [{cap}, {dim}] bucket {len(slots)} "
+            f"({n} rows): bit-equal to the plain version, other rows "
+            "untouched")
+        if not timed:
+            continue
+        kept = s_dev < cap
+        k_slots, k_rows = s_dev[kept].long(), r_dev[kept]
+        ms = time_ms(lambda: KE.launch(got, s_dev, r_dev), 20)
+        wrapper_ms = time_ms(lambda: KE.scatter_rows(got, slots, rows), 20)
+        plain_ms = time_ms(lambda: KE.scatter_rows_plain(want, s_dev, r_dev),
+                           20)
+        lib_ms = time_ms(lambda: want.index_copy_(0, k_slots, k_rows), 20)
+        # every slot read once; only the kept rows are read and written
+        # (pad rows, slot == C, are never loaded)
+        b_ms, b_by = _bytes_bound(len(slots) * 4 + 2 * n * dim * 4)
+        results["embedding_admission"] = dict(
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms)
+        log(f"[ctr-kernels] K5 kernel_ms={ms:.4f} (wrapper with the slot "
+            f"and row upload {wrapper_ms:.4f}) plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms:.4f} (index_copy_) bound_ms={b_ms:.6f} "
+            f"({b_by})")
+
+    # K6: the unique ids of CTR_BATCH x 3 uniform draws from 2^20, as one
+    # sgd_sparse of the dense CTR path sees them; then id 0 among the ids
+    # with fill rows past the unique count holding NaN
+    for dim, timed in ((16, True), (1, False), (16, "fill")):
+        vocab = CTR_VOCAB
+        param = torch.randn(vocab, dim, device=dev)
+        ids = np.unique(rng.randint(0, vocab, CTR_BATCH * 3))
+        n_unique = len(ids)
+        rows = rng.randn(n_unique, dim).astype(np.float32)
+        if timed == "fill":
+            ids[0] = 0
+            ids = np.concatenate([ids, np.zeros(64, ids.dtype)])
+            rows = np.concatenate([rows, np.full((64, dim), np.nan,
+                                                 np.float32)])
+        ids_t = torch.from_numpy(ids.astype(np.int32)).to(dev)
+        rows_t = torch.from_numpy(rows).to(dev)
+        got, want = param.clone(), param.clone()
+        KS.sparse_row_update(got, ids_t, rows_t, n_unique=n_unique)
+        KS.sparse_row_update_plain(want, ids_t, rows_t, n_unique=n_unique)
+        torch.cuda.synchronize()
+        keep = np.ones(vocab, bool)
+        keep[ids[:n_unique]] = False
+        keep_t = torch.from_numpy(keep).to(dev)
+        if not (torch.equal(got, want) and bool(torch.isfinite(got).all())
+                and torch.equal(got[keep_t], param[keep_t])):
+            raise AssertionError(f"K6 [{vocab}, {dim}] {n_unique} rows"
+                                 f"{' + fill' if timed == 'fill' else ''}: "
+                                 "kernel and plain version differ")
+        log(f"[ctr-kernels] K6 param [{vocab}, {dim}] {n_unique} unique rows"
+            f"{' + 64 NaN fill rows, id 0 among the ids' if timed == 'fill' else ''}"
+            ": bit-equal to the plain version, other rows untouched")
+        if timed is not True:
+            continue
+        ids64 = ids_t[:n_unique].long()
+        ms = time_ms(lambda: KS.launch(got, ids_t, rows_t, n_unique), 20)
+        wrapper_ms = time_ms(lambda: KS.sparse_row_update(
+            got, ids_t, rows_t, n_unique=n_unique), 20)
+        plain_ms = time_ms(lambda: KS.sparse_row_update_plain(
+            want, ids_t, rows_t, n_unique=n_unique), 20)
+        lib_ms = time_ms(lambda: want.index_add_(0, ids64, rows_t), 20)
+        b_ms, b_by = _bytes_bound(n_unique * (4 + 3 * dim * 4))
+        results["sparse_row_update"] = dict(
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms)
+        log(f"[ctr-kernels] K6 kernel_ms={ms:.4f} (wrapper with the id "
+            f"range check {wrapper_ms:.4f}) plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms:.4f} (index_add_) bound_ms={b_ms:.6f} "
+            f"({b_by})")
+    return results
+
+
+def _count_syncs(fn):
+    """Run ``fn`` once with PyTorch's sync debug mode on; returns the
+    number of operations that synchronized the host with the card."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+# -- phase 6 ----------------------------------------------------------------
+def _wide_deep_run(batches, capacity, state=None, timed=False):
+    """One Wide&Deep training run over ``batches`` on the card. Returns
+    the losses, launches, per-step K5 launches and tables with misses,
+    the host tier and persistables after a flush, the engine's stats,
+    and (timed) step seconds, ``prepare_feed`` seconds, memory peak and
+    one step's host syncs."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.convert import load_params, persistables_to_numpy
+    from paddle_tpu_torch.embedding import EmbeddingEngine
+    from paddle_tpu_torch.kernels import embedding as KE
+    from paddle_tpu_torch.models import wide_deep as wd
+    from paddle_tpu_torch.utils import unique_name
+
+    with unique_name.guard():
+        main, startup, feeds, (loss, _pred) = wd.build_programs(
+            capacity=capacity)
+    exe, scope = fluid.Executor(seed=SEED), fluid.Scope()   # CUDAPlace(0)
+    exe.run(startup, scope=scope)
+    if state is None:
+        state = persistables_to_numpy(scope, startup)
+    else:
+        load_params(scope, state)
+    engine = EmbeddingEngine(scope=scope)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    roundtrips = KE.roundtrips()
+    losses, seconds, prep, per_step, syncs = [], [], [], [], None
+
+    def step(feed):
+        t0 = time.perf_counter()
+        feed = engine.prepare_feed(main, dict(feed))
+        prep.append(time.perf_counter() - t0)
+        return float(exe.run(main, feed=feed, fetch_list=[loss],
+                             scope=scope)[0][0])
+
+    for i, batch in enumerate(batches):
+        misses = {t: rt.misses for t, rt in engine.tables.items()}
+        before = kernels.launches("embedding_admission")
+        t0 = time.perf_counter()
+        if timed and i == len(batches) - 1:
+            out = []
+            syncs = _count_syncs(lambda: out.append(step(batch)))
+            losses.append(out[0])
+        else:
+            losses.append(step(batch))
+        seconds.append(time.perf_counter() - t0)
+        with_misses = sum(rt.misses > misses.get(t, 0)
+                          for t, rt in engine.tables.items())
+        per_step.append((kernels.launches("embedding_admission") - before,
+                         with_misses))
+    launches = kernels.launches()
+    peak = torch.cuda.max_memory_allocated()
+    stats = engine.stats()          # before the flush: eviction write-backs
+    host = engine.host_rows()
+    engine.close()
+    if KE.roundtrips() != roundtrips:
+        raise AssertionError("a whole slab was copied to the host")
+    return dict(losses=losses, launches=launches, per_step=per_step,
+                host=host, stats=stats, state=state, seconds=seconds,
+                prep=prep, peak=peak, syncs=syncs,
+                final=persistables_to_numpy(scope, main))
+
+
+def _same_host_tier(a, b):
+    if set(a) != set(b):
+        return False
+    for t, rows in a.items():
+        if set(rows) != set(b[t]):
+            return False
+        if any(rows[i].tobytes() != b[t][i].tobytes() for i in rows):
+            return False
+    return True
+
+
+def phase_wide_deep():
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import wide_deep as wd
+    from paddle_tpu_torch.utils import unique_name
+
+    t0 = time.perf_counter()
+    records = list(wd.click_log(WD_BATCH * WD_STEPS, seed=0))
+    with unique_name.guard():
+        feeds = wd.build_programs()[2]
+    batches = [wd.make_batch(records[i * WD_BATCH:(i + 1) * WD_BATCH], feeds)
+               for i in range(WD_STEPS)]
+    log(f"[wide&deep] {WD_STEPS} click-log batches of {WD_BATCH} "
+        f"({time.perf_counter() - t0:.2f}s to make)")
+    on = _wide_deep_run(batches, WD_CAPACITY, timed=True)
+    bad = [(i, k, m) for i, (k, m) in enumerate(on["per_step"]) if k != m]
+    if bad:
+        raise AssertionError(f"K5 launches per step != tables with misses "
+                             f"(step, launches, tables): {bad}")
+    if not sum(k for k, _ in on["per_step"]):
+        raise AssertionError("K5 was never launched")
+    if not all(st["evictions"] > 0 and st["writebacks"] > 0
+               for st in on["stats"].values()):
+        raise AssertionError(f"no evictions or writebacks: {on['stats']}")
+    if not all(np.isfinite(on["losses"])):
+        raise AssertionError(f"non-finite losses {on['losses']}")
+    step_ms = float(np.median(on["seconds"][1:])) * 1e3
+    prep_ms = float(np.median(on["prep"][1:])) * 1e3
+    log(f"[wide&deep] losses {on['losses']}")
+    log(f"[wide&deep] K5 launches per step (launches, tables with misses): "
+        f"{on['per_step']}")
+    log(f"[wide&deep] step p50 {step_ms:.2f} ms (first "
+        f"{on['seconds'][0] * 1e3:.2f} ms), engine.prepare_feed p50 "
+        f"{prep_ms:.2f} ms (min {min(on['prep'][1:]) * 1e3:.2f}, max "
+        f"{max(on['prep'][1:]) * 1e3:.2f}), "
+        f"{WD_BATCH / step_ms * 1e3:.1f} examples/s, device memory peak "
+        f"{on['peak'] / 2**30:.3f} GiB, host syncs in one step "
+        f"{on['syncs']}")
+    for t, st in sorted(on["stats"].items()):
+        log(f"[wide&deep]   {t}: {st}")
+
+    with kernels.scoped_mode("off"):
+        off = _wide_deep_run(batches, WD_CAPACITY, state=on["state"])
+    if any(off["launches"].values()):
+        raise AssertionError("a kernel launched with the kernels off")
+    big = _wide_deep_run(batches, WD_BIG_CAPACITY, state={
+        n: a for n, a in on["state"].items() if "__slab" not in n})
+    checks = {
+        "off: losses": off["losses"] == on["losses"],
+        "off: host tier": _same_host_tier(off["host"], on["host"]),
+        "off: persistables": set(off["final"]) == set(on["final"]) and all(
+            off["final"][n].tobytes() == a.tobytes()
+            for n, a in on["final"].items()),
+        "capacity 65536: losses": big["losses"] == on["losses"],
+        "capacity 65536: host tier": _same_host_tier(big["host"], on["host"]),
+        "capacity 65536: dense persistables": all(
+            big["final"][n].tobytes() == a.tobytes()
+            for n, a in on["final"].items() if "__slab" not in n),
+    }
+    log(f"[wide&deep] bit-identical: {checks}; capacity 65536 evictions "
+        f"{sum(st['evictions'] for st in big['stats'].values())}")
+    if not all(checks.values()):
+        diff = max(abs(a - b) for a, b in zip(on["losses"], off["losses"]))
+        raise AssertionError(f"Wide&Deep runs differ: {checks}; largest "
+                             f"loss difference kernels off {diff:.3e}")
+    return on["launches"]
+
+
+# -- phase 7 ----------------------------------------------------------------
+def phase_dense_ctr():
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import ctr
+    from paddle_tpu_torch.utils import unique_name
+    from paddle_tpu_torch.utils.flags import flags
+
+    rng = np.random.RandomState(SEED + 4)
+    batches = [ctr.synthetic_batch(rng, CTR_BATCH, id_space=CTR_VOCAB)
+               for _ in range(CTR_STEPS)]
+    with unique_name.guard():
+        main, startup, _feeds, (loss, _pred) = ctr.build_ctr_train(
+            ps_mode=False, vocab_size=CTR_VOCAB,
+            optimizer=fluid.optimizer.SGD(learning_rate=0.1))
+    tables = [v.name for v in main.global_block().vars.values()
+              if v.persistable and v.name.endswith("_w")
+              and v.shape[0] == CTR_VOCAB]
+    scopes = {}
+    for arm in ("on", "off"):       # the same seed gives the same init
+        scopes[arm] = fluid.Scope()
+        fluid.Executor(seed=SEED).run(startup, scope=scopes[arm])
+    if not all(torch.equal(scopes["on"].find_var(n), scopes["off"].find_var(n))
+               for n in tables):
+        raise AssertionError("the two startups differ")
+    initial = {n: scopes["on"].find_var(n).clone() for n in tables}
+    table_mb = sum(t.numel() * 4 for t in initial.values()) / 1e6
+    old = flags.pallas_sparse_update
+    flags.pallas_sparse_update = True
+    try:
+        exe = fluid.Executor(seed=SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        losses, seconds, per_step, syncs = [], [], [], None
+        for i, batch in enumerate(batches):
+            before = kernels.launches("sparse_row_update")
+            t0 = time.perf_counter()
+            run = lambda: losses.append(float(exe.run(  # noqa: E731
+                main, feed=dict(batch), fetch_list=[loss],
+                scope=scopes["on"])[0][0]))
+            if i == len(batches) - 1:
+                syncs = _count_syncs(run)
+            else:
+                run()
+            seconds.append(time.perf_counter() - t0)
+            per_step.append(kernels.launches("sparse_row_update") - before)
+        launches = kernels.launches()
+        peak = torch.cuda.max_memory_allocated()
+        with kernels.scoped_mode("off"):
+            kernels.reset_launches()
+            off = [float(exe.run(main, feed=dict(b), fetch_list=[loss],
+                                 scope=scopes["off"])[0][0]) for b in batches]
+            if any(kernels.launches().values()):
+                raise AssertionError("a kernel launched with the kernels off")
+    finally:
+        flags.pallas_sparse_update = old
+    n_sparse = [op.type for op in main.global_block().ops].count("sgd_sparse")
+    if n_sparse != 16 or per_step != [16] * CTR_STEPS:
+        raise AssertionError(f"{n_sparse} sgd_sparse ops; K6 launches per "
+                             f"step {per_step}, want 16")
+    if losses != off:
+        raise AssertionError(f"loss streams differ: on {losses} off {off}")
+    changed, moved = 0, []
+    for n in tables:
+        slot = int(n.split("_")[1])
+        touched = torch.from_numpy(np.unique(np.concatenate(
+            [b[f"slot_{slot}"].ravel() for b in batches]))).cuda()
+        a = scopes["on"].find_var(n)
+        b = scopes["off"].find_var(n)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{n}: kernels on and off differ by "
+                                 f"{float((a - b).abs().max()):.3e}")
+        delta = a.index_select(0, touched) - initial[n].index_select(
+            0, touched)
+        n_changed = int((delta != 0).any(1).sum())
+        if not n_changed:
+            raise AssertionError(f"{n}: no row changed")
+        changed += n_changed
+        # each table's largest change over the run, beside its bit-equality
+        moved.append(f"{n} {float(delta.abs().max()):.3e}")
+        keep = torch.ones(CTR_VOCAB, dtype=torch.bool, device=a.device)
+        keep[touched] = False
+        if not torch.equal(a[keep], initial[n][keep]):
+            raise AssertionError(f"{n}: rows no step touched changed")
+    step_ms = float(np.median(seconds[1:])) * 1e3
+    log(f"[dense-ctr] {len(tables)} tables, {table_mb:.1f} MB; losses "
+        f"{losses}; kernels off bit-equal (losses and every table); {changed} "
+        f"rows changed, every table moved, untouched rows unchanged; largest change of a "
+        f"touched row per table: {', '.join(moved)}")
+    log(f"[dense-ctr] K6 launches per step {per_step}; step p50 "
+        f"{step_ms:.2f} ms (first {seconds[0] * 1e3:.2f} ms), "
+        f"{CTR_BATCH / step_ms * 1e3:.1f} examples/s, device memory peak "
+        f"{peak / 2**30:.3f} GiB, host syncs in one step {syncs}")
+    return launches
+
+
 def main():
     check_environment()
     import torch
@@ -768,11 +1180,17 @@ def main():
     phase_build()
     parity = phase_parity()
     parity.update(phase_flash())
+    parity.update(phase_ctr_kernels())
     engine_launches = phase_engine()
     dense_launches = phase_dense()
     train_launches = phase_train()
+    wide_deep_launches = phase_wide_deep()
+    ctr_launches = phase_dense_ctr()
     path_launches = {"paged_attention": engine_launches["paged_attention"],
-                     "decode_attention": dense_launches["decode_attention"]}
+                     "decode_attention": dense_launches["decode_attention"],
+                     "embedding_admission":
+                         wide_deep_launches["embedding_admission"],
+                     "sparse_row_update": ctr_launches["sparse_row_update"]}
     path_launches.update({n: train_launches[n] for n in KERNELS
                           if n.startswith("flash_attention")})
     rows = []

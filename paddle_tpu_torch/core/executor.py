@@ -12,6 +12,11 @@ resolve through ``core/backward.py``'s ``resolve_op_def``, which
 synthesizes their lowerings. Ops run under ``torch.no_grad()``: a grad
 lowering turns autograd on for its own recomputed forward only.
 
+Before planning a program, ``run`` applies the deferred sparse-update
+rewrites (``passes.py``), as the JAX executor does before it compiles
+one. A feed that no op reads (the raw ids beside a sharded embedding's
+slot feeds) stays on the host.
+
 Persistables written by the program — the optimizer's ``ParamOut`` /
 ``Moment*Out`` and the step counter's ``increment``, whose output names
 equal their input names — go back to the scope at the end of ``run``.
@@ -34,6 +39,8 @@ from paddle_tpu_torch.core.backward import resolve_op_def
 from paddle_tpu_torch.core.ir import default_main_program
 from paddle_tpu_torch.core.places import default_place
 from paddle_tpu_torch.core.scope import global_scope
+from paddle_tpu_torch.passes import (
+    apply_deferred_sharded_embedding_rewrite, apply_deferred_sparse_rewrite)
 from paddle_tpu_torch.utils.enforce import EnforceError
 
 # pseudo-ops that the executor elides (feed/fetch are direct env access here)
@@ -125,7 +132,8 @@ class Executor:
             persistable = [
                 v.name for v in block.vars.values() if v.persistable
             ]
-            plan = (block_plan(block), persistable)
+            read = {n for op in block.ops for n in op.input_names()}
+            plan = (block_plan(block), persistable, read)
             self._plans[key] = plan
         return plan
 
@@ -197,17 +205,20 @@ class Executor:
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
         program = program if program is not None else default_main_program()
+        apply_deferred_sparse_rewrite(program)
+        apply_deferred_sharded_embedding_rewrite(program)
         feed = feed or {}
         fetch_names = [
             f if isinstance(f, str) else f.name for f in (fetch_list or [])
         ]
         scope = scope if scope is not None else global_scope()
         block = program.global_block()
+        steps, persistable, read = self._plan(program)
         env = {
             name: self._to_device(value, block.vars.get(name))
             for name, value in feed.items()
+            if name in read or name in fetch_names
         }
-        steps, persistable = self._plan(program)
         with torch.no_grad():
             self._run_steps(steps, env, scope, block)
         for name in persistable:

@@ -4,8 +4,9 @@
 ``build`` compiles ``csrc/*.cu`` with ``nvcc`` at first use,
 ``attention`` holds the paged/cached decode-attention wrappers and
 ``flash_attention`` the training attention's forward and backward
-wrappers, each with its plain PyTorch version. Importing this package
-builds nothing.
+wrappers, ``embedding`` the embedding engine's admission scatter and
+``sparse_update`` the sparse SGD row update, each with its plain PyTorch
+version. Importing this package builds nothing.
 """
 
 from paddle_tpu_torch.kernels import registry  # noqa: F401

@@ -46,6 +46,12 @@ KERNELS = {
     "flash_attention_bwd_dq": KernelInfo(
         "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
         "paddle_tpu/ops/pallas/flash_attention.py:419"),
+    "embedding_admission": KernelInfo(
+        "paddle_tpu_torch/kernels/csrc/embedding_admission.cu",
+        "paddle_tpu/kernels/embedding.py:105"),
+    "sparse_row_update": KernelInfo(
+        "paddle_tpu_torch/kernels/csrc/sparse_update.cu",
+        "paddle_tpu/ops/pallas/sparse_update.py:57"),
 }
 
 _lock = threading.Lock()

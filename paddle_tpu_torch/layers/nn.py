@@ -1,6 +1,7 @@
 """Neural-net layer functions (reference: python/paddle/fluid/layers/nn.py).
 
-The builders the decode engine's and BERT's programs use, copied from
+The builders the decode engine's, BERT's and the CTR models' programs
+use, copied from
 the JAX package's ``layers/nn.py`` so both packages emit the same op
 types, attributes and variable names. Every function appends OpDescs to
 the current block via LayerHelper; no computation happens at build time.
@@ -15,9 +16,12 @@ from paddle_tpu_torch.utils.enforce import enforce
 __all__ = [
     "fc",
     "embedding",
+    "sharded_embedding",
     "layer_norm",
     "scaled_dot_product_attention",
     "softmax_with_cross_entropy",
+    "sigmoid_cross_entropy_with_logits",
+    "sigmoid",
     "scale",
     "mean",
     "reduce_sum",
@@ -33,6 +37,7 @@ __all__ = [
     "matmul",
     "elementwise_op",
     "elementwise_add",
+    "elementwise_mul",
     "unsqueeze",
     "squeeze",
 ]
@@ -119,6 +124,92 @@ def embedding(
         {"Out": [out.name]},
         {"padding_idx": -1 if padding_idx is None else padding_idx},
     )
+    return out
+
+
+def sharded_embedding(
+    input,
+    embedding_dim,
+    capacity=65536,
+    ep=1,
+    name=None,
+    init_range=0.01,
+    lr=0.1,
+    seed=0,
+    min_bucket=8,
+    vocab_size=None,
+):
+    """Embedding over the two-tier sharded engine (``embedding/``): hot
+    rows live in a device slab of ``capacity`` rows (hash-partitioned into
+    ``ep`` slot ranges), the cold tail overflows to host RAM, and the step
+    gathers the slab ONCE at the batch's deduplicated unique ids.
+
+    The graph sees only cache-sized tensors: ``<name>__slots`` (unique slot
+    indices, bucket-padded) and ``<name>__inv`` (occurrence -> unique map),
+    both produced per step by ``EmbeddingEngine.prepare_feed``. The slab
+    trains with its OWN row-sparse SGD at ``lr`` — the deferred
+    ``sharded_embedding_update`` pass strips whatever dense optimizer
+    ``minimize`` attached (an Adam step on untouched cached rows would
+    drift them, breaking the engine's cache-size invariance)."""
+    from paddle_tpu_torch.core.ir import default_main_program
+    from paddle_tpu_torch.embedding.table import TableConfig
+    from paddle_tpu_torch.layers import tensor as tensor_layers
+    from paddle_tpu_torch.param_attr import ParamAttr
+    from paddle_tpu_torch.utils import unique_name
+
+    helper = LayerHelper("sharded_embedding", name=name)
+    tname = name or unique_name.generate("sharded_emb")
+    cfg = TableConfig(
+        tname, embedding_dim, capacity, ep=ep, vocab_size=vocab_size,
+        init_range=init_range, lr=lr, seed=seed, min_bucket=min_bucket,
+    )
+    program = default_main_program()
+    tables = getattr(program, "_sharded_tables", None)
+    if tables is None:
+        tables = program._sharded_tables = {}
+
+    slab = helper.create_parameter(
+        ParamAttr(name=cfg.slab_name,
+                  initializer=ConstantInitializer(0.0)),
+        shape=[cfg.capacity, cfg.dim], dtype="float32",
+    )
+    slots = tensor_layers.data(
+        f"{tname}__slots", shape=[-1], dtype="int32",
+        append_batch_size=False,
+    )
+    ids_shape = [d for d in (input.shape or [-1])]
+    if len(ids_shape) >= 2 and ids_shape[-1] == 1:
+        ids_shape = ids_shape[:-1]
+    idx_shape = [(-1 if d in (-1, None) else d) for d in ids_shape]
+    inv = tensor_layers.data(
+        f"{tname}__inv", shape=idx_shape, dtype="int32",
+        append_batch_size=False,
+    )
+    out = helper.create_variable_for_type_inference("float32")
+    out.shape = idx_shape + [cfg.dim]
+    out.stop_gradient = False
+    helper.append_op(
+        "sharded_embedding_lookup",
+        {"Table": [slab.name], "Slots": [slots.name], "Inv": [inv.name]},
+        {"Out": [out.name]},
+        cfg.to_attrs(),
+    )
+    program._wants_sharded_embedding_update = True
+    tables[tname] = {
+        "table_name": tname,
+        "ids": input.name,
+        "slots": slots.name,
+        "inv": inv.name,
+        "slab": cfg.slab_name,
+        "dim": cfg.dim,
+        "capacity": cfg.capacity,
+        "ep": cfg.ep,
+        "vocab_size": vocab_size,
+        "init_range": cfg.init_range,
+        "lr": cfg.lr,
+        "seed": cfg.seed,
+        "min_bucket": cfg.min_bucket,
+    }
     return out
 
 
@@ -323,6 +414,10 @@ def elementwise_add(x, y, axis=-1, act=None, name=None):
     return elementwise_op("elementwise_add", x, y, axis, act, name)
 
 
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_mul", x, y, axis, act, name)
+
+
 def elementwise_div(x, y, axis=-1, act=None, name=None):
     return elementwise_op("elementwise_div", x, y, axis, act, name)
 
@@ -381,6 +476,24 @@ def softmax_with_cross_entropy(
     if return_softmax:
         return loss, softmax_out
     return loss
+
+
+def sigmoid(x, name=None, **attrs):
+    return _single_op("sigmoid", x, attrs, name=name)
+
+
+def sigmoid_cross_entropy_with_logits(
+    x, label, ignore_index=-100, normalize=False, name=None
+):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        "sigmoid_cross_entropy_with_logits",
+        {"X": [x.name], "Label": [label.name]},
+        {"Out": [out.name]},
+        {"ignore_index": ignore_index, "normalize": normalize},
+    )
+    return out
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):

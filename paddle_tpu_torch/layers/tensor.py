@@ -21,6 +21,8 @@ __all__ = [
     "scatter",
     "where",
     "create_global_var",
+    "sums",
+    "concat",
     "not_equal",
     "less_than",
 ]
@@ -90,6 +92,27 @@ def reshape(x, shape, inplace=False, name=None):
         {"X": [x.name]},
         {"Out": [out.name], "XShape": [xshape.name]},
         {"shape": list(shape)},
+    )
+    return out
+
+
+def sums(input, out=None, name=None):
+    """Elementwise sum of a list of tensors (reference: python/paddle/fluid/
+    layers/tensor.py sums -> sum op)."""
+    helper = LayerHelper("sum", name=name)
+    if out is None:
+        out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op(
+        "sum", {"X": [v.name for v in input]}, {"Out": [out.name]}, {}
+    )
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op(
+        "concat", {"X": [v.name for v in input]}, {"Out": [out.name]}, {"axis": axis}
     )
     return out
 

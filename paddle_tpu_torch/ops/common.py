@@ -1,5 +1,7 @@
 """Shared helpers for op lowering rules."""
 
+import torch
+
 
 def first(ins, slot):
     return ins[slot][0]
@@ -35,3 +37,19 @@ def xshape(x):
     """The ``XShape`` output of the ``*2`` reshape ops: an empty tensor
     whose shape records ``x``'s, as the JAX package emits it."""
     return x.new_empty((0,) + tuple(x.shape))
+
+
+def segment_sum(rows, index, n):
+    """``out[k] = sum of rows[i] with index[i] == k`` for ``k < n``, rows
+    ``[N, D]`` -> ``[n, D]`` in ``rows``' dtype: the duplicate-id merge of
+    the sparse updates (the JAX package's ``zeros.at[inv].add(rows)``).
+
+    One accumulating ``index_put_``. On the CPU it sums each segment in
+    occurrence order; on CUDA it sorts the indices (a stable radix sort)
+    and sums each segment in one thread or warp in a fixed order, with no
+    floating-point atomics — so the result is the same bits on every run
+    (``index_add_`` on CUDA adds with atomics, in an order that varies).
+    ``chip_smoke.py`` checks the Wide&Deep run for that, bit for bit."""
+    out = torch.zeros((n,) + tuple(rows.shape[1:]), dtype=rows.dtype,
+                      device=rows.device)
+    return out.index_put_((index.to(torch.int64),), rows, accumulate=True)

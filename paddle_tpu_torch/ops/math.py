@@ -20,6 +20,7 @@ def _elementwise(name, fn):
 
 
 _elementwise("elementwise_add", torch.add)
+_elementwise("elementwise_mul", torch.mul)
 _elementwise("elementwise_div", torch.div)
 _elementwise("elementwise_max", torch.maximum)
 

@@ -24,6 +24,11 @@ def _relu(ins, attrs):
     return {"Out": [torch.relu(first(ins, "X"))]}
 
 
+@register_op("sigmoid")
+def _sigmoid(ins, attrs):
+    return {"Out": [torch.sigmoid(first(ins, "X"))]}
+
+
 @register_op("tanh")
 def _tanh(ins, attrs):
     return {"Out": [torch.tanh(first(ins, "X"))]}
@@ -85,6 +90,22 @@ def _softmax_with_ce(ins, attrs):
         picked = torch.gather(log_probs, axis, idx)
         loss = torch.where(ignored, torch.zeros_like(picked), -picked)
     return {"Softmax": [softmax], "Loss": [loss]}
+
+
+@register_op("sigmoid_cross_entropy_with_logits")
+def _sigmoid_ce(ins, attrs):
+    """``max(x, 0) - x * label + log1p(exp(-|x|))``, zero where the label
+    equals ``ignore_index``. ``torch.maximum`` splits its grad at a tie as
+    ``jnp.maximum`` does."""
+    x, label = first(ins, "X"), first(ins, "Label")
+    loss = (torch.maximum(x, torch.zeros_like(x)) - x * label
+            + torch.log1p(torch.exp(-torch.abs(x))))
+    ignore = attrs.get("ignore_index", -100)
+    loss = torch.where(label == ignore, torch.zeros_like(loss), loss)
+    if attrs.get("normalize", False):
+        norm = torch.clamp_min((label != ignore).sum().to(loss.dtype), 1.0)
+        loss = loss / norm
+    return {"Out": [loss]}
 
 
 @register_op("lookup_table_v2", nondiff_inputs=("Ids",))

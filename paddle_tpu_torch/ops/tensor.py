@@ -7,7 +7,7 @@ import torch
 
 from paddle_tpu_torch.core.dtypes import to_torch_dtype
 from paddle_tpu_torch.core.registry import register_op
-from paddle_tpu_torch.ops.common import first, xshape
+from paddle_tpu_torch.ops.common import first, maybe, xshape
 
 
 @register_op("fill_constant", creates=True)
@@ -32,6 +32,12 @@ def _assign_value(ins, attrs):
         return {"Out": [torch.empty(shape, dtype=dtype, device=device)]}
     values = torch.tensor(attrs["values"], dtype=dtype).reshape(shape)
     return {"Out": [values.to(device)]}
+
+
+@register_op("concat")
+def _concat(ins, attrs):
+    axis = int(maybe(ins, "AxisTensor", attrs.get("axis", 0)))
+    return {"Out": [torch.cat(ins["X"], dim=axis)]}
 
 
 @register_op("assign")

@@ -6,8 +6,9 @@ apply_gradients :672, minimize :780): ``minimize()`` rewrites the program
 with grad ops, then appends one update op per parameter, with
 accumulators as persistable vars initialized in the startup program. Var
 names and op attributes follow the JAX package's, so both packages build
-the same training program. The port carries ``AdamOptimizer``; gradient
-clipping and regularization are not ported yet (ROADMAP M1b).
+the same training program. The port carries ``SGDOptimizer`` and
+``AdamOptimizer``; gradient clipping and regularization are not ported yet
+(ROADMAP M1b).
 """
 
 from paddle_tpu_torch.core.backward import append_backward
@@ -16,8 +17,9 @@ from paddle_tpu_torch.core.ir import (
 from paddle_tpu_torch.layer_helper import LayerHelper
 from paddle_tpu_torch.layers import tensor as tensor_layers
 from paddle_tpu_torch.utils import unique_name
+from paddle_tpu_torch.utils.flags import flags
 
-__all__ = ["Optimizer", "AdamOptimizer", "Adam"]
+__all__ = ["Optimizer", "SGDOptimizer", "SGD", "AdamOptimizer", "Adam"]
 
 _OP_ROLE_OPTIMIZE = 2
 
@@ -118,6 +120,35 @@ class Optimizer:
         raise NotImplementedError
 
 
+class SGDOptimizer(Optimizer):
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        return block.append_op(
+            "sgd",
+            {
+                "Param": [p.name],
+                "Grad": [g.name],
+                "LearningRate": [self._param_lr(p).name],
+            },
+            {"ParamOut": [p.name]},
+            {"op_role": _OP_ROLE_OPTIMIZE},
+        )
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        result = super().minimize(
+            loss, startup_program, parameter_list, no_grad_set
+        )
+        if flags.sparse_embedding_update:
+            # SelectedRows analog (reference: operators/optimizers/sgd_op.h
+            # sparse branch): single-use embedding grads become row-sparse
+            # updates instead of [V, D] dense tensors. The rewrite is
+            # deferred to the first run (``Executor.run`` applies it), as
+            # in the JAX package.
+            loss.block.program._wants_sparse_embedding = True
+        return result
+
+
 class AdamOptimizer(Optimizer):
     _op_type = "adam"
 
@@ -168,4 +199,5 @@ class AdamOptimizer(Optimizer):
         )
 
 
+SGD = SGDOptimizer
 Adam = AdamOptimizer

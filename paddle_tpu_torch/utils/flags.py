@@ -1,0 +1,55 @@
+"""Global flag registry with an environment-variable bridge, copied from
+the JAX package's ``utils/flags.py`` for the two flags the port reads
+(same names, same defaults). A flag may be set with a ``FLAGS_<name>``
+environment variable or at run time with ``flags.<name> = value``."""
+
+import os
+
+__all__ = ["flags"]
+
+
+class _FlagRegistry:
+    def __init__(self):
+        object.__setattr__(self, "_defs", {})
+        object.__setattr__(self, "_values", {})
+
+    def define(self, name, default, help=""):
+        self._defs[name] = (type(default), default, help)
+        env = os.environ.get("FLAGS_" + name)
+        self._values[name] = (_parse(type(default), env) if env is not None
+                              else default)
+
+    def __getattr__(self, name):
+        try:
+            return self._values[name]
+        except KeyError:
+            raise AttributeError(f"undefined flag FLAGS_{name}") from None
+
+    def __setattr__(self, name, value):
+        if name not in self._defs:
+            raise AttributeError(f"undefined flag FLAGS_{name}")
+        ty = self._defs[name][0]
+        self._values[name] = (_parse(ty, value) if isinstance(value, str)
+                              else ty(value))
+
+
+def _parse(ty, s):
+    if ty is bool:
+        return s if isinstance(s, bool) else str(s).lower() in ("1", "true", "yes")
+    return ty(s)
+
+
+flags = _FlagRegistry()
+
+
+flags.define(
+    "sparse_embedding_update", True,
+    "fuse lookup_table_grad + sgd into a row-sparse update (SelectedRows "
+    "analog): the [V, D] dense embedding gradient never materializes",
+)
+flags.define(
+    "pallas_sparse_update", False,
+    "serve sgd_sparse's row update through the hand-written sparse-row "
+    "kernel (kernels/sparse_update.py) instead of one accumulating "
+    "index_put_ (the name is the JAX package's flag)",
+)
