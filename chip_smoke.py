@@ -81,15 +81,41 @@ Phases:
    launched 16 times a step; the same steps with the kernels off give the
    same losses and tables bit for bit; every table changed and the
    untouched rows keep their values.
+2d. topk kernel — the blocked top-k of |x| (K7) against its plain
+   version, bit for bit (the per-block stage's values and indices, the
+   final top-k's, and |x[idx]| == vals): at word_emb's size [37000, 512]
+   with k = 75,776 (DGC's k at sparsity 0.996, the path's) and 18,944
+   (0.999), an FFN weight's [512, 2048] at 1,049 and at the path's 4,194,
+   planted ties, n not a multiple of the block, and k > block. Timed at
+   the path's word_emb shape beside the plain stage, the card's bound and
+   ``torch.topk(|x|, k)`` (a yardstick the port never calls).
+8. dgc — Transformer-base (``build_wmt_train(TransformerConfig.base()``,
+   no dropout, seq 64, DGC momentum with warm-up at step 0, sparsity
+   0.996 then 0.999) trained data-parallel on 2 ranks of
+   ``paddle_tpu_torch.distributed.launch`` sharing the card over gloo,
+   ``CompiledProgram.with_parallel``, global batch 128, 6 steps with
+   ``FLAGS_pallas_dgc_topk`` on; then the same 6 steps with the kernels
+   off. Each rank runs this script with ``--dgc-rank``. Checks: K7
+   launched 97 times a rank on each sparse step (the parameters over one
+   block) and never on the dense one; both ranks hold bit-identical
+   parameters after every step; kernels on and off give the same losses,
+   parameters and per-rank U/V bit for bit (both runs deterministic:
+   ``torch.use_deterministic_algorithms``); the loss is finite and falls.
+   Prints step time, target tokens/s, memory peak per rank, the K7
+   launches and the bytes each rank sent per step beside the dense
+   gradient's.
 
 The last lines are the card's name and power limit, one JSON line of
 per-kernel results, and ``{"ok": true, "device": {...}}``.
 """
 
+import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -156,6 +182,23 @@ CTR_VOCAB, CTR_BATCH, CTR_STEPS = 2 ** 20, 4096, 8
 # as the JAX package's rtol 1e-5 / atol 1e-6 against its own kernel, is as
 # large as a deep-table row's whole update over the run and would let a
 # wrong K6 through)
+# DGC top-k (K7) parity shapes: (label, n, k, kind); the first is timed,
+# word_emb [37000, 512] at the path's k (sparsity 0.996)
+TOPK_BLOCK = 131072
+TOPK_CASES = (("word_emb k=75776", 37000 * 512, 75776, "normal"),
+              ("word_emb k=18944", 37000 * 512, 18944, "normal"),
+              ("ffn k=1049", 512 * 2048, 1049, "normal"),
+              ("ffn k=4194", 512 * 2048, 4194, "normal"),
+              ("ties", 3 * TOPK_BLOCK + 5, 4000, "ties"),
+              ("ragged", 2 * TOPK_BLOCK + 777, 600, "normal"),
+              ("k > block", 300000, 140000, "ties"))
+# Transformer-base data-parallel DGC training: 2 ranks on the one card,
+# global batch 128 (64 sentences, 4096 target tokens a rank), seq 64, 6
+# steps: step 0 dense (rampup_begin_step 1), step 1 sparse at 0.996,
+# steps 2-5 at 0.999 (rampup_step 2), where the keep mask cuts k
+DGC_RANKS, DGC_BATCH, DGC_SEQ, DGC_STEPS = 2, 128, 64, 6
+DGC_OPT = dict(learning_rate=0.01, momentum=0.9, rampup_begin_step=1,
+               rampup_step=2, sparsity=[0.996, 0.999])
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
 # outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -905,6 +948,61 @@ def phase_ctr_kernels():
     return results
 
 
+# -- phase 2d ---------------------------------------------------------------
+def phase_topk():
+    """K7 against its plain version on the card, bit for bit."""
+    import torch
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import topk as KT
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    result = None
+    for label, n, k, kind in TOPK_CASES:
+        x = torch.randn(n, generator=gen, device=dev)
+        if kind == "ties":
+            x = torch.round(x * 2) / 2
+            x[::7] = -0.0
+        kernels.reset_launches()
+        sv, si = KT.blocked_topk_stage(x, k, TOPK_BLOCK)
+        pv, pi = KT.blocked_topk_stage_plain(x, k, TOPK_BLOCK)
+        vals, idx = KT.blocked_topk_abs(x, k, TOPK_BLOCK)
+        wv, wi = KT.blocked_topk_abs_plain(x, k, TOPK_BLOCK)
+        torch.cuda.synchronize()
+        if kernels.launches("blocked_topk_abs") != 2:
+            raise AssertionError(f"K7 {label}: launched "
+                                 f"{kernels.launches('blocked_topk_abs')} "
+                                 "times, want 2")
+        checks = {"stage": torch.equal(sv, pv) and torch.equal(si, pi),
+                  "top-k": torch.equal(vals, wv) and torch.equal(idx, wi),
+                  "|x[idx]| == vals": torch.equal(x.abs()[idx.long()], vals),
+                  "idx < n": int(idx.max()) < n}
+        if not all(checks.values()):
+            raise AssertionError(f"K7 {label}: kernel and plain version "
+                                 f"differ: {checks}")
+        log(f"[topk] {label} (n={n}, {-(-n // TOPK_BLOCK)} blocks): stage "
+            "and top-k bit-equal to the plain version, |x[idx]| == vals")
+        if result is not None:
+            continue
+        nb, kk = -(-n // TOPK_BLOCK), min(k, TOPK_BLOCK)
+        ms = time_ms(lambda: KT.launch(x, k, TOPK_BLOCK), 10)
+        whole_ms = time_ms(lambda: KT.blocked_topk_abs(x, k, TOPK_BLOCK), 10)
+        plain_ms = time_ms(lambda: KT.blocked_topk_stage_plain(
+            x, k, TOPK_BLOCK), 10)
+        lib_ms = time_ms(lambda: torch.topk(x.abs(), k), 10)
+        # x read once, nb * kk (value, index) pairs written once
+        b_ms, b_by = _bytes_bound(n * 4 + nb * kk * 8)
+        result = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                      bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        log(f"[topk] K7 {label}: kernel_ms={ms:.4f} (the whole function, "
+            f"with the final selection over {nb * kk} candidates, "
+            f"{whole_ms:.4f}) plain_ms={plain_ms:.4f} (the plain stage) "
+            f"library_ms={lib_ms:.4f} (torch.topk of |x|) "
+            f"bound_ms={b_ms:.4f} ({b_by})")
+    return {"blocked_topk_abs": result}
+
+
 def _count_syncs(fn):
     """Run ``fn`` once with PyTorch's sync debug mode on; returns the
     number of operations that synchronized the host with the card."""
@@ -1167,6 +1265,197 @@ def phase_dense_ctr():
     return launches
 
 
+# -- phase 8 ----------------------------------------------------------------
+def _digest(tensors):
+    """One hash of the bytes of ``tensors``, in order (on the host)."""
+    h = hashlib.blake2b(digest_size=16)
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dgc_steps(exe, prog, scope, feed, loss, params, uv, steps):
+    """``steps`` steps of the compiled program: losses, host seconds (the
+    run, ending in the loss's copy, and a synchronize), K7 launches and
+    collectives per step, the parameters' digest after every step and the
+    U/V digest after the last."""
+    import torch
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.parallel import env as penv
+
+    out = dict(losses=[], seconds=[], k7=[], sent=[], reduced=[], digests=[])
+    for _ in range(steps):
+        before = kernels.launches("blocked_topk_abs")
+        penv.reset_collective_stats()
+        t0 = time.perf_counter()
+        value = exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)[0]
+        torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+        out["losses"].append(float(value.reshape(-1)[0]))
+        out["k7"].append(kernels.launches("blocked_topk_abs") - before)
+        stats = penv.collective_stats()
+        out["sent"].append(stats.get("all_gather", (0, 0))[1])
+        out["reduced"].append(stats.get("all_reduce", (0, 0))[1])
+        out["digests"].append(_digest(scope.find_var(n) for n in params))
+    out["uv_digest"] = _digest(scope.find_var(n) for n in uv)
+    return out
+
+
+def dgc_rank_main(out_dir):
+    """One rank of phase 8 (``chip_smoke.py --dgc-rank DIR``): train, check
+    nothing across ranks, write what it saw to ``DIR/rank<r>.json``."""
+    check_environment()
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.convert import (
+        dgc_state_names, load_params, persistables_to_numpy)
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.ops.optimizers import dgc_k
+    from paddle_tpu_torch.parallel import env as penv
+    from paddle_tpu_torch.utils.flags import flags
+
+    # kernels on against off bit for bit needs every other op run-to-run
+    # deterministic: cuBLAS with a fixed workspace, the deterministic
+    # index_put_/gather/index_select backward paths
+    torch.use_deterministic_algorithms(True)
+    flags.pallas_dgc_topk = True
+    mesh = penv.make_mesh()
+    rank = mesh.rank
+    t0 = time.perf_counter()
+    cfg = T.TransformerConfig.base()
+    cfg.dropout = 0.0
+    main, startup, _, (loss,) = T.build_wmt_train(
+        cfg, src_len=DGC_SEQ, tgt_len=DGC_SEQ,
+        optimizer=fluid.optimizer.DGCMomentumOptimizer(**DGC_OPT))
+    params = [p.name for p in main.all_parameters()]
+    uv = dgc_state_names(main)
+    sizes = [int(np.prod(p.shape)) for p in main.all_parameters()]
+    k7_per_step = sum(1 for n in sizes if n > TOPK_BLOCK
+                      and n > 2 * dgc_k(n, DGC_OPT["sparsity"]))
+    exe = fluid.Executor(seed=SEED)               # CUDAPlace(0), shared
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    snapshot = persistables_to_numpy(scope, main)
+    init = _digest(scope.find_var(n) for n in params)
+    feed = T.synthetic_batch(np.random.RandomState(SEED), DGC_BATCH, DGC_SEQ,
+                             DGC_SEQ, cfg)
+    prog = fluid.CompiledProgram(main).with_parallel(mesh=mesh,
+                                                     loss_name=loss.name)
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    on = _dgc_steps(exe, prog, scope, feed, loss, params, uv, DGC_STEPS)
+    launches = kernels.launches()
+    peak = torch.cuda.max_memory_allocated()
+    off_scope = fluid.Scope()
+    exe.run(startup, scope=off_scope)
+    load_params(off_scope, snapshot)
+    with kernels.scoped_mode("off"):
+        kernels.reset_launches()
+        off = _dgc_steps(exe, prog, off_scope, feed, loss, params, uv,
+                         DGC_STEPS)
+        off_launches = sum(kernels.launches().values())
+    diffs = {}
+    if on["digests"][-1] != off["digests"][-1]:
+        for n in params:
+            d = float((scope.find_var(n) - off_scope.find_var(n)).abs().max())
+            if d:
+                diffs[n] = d
+    result = dict(
+        rank=rank, backend=mesh.backend, ops=len(main.global_block().ops),
+        n_params=len(params), n_values=sum(sizes), dense_bytes=sum(sizes) * 4,
+        k7_per_step=k7_per_step, init=init, build_s=build_s, peak=peak,
+        launches=launches, off_launches=off_launches, on=on, off=off,
+        diffs=diffs)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def phase_dgc():
+    """Launch the 2 ranks, then hold their results against each other and
+    against the predicted K7 launches."""
+    from paddle_tpu_torch.distributed import launch
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dgc_")
+    try:
+        procs = launch.spawn_gang(
+            [os.path.abspath(__file__), "--dgc-rank", out_dir],
+            nproc=DGC_RANKS, init_method="file://" + os.path.join(
+                out_dir, "store"),
+            extra_env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+        try:
+            codes = launch.wait_gang(procs, timeout_s=900)
+        finally:
+            launch.terminate_gang(procs)
+        if codes != [0] * DGC_RANKS:
+            raise AssertionError(f"dgc ranks exited {codes}")
+        ranks = []
+        for r in range(DGC_RANKS):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    r0 = ranks[0]
+    sparse_steps = [i for i in range(DGC_STEPS)
+                    if i >= DGC_OPT["rampup_begin_step"]]
+    want = [r0["k7_per_step"] if i in sparse_steps else 0
+            for i in range(DGC_STEPS)]
+    losses = r0["on"]["losses"]
+    checks = {
+        "backend gloo": all(r["backend"] == "gloo" for r in ranks),
+        "same init": len({r["init"] for r in ranks}) == 1,
+        "K7 launches as predicted": all(r["on"]["k7"] == want
+                                        for r in ranks),
+        "no launch with the kernels off": all(r["off_launches"] == 0
+                                              for r in ranks),
+        "ranks bit-identical every step": all(
+            r["on"]["digests"] == r0["on"]["digests"] for r in ranks),
+        "ranks' losses equal": all(r["on"]["losses"] == losses
+                                   for r in ranks),
+        "kernels off: losses": all(r["off"]["losses"] == r["on"]["losses"]
+                                   for r in ranks),
+        "kernels off: parameters every step": all(
+            r["off"]["digests"] == r["on"]["digests"] for r in ranks),
+        "kernels off: per-rank U/V": all(
+            r["off"]["uv_digest"] == r["on"]["uv_digest"] for r in ranks),
+        "ranks' U/V differ": ranks[0]["on"]["uv_digest"]
+        != ranks[1]["on"]["uv_digest"],
+        "loss finite and falling": bool(np.isfinite(losses).all())
+        and losses[-1] < losses[0],
+    }
+    log(f"[dgc] Transformer-base: {r0['ops']} ops, {r0['n_params']} "
+        f"parameters ({r0['n_values']} values), {DGC_RANKS} ranks over "
+        f"{r0['backend']} on one card, global batch {DGC_BATCH} x seq "
+        f"{DGC_SEQ}; build + startup {r0['build_s']:.2f}s")
+    log(f"[dgc] losses {losses}; kernels off {r0['off']['losses']}")
+    log(f"[dgc] K7 launches per step, rank 0 {r0['on']['k7']} (predicted "
+        f"{want}: {r0['k7_per_step']} parameters over one block on the "
+        f"sparse steps {sparse_steps}), rank 1 {ranks[1]['on']['k7']}")
+    step_ms = float(np.median(r0["on"]["seconds"][1:])) * 1e3
+    sparse_ms = float(np.median([r0["on"]["seconds"][i]
+                                 for i in sparse_steps[1:]])) * 1e3
+    tokens = DGC_BATCH * DGC_SEQ
+    log(f"[dgc] step p50 {step_ms:.2f} ms (steps {[round(x * 1e3, 2) for x in r0['on']['seconds']]}; "
+        f"kernels off {[round(x * 1e3, 2) for x in r0['off']['seconds']]}), "
+        f"sparse steps after the first p50 {sparse_ms:.2f} ms, "
+        f"{tokens / step_ms * 1e3:.1f} target tokens/s over both ranks; "
+        f"device memory peak per rank "
+        f"{[round(r['peak'] / 2**30, 3) for r in ranks]} GiB")
+    log(f"[dgc] bytes each rank sent per step (all-gather of index, value "
+        f"pairs) {r0['on']['sent']}, all-reduced {r0['on']['reduced']}; the "
+        f"dense gradient is {r0['dense_bytes']} bytes")
+    log(f"[dgc] checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"dgc phase failed: {checks}; largest "
+                             f"parameter differences kernels on/off "
+                             f"{sorted(r0['diffs'].items(), key=lambda x: -x[1])[:5]}")
+    return r0["launches"]
+
+
 def main():
     check_environment()
     import torch
@@ -1181,16 +1470,19 @@ def main():
     parity = phase_parity()
     parity.update(phase_flash())
     parity.update(phase_ctr_kernels())
+    parity.update(phase_topk())
     engine_launches = phase_engine()
     dense_launches = phase_dense()
     train_launches = phase_train()
     wide_deep_launches = phase_wide_deep()
     ctr_launches = phase_dense_ctr()
+    dgc_launches = phase_dgc()
     path_launches = {"paged_attention": engine_launches["paged_attention"],
                      "decode_attention": dense_launches["decode_attention"],
                      "embedding_admission":
                          wide_deep_launches["embedding_admission"],
-                     "sparse_row_update": ctr_launches["sparse_row_update"]}
+                     "sparse_row_update": ctr_launches["sparse_row_update"],
+                     "blocked_topk_abs": dgc_launches["blocked_topk_abs"]}
     path_launches.update({n: train_launches[n] for n in KERNELS
                           if n.startswith("flash_attention")})
     rows = []
@@ -1212,4 +1504,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dgc-rank"]:
+        dgc_rank_main(sys.argv[2])
+    else:
+        main()

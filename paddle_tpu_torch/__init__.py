@@ -7,9 +7,9 @@ package has Pallas kernels. It imports nothing of ``jax`` or
 ``paddle_tpu``; module names follow the JAX package's so each
 counterpart is easy to find.
 
-Entry points (``Executor``, ``serving.GenerationEngine``) run on the
-first CUDA card unless given ``place=CPUPlace()``, and raise when there
-is no card.
+Entry points (``Executor``, ``CompiledProgram``,
+``serving.GenerationEngine``) run on the first CUDA card unless given
+``place=CPUPlace()``, and raise when there is no card.
 """
 
 from paddle_tpu_torch.core import (
@@ -25,6 +25,11 @@ from paddle_tpu_torch.core import (
     scope_guard,
 )
 from paddle_tpu_torch.core.executor import Executor
+from paddle_tpu_torch.compiler import (
+    BuildStrategy,
+    CompiledProgram,
+    ExecutionStrategy,
+)
 import paddle_tpu_torch.ops  # noqa: F401  (registers the op library)
 from paddle_tpu_torch import layers
 from paddle_tpu_torch import initializer

@@ -7,12 +7,20 @@ optimizer accumulator the same way (``{name}_v{version}.l{i}.q.w``,
 off the JAX package's scope by those names load into the port's scope as
 they are, and the two packages then compute the same function;
 ``persistables_to_numpy`` reads a program's whole state back out.
+
+Data-parallel DGC state differs in layout: the JAX scope holds each
+``dgc_momentum`` accumulator as one ``[n, ...]`` array over the mesh's n
+shards, while each rank of the port holds its own ``[1, ...]`` slice.
+``split_rank_state`` cuts the JAX arrays into the ranks' states and
+``gather_rank_state`` puts the ranks' slices back together, so both
+packages start from, and can be compared at, the same state.
 """
 
 import numpy as np
 import torch
 
-__all__ = ["params_from_numpy", "load_params", "persistables_to_numpy"]
+__all__ = ["params_from_numpy", "load_params", "persistables_to_numpy",
+           "dgc_state_names", "split_rank_state", "gather_rank_state"]
 
 
 def params_from_numpy(arrays, device):
@@ -49,4 +57,48 @@ def persistables_to_numpy(scope, program):
     for v in program.global_block().vars.values():
         if v.persistable and scope.has_var(v.name):
             out[v.name] = scope.find_var(v.name).detach().cpu().numpy().copy()
+    return out
+
+
+def dgc_state_names(program):
+    """The per-rank accumulators of ``program``: every ``dgc_momentum``
+    op's U and V, sorted."""
+    return sorted({name for op in program.global_block().ops
+                   if op.type == "dgc_momentum"
+                   for slot in ("U", "V") for name in op.input(slot)})
+
+
+def split_rank_state(arrays, n, names):
+    """``{name: array}`` of a JAX scope -> a list of n such dicts, one per
+    rank: each array named in ``names`` (``[n, ...]``) gives rank r its
+    ``[1, ...]`` slice ``[r:r+1]``; every other array goes to every rank
+    as it is. Each array is a copy."""
+    names = set(names)
+    out = []
+    for r in range(n):
+        rank = {}
+        for name, a in arrays.items():
+            a = np.asarray(a)
+            if name in names:
+                if a.ndim == 0 or a.shape[0] != n:
+                    raise ValueError(f"'{name}': shape {a.shape} has no "
+                                     f"leading axis of {n} ranks")
+                rank[name] = a[r:r + 1].copy()
+            else:
+                rank[name] = a.copy()
+        out.append(rank)
+    return out
+
+
+def gather_rank_state(per_rank, names):
+    """The inverse of ``split_rank_state``: the ranks' ``[1, ...]`` slices
+    of each array named in ``names`` stacked in rank order into ``[n,
+    ...]``; every other array from rank 0."""
+    names = set(names)
+    out = {}
+    for name, a in per_rank[0].items():
+        if name in names:
+            out[name] = np.concatenate([np.asarray(r[name]) for r in per_rank])
+        else:
+            out[name] = np.asarray(a).copy()
     return out

@@ -17,6 +17,9 @@ rewrites (``passes.py``), as the JAX executor does before it compiles
 one. A feed that no op reads (the raw ids beside a sharded embedding's
 slot feeds) stays on the host.
 
+A ``CompiledProgram`` (``compiler.py``) runs through its own ``_run``,
+which calls back into ``run`` with this rank's rows of the batch.
+
 Persistables written by the program — the optimizer's ``ParamOut`` /
 ``Moment*Out`` and the step counter's ``increment``, whose output names
 equal their input names — go back to the scope at the end of ``run``.
@@ -204,6 +207,10 @@ class Executor:
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
+        from paddle_tpu_torch.compiler import CompiledProgram
+
+        if isinstance(program, CompiledProgram):
+            return program._run(self, feed, fetch_list, scope, return_numpy)
         program = program if program is not None else default_main_program()
         apply_deferred_sparse_rewrite(program)
         apply_deferred_sharded_embedding_rewrite(program)

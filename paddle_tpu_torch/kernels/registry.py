@@ -52,6 +52,9 @@ KERNELS = {
     "sparse_row_update": KernelInfo(
         "paddle_tpu_torch/kernels/csrc/sparse_update.cu",
         "paddle_tpu/ops/pallas/sparse_update.py:57"),
+    "blocked_topk_abs": KernelInfo(
+        "paddle_tpu_torch/kernels/csrc/topk.cu",
+        "paddle_tpu/ops/pallas/topk.py:66"),
 }
 
 _lock = threading.Lock()

@@ -2,12 +2,12 @@
 (reference: python/paddle/fluid/layers/learning_rate_scheduler.py —
 schedules are ops reading @LR_DECAY_COUNTER@), copied from the JAX
 package's module so both packages emit the same ops. The port carries
-the step counter and ``linear_lr_warmup``."""
+the step counter, ``noam_decay`` and ``linear_lr_warmup``."""
 
 from paddle_tpu_torch.layer_helper import LayerHelper
 from paddle_tpu_torch.layers import tensor
 
-__all__ = ["linear_lr_warmup"]
+__all__ = ["noam_decay", "linear_lr_warmup"]
 
 _COUNTER_NAME = "@LR_DECAY_COUNTER@"
 
@@ -35,6 +35,17 @@ def _decay_step_counter(begin=0):
             {"step": 1.0, "op_role": 2},
         )
     return counter
+
+
+def noam_decay(d_model, warmup_steps):
+    """lr = d_model^-0.5 * min(step^-0.5, step * warmup^-1.5)
+    (reference: python/paddle/fluid/layers/learning_rate_scheduler.py:63)."""
+    from paddle_tpu_torch import layers
+
+    step = _decay_step_counter(begin=1)
+    a = layers.pow(step, -0.5)
+    b = layers.scale(step, scale=warmup_steps ** -1.5)
+    return layers.scale(layers.elementwise_min(a, b), scale=d_model ** -0.5)
 
 
 def linear_lr_warmup(learning_rate, warmup_steps, start_lr, end_lr):

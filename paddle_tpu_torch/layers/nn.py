@@ -28,6 +28,11 @@ __all__ = [
     "clip",
     "elementwise_div",
     "elementwise_max",
+    "elementwise_min",
+    "elementwise_sub",
+    "log_softmax",
+    "pow",
+    "square",
     "cached_attention",
     "paged_attention",
     "block_gather",
@@ -401,6 +406,18 @@ def softmax(input, axis=-1, name=None):
     return _single_op("softmax", input, {"axis": axis}, name=name)
 
 
+def log_softmax(input, axis=-1, name=None):
+    return _single_op("log_softmax", input, {"axis": axis}, name=name)
+
+
+def pow(x, factor=1.0, name=None):
+    return _single_op("pow", x, {"factor": factor}, name=name)
+
+
+def square(x, name=None, **attrs):
+    return _single_op("square", x, attrs, name=name)
+
+
 def elementwise_op(op_type, x, y, axis=-1, act=None, name=None):
     helper = LayerHelper(op_type, act=act, name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
@@ -414,6 +431,10 @@ def elementwise_add(x, y, axis=-1, act=None, name=None):
     return elementwise_op("elementwise_add", x, y, axis, act, name)
 
 
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_sub", x, y, axis, act, name)
+
+
 def elementwise_mul(x, y, axis=-1, act=None, name=None):
     return elementwise_op("elementwise_mul", x, y, axis, act, name)
 
@@ -424,6 +445,10 @@ def elementwise_div(x, y, axis=-1, act=None, name=None):
 
 def elementwise_max(x, y, axis=-1, act=None, name=None):
     return elementwise_op("elementwise_max", x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_min", x, y, axis, act, name)
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):

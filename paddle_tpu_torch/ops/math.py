@@ -20,9 +20,22 @@ def _elementwise(name, fn):
 
 
 _elementwise("elementwise_add", torch.add)
+_elementwise("elementwise_sub", torch.sub)
 _elementwise("elementwise_mul", torch.mul)
 _elementwise("elementwise_div", torch.div)
 _elementwise("elementwise_max", torch.maximum)
+_elementwise("elementwise_min", torch.minimum)
+
+
+@register_op("square")
+def _square(ins, attrs):
+    return {"Out": [torch.square(first(ins, "X"))]}
+
+
+@register_op("pow")
+def _pow(ins, attrs):
+    factor = maybe(ins, "FactorTensor", attrs.get("factor", 1.0))
+    return {"Out": [torch.pow(first(ins, "X"), factor)]}
 
 
 @register_op("matmul")

@@ -46,6 +46,12 @@ def _softmax(ins, attrs):
     return {"Out": [torch.softmax(first(ins, "X"), dim=attrs.get("axis", -1))]}
 
 
+@register_op("log_softmax")
+def _log_softmax(ins, attrs):
+    return {"Out": [torch.log_softmax(first(ins, "X"),
+                                      dim=attrs.get("axis", -1))]}
+
+
 @register_op("layer_norm")
 def _layer_norm(ins, attrs):
     """Statistics in float32 over the axes from ``begin_norm_axis`` on,

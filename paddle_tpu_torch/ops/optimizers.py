@@ -1,19 +1,21 @@
 """Optimizer update op lowerings, with the semantics of the JAX package's
 ``ops/optimizers.py``: the arithmetic runs in float32 and the updated
-parameter is cast back to its own dtype. ``sgd`` and ``adam`` return new
-tensors for ``ParamOut`` and the accumulators (whose names equal the
-inputs'); the executor writes them back to the scope. ``sgd_sparse``
-updates its parameter in place (the counterpart of the JAX package's
-donated buffer): an optimizer op runs after every op that reads the
-parameter, and rewriting a whole ``[V, D]`` table to touch a few thousand
-rows would cost far more than the update."""
+parameter is cast back to its own dtype. ``sgd``, ``momentum``, ``adam``
+and ``dgc_momentum`` return new tensors for ``ParamOut`` and the
+accumulators (whose names equal the inputs'); the executor writes them
+back to the scope. ``sgd_sparse`` updates its parameter in place (the
+counterpart of the JAX package's donated buffer): an optimizer op runs
+after every op that reads the parameter, and rewriting a whole ``[V, D]``
+table to touch a few thousand rows would cost far more than the update."""
 
 import torch
 
 from paddle_tpu_torch.core.registry import register_op
 from paddle_tpu_torch.kernels import registry as kernel_registry
-from paddle_tpu_torch.kernels import sparse_update
+from paddle_tpu_torch.kernels import sparse_update, topk
 from paddle_tpu_torch.ops.common import first, maybe, segment_sum
+from paddle_tpu_torch.parallel import env as penv
+from paddle_tpu_torch.utils.enforce import EnforceError
 from paddle_tpu_torch.utils.flags import flags
 
 
@@ -66,6 +68,25 @@ def _sgd_sparse(ins, attrs):
                                       accumulate=True)]}
 
 
+@register_op("momentum")
+def _momentum(ins, attrs):
+    p, g = _f32(first(ins, "Param")), _f32(first(ins, "Grad"))
+    v, lr = _f32(first(ins, "Velocity")), _f32(first(ins, "LearningRate"))
+    mu = attrs.get("mu", 0.9)
+    rd = attrs.get("regularization_coeff", 0.0)
+    if rd and attrs.get("regularization_method", "") == "l2_decay":
+        g = g + rd * p
+    v_out = mu * v + g
+    if attrs.get("use_nesterov", False):
+        p_out = p - lr * (g + mu * v_out)
+    else:
+        p_out = p - lr * v_out
+    return {
+        "ParamOut": [p_out.to(first(ins, "Param").dtype)],
+        "VelocityOut": [v_out],
+    }
+
+
 @register_op("adam")
 def _adam(ins, attrs):
     p = _f32(first(ins, "Param"))
@@ -86,4 +107,168 @@ def _adam(ins, attrs):
         "Moment2Out": [m2n],
         "Beta1PowOut": [b1p * b1],
         "Beta2PowOut": [b2p * b2],
+    }
+
+
+def dgc_ratio(step, begin, ramp, sparsity):
+    """The warm-up ramp through the sparsity list at ``step`` (a 0-d
+    float32 tensor), in float32 exactly as the JAX lowering computes it;
+    0 (dense, plain momentum) before ``rampup_begin_step``."""
+    sp = torch.tensor(sparsity, dtype=torch.float32, device=step.device)
+    n = sp.shape[0]
+    idx = torch.clamp(((step - begin) * n / ramp).to(torch.int32), 0, n - 1)
+    return torch.where(step < begin, torch.zeros((), device=step.device),
+                       sp[idx.to(torch.int64)])
+
+
+def dgc_k(size, sparsity):
+    """The static top-k bound of a ``size``-element parameter: the k of the
+    final (smallest-ratio, largest-k) sparsity, as in the JAX lowering."""
+    return max(1, int(round(size * (1.0 - float(min(sparsity))))))
+
+
+def dgc_statically_sparse(begin, sparsity):
+    """Whether the schedule never takes the dense branch: rampup begins at
+    step 0 or before and every sparsity is positive (the production DGC
+    configuration). Then no dense all-reduce ever goes on the wire."""
+    return float(begin) <= 0.0 and min(float(x) for x in sparsity) > 0.0
+
+
+def _quantile_linear(a, q):
+    """``jnp.quantile(a, q)`` (method "linear") of a 1-D float32 ``a`` at a
+    0-d float32 ``q``, by a sort, in float32 as JAX computes it.
+    ``torch.quantile`` refuses inputs over 2^24 elements; a word embedding
+    has more."""
+    n = torch.tensor(float(a.shape[0]), dtype=torch.float32, device=a.device)
+    srt = torch.sort(a).values
+    pos = q * (n - 1)
+    low, high = torch.floor(pos), torch.ceil(pos)
+    high_w = pos - low
+    low_w = 1 - high_w
+    zero = torch.zeros((), device=a.device)
+    low = torch.clamp(low, zero, n - 1).to(torch.int64)
+    high = torch.clamp(high, zero, n - 1).to(torch.int64)
+    out = srt[low] * low_w + srt[high] * high_w
+    # any NaN makes the quantile NaN, as in jnp.quantile
+    return torch.where(torch.isnan(a).any(), torch.full_like(out, torch.nan),
+                       out)
+
+
+def _dgc_topk_idx(v_acc, k):
+    """Indices of the top ``k`` of ``|v_acc|``: descending value, ties by
+    lower index (``lax.top_k``'s order), through K7 under
+    ``FLAGS_pallas_dgc_topk``."""
+    if flags.pallas_dgc_topk:
+        fn = (topk.blocked_topk_abs_plain if kernel_registry.mode() == "off"
+              else topk.blocked_topk_abs)
+        return fn(v_acc, k)[1]
+    return topk.topk_abs_exact(v_acc, k)[1]
+
+
+@register_op("dgc_momentum")
+def _dgc_momentum(ins, attrs):
+    """DGC update (reference: paddle/fluid/operators/dgc_op.cc semantics):
+    u = mu*u + g; v += u; select |v| above the sparsity quantile; apply the
+    selected update; clear u, v where selected (error feedback keeps the
+    rest). Before ``rampup_begin_step`` it is plain momentum.
+
+    Two forms, as in the JAX lowering:
+
+    * dense fused (no DGC axis): the selection is ``|v| >=`` the
+      ``ratio`` quantile of ``|v|``, on the rank's own gradient;
+    * sparse exchange (``CompiledProgram`` data parallel: the DGC context
+      names an axis over two or more ranks): U/V arrive ``[1, ...]`` (this
+      rank's slice), Grad is this rank's local-batch gradient. Each rank
+      keeps the top ``k_max`` of ``|v + contrib|``, masks the tail past the
+      ramp's ``k_dyn``, all-gathers the (index, value) pairs (2*k*n values
+      on the wire instead of the dense gradient) and scatter-adds them in
+      rank order, divided by n — the same update on every rank.
+
+    The phase (dense warm-up or sparse) is the JAX ``lax.cond``'s; eager
+    code decides it on the host, from the step the DGC context carries
+    (``CompiledProgram`` reads the counter once per run), else from one
+    read of ``CurrentStep``. A statically sparse schedule never reads it
+    and never runs the dense branch's all-reduce."""
+    p = first(ins, "Param")
+    g = first(ins, "Grad").to(p.dtype)
+    u, v = first(ins, "U"), first(ins, "V")
+    lr = _f32(first(ins, "LearningRate")).reshape(())
+    step = first(ins, "CurrentStep").reshape(())
+    mu = attrs.get("mu", 0.9)
+    begin = attrs.get("rampup_begin_step", 0.0)
+    ramp = max(attrs.get("rampup_step", 1.0), 1.0)
+    sparsity = attrs.get("sparsity", [0.999])
+    axis = penv.current_dgc_axis()
+
+    if axis is None and u.dim() == p.dim() + 1:
+        raise EnforceError(
+            "dgc accumulators carry per-rank state (leading rank axis) "
+            "from a sparse-exchange CompiledProgram run; keep running the "
+            "compiled program, or reset the accumulators, before using the "
+            "plain Executor"
+        )
+    if axis is not None:
+        u, v = u[0], v[0]
+
+    u_new = mu * u + g
+    contrib = g + mu * u_new if attrs.get("use_nesterov", False) else u_new
+    statically_sparse = (axis is not None
+                         and dgc_statically_sparse(begin, sparsity))
+    host_step = penv.current_dgc_step()
+    if host_step is None and not statically_sparse:
+        host_step = float(step)                      # one sync with the card
+    if host_step is not None:
+        ratio = dgc_ratio(torch.tensor(host_step, dtype=torch.float32),
+                          begin, ramp, sparsity)
+        is_dense = bool(ratio <= 0.0)
+        ratio = ratio.to(p.device)
+    else:
+        ratio = dgc_ratio(step.to(torch.float32), begin, ramp, sparsity)
+        is_dense = False
+
+    if axis is not None:
+        if is_dense and not statically_sparse:
+            update = penv.pmean(contrib, axis)
+            return {
+                "ParamOut": [p - lr.to(p.dtype) * update],
+                "UOut": [u_new[None]],
+                "VOut": [v[None]],
+            }
+        size = p.numel()
+        k_max = dgc_k(size, sparsity)
+        v_acc = (v + contrib).reshape(-1)
+        top_idx = _dgc_topk_idx(v_acc, k_max)
+        k_dyn = torch.round(size * (1.0 - ratio)).to(torch.int32)
+        keep = (torch.arange(k_max, device=p.device)
+                < torch.clamp_min(k_dyn, 1)).to(v_acc.dtype)
+        vals = v_acc[top_idx] * keep
+        all_idx, all_vals = penv.all_gather_pairs(top_idx, vals, axis)
+        update = torch.zeros(size, dtype=v_acc.dtype, device=p.device)
+        # one accumulating index_put_: rank order, the same bits on every
+        # run and every rank
+        update = (update.index_put_((all_idx.reshape(-1).to(torch.int64),),
+                                    all_vals.reshape(-1), accumulate=True)
+                  / axis.size).reshape(p.shape)
+        sent = torch.zeros(size, dtype=torch.bool, device=p.device)
+        sent[top_idx.to(torch.int64)] = keep > 0
+        sent = sent.reshape(p.shape)
+        zero = torch.zeros((), dtype=u_new.dtype, device=p.device)
+        return {
+            "ParamOut": [p - lr.to(p.dtype) * update],
+            "UOut": [torch.where(sent, zero, u_new)[None]],
+            "VOut": [torch.where(sent, zero, v_acc.reshape(p.shape))[None]],
+        }
+
+    if is_dense:
+        return {"ParamOut": [p - lr.to(p.dtype) * contrib], "UOut": [u_new],
+                "VOut": [v]}
+    v_acc = v + contrib
+    absv = torch.abs(v_acc)
+    thr = _quantile_linear(absv.reshape(-1).to(torch.float32), ratio)
+    mask = absv >= thr.to(absv.dtype)
+    zero = torch.zeros((), dtype=v_acc.dtype, device=p.device)
+    return {
+        "ParamOut": [p - lr.to(p.dtype) * torch.where(mask, v_acc, zero)],
+        "UOut": [torch.where(mask, zero, u_new)],
+        "VOut": [torch.where(mask, zero, v_acc)],
     }

@@ -6,9 +6,9 @@ apply_gradients :672, minimize :780): ``minimize()`` rewrites the program
 with grad ops, then appends one update op per parameter, with
 accumulators as persistable vars initialized in the startup program. Var
 names and op attributes follow the JAX package's, so both packages build
-the same training program. The port carries ``SGDOptimizer`` and
-``AdamOptimizer``; gradient clipping and regularization are not ported yet
-(ROADMAP M1b).
+the same training program. The port carries ``SGDOptimizer``,
+``MomentumOptimizer``, ``AdamOptimizer`` and ``DGCMomentumOptimizer``;
+gradient clipping and regularization are not ported yet (ROADMAP M1b).
 """
 
 from paddle_tpu_torch.core.backward import append_backward
@@ -19,7 +19,8 @@ from paddle_tpu_torch.layers import tensor as tensor_layers
 from paddle_tpu_torch.utils import unique_name
 from paddle_tpu_torch.utils.flags import flags
 
-__all__ = ["Optimizer", "SGDOptimizer", "SGD", "AdamOptimizer", "Adam"]
+__all__ = ["Optimizer", "SGDOptimizer", "SGD", "MomentumOptimizer",
+           "Momentum", "AdamOptimizer", "Adam", "DGCMomentumOptimizer"]
 
 _OP_ROLE_OPTIMIZE = 2
 
@@ -101,10 +102,14 @@ class Optimizer:
             if g is None:
                 continue
             ops.append(self._append_optimize_op(block, (p, g)))
+        self._finish_update(block, params_grads)
         # everything appended here is the optimize region
         for op in block.ops[start:]:
             op.attrs["op_role"] = _OP_ROLE_OPTIMIZE
         return ops
+
+    def _finish_update(self, block, params_grads):
+        pass
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
@@ -147,6 +152,36 @@ class SGDOptimizer(Optimizer):
             # in the JAX package.
             loss.block.program._wants_sparse_embedding = True
         return result
+
+
+class MomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        velocity = self._get_accumulator("velocity", p)
+        return block.append_op(
+            "momentum",
+            {
+                "Param": [p.name],
+                "Grad": [g.name],
+                "Velocity": [velocity.name],
+                "LearningRate": [self._param_lr(p).name],
+            },
+            {"ParamOut": [p.name], "VelocityOut": [velocity.name]},
+            {
+                "mu": self._momentum,
+                "use_nesterov": self._use_nesterov,
+                "op_role": _OP_ROLE_OPTIMIZE,
+            },
+        )
 
 
 class AdamOptimizer(Optimizer):
@@ -199,5 +234,77 @@ class AdamOptimizer(Optimizer):
         )
 
 
+class DGCMomentumOptimizer(MomentumOptimizer):
+    """Momentum with Deep Gradient Compression (reference: python/paddle/
+    fluid/optimizer.py:1042 DGCMomentumOptimizer; paddle/fluid/operators/
+    dgc_op.cc; details/sparse_all_reduce_op_handle.h).
+
+    One ``dgc_momentum`` op per parameter with accumulators ``dgc_u`` and
+    ``dgc_v`` and one ``dgc_step`` counter (the JAX package's names), which
+    an ``increment`` at the end of the update region advances. Under a
+    data-parallel ``CompiledProgram`` over two or more ranks, U/V become
+    per-rank error-feedback state and the exchange is a top-k (index,
+    value) all-gather (``ops/optimizers.py``); run by a plain ``Executor``
+    it is the fused dense form."""
+
+    def __init__(self, learning_rate, momentum, rampup_begin_step=0,
+                 rampup_step=1, sparsity=(0.999,), use_nesterov=False,
+                 regularization=None, grad_clip=None, name=None):
+        super().__init__(learning_rate, momentum,
+                         use_nesterov=use_nesterov,
+                         regularization=regularization,
+                         grad_clip=grad_clip, name=name)
+        self._rampup_begin_step = rampup_begin_step
+        self._rampup_step = rampup_step
+        self._sparsity = [float(s) for s in sparsity]
+        self._step_var = None
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("dgc_u", p)
+            self._add_accumulator("dgc_v", p)
+        if self._step_var is None:
+            self._step_var = tensor_layers.create_global_var(
+                shape=[1], value=0.0, dtype="float32", persistable=True,
+                name=unique_name.generate("dgc_step"),
+            )
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        return block.append_op(
+            "dgc_momentum",
+            {
+                "Param": [p.name],
+                "Grad": [g.name],
+                "U": [self._get_accumulator("dgc_u", p).name],
+                "V": [self._get_accumulator("dgc_v", p).name],
+                "LearningRate": [self._param_lr(p).name],
+                "CurrentStep": [self._step_var.name],
+            },
+            {
+                "ParamOut": [p.name],
+                "UOut": [self._get_accumulator("dgc_u", p).name],
+                "VOut": [self._get_accumulator("dgc_v", p).name],
+            },
+            {
+                "mu": self._momentum,
+                "use_nesterov": self._use_nesterov,
+                "rampup_begin_step": float(self._rampup_begin_step),
+                "rampup_step": float(self._rampup_step),
+                "sparsity": self._sparsity,
+                "op_role": _OP_ROLE_OPTIMIZE,
+            },
+        )
+
+    def _finish_update(self, block, params_grads):
+        block.append_op(
+            "increment",
+            {"X": [self._step_var.name]},
+            {"Out": [self._step_var.name]},
+            {"step": 1.0, "op_role": _OP_ROLE_OPTIMIZE},
+        )
+
+
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

@@ -1,5 +1,5 @@
 """Global flag registry with an environment-variable bridge, copied from
-the JAX package's ``utils/flags.py`` for the two flags the port reads
+the JAX package's ``utils/flags.py`` for the flags the port reads
 (same names, same defaults). A flag may be set with a ``FLAGS_<name>``
 environment variable or at run time with ``flags.<name> = value``."""
 
@@ -52,4 +52,17 @@ flags.define(
     "serve sgd_sparse's row update through the hand-written sparse-row "
     "kernel (kernels/sparse_update.py) instead of one accumulating "
     "index_put_ (the name is the JAX package's flag)",
+)
+flags.define(
+    "dgc_sparse_exchange", True,
+    "DGCMomentumOptimizer under a data-parallel CompiledProgram exchanges "
+    "top-k (index, value) pairs per rank (2*k*n values on the wire) "
+    "instead of the dense gradient; 0 asks for the dense data-parallel "
+    "form, which is not ported yet (ROADMAP M11)",
+)
+flags.define(
+    "pallas_dgc_topk", False,
+    "serve the DGC sparse exchange's top-k through the blocked top-k "
+    "kernel (kernels/topk.py) instead of one exact sort of |v| (the name "
+    "is the JAX package's flag)",
 )

@@ -16,10 +16,13 @@ PKG = ROOT / "paddle_tpu_torch"
 _PROBE = """
 import sys
 import paddle_tpu_torch
+import paddle_tpu_torch.compiler
 import paddle_tpu_torch.convert
 import paddle_tpu_torch.analysis.usedef
 import paddle_tpu_torch.core.backward
 import paddle_tpu_torch.dataio.sparse
+import paddle_tpu_torch.distributed
+import paddle_tpu_torch.distributed.launch
 import paddle_tpu_torch.embedding
 import paddle_tpu_torch.embedding.store
 import paddle_tpu_torch.kernels.attention
@@ -27,11 +30,16 @@ import paddle_tpu_torch.kernels.build
 import paddle_tpu_torch.kernels.embedding
 import paddle_tpu_torch.kernels.flash_attention
 import paddle_tpu_torch.kernels.sparse_update
+import paddle_tpu_torch.kernels.topk
 import paddle_tpu_torch.models.bert
 import paddle_tpu_torch.models.ctr
+import paddle_tpu_torch.models.transformer
 import paddle_tpu_torch.models.wide_deep
 import paddle_tpu_torch.ops.sharded_embedding
 import paddle_tpu_torch.optimizer
+import paddle_tpu_torch.parallel
+import paddle_tpu_torch.parallel.dgc
+import paddle_tpu_torch.parallel.env
 import paddle_tpu_torch.passes
 import paddle_tpu_torch.serving.decode.engine
 import paddle_tpu_torch.utils.flags

@@ -98,9 +98,10 @@ def _run_torch(op_type, ins, attrs):
 def test_cases_cover_every_ported_op_type():
     from test_torch_ctr import CASES as CTR_CASES
     from test_torch_train_ops import CASES as TRAIN_CASES
+    from test_torch_transformer import CASES as DGC_CASES
 
-    assert sorted(set(CASES) | set(TRAIN_CASES) | set(CTR_CASES)) == \
-        TorchOps.all_types()
+    assert sorted(set(CASES) | set(TRAIN_CASES) | set(CTR_CASES)
+                  | set(DGC_CASES)) == TorchOps.all_types()
 
 
 @pytest.mark.parametrize("op_type", sorted(CASES))
