@@ -37,10 +37,12 @@ Phases:
 2b. flash parity — the flash-attention forward (K1), dK/dV (K2a) and dQ
    (K2b) kernels against their plain versions on the same inputs: at
    BERT-base's training shape (B=32, H=12, S=128, D=64, padding-mask
-   bias, not causal), timed beside the plain version, the card's bound
-   and one PyTorch library call (``scaled_dot_product_attention``
-   forward; its backward for dq + dk + dv together), and at S=512
-   (BERT's longest position), causal, with padding, for parity only.
+   bias, not causal), timed on the device (``device_ms``) beside the plain
+   version, the card's bound and one PyTorch library call
+   (``scaled_dot_product_attention`` with its backend pinned to memory-
+   efficient attention: forward; its backward for dq + dk + dv together,
+   held against K2a + K2b summed), and at S=512 (BERT's longest
+   position), causal, with padding, for parity only.
 4. dense — a program with one fused ``cached_attention`` op (the dense
    slotted-cache form, served by ``decode_attention``) through
    ``Executor.run``, counters zeroed before and read after.
@@ -62,10 +64,20 @@ Phases:
    update kernel (K6) against their plain versions, bit for bit, rows the
    call does not name untouched: K5 at slab [4096, 16] and [4096, 1] with
    buckets of 256 and 1024 (pad slots included) and at [1048576, 16] with
-   4096 rows; K6 at [1048576, 16] and [1048576, 1] with the unique ids of
-   12288 draws, and with id 0 among the ids and fill rows past the unique
-   count. Timed beside the plain version, the card's bound and one PyTorch
-   library call (``index_copy_`` for K5, ``index_add_`` for K6).
+   4096 rows, through the wrapper's upload and through ``admit_rows`` over
+   the real rows only; K6 at [1048576, 16] and [1048576, 1] with the unique
+   ids of 12288 draws, as int32 and as int64 ids, and with id 0 among the
+   ids and fill rows past the unique count. Timed (``ctr_costs``) beside
+   the plain version, the card's bound and one PyTorch library call
+   (``index_copy_`` for K5, ``index_add_`` for K6), each in device ms per
+   call (``device_ms``: the calls queued behind a sleep, so the events see
+   only the device) and host µs per call (``host_us``: a host clock around
+   many calls, no sync), with the launch floor beside them: an empty
+   kernel launched through the same ctypes route with K6's eleven
+   arguments, timed on the host with them declared one by one (as every
+   kernel takes them) and packed into one block (``launch_floors``).
+   ``admit_rows`` makes no host sync and no staging wait, through a fresh
+   staging, a reused one and the card's own.
 6. wide&deep — ``models/wide_deep.py`` (the JAX example's widths: 4 slots
    x 5 ids, wide dim 1 and deep dim 16 tables, MLP 64-32-1, Adam on the
    dense half, row-sparse SGD on the slabs, capacity 4096, ep 2) at batch
@@ -75,12 +87,18 @@ Phases:
    the same steps with the kernels off and at capacity 65536 give the
    same losses, host tier and persistables bit for bit. Prints step time,
    the host time of ``engine.prepare_feed`` alone, examples/s, device
-   memory peak, host syncs of one step and the engine's stats.
+   memory peak, host syncs of one step and the engine's stats; no
+   admission waits for the upload before it (``staging_waits``).
 7. dense ctr — ``build_ctr_train(ps_mode=False, vocab_size=2**20, SGD)``
    with ``FLAGS_pallas_sparse_update`` on, 8 steps at batch 4096: K6
    launched 16 times a step; the same steps with the kernels off give the
    same losses and tables bit for bit; every table changed and the
-   untouched rows keep their values.
+   untouched rows keep their values. One ``sgd_sparse`` makes exactly one
+   host sync (``torch.unique``'s), a step exactly 26; an id outside a
+   table raises by the end of the ``Executor.run`` that launched it (an
+   ``EnforceError`` naming ``sgd_sparse``, caused by a ``ValueError``
+   naming the id, as on the CPU), with a fetch copy and with no fetches,
+   with every row outside the update unchanged.
 2d. topk kernel — the blocked top-k of |x| (K7) against its plain
    version, bit for bit (the per-block stage's values and indices, the
    final top-k's, and |x[idx]| == vals): at word_emb's size [37000, 512]
@@ -88,7 +106,10 @@ Phases:
    (0.999), an FFN weight's [512, 2048] at 1,049 and at the path's 4,194,
    planted ties, n not a multiple of the block, and k > block. Timed at
    the path's word_emb shape beside the plain stage, the card's bound and
-   ``torch.topk(|x|, k)`` (a yardstick the port never calls).
+   ``torch.topk(|x|, k)`` (a yardstick the port never calls); then K7, the
+   whole ``blocked_topk_abs`` and ``torch.topk(|x|, k)`` on the device at
+   each (numel, k) pair of a sparse Transformer-base step (phase 8's 97
+   launches), summed weighted by launches.
 8. dgc — Transformer-base (``build_wmt_train(TransformerConfig.base()``,
    no dropout, seq 64, DGC momentum with warm-up at step 0, sparsity
    0.996 then 0.999) trained data-parallel on 2 ranks of
@@ -110,6 +131,7 @@ per-kernel results, and ``{"ok": true, "device": {...}}``.
 """
 
 import hashlib
+import itertools
 import json
 import os
 import shutil
@@ -176,6 +198,9 @@ TRAIN_STATE_TOL = 1e-2
 # over 2^20-row tables
 WD_BATCH, WD_STEPS, WD_CAPACITY, WD_BIG_CAPACITY = 4096, 24, 4096, 65536
 CTR_VOCAB, CTR_BATCH, CTR_STEPS = 2 ** 20, 4096, 8
+# host syncs of one dense CTR step with K6: 16 torch.unique calls (one an
+# sgd_sparse) and 10 more (the feed uploads, the loss's copy)
+CTR_STEP_SYNCS = 26
 # dense CTR, kernels on vs off: K6 equals its plain version bit for bit,
 # and every other op is the same deterministic call in both runs, so the
 # loss streams and every table must agree bit for bit (a looser bar, such
@@ -203,6 +228,8 @@ DGC_OPT = dict(learning_rate=0.01, momentum=0.9, rampup_begin_step=1,
 # outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# the empty kernel that gives the launch floor (not a port of a TPU kernel)
+FLOOR_SOURCE = "launch_floor.cu"
 
 
 def log(*a):
@@ -238,7 +265,8 @@ def check_environment():
 def phase_build():
     from paddle_tpu_torch.kernels import KERNELS, build
 
-    sources = sorted({os.path.basename(k.source) for k in KERNELS.values()})
+    sources = sorted({os.path.basename(k.source) for k in KERNELS.values()}
+                     | {FLOOR_SOURCE})
     t0 = time.perf_counter()
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(sources)) as pool:
@@ -326,6 +354,105 @@ def time_ms(fn, reps, windows=5):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop) / reps)
     return float(np.median(times))
+
+
+def device_ms(fn, reps=20, windows=5):
+    """Device milliseconds per call of ``fn``, without the host's cost of
+    issuing it: each window's ``reps`` calls are queued behind
+    ``torch.cuda._sleep``, long enough that the host has issued them all
+    before the start event fires, so the events time only the device (the
+    median of ``windows``, after three warm-up calls). A window whose start
+    event had already fired when the host finished issuing is run again
+    with a sleep twice as long; ``fn`` must not sync with the card."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    issue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # _sleep spins for a count of SM clocks; 2e9 a second is above the
+    # H100's highest clock, so the sleep lasts at least the time asked
+    cycles = int((4 * issue_s + 2e-4) * 2e9)
+    times = []
+    for _ in range(windows):
+        for _attempt in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles)
+            start.record()
+            for _ in range(reps):
+                fn()
+            stop.record()
+            late = start.query()
+            torch.cuda.synchronize()
+            if not late:
+                break
+            cycles *= 2
+        else:
+            raise AssertionError("device_ms: the sleep ended before the host "
+                                 "had issued the window (does fn sync?)")
+        times.append(start.elapsed_time(stop) / reps)
+    return float(np.median(times))
+
+
+def host_us(fn, reps=200, windows=5):
+    """Host microseconds per call of ``fn``: a host clock around ``reps``
+    calls with no sync among them (the median of ``windows``, after three
+    warm-up calls); the card runs behind and is drained between windows."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times.append((time.perf_counter() - t0) / reps * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def launch_floors():
+    """Two zero-argument calls that launch the empty kernel of
+    ``csrc/launch_floor.cu`` on card 0's current stream with K6's eleven
+    arguments, through the same ctypes route as K5 and K6: declared one by
+    one (as every kernel takes them), and packed by ``struct`` into one
+    block of int64 words behind one pointer. Their device time is the
+    least a launch costs the card, their host times the least a call costs
+    Python by either binding."""
+    import ctypes
+    import struct
+
+    from paddle_tpu_torch.kernels import build
+
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    typed = build.function(FLOOR_SOURCE, "launch_floor",
+                           [i, p, p, i, p, ll, ll, ll, p, p, p])
+    block = build.function(FLOOR_SOURCE, "launch_floor_block", [p])
+    buf = ctypes.create_string_buffer(8 * 11)
+    addr, pack = ctypes.addressof(buf), struct.Struct("11q").pack_into
+    stream = build.raw_stream_getter()
+    ptr = 1 << 47          # a device address's size; never dereferenced
+
+    def checked(err):
+        if err:
+            raise RuntimeError(f"the empty kernel did not launch ({err})")
+
+    def go_typed():
+        checked(typed(0, ptr, ptr, 1, ptr, 12288, CTR_VOCAB, 16, stream(0),
+                      ptr, ptr))
+
+    def go_block():
+        pack(buf, 0, 0, ptr, ptr, 1, ptr, 12288, CTR_VOCAB, 16, stream(0),
+             ptr, ptr)
+        checked(block(addr))
+    return go_typed, go_block
 
 
 def phase_parity():
@@ -473,6 +600,7 @@ def flash_bounds(B, H, S, D):
 def phase_flash():
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from paddle_tpu_torch.kernels import flash_attention as FA
 
@@ -512,16 +640,22 @@ def phase_flash():
             continue
         mask4 = bias[:, None, None, :]
         ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
-        lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask4,
-                                                 scale=scale)
-        lib_bwd = time_ms(lambda: torch.autograd.grad(
+        # the library's backend pinned (its default choice moved the
+        # backward's time 2.5x between runs): memory-efficient attention,
+        # the fused backend that takes float32 and an additive mask; the
+        # backward runs on the backend of the forward that built its graph
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            lib_out = F.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=mask4, scale=scale)
+            lib_fwd = device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask4, scale=scale), 10)
+        lib_bwd = device_ms(lambda: torch.autograd.grad(
             lib_out, (ql, kl, vl), dout, retain_graph=True), 10)
         timed = {
             names[0]: (lambda: FA.flash_attention_fwd(q, k, v, bias, causal, scale),
                        lambda: FA.flash_attention_composite(q, k, v, bias, causal,
                                                             scale),
-                       time_ms(lambda: F.scaled_dot_product_attention(
-                           q, k, v, attn_mask=mask4, scale=scale), 10)),
+                       lib_fwd),
             names[1]: (lambda: FA.flash_attention_bwd_dkdv(*args),
                        lambda: FA.flash_attention_bwd_dkdv_composite(*args),
                        lib_bwd),
@@ -531,16 +665,24 @@ def phase_flash():
         }
         bounds = flash_bounds(B, H, S, D)
         for name, (kernel, plain, lib_ms) in timed.items():
-            results[name] = dict(ms=time_ms(kernel, 10), plain_ms=time_ms(plain, 10),
+            results[name] = dict(ms=device_ms(kernel, 10),
+                                 plain_ms=time_ms(plain, 10),
                                  bound_ms=bounds[name][0], bound_by=bounds[name][1],
                                  library_ms=lib_ms)
+        k2 = results[names[1]]["ms"] + results[names[2]]["ms"]
+        log(f"[flash] backward: K2a + K2b {k2:.4f} ms against sdpa backward "
+            f"(memory-efficient, pinned) {lib_bwd:.4f} ms: the kernels take "
+            f"{k2 / lib_bwd:.2f}x its time; forward K1 "
+            f"{results[names[0]]['ms']:.4f} ms against {lib_fwd:.4f} ms "
+            f"({results[names[0]]['ms'] / lib_fwd:.2f}x)")
         del lib_out, ql, kl, vl
     for name in names:
         r = results[name]
         r["max_abs_err"] = errs[name]
         log(f"[flash] {name}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
             f"library_ms={r['library_ms']:.4f}"
-            f"{' (sdpa backward, dq+dk+dv together)' if name != names[0] else ''} "
+            f"{' (sdpa backward, dq+dk+dv together)' if name != names[0] else ''}"
+            " (device times) "
             f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
     return results
 
@@ -841,7 +983,8 @@ def _bytes_bound(n_bytes):
 
 
 def phase_ctr_kernels():
-    """K5 and K6 against their plain versions on the card, bit for bit."""
+    """K5 and K6 against their plain versions on the card, bit for bit;
+    then their costs beside the library calls' and the launch floor."""
     import torch
 
     from paddle_tpu_torch.kernels import embedding as KE
@@ -849,69 +992,62 @@ def phase_ctr_kernels():
 
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(SEED + 3)
-    results = {}
+    staging = KE.Staging()
 
     # K5: (capacity, dim, admitted rows); the bucket pads the rest with
-    # slot == capacity. The first case is the one timed in the JSON line:
-    # a deep table of the Wide&Deep path at its largest bucket.
-    for cap, dim, n, timed in ((4096, 16, 700, True), (4096, 16, 200, False),
-                               (4096, 1, 700, False), (4096, 1, 200, False),
-                               (1 << 20, 16, 4096, False)):
+    # slot == capacity, and admit_rows uploads the real rows only
+    for cap, dim, n in ((4096, 16, 700), (4096, 16, 200), (4096, 1, 700),
+                        (4096, 1, 200), (1 << 20, 16, 4096)):
         slab = torch.randn(cap, dim, device=dev)
         slots, rows = KE.pad_slots(rng.choice(cap, n, replace=False),
                                    rng.randn(n, dim).astype(np.float32), cap,
                                    dim, np.float32)
-        s_dev = torch.from_numpy(slots).to(dev)
-        r_dev = torch.from_numpy(rows).to(dev)
-        got, want = slab.clone(), slab.clone()
-        KE.scatter_rows(got, slots, rows)
+        got, want, real = slab.clone(), slab.clone(), slab.clone()
+        KE.scatter_rows(got, slots, rows, staging)
         KE.scatter_rows_plain(want, slots, rows)
+        KE.admit_rows(real, slots[:n], rows[:n], staging)
         torch.cuda.synchronize()
         keep = np.ones(cap, bool)
         keep[slots[slots < cap]] = False
         keep_t = torch.from_numpy(keep).to(dev)
-        if not (torch.equal(got, want)
+        if not (torch.equal(got, want) and torch.equal(real, want)
                 and torch.equal(got[keep_t], slab[keep_t])):
             raise AssertionError(f"K5 [{cap}, {dim}] bucket {len(slots)}: "
                                  "kernel and plain version differ")
         log(f"[ctr-kernels] K5 slab [{cap}, {dim}] bucket {len(slots)} "
-            f"({n} rows): bit-equal to the plain version, other rows "
-            "untouched")
-        if not timed:
-            continue
-        kept = s_dev < cap
-        k_slots, k_rows = s_dev[kept].long(), r_dev[kept]
-        ms = time_ms(lambda: KE.launch(got, s_dev, r_dev), 20)
-        wrapper_ms = time_ms(lambda: KE.scatter_rows(got, slots, rows), 20)
-        plain_ms = time_ms(lambda: KE.scatter_rows_plain(want, s_dev, r_dev),
-                           20)
-        lib_ms = time_ms(lambda: want.index_copy_(0, k_slots, k_rows), 20)
-        # every slot read once; only the kept rows are read and written
-        # (pad rows, slot == C, are never loaded)
-        b_ms, b_by = _bytes_bound(len(slots) * 4 + 2 * n * dim * 4)
-        results["embedding_admission"] = dict(
-            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lib_ms)
-        log(f"[ctr-kernels] K5 kernel_ms={ms:.4f} (wrapper with the slot "
-            f"and row upload {wrapper_ms:.4f}) plain_ms={plain_ms:.4f} "
-            f"library_ms={lib_ms:.4f} (index_copy_) bound_ms={b_ms:.6f} "
-            f"({b_by})")
+            f"({n} rows): bit-equal to the plain version, and admit_rows "
+            "over the real rows alike; other rows untouched")
+    # the sync debug mode sees no event wait: the staging counts its own
+    waits = KE.staging_waits()
+    syncs = [_sync_warnings(lambda: KE.admit_rows(
+        slab, slots[:n], rows[:n], s))
+        for s in (KE.Staging(), staging, None)]
+    if syncs != [[], [], []] or KE.staging_waits() != waits:
+        raise AssertionError(f"admit_rows synced with the card: {syncs}, "
+                             f"{KE.staging_waits() - waits} staging waits "
+                             "(fresh staging, reused, the card's)")
+    log("[ctr-kernels] admit_rows makes no host sync and no staging wait "
+        "(fresh staging, reused, the card's)")
 
     # K6: the unique ids of CTR_BATCH x 3 uniform draws from 2^20, as one
-    # sgd_sparse of the dense CTR path sees them; then id 0 among the ids
-    # with fill rows past the unique count holding NaN
-    for dim, timed in ((16, True), (1, False), (16, "fill")):
+    # sgd_sparse of the dense CTR path sees them, as int32 and as int64
+    # (torch.unique's); then id 0 among the ids with fill rows past the
+    # unique count holding NaN
+    for dim, kind, id_dtype in ((16, "", np.int32), (16, "", np.int64),
+                                (1, "", np.int32), (1, "", np.int64),
+                                (16, "fill", np.int32),
+                                (16, "fill", np.int64)):
         vocab = CTR_VOCAB
         param = torch.randn(vocab, dim, device=dev)
         ids = np.unique(rng.randint(0, vocab, CTR_BATCH * 3))
         n_unique = len(ids)
         rows = rng.randn(n_unique, dim).astype(np.float32)
-        if timed == "fill":
+        if kind == "fill":
             ids[0] = 0
             ids = np.concatenate([ids, np.zeros(64, ids.dtype)])
             rows = np.concatenate([rows, np.full((64, dim), np.nan,
                                                  np.float32)])
-        ids_t = torch.from_numpy(ids.astype(np.int32)).to(dev)
+        ids_t = torch.from_numpy(ids.astype(id_dtype)).to(dev)
         rows_t = torch.from_numpy(rows).to(dev)
         got, want = param.clone(), param.clone()
         KS.sparse_row_update(got, ids_t, rows_t, n_unique=n_unique)
@@ -920,32 +1056,166 @@ def phase_ctr_kernels():
         keep = np.ones(vocab, bool)
         keep[ids[:n_unique]] = False
         keep_t = torch.from_numpy(keep).to(dev)
+        label = (f"K6 param [{vocab}, {dim}] {n_unique} unique "
+                 f"{np.dtype(id_dtype).name} ids"
+                 f"{' + 64 NaN fill rows, id 0 among the ids' if kind else ''}")
         if not (torch.equal(got, want) and bool(torch.isfinite(got).all())
                 and torch.equal(got[keep_t], param[keep_t])):
-            raise AssertionError(f"K6 [{vocab}, {dim}] {n_unique} rows"
-                                 f"{' + fill' if timed == 'fill' else ''}: "
-                                 "kernel and plain version differ")
-        log(f"[ctr-kernels] K6 param [{vocab}, {dim}] {n_unique} unique rows"
-            f"{' + 64 NaN fill rows, id 0 among the ids' if timed == 'fill' else ''}"
-            ": bit-equal to the plain version, other rows untouched")
-        if timed is not True:
-            continue
-        ids64 = ids_t[:n_unique].long()
-        ms = time_ms(lambda: KS.launch(got, ids_t, rows_t, n_unique), 20)
-        wrapper_ms = time_ms(lambda: KS.sparse_row_update(
-            got, ids_t, rows_t, n_unique=n_unique), 20)
-        plain_ms = time_ms(lambda: KS.sparse_row_update_plain(
-            want, ids_t, rows_t, n_unique=n_unique), 20)
-        lib_ms = time_ms(lambda: want.index_add_(0, ids64, rows_t), 20)
-        b_ms, b_by = _bytes_bound(n_unique * (4 + 3 * dim * 4))
-        results["sparse_row_update"] = dict(
-            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lib_ms)
-        log(f"[ctr-kernels] K6 kernel_ms={ms:.4f} (wrapper with the id "
-            f"range check {wrapper_ms:.4f}) plain_ms={plain_ms:.4f} "
-            f"library_ms={lib_ms:.4f} (index_add_) bound_ms={b_ms:.6f} "
-            f"({b_by})")
+            raise AssertionError(f"{label}: kernel and plain version differ")
+        log(f"[ctr-kernels] {label}: bit-equal to the plain version, other "
+            "rows untouched")
+
+    waits = KE.staging_waits()
+    costs = ctr_costs(floor=launch_floors())
+    log_ctr_costs(costs)
+    log(f"[ctr-kernels] K5 wrapper: {KE.staging_waits() - waits} of its "
+        "timed calls waited for the upload before them")
+    results = {}
+    for name, key in (("embedding_admission", "K5"),
+                      ("sparse_row_update", "K6")):
+        c = costs[key]
+        b_ms, b_by = _bytes_bound(c["bound_bytes"])
+        results[name] = dict(
+            max_abs_err=0.0, ms=c["device_ms"], plain_ms=c["plain_ms"],
+            bound_ms=b_ms, bound_by=b_by, library_ms=c["library_ms"],
+            host_us=c["host_us"], wrapper_host_us=c["wrapper_host_us"],
+            library_host_us=c["library_host_us"],
+            floor_ms=costs["floor"]["device_ms"],
+            floor_host_us=costs["floor"]["host_us"],
+            floor_block_host_us=costs["floor"]["block_host_us"])
     return results
+
+
+def ctr_costs(int64_ids=True, floor=None, stagings=8):
+    """Per-call costs of K5 and K6 and of their library calls at phase
+    2c's timed shapes, through the ``paddle_tpu_torch`` that ``sys.path``
+    finds (``tools/torch_ctr_kernel_cost.py`` points it at another tree):
+    K5 on a deep slab [4096, 16] with a bucket of 1024 slots (700 real
+    rows, the rest pad slots), K6 on [1048576, 16] with the unique ids of
+    12288 draws. For the bare launch and for ``index_copy_`` /
+    ``index_add_`` (on the same device tensors; K5's over the kept rows):
+    device ms per call (``device_ms``) and host µs per call
+    (``host_us_turns``: every host-timed call in turns, so that a drift of
+    the host's speed falls on all alike); for the wrappers the host µs
+    (K5's ``scatter_rows`` with the upload of host slots and rows, turn
+    by turn through one of ``stagings`` staging buffers, as the engine
+    keeps one a table, or with none when ``stagings`` is 0; K6's with its
+    checks); for the plain versions the ms of ``time_ms``; and the bytes
+    each call must move. With ``int64_ids``, K6 also with int64 ids; with
+    ``floor`` (the pair of ``launch_floors``), the launch floor too: the
+    device time, and the host time by either binding."""
+    import torch
+
+    from paddle_tpu_torch.kernels import embedding as KE
+    from paddle_tpu_torch.kernels import sparse_update as KS
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(SEED + 6)
+    cap, dim, n = 4096, 16, 700
+    slab = torch.randn(cap, dim, device=dev)
+    slots, rows = KE.pad_slots(rng.choice(cap, n, replace=False),
+                               rng.randn(n, dim).astype(np.float32), cap, dim,
+                               np.float32)
+    s_dev = torch.from_numpy(slots).to(dev)
+    r_dev = torch.from_numpy(rows).to(dev)
+    kept = s_dev < cap
+    k_slots, k_rows = s_dev[kept].long(), r_dev[kept]
+    param = torch.randn(CTR_VOCAB, dim, device=dev)
+    ids = np.unique(rng.randint(0, CTR_VOCAB, CTR_BATCH * 3))
+    u = len(ids)
+    ids32 = torch.from_numpy(ids.astype(np.int32)).to(dev)
+    ids64 = ids32.long()
+    rows_t = torch.from_numpy(rng.randn(u, dim).astype(np.float32)).to(dev)
+
+    # (key, name): the device-timed calls, then the host-only ones
+    device = {
+        ("K5", ""): lambda: KE.launch(slab, s_dev, r_dev),
+        ("K5", "library_"): lambda: slab.index_copy_(0, k_slots, k_rows),
+        ("K6", ""): lambda: KS.launch(param, ids32, rows_t, u),
+        ("K6", "library_"): lambda: param.index_add_(0, ids64, rows_t),
+    }
+    host = dict(device)
+    if stagings:
+        turn = itertools.cycle([KE.Staging() for _ in range(stagings)])
+        host[("K5", "wrapper_")] = lambda: KE.scatter_rows(
+            slab, slots, rows, next(turn))
+    else:
+        host[("K5", "wrapper_")] = lambda: KE.scatter_rows(slab, slots, rows)
+    host[("K6", "wrapper_")] = lambda: KS.sparse_row_update(
+        param, ids32, rows_t, n_unique=u)
+    if int64_ids:
+        device[("K6", "int64_")] = lambda: KS.launch(param, ids64, rows_t, u)
+        host[("K6", "int64_")] = device[("K6", "int64_")]
+        host[("K6", "wrapper_int64_")] = lambda: KS.sparse_row_update(
+            param, ids64, rows_t, n_unique=u)
+    if floor is not None:
+        device[("floor", "")] = host[("floor", "")] = floor[0]
+    costs = {"K5": dict(
+        plain_ms=time_ms(lambda: KE.scatter_rows_plain(slab, s_dev, r_dev),
+                         20),
+        # every slot read once; only the kept rows are read and written
+        # (pad rows, slot == C, are never loaded)
+        bound_bytes=len(slots) * 4 + 2 * n * dim * 4),
+        "K6": dict(
+        plain_ms=time_ms(lambda: KS.sparse_row_update_plain(
+            param, ids32, rows_t, n_unique=u), 20),
+        bound_bytes=u * (4 + 3 * dim * 4), unique=u)}
+    if floor is not None:
+        costs["floor"] = {}
+    for (key, name), fn in device.items():
+        costs[key][f"{name}device_ms"] = device_ms(fn)
+    for (key, name), us in host_us_turns(host).items():
+        costs[key][f"{name}host_us"] = float(np.median(us))
+    if floor is not None:           # the two bindings, in ten paired rounds
+        for name, us in host_us_turns({"": floor[0], "block_": floor[1]},
+                                      turns=10).items():
+            costs["floor"][f"{name}host_us_rounds"] = us
+        costs["floor"]["block_host_us"] = float(np.median(
+            costs["floor"]["block_host_us_rounds"]))
+    for c in costs.values():     # the library's device time: library_ms
+        if "library_device_ms" in c:
+            c["library_ms"] = c.pop("library_device_ms")
+    return costs
+
+
+def host_us_turns(fns, turns=4):
+    """``host_us`` of each of ``fns`` (a dict of calls), measured in
+    ``turns`` rounds, every call once a round, in the reverse order every
+    other round: the list of the rounds' times per call."""
+    keys = list(fns)
+    got = {k: [] for k in keys}
+    for t in range(turns):
+        for k in (keys if t % 2 == 0 else keys[::-1]):
+            got[k].append(host_us(fns[k], windows=3))
+    return got
+
+
+def log_ctr_costs(costs):
+    for key, lib in (("K5", "index_copy_"), ("K6", "index_add_")):
+        c = costs[key]
+        extra = (f"; int64 ids: launch {c['int64_device_ms']:.6f} ms, "
+                 f"{c['int64_host_us']:.2f} us, wrapper "
+                 f"{c['wrapper_int64_host_us']:.2f} us"
+                 if "int64_device_ms" in c else "")
+        log(f"[ctr-kernels] {key}: launch device {c['device_ms']:.6f} ms, "
+            f"host {c['host_us']:.2f} us; wrapper host "
+            f"{c['wrapper_host_us']:.2f} us; {lib} device "
+            f"{c['library_ms']:.6f} ms, host {c['library_host_us']:.2f} us; "
+            f"plain {c['plain_ms']:.4f} ms; bound "
+            f"{_bytes_bound(c['bound_bytes'])[0]:.6f} ms{extra}")
+    if "floor" in costs:
+        f = costs["floor"]
+        typed, block = f["host_us_rounds"], f["block_host_us_rounds"]
+        log(f"[ctr-kernels] launch floor (empty kernel, same ctypes route, "
+            f"K6's 11 arguments): device {f['device_ms']:.6f} ms, host "
+            f"{f['host_us']:.2f} us with the arguments declared one by one; "
+            f"binding A/B in {len(typed)} paired rounds: declared "
+            f"{np.median(typed):.2f} us (IQR "
+            f"{np.subtract(*np.percentile(typed, [75, 25])):.2f}), packed in "
+            f"one block {f['block_host_us']:.2f} us, the block faster in "
+            f"{sum(b < t for t, b in zip(typed, block))} rounds (declared: "
+            f"{', '.join(f'{a:.2f}' for a in typed)}; block: "
+            f"{', '.join(f'{a:.2f}' for a in block)})")
 
 
 # -- phase 2d ---------------------------------------------------------------
@@ -1000,12 +1270,71 @@ def phase_topk():
             f"{whole_ms:.4f}) plain_ms={plain_ms:.4f} (the plain stage) "
             f"library_ms={lib_ms:.4f} (torch.topk of |x|) "
             f"bound_ms={b_ms:.4f} ({b_by})")
+
+    # the whole sparse step's K7 work: every (numel, k) pair it launches on
+    pairs = _dgc_topk_pairs()
+    if sum(pairs.values()) != 97:
+        raise AssertionError(f"{sum(pairs.values())} K7 launches a sparse "
+                             "Transformer-base step, want 97")
+    step = {"K7": 0.0, "blocked_topk_abs": 0.0, "torch.topk": 0.0}
+    for (n, k), count in sorted(pairs.items()):
+        x = torch.randn(n, generator=gen, device=dev)
+        each = {"K7": device_ms(lambda: KT.launch(x, k, TOPK_BLOCK), 10),
+                "blocked_topk_abs": device_ms(
+                    lambda: KT.blocked_topk_abs(x, k, TOPK_BLOCK), 10),
+                "torch.topk": device_ms(lambda: torch.topk(x.abs(), k), 10)}
+        for name, ms in each.items():
+            step[name] += count * ms
+        log(f"[topk] n={n} k={k} x{count} a step: device ms K7 "
+            f"{each['K7']:.4f}, the whole blocked_topk_abs "
+            f"{each['blocked_topk_abs']:.4f}, torch.topk(|x|, k) "
+            f"{each['torch.topk']:.4f}")
+    log(f"[topk] one sparse Transformer-base step, {sum(pairs.values())} "
+        f"launches: device ms K7 {step['K7']:.4f}, the whole "
+        f"blocked_topk_abs {step['blocked_topk_abs']:.4f}, torch.topk(|x|, "
+        f"k) {step['torch.topk']:.4f} (blocked_topk_abs takes "
+        f"{step['blocked_topk_abs'] / step['torch.topk']:.2f}x its time)")
+    result.update(step_ms=step["K7"], step_whole_ms=step["blocked_topk_abs"],
+                  step_library_ms=step["torch.topk"])
     return {"blocked_topk_abs": result}
+
+
+def _dgc_topk_pairs():
+    """{(numel, k): count} of the K7 launches of one sparse step of phase
+    8's Transformer-base: the parameters over one block with n > 2k, at
+    DGC's static k (``dgc_k``)."""
+    from collections import Counter
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.ops.optimizers import dgc_k
+    from paddle_tpu_torch.utils import unique_name
+
+    cfg = T.TransformerConfig.base()
+    cfg.dropout = 0.0
+    with unique_name.guard():
+        main = T.build_wmt_train(
+            cfg, src_len=DGC_SEQ, tgt_len=DGC_SEQ,
+            optimizer=fluid.optimizer.DGCMomentumOptimizer(**DGC_OPT))[0]
+    pairs = Counter()
+    for p in main.all_parameters():
+        n = int(np.prod(p.shape))
+        k = dgc_k(n, DGC_OPT["sparsity"])
+        if n > TOPK_BLOCK and n > 2 * k:
+            pairs[(n, k)] += 1
+    return pairs
 
 
 def _count_syncs(fn):
     """Run ``fn`` once with PyTorch's sync debug mode on; returns the
     number of operations that synchronized the host with the card."""
+    return len(_sync_warnings(fn))
+
+
+def _sync_warnings(fn):
+    """Run ``fn`` once with PyTorch's sync debug mode on; returns where
+    each operation that synchronized the host with the card was called
+    (file:line of the warning, then its text)."""
     import warnings
 
     import torch
@@ -1017,7 +1346,11 @@ def _count_syncs(fn):
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    # the mode's own one-time notice ("Synchronization debug mode is a
+    # prototype feature ...") is not a sync: match the sync's message only
+    return [f"{os.path.basename(w.filename)}:{w.lineno} {w.message}"
+            for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
 
 
 # -- phase 6 ----------------------------------------------------------------
@@ -1050,7 +1383,7 @@ def _wide_deep_run(batches, capacity, state=None, timed=False):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    roundtrips = KE.roundtrips()
+    roundtrips, waits = KE.roundtrips(), KE.staging_waits()
     losses, seconds, prep, per_step, syncs = [], [], [], [], None
 
     def step(feed):
@@ -1082,6 +1415,10 @@ def _wide_deep_run(batches, capacity, state=None, timed=False):
     engine.close()
     if KE.roundtrips() != roundtrips:
         raise AssertionError("a whole slab was copied to the host")
+    if KE.staging_waits() != waits:
+        # a table's admissions are a step apart, and a step syncs
+        raise AssertionError(f"{KE.staging_waits() - waits} admissions "
+                             "waited for the upload before them")
     return dict(losses=losses, launches=launches, per_step=per_step,
                 host=host, stats=stats, state=state, seconds=seconds,
                 prep=prep, peak=peak, syncs=syncs,
@@ -1229,6 +1566,12 @@ def phase_dense_ctr():
     if n_sparse != 16 or per_step != [16] * CTR_STEPS:
         raise AssertionError(f"{n_sparse} sgd_sparse ops; K6 launches per "
                              f"step {per_step}, want 16")
+    if syncs != CTR_STEP_SYNCS:
+        raise AssertionError(f"a dense CTR step made {syncs} host syncs, "
+                             f"want {CTR_STEP_SYNCS}")
+    one_op = _sgd_sparse_syncs(scopes["on"].find_var(tables[0]),
+                               batches[0]["slot_0"])
+    bad_id = _bad_id_check()
     if losses != off:
         raise AssertionError(f"loss streams differ: on {losses} off {off}")
     changed, moved = 0, []
@@ -1261,8 +1604,99 @@ def phase_dense_ctr():
     log(f"[dense-ctr] K6 launches per step {per_step}; step p50 "
         f"{step_ms:.2f} ms (first {seconds[0] * 1e3:.2f} ms), "
         f"{CTR_BATCH / step_ms * 1e3:.1f} examples/s, device memory peak "
-        f"{peak / 2**30:.3f} GiB, host syncs in one step {syncs}")
+        f"{peak / 2**30:.3f} GiB, host syncs in one step {syncs} (one "
+        f"sgd_sparse with K6: {one_op}, torch.unique's)")
+    log(f"[dense-ctr] {bad_id}")
     return launches
+
+
+def _sgd_sparse_syncs(table, ids):
+    """The host syncs of one ``sgd_sparse`` with K6 (the lowering called
+    alone, on a copy of ``table``): exactly one, ``torch.unique``'s."""
+    import torch
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core.backward import resolve_op_def
+    from paddle_tpu_torch.utils.flags import flags
+
+    dev = table.device
+    ids = torch.from_numpy(np.asarray(ids) % table.shape[0]).to(dev)
+    ins = {"Param": [table.clone()], "Ids": [ids],
+           "RowGrad": [torch.ones(tuple(ids.shape) + (table.shape[1],),
+                                  device=dev)],
+           "LearningRate": [torch.full((1,), 0.1, device=dev)]}
+    lowering = resolve_op_def("sgd_sparse").lowering()
+    old = flags.pallas_sparse_update
+    flags.pallas_sparse_update = True
+    try:
+        before = kernels.launches("sparse_row_update")
+        syncs = _count_syncs(lambda: lowering(ins, {"padding_idx": -1}))
+        launched = kernels.launches("sparse_row_update") - before
+    finally:
+        flags.pallas_sparse_update = old
+    if syncs != 1 or launched != 1:
+        raise AssertionError(f"one sgd_sparse made {syncs} host syncs and "
+                             f"{launched} K6 launches, want 1 and 1")
+    return syncs
+
+
+def _bad_id_check():
+    """An id outside the table through ``Executor.run`` with K6, with a
+    fetch copy and with no fetches: the run raises by its end, as the CPU
+    path does (``EnforceError`` naming ``sgd_sparse``, caused by the
+    ``ValueError`` naming the id), the in-range ids' rows are updated and
+    every other row is unchanged; the next run is clean."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.ctr import sgd_sparse_program
+    from paddle_tpu_torch.utils.enforce import EnforceError
+    from paddle_tpu_torch.utils.flags import flags
+
+    vocab, dim = 1000, 16
+    main = sgd_sparse_program(vocab, dim, 4)
+    exe = fluid.Executor()
+    messages = []
+    for fetch_list in (["lr"], []):
+        scope = fluid.Scope()
+        table = torch.randn(vocab, dim, device=exe.device)
+        before = table.clone()
+        scope.set("table", table)
+        feed = {"ids": np.array([3, vocab + 7, 5, 3], np.int64),
+                "rows": np.ones((4, dim), np.float32),
+                "lr": np.array([0.5], np.float32)}
+        old = flags.pallas_sparse_update
+        flags.pallas_sparse_update = True
+        try:
+            try:
+                exe.run(main, feed=feed, fetch_list=fetch_list, scope=scope)
+            except EnforceError as e:
+                message, cause = str(e), e.__cause__
+            else:
+                raise AssertionError(f"fetches {fetch_list}: an id outside "
+                                     "the table did not raise by the end of "
+                                     "Executor.run")
+            feed["ids"] = np.array([3, 9, 5, 3], np.int64)
+            exe.run(main, feed=feed, fetch_list=fetch_list, scope=scope)
+            torch.cuda.synchronize()
+        finally:
+            flags.pallas_sparse_update = old
+        want = before.clone()
+        want[[3, 5]] -= torch.tensor([1.0, 0.5], device=exe.device)[:, None]
+        want[[3, 9, 5]] -= torch.tensor([1.0, 0.5, 0.5],
+                                        device=exe.device)[:, None]
+        if ("sgd_sparse" not in message or not isinstance(cause, ValueError)
+                or f"id {vocab + 7} outside" not in str(cause)):
+            raise AssertionError(f"fetches {fetch_list}: unexpected error "
+                                 f"for a bad id: {message!r} from {cause!r}")
+        if not torch.equal(scope.find_var("table"), want):
+            raise AssertionError(f"fetches {fetch_list}: a bad id's run "
+                                 "changed a row outside its update, or the "
+                                 "clean run after it was wrong")
+        messages.append(message.replace("\n", " "))
+    return (f"an id outside the table raised by the end of Executor.run, "
+            f"with a fetch copy and with no fetches ({messages[0]!r}); no "
+            "other row changed; the next run clean")
 
 
 # -- phase 8 ----------------------------------------------------------------
@@ -1494,7 +1928,11 @@ def main():
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"]})
+                     "library_ms": r["library_ms"],
+                     # host costs and whole-step sums, where measured
+                     **{k: v for k, v in r.items() if k not in (
+                         "max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms")}})
     log(f"[done] {time.perf_counter() - t_all:.1f}s")
     log(card)
     log(json.dumps({"kernels": rows}))

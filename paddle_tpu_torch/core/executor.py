@@ -42,6 +42,7 @@ from paddle_tpu_torch.core.backward import resolve_op_def
 from paddle_tpu_torch.core.ir import default_main_program
 from paddle_tpu_torch.core.places import default_place
 from paddle_tpu_torch.core.scope import global_scope
+from paddle_tpu_torch.kernels import registry as kernel_registry
 from paddle_tpu_torch.passes import (
     apply_deferred_sharded_embedding_rewrite, apply_deferred_sparse_rewrite)
 from paddle_tpu_torch.utils.enforce import EnforceError
@@ -221,6 +222,7 @@ class Executor:
         scope = scope if scope is not None else global_scope()
         block = program.global_block()
         steps, persistable, read = self._plan(program)
+        late = kernel_registry.late_launches()
         env = {
             name: self._to_device(value, block.vars.get(name))
             for name, value in feed.items()
@@ -243,8 +245,25 @@ class Executor:
                     "fed, or present in scope"
                 )
         if return_numpy:
-            return [f.detach().cpu().numpy() for f in fetches]
+            fetches = [f.detach().cpu().numpy() for f in fetches]
+        if kernel_registry.late_launches() != late:
+            self._raise_late(steps, synced=return_numpy and bool(fetches))
         return fetches
+
+    def _raise_late(self, steps, synced):
+        """A kernel that finds a bad input on the card (K6's id check)
+        launched in this run: raise what it found, attributed to the ops
+        that report late, as the plain path's eager check is attributed
+        to its op. The fetch copy synced with the card; without one, wait
+        for the current stream, which ran the launches."""
+        if self.device.type == "cuda" and not synced:
+            torch.cuda.current_stream(self.device).synchronize()
+        try:
+            kernel_registry.raise_late(self.device)
+        except ValueError as e:
+            types = sorted({s.op.type for s in steps if s.op_def.reports_late})
+            raise EnforceError(f"lowering failed: {e}",
+                               op_type=", ".join(types) or None) from e
 
     def close(self):
         self._plans.clear()

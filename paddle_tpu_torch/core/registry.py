@@ -20,7 +20,10 @@ input slots that never receive gradients (indices, labels, masks). Two
 flags ask the executor for run-time context: ``stateful`` ops receive
 the run's ``torch.Generator`` as ``ins["__generator__"]``, and
 ``creates`` ops (which have no tensor input to take a device from)
-receive the target ``torch.device`` as ``ins["__device__"]``.
+receive the target ``torch.device`` as ``ins["__device__"]``. A third,
+``reports_late``, marks ops whose kernel finds a bad input on the card
+after the launch (``kernels.registry.report_late``): the executor raises
+it at the end of the run, naming those ops.
 """
 
 from paddle_tpu_torch.utils.enforce import EnforceError
@@ -28,7 +31,8 @@ from paddle_tpu_torch.utils.enforce import EnforceError
 
 class OpDef:
     def __init__(self, type, lower, kernel=None, grad=None,
-                 nondiff_inputs=(), stateful=False, creates=False):
+                 nondiff_inputs=(), stateful=False, creates=False,
+                 reports_late=False):
         self.type = type
         self.lower = lower
         self.kernel = kernel
@@ -36,6 +40,7 @@ class OpDef:
         self.nondiff_inputs = frozenset(nondiff_inputs)
         self.stateful = stateful
         self.creates = creates
+        self.reports_late = reports_late
 
     def lowering(self):
         """What the executor runs: the kernel lowering when the op has
@@ -69,13 +74,14 @@ class OpRegistry:
 
 
 def register_op(type, kernel=None, nondiff_inputs=(), stateful=False,
-                creates=False):
+                creates=False, reports_late=False):
     """Decorator form:  @register_op("relu")  def _(ins, attrs): ..."""
 
     def deco(fn):
         OpRegistry.register(
             OpDef(type, fn, kernel=kernel, nondiff_inputs=nondiff_inputs,
-                  stateful=stateful, creates=creates)
+                  stateful=stateful, creates=creates,
+                  reports_late=reports_late)
         )
         return fn
 

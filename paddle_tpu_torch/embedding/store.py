@@ -113,6 +113,7 @@ class _TableRuntime:
         self._dirty = set()
         self._oldest_dirty = None            # monotonic ts of oldest dirty row
         self._pending_push = {}              # id -> Future (in-flight write-back)
+        self._staging = kemb.Staging()       # K5's upload buffers
         self.hits = self.misses = 0
         self.evictions = self.writebacks = self.prefetched = 0
         self._reset_slots()
@@ -199,7 +200,7 @@ class _TableRuntime:
                             if i in self._dirty]
                 self._async_push(dirty_ev, kemb.read_rows(slab, ev_slots))
                 self._dirty.difference_update(dirty_ev)
-            kemb.admit_rows(slab, new_slots, rows)
+            kemb.admit_rows(slab, new_slots, rows, self._staging)
 
         # LRU touch for hits (misses were appended above)
         for idv in order:

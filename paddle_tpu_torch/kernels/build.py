@@ -77,3 +77,24 @@ def load(source):
             build(source)
             lib = _loaded[source] = ctypes.CDLL(str(library_path(source)))
         return lib
+
+
+def function(source, name, argtypes, restype=ctypes.c_int):
+    """``source``'s C function ``name`` with its argument and result types
+    declared (ctypes would pass an undeclared pointer as a 32-bit int).
+    Callers resolve it once and keep it: the lookup is no per-launch cost."""
+    fn = getattr(load(source), name)
+    fn.argtypes = argtypes
+    fn.restype = restype
+    return fn
+
+
+def raw_stream_getter():
+    """PyTorch's getter of a card's current stream as an int (the
+    ``cudaStream_t``): ``getter(device_index)``. Read on every launch,
+    since a caller may set another stream; far cheaper than building a
+    ``torch.cuda.Stream``. A CPU build of PyTorch has none, so it is
+    resolved here, at the first launch, and not at import."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream

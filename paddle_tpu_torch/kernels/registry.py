@@ -14,6 +14,11 @@ Modes, from ``PADDLE_TPU_TORCH_KERNELS`` or ``scoped_mode``:
 Each wrapper calls ``note_launch`` once per kernel launch and nowhere
 else, so ``launches()`` shows whether a run really went through the
 kernels.
+
+A kernel that checks its input on the card, without a sync, reports a
+bad input after its launch: its module registers the check with
+``report_late``, and ``raise_late`` (called by ``Executor.run`` once the
+card has run the launch) raises what it found.
 """
 
 import os
@@ -21,7 +26,8 @@ import threading
 from collections import namedtuple
 
 __all__ = ["KERNELS", "MODE_ENV", "mode", "scoped_mode", "note_launch",
-           "launches", "reset_launches"]
+           "launches", "reset_launches", "report_late", "late_launches",
+           "raise_late"]
 
 MODE_ENV = "PADDLE_TPU_TORCH_KERNELS"
 _MODES = ("auto", "off")
@@ -60,6 +66,7 @@ KERNELS = {
 _lock = threading.Lock()
 _mode_stack = []
 _launches = {name: 0 for name in KERNELS}
+_late = {}      # kernel name -> check(device), see report_late
 
 
 def mode():
@@ -109,3 +116,24 @@ def reset_launches():
     with _lock:
         for name in _launches:
             _launches[name] = 0
+
+
+def report_late(name, check):
+    """Kernel ``name`` reports a bad input after its launch:
+    ``check(device)`` raises the ``ValueError`` of what its launches on
+    ``device`` met since the last check (and clears it), once the card has
+    run them; it makes no sync."""
+    _late[name] = check
+
+
+def late_launches():
+    """Launches so far of the kernels that report late."""
+    with _lock:
+        return sum(_launches[name] for name in _late)
+
+
+def raise_late(device):
+    """Raise the first bad input that a late-reporting kernel met on
+    ``device`` (the caller has synced with the card since the launch)."""
+    for check in list(_late.values()):
+        check(device)

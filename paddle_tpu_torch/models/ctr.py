@@ -11,7 +11,7 @@ import numpy as np
 
 import paddle_tpu_torch as fluid
 
-__all__ = ["build_ctr_train", "synthetic_batch"]
+__all__ = ["build_ctr_train", "synthetic_batch", "sgd_sparse_program"]
 
 
 def build_ctr_train(
@@ -84,3 +84,24 @@ def synthetic_batch(rng, batch, num_slots=8, ids_per_slot=3, id_space=2**40):
     p = ((base.sum(axis=1) % 97) / 97.0) * 0.8 + 0.1
     feed["click"] = (rng.rand(batch) < p).astype("float32").reshape(batch, 1)
     return feed
+
+
+def sgd_sparse_program(vocab, dim, n):
+    """A program of one ``sgd_sparse`` (the row update that each table of
+    ``build_ctr_train`` gets from the deferred rewrite), to drive that op
+    alone: it updates a persistable ``table`` [vocab, dim] in place, fed
+    ``ids`` (int64 [n]), ``rows`` [n, dim] and ``lr`` [1]."""
+    main = fluid.Program()
+    with fluid.program_guard(main, fluid.Program()):
+        fluid.data("ids", [n], dtype="int64")
+        fluid.data("rows", [n, dim])
+        fluid.data("lr", [1])
+    block = main.global_block()
+    block.create_var(name="table", shape=[vocab, dim], dtype="float32",
+                     persistable=True)
+    block.append_op("sgd_sparse",
+                    inputs={"Param": ["table"], "Ids": ["ids"],
+                            "RowGrad": ["rows"], "LearningRate": ["lr"]},
+                    outputs={"ParamOut": ["table"]},
+                    attrs={"padding_idx": -1})
+    return main

@@ -30,7 +30,7 @@ def _sgd(ins, attrs):
     return {"ParamOut": [out.to(p.dtype)]}
 
 
-@register_op("sgd_sparse", nondiff_inputs=("Ids",))
+@register_op("sgd_sparse", nondiff_inputs=("Ids",), reports_late=True)
 def _sgd_sparse(ins, attrs):
     """SelectedRows-analog row update (reference: paddle/fluid/operators/
     optimizers/sgd_op.h sparse branch), emitted by the
@@ -41,11 +41,14 @@ def _sgd_sparse(ins, attrs):
     Flag off: one accumulating ``index_put_`` (duplicate ids combine inside
     it, deterministically on every device). Flag on
     (``FLAGS_pallas_sparse_update``): the duplicates are merged first
-    (``torch.unique`` — a sync with the card — and a segment-sum of the
-    scaled rows), then the sparse-row kernel K6 adds each merged row once
+    (``torch.unique`` — a sync with the card, the op's only one — and a
+    segment-sum of the scaled rows), then the sparse-row kernel K6 adds
+    each merged row once, taking ``torch.unique``'s int64 ids as they are
     (``kernels/sparse_update.py``; kernel mode ``off`` takes its plain
     version). ``torch.unique`` returns exactly the unique ids, so no fill
-    rows reach the kernel."""
+    rows reach the kernel. K6 finds an id outside the table on the card,
+    so there the executor raises it at the end of the run
+    (``reports_late``)."""
     p = first(ins, "Param")
     ids = first(ins, "Ids").reshape(-1)
     rows = first(ins, "RowGrad")

@@ -5,8 +5,10 @@ size on the CPU:
   the JAX package's (the bars of ``test_torch_train_ops.py``);
 * the sparse-row kernel's plain version (K6, ``sparse_row_update`` on a
   CPU tensor) equals the JAX package's Pallas kernel in interpret mode bit
-  for bit, with id 0 among the real ids and fill rows present; rows past
-  ``n_unique`` are never touched, whatever they hold;
+  for bit, with id 0 among the real ids and fill rows present, at int32
+  and at int64 ids; rows past ``n_unique`` are never touched, whatever
+  they hold; an id outside the table raises, also through
+  ``Executor.run``;
 * ``sgd_sparse`` equals the JAX package's with ``FLAGS_pallas_sparse_update``
   off and on, duplicate ids and ``padding_idx`` included, at the JAX test's
   bar (rtol 1e-5, atol 1e-6);
@@ -51,6 +53,7 @@ from paddle_tpu_torch.passes import (
     apply_deferred_sparse_rewrite as torch_sparse_rewrite,
 )
 from paddle_tpu_torch.utils import unique_name as torch_names
+from paddle_tpu_torch.utils.enforce import EnforceError
 from paddle_tpu_torch.utils.flags import flags as torch_flags
 from test_torch_train_ops import _assert_same, _grad_op, _run_jax, _run_torch
 
@@ -192,6 +195,48 @@ def test_row_update_rejects_an_id_outside_the_table(bad):
         with pytest.raises(ValueError, match="outside"):
             fn(got, torch.from_numpy(ids), torch.from_numpy(rows))
         assert got.numpy().tobytes() == param.tobytes()
+
+
+@pytest.mark.parametrize("vocab,dim,n_real,n_fill", [
+    (30, 4, 7, 5), (64, 16, 20, 12), (64, 1, 33, 31)])
+def test_row_update_int64_ids_match_int32_and_jax(vocab, dim, n_real,
+                                                   n_fill):
+    """``torch.unique``'s int64 ids go into the wrapper as they come: the
+    same bits as int32 ids and as the JAX kernel in interpret mode."""
+    param, ids, rows, fill_ids, fill_rows = _row_update(
+        vocab + dim + 1, vocab, dim, n_real, n_fill)
+    want = np.asarray(jax_su.sparse_row_update(
+        jnp.asarray(param), jnp.asarray(np.concatenate([fill_ids, ids])),
+        jnp.asarray(np.concatenate([fill_rows, rows])), interpret=True))
+    rows_t = torch.from_numpy(np.concatenate([rows, fill_rows]))
+    got = {}
+    for dtype in (np.int32, np.int64):
+        t = torch.from_numpy(param.copy())
+        su.sparse_row_update(t, torch.from_numpy(np.concatenate(
+            [ids, fill_ids]).astype(dtype)), rows_t, n_unique=n_real)
+        got[dtype] = t.numpy().tobytes()
+    assert got[np.int32] == got[np.int64] == want.tobytes()
+
+
+def test_executor_run_rejects_an_id_outside_the_table(monkeypatch):
+    """On the CPU, ``sgd_sparse`` under the flag takes K6's plain version,
+    which checks the ids before it touches the table: ``Executor.run``
+    raises, attributing the op, and the table keeps every row."""
+    monkeypatch.setattr(torch_flags, "pallas_sparse_update", True)
+    main = torch_ctr.sgd_sparse_program(50, 4, 4)
+    exe, scope = pt.Executor(place=pt.CPUPlace()), pt.Scope()
+    table = torch.from_numpy(np.random.RandomState(2).randn(50, 4).astype(
+        np.float32))
+    start = table.clone()
+    scope.set("table", table)
+    feed = {"ids": np.array([3, 57, 5, 3], np.int64),
+            "rows": np.ones((4, 4), np.float32),
+            "lr": np.array([0.5], np.float32)}
+    with pytest.raises(EnforceError, match="sgd_sparse") as info:
+        exe.run(main, feed=feed, fetch_list=["lr"], scope=scope)
+    assert isinstance(info.value.__cause__, ValueError)
+    assert "outside" in str(info.value.__cause__)
+    assert torch.equal(scope.find_var("table"), start)
 
 
 # ---------------------------------------------------------------------------

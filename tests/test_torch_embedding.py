@@ -7,7 +7,10 @@ small size on the CPU:
 * the admission kernel's plain version (K5, ``scatter_rows`` on a CPU
   slab) equals the JAX package's composite and its Pallas kernel in
   interpret mode bit for bit, pad slots, D = 1 and D = 16, and the rows no
-  slot names included; ``read_rows`` equals the JAX gather;
+  slot names included; ``read_rows`` equals the JAX gather; K5's staging
+  layout packs ``pad_slots``' real entries and nothing else (a pure
+  function), and ``admit_rows`` over the real rows gives the bytes of the
+  padded bucket;
 * the port's cache-size invariance on Wide&Deep (``models/wide_deep.py``,
   batch 32, 10 click-log steps): capacity 64, which evicts every step,
   and 4096 give the same losses and host tiers bit for bit (the engine
@@ -181,6 +184,55 @@ def test_admission_rejects_a_slot_outside_the_slab():
     with pytest.raises(ValueError, match="shape"):
         kemb.scatter_rows(t, np.array([0, 1]), rows)
     assert np.array_equal(t.numpy(), slab)
+
+
+PACK_CASES = [(64, 16, 37), (64, 1, 33), (4096, 16, 256), (16, 3, 1),
+              (32, 16, 32)]
+
+
+@pytest.mark.parametrize("cap,dim,n", PACK_CASES)
+def test_admission_packing_is_pad_slots_truncated(cap, dim, n):
+    """K5's staging buffer holds the real rows only: read back at
+    ``admission_layout``'s offsets, its slots and rows are ``pad_slots``'
+    first ``n``. Packing is a pure function: the same bytes into a given
+    buffer as into a new one, nothing written past the layout, its inputs
+    untouched."""
+    _, slots, rows = _admission(cap + dim + n + 1, cap, dim, n)
+    s, r = kemb.pad_slots(slots, rows, cap, dim, np.float32)
+    off, size = kemb.admission_layout(n, dim)
+    assert off % 16 == 0 and 4 * n <= off < 4 * n + 16
+    assert size == off + 4 * n * dim
+    slots_in, rows_in = slots.copy(), rows.copy()
+    new = kemb.pack_admission(slots, rows)
+    out = np.full(size + 64, 0xAB, np.uint8)
+    into = kemb.pack_admission(slots, rows, out=out)
+    assert len(new) == len(into) == size and np.shares_memory(into, out)
+    assert (out[size:] == 0xAB).all()
+    for buf in (new, into):
+        assert np.array_equal(buf[:4 * n].view(np.int32), s[:n])
+        assert buf[off:].view(np.float32).reshape(n, dim).tobytes() == \
+            r[:n].tobytes()
+    assert np.array_equal(slots, slots_in) and np.array_equal(rows, rows_in)
+
+
+@pytest.mark.parametrize("cap,dim,n", PACK_CASES)
+def test_admit_rows_over_the_real_rows_equals_the_padded_bucket(cap, dim, n):
+    """``admit_rows`` uploads the real rows only; in either kernel mode the
+    slab gets the bytes that the padded bucket gives, which are the JAX
+    composite's. An empty admission writes nothing."""
+    slab, slots, rows = _admission(cap + dim + n + 2, cap, dim, n)
+    s, r = kemb.pad_slots(slots, rows, cap, dim, np.float32)
+    padded = kemb.scatter_rows(torch.from_numpy(slab.copy()), s, r)
+    composite = np.asarray(jax_kemb._scatter_composite(
+        jnp.asarray(slab), jnp.asarray(s), jnp.asarray(r)))
+    assert padded.numpy().tobytes() == composite.tobytes()
+    for mode in ("auto", "off"):
+        with kernels.scoped_mode(mode):
+            got = torch.from_numpy(slab.copy())
+            assert kemb.admit_rows(got, slots, rows, kemb.Staging()) is got
+            assert got.numpy().tobytes() == composite.tobytes()
+            kemb.admit_rows(got, [], np.zeros((0, dim), np.float32))
+            assert got.numpy().tobytes() == composite.tobytes()
 
 
 def test_read_rows_matches_jax():
