@@ -24,8 +24,8 @@ Phases:
 2. parity — each kernel against its plain version on the same inputs
    (S=8 slots, L=1024 positions, H=768, R=8192 arena rows, random block
    row maps with rows shared between slots, random cursors, one retired
-   slot), timed with CUDA events (median of 5 windows of 10 passes over
-   12 layers' arenas) beside the plain version, one PyTorch
+   slot), timed on the device (``device_ms``: median of 5 windows of 10
+   passes over 12 layers' arenas) beside the plain version, one PyTorch
    library call (``scaled_dot_product_attention`` on the gathered views,
    a yardstick the port never calls) and the card's bound.
 3. engine — ``GenerationEngine()`` on the default place serving 16
@@ -104,12 +104,18 @@ Phases:
    final top-k's, and |x[idx]| == vals): at word_emb's size [37000, 512]
    with k = 75,776 (DGC's k at sparsity 0.996, the path's) and 18,944
    (0.999), an FFN weight's [512, 2048] at 1,049 and at the path's 4,194,
-   planted ties, n not a multiple of the block, and k > block. Timed at
+   an attention projection's [512, 512] at 1,049, planted ties, n not a
+   multiple of the block, k > block, and a sweep of the block: 1000 (one
+   CTA), 4099 (a cluster of 5 whose last slice is shorter), 10^6 (past
+   what a cluster keeps in shared memory), and an all-equal |x| whose tie
+   cut falls inside a middle CTA of the cluster. Timed on the device at
    the path's word_emb shape beside the plain stage, the card's bound and
-   ``torch.topk(|x|, k)`` (a yardstick the port never calls); then K7, the
-   whole ``blocked_topk_abs`` and ``torch.topk(|x|, k)`` on the device at
+   ``torch.topk(|x|, k)`` (a yardstick the port never calls); then at
    each (numel, k) pair of a sparse Transformer-base step (phase 8's 97
-   launches), summed weighted by launches.
+   launches) the stage, the whole ``blocked_topk_abs`` and
+   ``torch.topk(|x|, k)`` in device ms (summed weighted by launches), the
+   whole function's and ``torch.topk``'s host µs a call (``host_us``) and
+   their CUDA launches a call (``cuda_launches``, a profiler trace).
 8. dgc — Transformer-base (``build_wmt_train(TransformerConfig.base()``,
    no dropout, seq 64, DGC momentum with warm-up at step 0, sparsity
    0.996 then 0.999) trained data-parallel on 2 ranks of
@@ -207,16 +213,26 @@ CTR_STEP_SYNCS = 26
 # as the JAX package's rtol 1e-5 / atol 1e-6 against its own kernel, is as
 # large as a deep-table row's whole update over the run and would let a
 # wrong K6 through)
-# DGC top-k (K7) parity shapes: (label, n, k, kind); the first is timed,
-# word_emb [37000, 512] at the path's k (sparsity 0.996)
+# DGC top-k (K7) parity shapes: (label, n, k, block, kind); the first is
+# timed, word_emb [37000, 512] at the path's k (sparsity 0.996). The last
+# four sweep the block: one CTA (1000), a cluster of 5 whose last slice is
+# shorter (4099), a block past what a cluster keeps in shared memory, and
+# an all-equal |x| whose tie cut falls inside a middle CTA (53248 = 6.5
+# slices of 8192 in a cluster of 16, 3.25 of 16384 in one of 8)
 TOPK_BLOCK = 131072
-TOPK_CASES = (("word_emb k=75776", 37000 * 512, 75776, "normal"),
-              ("word_emb k=18944", 37000 * 512, 18944, "normal"),
-              ("ffn k=1049", 512 * 2048, 1049, "normal"),
-              ("ffn k=4194", 512 * 2048, 4194, "normal"),
-              ("ties", 3 * TOPK_BLOCK + 5, 4000, "ties"),
-              ("ragged", 2 * TOPK_BLOCK + 777, 600, "normal"),
-              ("k > block", 300000, 140000, "ties"))
+TOPK_CASES = (("word_emb k=75776", 37000 * 512, 75776, TOPK_BLOCK, "normal"),
+              ("word_emb k=18944", 37000 * 512, 18944, TOPK_BLOCK, "normal"),
+              ("ffn k=1049", 512 * 2048, 1049, TOPK_BLOCK, "normal"),
+              ("ffn k=4194", 512 * 2048, 4194, TOPK_BLOCK, "normal"),
+              ("attn k=1049", 512 * 512, 1049, TOPK_BLOCK, "normal"),
+              ("ties", 3 * TOPK_BLOCK + 5, 4000, TOPK_BLOCK, "ties"),
+              ("ragged", 2 * TOPK_BLOCK + 777, 600, TOPK_BLOCK, "normal"),
+              ("k > block", 300000, 140000, TOPK_BLOCK, "ties"),
+              ("block 1000", 10 * 1000 + 7, 40, 1000, "normal"),
+              ("block 4099", 5 * 4099 + 100, 300, 4099, "ties"),
+              ("block 1000000", 1300000, 3000, 1000000, "normal"),
+              ("all equal, cut inside a middle CTA", 2 * TOPK_BLOCK, 53248,
+               TOPK_BLOCK, "equal"))
 # Transformer-base data-parallel DGC training: 2 ranks on the one card,
 # global batch 128 (64 sentences, 4096 target tokens a rank), seq 64, 6
 # steps: step 0 dense (rampup_begin_step 1), step 1 sparse at 0.996,
@@ -493,16 +509,17 @@ def phase_parity():
                 fn(i)
         return go
 
-    kernel_ms = time_ms(run_layers(lambda i: A.paged_attention(
+    # device time (the wrappers make no host sync), over 12 layers' arenas
+    kernel_ms = device_ms(run_layers(lambda i: A.paged_attention(
         q, x["k"][i], x["v"][i], rows, bias, S, L, scale)), 10) / LAYERS
-    plain_ms = time_ms(run_layers(lambda i: A.paged_attention_composite(
+    plain_ms = device_ms(run_layers(lambda i: A.paged_attention_composite(
         q, x["k"][i], x["v"][i], rows, bias, S, L, scale)), 10) / LAYERS
     gk = [x["k"][i].index_select(0, rows).reshape(S, 1, L, H)
           for i in range(LAYERS)]
     gv = [x["v"][i].index_select(0, rows).reshape(S, 1, L, H)
           for i in range(LAYERS)]
     q4, mask4 = q.reshape(S, 1, 1, H), bias.reshape(S, 1, 1, L)
-    lib_ms = time_ms(run_layers(lambda i: F.scaled_dot_product_attention(
+    lib_ms = device_ms(run_layers(lambda i: F.scaled_dot_product_attention(
         q4, gk[i], gv[i], attn_mask=mask4, scale=scale)), 10) / LAYERS
     rows_needed = np.unique(np.concatenate(
         [x["rows_np"][s * L + p] for s, p in enumerate(need)])).size
@@ -528,11 +545,11 @@ def phase_parity():
     log(f"[parity] decode_attention max_abs_err={err:.3e} (atol {PARITY_ATOL})")
     if not err <= PARITY_ATOL:
         raise AssertionError(f"decode_attention kernel disagrees: {err}")
-    kernel_ms = time_ms(run_layers(lambda i: A.decode_attention(
+    kernel_ms = device_ms(run_layers(lambda i: A.decode_attention(
         q, kc[i], vc[i], bias, scale)), 10) / LAYERS
-    plain_ms = time_ms(run_layers(lambda i: A.cached_attention_composite(
+    plain_ms = device_ms(run_layers(lambda i: A.cached_attention_composite(
         q, kc[i], vc[i], bias, scale)), 10) / LAYERS
-    lib_ms = time_ms(run_layers(lambda i: F.scaled_dot_product_attention(
+    lib_ms = device_ms(run_layers(lambda i: F.scaled_dot_product_attention(
         q4, kc[i].unsqueeze(1), vc[i].unsqueeze(1), attn_mask=mask4,
         scale=scale)), 10) / LAYERS
     b_ms, b_by = bound(n_pos, n_pos, S * H * 4 * 2 + S * L * 4)
@@ -1219,8 +1236,39 @@ def log_ctr_costs(costs):
 
 
 # -- phase 2d ---------------------------------------------------------------
+def cuda_launches(fn, calls=4):
+    """CUDA kernels (and copies or sets) that one call of ``fn`` puts on
+    the card, from a ``torch.profiler`` trace of ``calls`` calls; None
+    when the trace shows no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return n / calls if n else None
+
+
+def _topk_vector(gen, dev, n, kind):
+    import torch
+
+    x = torch.randn(n, generator=gen, device=dev)
+    if kind == "ties":
+        x = torch.round(x * 2) / 2
+        x[::7] = -0.0
+    elif kind == "equal":
+        x = torch.where(x < 0, -1.5, 1.5)
+    return x
+
+
 def phase_topk():
-    """K7 against its plain version on the card, bit for bit."""
+    """K7 against its plain version on the card, bit for bit; timed."""
     import torch
 
     from paddle_tpu_torch import kernels
@@ -1229,16 +1277,13 @@ def phase_topk():
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     result = None
-    for label, n, k, kind in TOPK_CASES:
-        x = torch.randn(n, generator=gen, device=dev)
-        if kind == "ties":
-            x = torch.round(x * 2) / 2
-            x[::7] = -0.0
+    for label, n, k, block, kind in TOPK_CASES:
+        x = _topk_vector(gen, dev, n, kind)
         kernels.reset_launches()
-        sv, si = KT.blocked_topk_stage(x, k, TOPK_BLOCK)
-        pv, pi = KT.blocked_topk_stage_plain(x, k, TOPK_BLOCK)
-        vals, idx = KT.blocked_topk_abs(x, k, TOPK_BLOCK)
-        wv, wi = KT.blocked_topk_abs_plain(x, k, TOPK_BLOCK)
+        sv, si = KT.blocked_topk_stage(x, k, block)
+        pv, pi = KT.blocked_topk_stage_plain(x, k, block)
+        vals, idx = KT.blocked_topk_abs(x, k, block)
+        wv, wi = KT.blocked_topk_abs_plain(x, k, block)
         torch.cuda.synchronize()
         if kernels.launches("blocked_topk_abs") != 2:
             raise AssertionError(f"K7 {label}: launched "
@@ -1251,51 +1296,72 @@ def phase_topk():
         if not all(checks.values()):
             raise AssertionError(f"K7 {label}: kernel and plain version "
                                  f"differ: {checks}")
-        log(f"[topk] {label} (n={n}, {-(-n // TOPK_BLOCK)} blocks): stage "
-            "and top-k bit-equal to the plain version, |x[idx]| == vals")
+        log(f"[topk] {label} (n={n}, block {block}, {-(-n // block)} blocks, "
+            f"clusters of {KT.scheduled_cluster(0, block, -(-n // block))}): "
+            "stage and top-k "
+            "bit-equal to the plain version, |x[idx]| == vals")
         if result is not None:
             continue
-        nb, kk = -(-n // TOPK_BLOCK), min(k, TOPK_BLOCK)
-        ms = time_ms(lambda: KT.launch(x, k, TOPK_BLOCK), 10)
-        whole_ms = time_ms(lambda: KT.blocked_topk_abs(x, k, TOPK_BLOCK), 10)
-        plain_ms = time_ms(lambda: KT.blocked_topk_stage_plain(
-            x, k, TOPK_BLOCK), 10)
-        lib_ms = time_ms(lambda: torch.topk(x.abs(), k), 10)
+        nb, kk = -(-n // block), min(k, block)
+        ms = device_ms(lambda: KT.launch(x, k, block), 10)
+        whole_ms = device_ms(lambda: KT.blocked_topk_abs(x, k, block), 10)
+        plain_ms = device_ms(lambda: KT.blocked_topk_stage_plain(
+            x, k, block), 5)
+        lib_ms = device_ms(lambda: torch.topk(x.abs(), k), 10)
         # x read once, nb * kk (value, index) pairs written once
         b_ms, b_by = _bytes_bound(n * 4 + nb * kk * 8)
         result = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                      bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-        log(f"[topk] K7 {label}: kernel_ms={ms:.4f} (the whole function, "
-            f"with the final selection over {nb * kk} candidates, "
-            f"{whole_ms:.4f}) plain_ms={plain_ms:.4f} (the plain stage) "
-            f"library_ms={lib_ms:.4f} (torch.topk of |x|) "
-            f"bound_ms={b_ms:.4f} ({b_by})")
+                      bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                      whole_ms=whole_ms)
+        log(f"[topk] K7 {label}: device ms, stage {ms:.4f} (the whole "
+            f"function, with the final selection over {nb * kk} candidates, "
+            f"{whole_ms:.4f}) plain {plain_ms:.4f} (the plain stage) "
+            f"library {lib_ms:.4f} (torch.topk of |x|) bound {b_ms:.4f} "
+            f"({b_by})")
 
     # the whole sparse step's K7 work: every (numel, k) pair it launches on
     pairs = _dgc_topk_pairs()
     if sum(pairs.values()) != 97:
         raise AssertionError(f"{sum(pairs.values())} K7 launches a sparse "
                              "Transformer-base step, want 97")
-    step = {"K7": 0.0, "blocked_topk_abs": 0.0, "torch.topk": 0.0}
+    step = {"stage": 0.0, "whole": 0.0, "torch.topk": 0.0}
+    rows = []
     for (n, k), count in sorted(pairs.items()):
         x = torch.randn(n, generator=gen, device=dev)
-        each = {"K7": device_ms(lambda: KT.launch(x, k, TOPK_BLOCK), 10),
-                "blocked_topk_abs": device_ms(
-                    lambda: KT.blocked_topk_abs(x, k, TOPK_BLOCK), 10),
-                "torch.topk": device_ms(lambda: torch.topk(x.abs(), k), 10)}
+        fns = {"stage": lambda: KT.launch(x, k, TOPK_BLOCK),
+               "whole": lambda: KT.blocked_topk_abs(x, k, TOPK_BLOCK),
+               "torch.topk": lambda: torch.topk(x.abs(), k)}
+        each = {name: device_ms(fn, 10) for name, fn in fns.items()}
+        # host time a call, no sync; few calls a window (torch.topk makes
+        # up to 39 launches a call), so that the card's queue of launches
+        # never fills and blocks the host
+        host = {name: host_us(fns[name], reps=10)
+                for name in ("whole", "torch.topk")}
+        launches = {name: cuda_launches(fns[name])
+                    for name in ("whole", "torch.topk")}
         for name, ms in each.items():
             step[name] += count * ms
-        log(f"[topk] n={n} k={k} x{count} a step: device ms K7 "
-            f"{each['K7']:.4f}, the whole blocked_topk_abs "
-            f"{each['blocked_topk_abs']:.4f}, torch.topk(|x|, k) "
-            f"{each['torch.topk']:.4f}")
+        rows.append(dict(n=n, k=k, count=count, stage_ms=each["stage"],
+                         whole_ms=each["whole"],
+                         library_ms=each["torch.topk"],
+                         host_us=host["whole"],
+                         library_host_us=host["torch.topk"],
+                         cuda_launches=launches["whole"],
+                         library_cuda_launches=launches["torch.topk"]))
+        log(f"[topk] n={n} k={k} x{count} a step: device ms, stage "
+            f"{each['stage']:.4f}, the whole blocked_topk_abs "
+            f"{each['whole']:.4f}, torch.topk(|x|, k) "
+            f"{each['torch.topk']:.4f}; host us a call, the whole "
+            f"{host['whole']:.2f}, torch.topk {host['torch.topk']:.2f}; "
+            f"CUDA launches a call, the whole {launches['whole']}, "
+            f"torch.topk {launches['torch.topk']}")
     log(f"[topk] one sparse Transformer-base step, {sum(pairs.values())} "
-        f"launches: device ms K7 {step['K7']:.4f}, the whole "
-        f"blocked_topk_abs {step['blocked_topk_abs']:.4f}, torch.topk(|x|, "
-        f"k) {step['torch.topk']:.4f} (blocked_topk_abs takes "
-        f"{step['blocked_topk_abs'] / step['torch.topk']:.2f}x its time)")
-    result.update(step_ms=step["K7"], step_whole_ms=step["blocked_topk_abs"],
-                  step_library_ms=step["torch.topk"])
+        f"calls: device ms, stage {step['stage']:.4f}, the whole "
+        f"blocked_topk_abs {step['whole']:.4f}, torch.topk(|x|, k) "
+        f"{step['torch.topk']:.4f} (blocked_topk_abs takes "
+        f"{step['whole'] / step['torch.topk']:.2f}x its time)")
+    result.update(step_ms=step["stage"], step_whole_ms=step["whole"],
+                  step_library_ms=step["torch.topk"], step_pairs=rows)
     return {"blocked_topk_abs": result}
 
 

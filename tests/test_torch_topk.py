@@ -15,7 +15,11 @@ signs), zeros and -0.0, and k > block. Checks, values and indices equal:
 * the same against ``lax.top_k(|x|, k)``: descending value, ties by lower
   index;
 * the plain per-block stage against a numpy reference: each block's top
-  ``min(k, block)`` (pad lanes -1) in index order.
+  ``min(k, block)`` (pad lanes -1) in index order;
+* at the DGC path's shapes scaled down: 2 and 8 blocks (a sparse
+  Transformer-base step's [262144] and [1048576] over 131072-element
+  blocks) at k/n about 0.004 and 0.001 (sparsity 0.996 and 0.999), with
+  blocks of 512 and 1024.
 """
 
 import jax
@@ -87,6 +91,33 @@ def test_stage_is_each_blocks_top_k_in_index_order(n, k, block):
         want_i.append(chosen + b * block)
     np.testing.assert_array_equal(vals.numpy(), np.concatenate(want_v))
     np.testing.assert_array_equal(idx.numpy(), np.concatenate(want_i))
+
+
+# (blocks, block, k): n = blocks * block, k / n about 0.004 or 0.001
+PATH_CASES = [(2, 512, 4), (2, 1024, 8), (8, 512, 16), (8, 1024, 33),
+              (2, 1024, 2), (8, 1024, 8)]
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties", "zeros"])
+@pytest.mark.parametrize("blocks,block,k", PATH_CASES)
+def test_path_ratios_match_jax(blocks, block, k, kind):
+    n = blocks * block
+    x = _vector(n, kind, 11 * n + k)
+    vals, idx = _port(x, k, block)
+    jv, ji = jax_blocked(jnp.asarray(x), k, block=block, interpret=True)
+    np.testing.assert_array_equal(vals, np.asarray(jv))
+    np.testing.assert_array_equal(idx, np.asarray(ji))
+    np.testing.assert_array_equal(np.abs(x)[idx], vals)
+
+
+@pytest.mark.parametrize("blocks,want", [
+    (1, [1, 1, 1, 2, 5, 8, 16, 16]), (8, [1, 1, 1, 2, 5, 8, 16, 16]),
+    (9, [1, 1, 1, 2, 5, 8, 8, 8]), (145, [1, 1, 1, 2, 5, 8, 8, 8])])
+def test_cluster_size_follows_the_block_and_the_call(blocks, want):
+    # one CTA per 1024 elements; at most 16 for a call over 8 blocks or
+    # fewer, else at most the portable 8
+    assert [topk.cluster_size(b, blocks) for b in (
+        1, 64, 1000, 1025, 4099, 8192, topk.DEFAULT_BLOCK, 10**6)] == want
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():

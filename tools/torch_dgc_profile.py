@@ -140,7 +140,7 @@ def rank_main(trace):
     by_kernel = sorted(((k, us, n) for k, (us, n) in per_name.items()),
                        key=lambda r: -r[1])
     kernel_us = sum(us for _, us, _ in by_kernel)
-    k7_us = sum(us for k, us, _ in by_kernel if "block_topk_kernel" in k)
+    k7_us = sum(us for k, us, _ in by_kernel if "block_topk_" in k)
     sort_us = sum(us for k, us, _ in by_kernel if "sort" in k.lower()
                   or "radix" in k.lower())
     gemm_us = sum(us for k, us, _ in by_kernel if "gemm" in k.lower())
