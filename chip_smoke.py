@@ -35,14 +35,18 @@ Phases:
    counters are zeroed just before and read just after; 4 requests are
    checked against ``offline_decode`` on the card.
 2b. flash parity — the flash-attention forward (K1), dK/dV (K2a) and dQ
-   (K2b) kernels against their plain versions on the same inputs: at
-   BERT-base's training shape (B=32, H=12, S=128, D=64, padding-mask
-   bias, not causal), timed on the device (``device_ms``) beside the plain
-   version, the card's bound and one PyTorch library call
+   (K2b) kernels against their plain versions on the same inputs, and two
+   launches of each giving the same bits: at BERT-base's training shape
+   (B=32, H=12, S=128, D=64, padding-mask bias, not causal), timed on the
+   device (``device_ms``) beside the plain version, the bound of the
+   kernel's route (K1 f32 FFMA, K2a and K2b 3xTF32 tensor-core products;
+   the FFMA bound printed beside) and one PyTorch library call
    (``scaled_dot_product_attention`` with its backend pinned to memory-
-   efficient attention: forward; its backward for dq + dk + dv together,
-   held against K2a + K2b summed), and at S=512 (BERT's longest
-   position), causal, with padding, for parity only.
+   efficient attention: forward; its backward for dq + dk + dv together),
+   and the whole backward as BERT's training step runs it (delta, K2a
+   with no dbias, K2b: ``FlashAttention.backward``'s kernels) held
+   against that sdpa backward, with the factor printed; and at S=512
+   (BERT's longest position), causal, with padding, for parity only.
 4. dense — a program with one fused ``cached_attention`` op (the dense
    slotted-cache form, served by ``decode_attention``) through
    ``Executor.run``, counters zeroed before and read after.
@@ -164,10 +168,12 @@ NEG_INF = -1e9
 # catches any wrong row, weight or mask.
 PARITY_ATOL = 1e-4
 # Flash attention: the plain versions compute the same float32 function
-# with cuBLAS products and one softmax, the kernels with FFMA over tiles in
-# another order, so both sit within float32 rounding of each other (about
-# 1e-6 relative). The bars are the CPU tests' (O and LSE rtol = atol =
-# 1e-5, the JAX test's; grads rtol 1e-4, atol 1e-5), applied elementwise.
+# with cuBLAS products and one softmax, the kernels over tiles in another
+# order (K1 with FFMA, K2a and K2b with 3xTF32 tensor-core products, which
+# keep float32 accuracy), so both sit within float32 rounding of each
+# other (about 1e-6 relative). The bars are the CPU tests' (O and LSE
+# rtol = atol = 1e-5, the JAX test's; grads rtol 1e-4, atol 1e-5),
+# applied elementwise.
 FLASH_SHAPES = (dict(B=32, H=12, S=128, D=64, causal=False, timed=True),
                 dict(B=32, H=12, S=512, D=64, causal=True, timed=False))
 FWD_TOL, BWD_TOL = (1e-5, 1e-5), (1e-4, 1e-5)
@@ -241,9 +247,11 @@ DGC_RANKS, DGC_BATCH, DGC_SEQ, DGC_STEPS = 2, 128, 64, 6
 DGC_OPT = dict(learning_rate=0.01, momentum=0.9, rampup_begin_step=1,
                rampup_step=2, sparsity=[0.996, 0.999])
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
-# outside the tensor cores
+# outside the tensor cores, and f32 work on the TF32 tensor cores in the
+# 3xTF32 split (495 TFLOP/s of TF32, three products for each f32 one)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_3XTF32_FLOPS = 495e12 / 3
 # the empty kernel that gives the launch floor (not a port of a TPU kernel)
 FLOOR_SOURCE = "launch_floor.cu"
 
@@ -595,10 +603,18 @@ def flash_inputs(gen, dev, B, H, S, D):
     return q, k, v, dout, bias
 
 
-def flash_bounds(B, H, S, D):
+# the rate of each flash kernel's route: K1 f32 FFMA, K2a and K2b 3xTF32
+FLASH_RATES = {"flash_attention_fwd": PEAK_F32_FLOPS,
+               "flash_attention_bwd_dkdv": PEAK_3XTF32_FLOPS,
+               "flash_attention_bwd_dq": PEAK_3XTF32_FLOPS}
+
+
+def flash_bounds(B, H, S, D, rates=FLASH_RATES):
     """(bound_ms, bound_by) of K1, K2a and K2b, non-causal: the larger of
     each input read once and each output written once at the card's
-    memory rate, and its multiply-adds (two FLOPs each) at the f32 rate."""
+    memory rate, and its multiply-adds (two FLOPs each) at ``rates[name]``,
+    the FLOP/s of the kernel's route (K2a's bytes include the dbias it
+    writes)."""
     tensor = B * H * S * D * 4
     row = B * H * S * 4
     bias = B * S * 4
@@ -608,10 +624,21 @@ def flash_bounds(B, H, S, D):
             "flash_attention_bwd_dq": (6, 4 * tensor + 2 * row + bias + tensor)}
     out = {}
     for name, (mults, bytes_) in work.items():
-        t_ops = mults * B * H * S * S * D / PEAK_F32_FLOPS * 1e3
+        t_ops = mults * B * H * S * S * D / rates[name] * 1e3
         t_bytes = bytes_ / PEAK_BYTES_S * 1e3
         out[name] = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
     return out
+
+
+def _same_bits(name, fn):
+    """Raises unless two calls of ``fn`` (a tuple of tensors or Nones)
+    give the same bits."""
+    import torch
+
+    first, second = fn(), fn()
+    for a, b in zip(first, second):
+        if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+            raise AssertionError(f"{name}: two launches on the same inputs differ")
 
 
 def phase_flash():
@@ -651,8 +678,13 @@ def phase_flash():
                              _check_close(f"K2a dbias {tag}", db, db_p, BWD_TOL))
         errs[names[2]] = max(errs[names[2]],
                              _check_close(f"K2b dQ {tag}", dq, dq_p, BWD_TOL))
+        _same_bits(f"K1 {tag}", lambda: FA.flash_attention_fwd(
+            q, k, v, bias, causal, scale))
+        _same_bits(f"K2a {tag}", lambda: FA.flash_attention_bwd_dkdv(*args))
+        _same_bits(f"K2b {tag}", lambda: (FA.flash_attention_bwd_dq(*args),))
         log(f"[flash] {tag}: max abs err K1 {errs[names[0]]:.3e} "
-            f"K2a {errs[names[1]]:.3e} K2b {errs[names[2]]:.3e}")
+            f"K2a {errs[names[1]]:.3e} K2b {errs[names[2]]:.3e}; two launches "
+            "of each give the same bits")
         if not shape["timed"]:
             continue
         mask4 = bias[:, None, None, :]
@@ -681,18 +713,37 @@ def phase_flash():
                        lib_bwd),
         }
         bounds = flash_bounds(B, H, S, D)
+        # the FFMA route's bounds, for the log only (the kernels line
+        # carries the route's bound)
+        ffma = flash_bounds(B, H, S, D, dict.fromkeys(names, PEAK_F32_FLOPS))
         for name, (kernel, plain, lib_ms) in timed.items():
             results[name] = dict(ms=device_ms(kernel, 10),
                                  plain_ms=time_ms(plain, 10),
                                  bound_ms=bounds[name][0], bound_by=bounds[name][1],
                                  library_ms=lib_ms)
+        # the whole backward as BERT's step runs it, through autograd like
+        # sdpa's: FlashAttention.backward (delta, K2a with no dbias, since
+        # BERT's padding mask takes no grad, so no head-sum either, and K2b)
+        qf, kf, vf = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        ours = FA.flash_attention(qf, kf, vf, bias=bias, causal=causal,
+                                  sm_scale=scale)
+        whole = device_ms(lambda: torch.autograd.grad(
+            ours, (qf, kf, vf), dout, retain_graph=True), 10)
+        delta_ms = device_ms(lambda: (dout * o_p).sum(-1), 10)
+        k2a_ms = device_ms(lambda: FA.flash_attention_bwd_dkdv(
+            *args, want_dbias=False), 10)
+        for name in names[1:]:
+            results[name].update(backward_ms=whole, backward_library_ms=lib_bwd)
         k2 = results[names[1]]["ms"] + results[names[2]]["ms"]
-        log(f"[flash] backward: K2a + K2b {k2:.4f} ms against sdpa backward "
-            f"(memory-efficient, pinned) {lib_bwd:.4f} ms: the kernels take "
-            f"{k2 / lib_bwd:.2f}x its time; forward K1 "
+        log(f"[flash] backward as BERT runs it: {whole:.4f} ms (delta "
+            f"{delta_ms:.4f}, K2a without dbias {k2a_ms:.4f}, K2b "
+            f"{results[names[2]]['ms']:.4f}, each alone) against sdpa "
+            f"backward (memory-efficient, pinned) {lib_bwd:.4f} ms: "
+            f"{whole / lib_bwd:.2f}x its time; K2a (with dbias) + K2b "
+            f"{k2:.4f} ms ({k2 / lib_bwd:.2f}x); forward K1 "
             f"{results[names[0]]['ms']:.4f} ms against {lib_fwd:.4f} ms "
             f"({results[names[0]]['ms'] / lib_fwd:.2f}x)")
-        del lib_out, ql, kl, vl
+        del lib_out, ql, kl, vl, ours, qf, kf, vf
     for name in names:
         r = results[name]
         r["max_abs_err"] = errs[name]
@@ -700,7 +751,8 @@ def phase_flash():
             f"library_ms={r['library_ms']:.4f}"
             f"{' (sdpa backward, dq+dk+dv together)' if name != names[0] else ''}"
             " (device times) "
-            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}; at the f32 FFMA "
+            f"rate {ffma[name][0]:.4f})")
     return results
 
 

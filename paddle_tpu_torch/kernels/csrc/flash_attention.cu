@@ -25,32 +25,68 @@
 // (:230-232), dV = P^T dO, dS = P * (dO V^T - delta), dK = dS^T Q * scale,
 // dQ = dS K * scale, dbias = colsum(dS).
 //
-// Bound. At BERT-base's training shapes (B=32, H=12, S=128, D=64) each of
-// the three does 4-8 * B*H*S^2*D float32 FLOPs against about 13 MB per
-// operand, so the work, not the memory, bounds them: about 0.024 ms
-// (forward), 0.048 ms (dK/dV) and 0.036 ms (dQ) at 67 TFLOP/s of FFMA.
+// Nothing crosses blocks, so no kernel needs atomics and two launches on
+// the same inputs give the same bits. Causal masking follows `cols <= rows`
+// and skips the key (or query) tiles that the mask removes whole (:84-86,
+// :253-256, :307-310). Any S works: rows and keys at or past S are
+// zero-filled in shared memory and masked, and nothing is written for them.
+// D is a multiple of 4 up to 128.
 //
-// Design. The TPU kernels run a sequential grid with whole K/V rows in VMEM
-// and blocks of 128. Here blocks run in parallel on 132 SMs and nothing
-// crosses blocks: the forward and dQ kernels take one block per (head,
-// tile of 32 query rows) and loop over tiles of 64 keys; the dK/dV kernel
-// takes one block per (head, tile of 32 keys) and loops over tiles of 64
-// queries, so it needs no atomics and is deterministic. At S=128 that is
-// 1536 blocks of 128 threads each. Every tile is staged in shared memory
-// (with the operand of each product stored transposed, so a thread reads
-// four neighbouring values as one 16-byte vector), and each thread owns a
-// 4 x 4 micro-tile of the score tile and 4 rows of the accumulators
-// (columns tx*4 + 64*j of D). Row maxima and sums of the online softmax
-// are reduced with shuffles across the 16 threads that share a row.
-// Products run as FFMA (no tensor cores): a right first kernel; wgmma/TMA
-// and bf16 come later. Causal masking follows `cols <= rows` and skips the
-// key (or query) tiles that the mask removes whole (:84-86, :253-256,
-// :307-310). Any S works: rows and keys at or past S are zero-filled in
-// shared memory and masked, and nothing is written for them. D is a
-// multiple of 4 up to 128.
+// Forward (K1). One block per (head, tile of 32 query rows), looping over
+// tiles of 64 keys; 128 threads, each a 4 x 4 micro-tile of the score tile
+// and 4 rows of the accumulator; f32 FFMA over tiles staged in shared
+// memory (the operand of each product stored transposed), row maxima and
+// sums reduced with shuffles. At BERT-base's shapes (B=32, H=12, S=128,
+// D=64) its 4 * B*H*S^2*D FLOPs bound it at 0.024 ms of FFMA (67 TFLOP/s).
+//
+// Backward (K2a, K2b). At BERT-base's shapes K2a does 8 and K2b 6 *
+// B*H*S^2*D FLOPs: 0.048 and 0.036 ms at the FFMA rate, which a first
+// design in FFMA (paced by its shared-memory loads) reached only a fifth
+// of. So every product runs on the tensor cores, as mma.sync m16n8k8 TF32
+// in the 3xTF32 split (each f32 operand as big = tf32(x) plus small =
+// tf32(x - big), three MMAs a product, f32 accumulators): f32-accurate,
+// where plain TF32 misses the float32 bars by two orders. At 495 / 3 = 165
+// TFLOP/s of f32 work the two would be bound by bytes: 76 MB (K2a) and 63
+// MB (K2b) at 3.35 TB/s, 0.023 and 0.019 ms. On the card they are bound
+// by instruction throughput and latency instead: at BERT-base's shapes
+// they run 4.7M and 3.5M mma.sync, and mma.sync's TF32 rate is well under
+// wgmma's: on an H100 at most 322 TFLOP/s, and 226 with one dependent
+// chain a warp at these kernels' 12 warps an SM (tools/torch_mma_rate.py),
+// while each tile's splits, loads and softmax come on top. The design
+// keeps the instructions per MMA few and three blocks on each SM (D <= 64):
+// - A block is 4 warps and owns 64 rows, 16 a warp (the MMA's m16): K2a 64
+//   keys, looping over query tiles of 16; K2b 64 queries, looping over key
+//   tiles of 16 (768 blocks each at BERT-base's shapes, three on an SM).
+//   The dK/dV (dQ) accumulators stay in registers in the MMA's C layout.
+//   Wider tiles cost registers and shared memory, and so blocks on an SM,
+//   more than they save.
+// - The block's own rows (K, V or Q, dO) are staged once; the streamed
+//   tiles (Q, dO, lse, delta for K2a; K, V and the keys' bias for K2b) go
+//   through a 2-stage ring of 16-byte cp.async copies, so the next tile
+//   loads under this tile's products. Every tile sits once in shared
+//   memory, row-major: the fragment layouts, not a transposed copy, do the
+//   transposes.
+// - A streamed tile is split once when it lands (big parts in place, small
+//   parts beside it), since all four warps read it as B operands; the
+//   block's own rows, read by one warp each as A operands, are split as
+//   they are loaded (splitting them in shared memory too costs a block an
+//   SM). Fragments along rows load with ldmatrix.
+// - P and dS never leave registers: the products over them take their k
+//   steps in an order that makes the score tile's C fragment the A
+//   fragment (frag_a_from_c), so they need neither a pass through shared
+//   memory nor shuffles.
+// - Each two k steps' six MMAs go into a fresh accumulator, added to the
+//   running sum in f32: the tensor core rounds toward zero as it adds.
+// - Shared rows have a leading dim of 4 (mod 32) floats, so every fragment
+//   load is free of bank conflicts; D is zero-padded to a class of 32, 64,
+//   96 or 128 columns, so the loops have fixed trip counts.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -261,209 +297,519 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_rows(o + base, acc, inv, q0, ty, tx, S, D);
 }
 
+// ---- K2a and K2b: the backward on the tensor cores ------------------------
+// Every product is an m16n8k8 TF32 mma.sync in the 3xTF32 split: x = big +
+// small with big = tf32(x), small = tf32(x - big), and a * b is taken as
+// small(a) big(b) + big(a) small(b) + big(a) big(b), summed in f32 registers.
+// A warp owns 16 rows of the block's 64. Fragments (lane = 4 g + t):
+//   A 16x8:  a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+//   B 8x8:   b0 (k = t, n = g), b1 (k = t + 4, n = g)
+//   C 16x8:  c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
+// A product over the columns of an accumulator (P^T dO, dS^T Q, dS K) takes
+// its k steps in the order k = t -> column 2t, k = t + 4 -> column 2t + 1,
+// which makes the C fragment {c0, c2, c1, c3} its A fragment: P and dS stay
+// in registers. Tiles sit in shared memory row-major with a leading dim of
+// 4 (mod 32) floats, so both ways of reading them (lanes along rows by g, or
+// along rows by 2t) hit 32 distinct banks. Every warp reads every streamed
+// tile as B operands, so a tile is split once when it lands: its big parts
+// in place, its small parts beside it.
+
+constexpr int kBwdWarps = 4;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kBwdRows = 16 * kBwdWarps;  // keys (K2a) or queries (K2b) a block owns
+constexpr int kBwdStages = 2;             // depth of the cp.async ring
+constexpr int kDkdvTile = 16;             // rows of K2a's query tiles
+constexpr int kDqTile = 16;               // rows of K2b's key tiles
+static_assert(kDkdvTile % 16 == 0 && kDqTile % 16 == 0,
+              "a tile is a whole number of k-step pairs (mma3_pair)");
+
+// The leading dim of a tile's rows in head-width class NT: D zero-padded to
+// 8 * NT columns, NT in {4, 8, 12, 16}, so every loop over columns has a
+// fixed trip count and unrolls into one basic block that the compiler can
+// schedule across; 4 more floats put row r at bank 4r (mod 32).
+template <int NT>
+__host__ __device__ constexpr int bwd_ld() {
+  return 8 * NT + 4;
+}
+
+// Shared bytes of a backward block: its own 64 rows of two matrices, the
+// ring of streamed tiles (two matrices and `extra` vectors of a row each),
+// and the small parts of one tile.
+template <int NT>
+__host__ __device__ constexpr size_t bwd_smem(int tile, int extra) {
+  return sizeof(float) * (2 * kBwdRows * bwd_ld<NT>() +
+                          kBwdStages * (2 * tile * bwd_ld<NT>() + extra * tile) +
+                          2 * tile * bwd_ld<NT>());
+}
+
+// K2b's blocks an SM for its register cap: 3 (168 registers a thread)
+// where 3 fit by shared memory (228 KB an SM, 1 KB of it reserved a
+// block), else as many as fit (NT = 12: 2, NT = 16: 1, both no cap under
+// the 255 registers a thread may have), so a wider class is not held to
+// registers for blocks that could not be resident anyway.
+template <int NT>
+__host__ __device__ constexpr int dq_blocks() {
+  return 228 * 1024 / (bwd_smem<NT>(kDqTile, 1) + 1024) < 3
+             ? static_cast<int>(228 * 1024 / (bwd_smem<NT>(kDqTile, 1) + 1024))
+             : 3;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from src to dst, or 16 zero bytes (nothing read) when !valid.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// dst[r * LD + c] = src[(row0 + r) * D + c] for r < n, c < 4 * CHUNKS, as
+// 16-byte copies; zeros for rows at or past S and columns at or past D.
+template <int LD, int CHUNKS>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int row0, int n,
+                                           int S, int D) {
+  for (int i = threadIdx.x; i < n * CHUNKS; i += kBwdThreads) {
+    const int r = i / CHUNKS, c = (i - r * CHUNKS) * 4;
+    const bool valid = row0 + r < S && c < D;
+    cp_async16(dst + r * LD + c, valid ? src + static_cast<size_t>(row0 + r) * D + c : src,
+               valid);
+  }
+}
+
+// dst[i] = src[row0 + i] for i < n, zero past S.
+__device__ __forceinline__ void stage_vec(float* dst, const float* src, int row0, int n,
+                                          int S) {
+  for (int i = threadIdx.x; i < n; i += kBwdThreads) {
+    const bool valid = row0 + i < S;
+    cp_async4(dst + i, valid ? src + row0 + i : src, valid);
+  }
+}
+
+struct FragA {
+  uint32_t big[4], small[4];
+};
+
+struct FragB {
+  uint32_t big[2], small[2];
+};
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(x - __uint_as_float(big)));
+}
+
+// The n x (4 * CHUNKS) tile at `tile` split in place: its big parts stay,
+// its small parts go to the same places of `small`.
+template <int LD, int CHUNKS>
+__device__ __forceinline__ void split_tile(float* tile, float* small, int n) {
+  for (int i = threadIdx.x; i < n * CHUNKS; i += kBwdThreads) {
+    const int at = (i / CHUNKS) * LD + (i % CHUNKS) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(tile + at);
+    uint4 b, s;
+    split_tf32(x.x, b.x, s.x);
+    split_tf32(x.y, b.y, s.y);
+    split_tf32(x.z, b.z, s.z);
+    split_tf32(x.w, b.w, s.w);
+    *reinterpret_cast<uint4*>(tile + at) = b;
+    *reinterpret_cast<uint4*>(small + at) = s;
+  }
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a0 b0 + a1 b1, two k steps in 3xTF32: the small terms first, then
+// big * big. The tensor core rounds each sum it adds into its accumulator
+// toward zero, a bias that would grow with every k step of a long product,
+// so the two steps' six MMAs go into a fresh accumulator that is added to c
+// in f32 (round to nearest).
+__device__ __forceinline__ void mma3_pair(float (&c)[4], const FragA& a0, const FragB& b0,
+                                          const FragA& a1, const FragB& b1) {
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(d, a0.small, b0.big);
+  mma_tf32(d, a0.big, b0.small);
+  mma_tf32(d, a1.small, b1.big);
+  mma_tf32(d, a1.big, b1.small);
+  mma_tf32(d, a0.big, b0.big);
+  mma_tf32(d, a1.big, b1.big);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += d[e];
+}
+
+// Four 8 x 4 blocks of 32-bit words in one instruction (ldmatrix's 8 x 8
+// b16 matrices): lane l gives the address of row l % 8 of block l / 8 and
+// gets word l % 4 of row l / 4 of each block.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// A lane's ldmatrix row address, from a tile's corner, for frag_a (the
+// blocks: rows 0-7 and 8-15 of columns 0-3, then of columns 4-7) and for
+// frag_b_rows (rows 0-7 of columns 0-3, 4-7, 8-11, 12-15).
+template <int LD>
+__device__ __forceinline__ int frag_a_lane(int lane) {
+  return ((lane & 7) + (lane & 8)) * LD + (lane >> 4) * 4;
+}
+
+template <int LD>
+__device__ __forceinline__ int frag_b_lane(int lane) {
+  return (lane & 7) * LD + (lane >> 3) * 4;
+}
+
+// A = rows 0-15 of `tile`, columns c0 .. c0 + 7 (`lane_at` = frag_a_lane),
+// split here.
+__device__ __forceinline__ FragA frag_a(const float* tile, int lane_at, int c0) {
+  uint32_t x[4];
+  ldsm_x4(x, tile + lane_at + c0);
+  FragA f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(x[i]), f.big[i], f.small[i]);
+  return f;
+}
+
+__device__ __forceinline__ uint32_t bits(const float* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The B fragments of two k steps, B[k][n] = tile[n][c0 + k] and
+// tile[n][c0 + 8 + k], of a split tile (big parts at `big`, small parts at
+// `big + small`; `lane_at` = frag_b_lane): rows 0-7 are the n columns of B.
+__device__ __forceinline__ void frag_b_rows(FragB& b0, FragB& b1, const float* big,
+                                            ptrdiff_t small, int lane_at, int c0) {
+  uint32_t x[4], y[4];
+  ldsm_x4(x, big + lane_at + c0);
+  ldsm_x4(y, big + small + lane_at + c0);
+  b0 = FragB{{x[0], x[1]}, {y[0], y[1]}};
+  b1 = FragB{{x[2], x[3]}, {y[2], y[3]}};
+}
+
+// B[k][n] = tile[row(k)][c0 + n] of a split tile, with row(t) = 2t and
+// row(t + 4) = 2t + 1, the k order of frag_a_from_c.
+template <int LD>
+__device__ __forceinline__ FragB frag_b_cols(const float* big, ptrdiff_t small, int c0,
+                                             int g, int t) {
+  const float* p = big + 2 * t * LD + c0 + g;
+  return FragB{{bits(p), bits(p + LD)}, {bits(p + small), bits(p + small + LD)}};
+}
+
+// The accumulator c (rows g, g + 8; columns 2t, 2t + 1 of 8) as the A
+// fragment of a product over its 8 columns.
+__device__ __forceinline__ FragA frag_a_from_c(const float (&c)[4]) {
+  FragA f;
+  split_tf32(c[0], f.big[0], f.small[0]);
+  split_tf32(c[2], f.big[1], f.small[1]);
+  split_tf32(c[1], f.big[2], f.small[2]);
+  split_tf32(c[3], f.big[3], f.small[3]);
+  return f;
+}
+
 // ---- K2b: dQ --------------------------------------------------------------
-// Block: (head, 32 query rows). Shared: Qt, dOt [D][36], Kt, Vt [D][68],
-// K [64][D+4], dSt [64][36].
-__global__ void __launch_bounds__(kThreads)
+// Block: (head, 64 queries). Shared: Q, dO [64][LD]; the ring of (K, V
+// [TILE][LD], bias [TILE]) tiles; the small parts of the tile in use
+// [2 * TILE][LD].
+template <int NT>
+__global__ void __launch_bounds__(kBwdThreads, dq_blocks<NT>())
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ bias,
                     const float* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     int H, int S, int D, float scale, int causal) {
+  constexpr int LD = bwd_ld<NT>(), TILE = kDqTile, CHUNKS = 2 * NT;
+  constexpr int kStage = 2 * TILE * LD + TILE;  // floats of one ring stage
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int ldk = D + 4;
-  float* Qt = smem;
-  float* dOt = Qt + D * kLdRows;
-  float* Kt = dOt + D * kLdRows;
-  float* Vt = Kt + D * kLdCols;
-  float* Ks = Vt + D * kLdCols;
-  float* dSt = Ks + kCols * ldk;
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* dOs = Qs + kBwdRows * LD;
+  float* ring = dOs + kBwdRows * LD;
+  float* small = ring + kBwdStages * kStage;
 
-  const int n_qt = (S + kRows - 1) / kRows;
+  const int n_qt = (S + kBwdRows - 1) / kBwdRows;
   const int bh = blockIdx.x / n_qt;
-  const int q0 = (blockIdx.x % n_qt) * kRows;
-  const int tid = threadIdx.x, ty = tid / kTx, tx = tid % kTx;
+  const int q0 = (blockIdx.x % n_qt) * kBwdRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const size_t base = static_cast<size_t>(bh) * S * D;
   const float* brow = bias ? bias + static_cast<size_t>(bh / H) * S : nullptr;
 
-  load_transposed(Qt, kLdRows, q + base, q0, kRows, S, D);
-  load_transposed(dOt, kLdRows, dout + base, q0, kRows, S, D);
-  float row_lse[4], row_delta[4], acc[4][4 * kJ];
+  int n_kt = (S + TILE - 1) / TILE;
+  if (causal) n_kt = min(n_kt, (q0 + kBwdRows + TILE - 1) / TILE);  // later keys masked
+  auto stage = [&](int tile) {
+    float* Ks = ring + (tile % kBwdStages) * kStage;
+    stage_rows<LD, CHUNKS>(Ks, k + base, tile * TILE, TILE, S, D);
+    stage_rows<LD, CHUNKS>(Ks + TILE * LD, v + base, tile * TILE, TILE, S, D);
+    if (brow) stage_vec(Ks + 2 * TILE * LD, brow, tile * TILE, TILE, S);
+  };
+  stage_rows<LD, CHUNKS>(Qs, q + base, q0, kBwdRows, S, D);
+  stage_rows<LD, CHUNKS>(dOs, dout + base, q0, kBwdRows, S, D);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < kBwdStages - 1; ++i) {
+    if (i < n_kt) stage(i);
+    cp_async_commit();
+  }
+
+  const int row0 = q0 + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+  float row_lse[2], row_delta[2], acc[NT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
     row_lse[i] = row < S ? lse[static_cast<size_t>(bh) * S + row] : kNeg;
     row_delta[i] = row < S ? delta[static_cast<size_t>(bh) * S + row] : 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * kJ; ++c) acc[i][c] = 0.f;
   }
-
-  int n_kt = (S + kCols - 1) / kCols;
-  if (causal) n_kt = min(n_kt, (q0 + kRows + kCols - 1) / kCols);
-  for (int t = 0; t < n_kt; ++t) {
-    const int k0 = t * kCols;
-    __syncthreads();
-    load_transposed(Kt, kLdCols, k + base, k0, kCols, S, D);
-    load_transposed(Vt, kLdCols, v + base, k0, kCols, S, D);
-    load_rows(Ks, ldk, k + base, k0, kCols, S, D);
-    __syncthreads();
-
-    float s[4][4] = {}, dp[4][4] = {};
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 a = ld4(Qt + d * kLdRows + ty * 4);
-      const float4 g = ld4(dOt + d * kLdRows + ty * 4);
-      const float4 b = ld4(Kt + d * kLdCols + tx * 4);
-      const float4 w = ld4(Vt + d * kLdCols + tx * 4);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ai = comp(a, i), gi = comp(g, i);
-        s[i][0] += ai * b.x;
-        s[i][1] += ai * b.y;
-        s[i][2] += ai * b.z;
-        s[i][3] += ai * b.w;
-        dp[i][0] += gi * w.x;
-        dp[i][1] += gi * w.y;
-        dp[i][2] += gi * w.z;
-        dp[i][3] += gi * w.w;
+  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  const float* Qw = Qs + 16 * warp * LD;
+  const float* dOw = dOs + 16 * warp * LD;
+  const int a_at = frag_a_lane<LD>(lane), b_at = frag_b_lane<LD>(lane);
+
+  for (int it = 0; it < n_kt; ++it) {
+    cp_async_wait<kBwdStages - 2>();
+    __syncthreads();  // tile `it` has landed; every warp is done with it - 1
+    if (it + kBwdStages - 1 < n_kt) stage(it + kBwdStages - 1);
+    cp_async_commit();
+    float* Ks = ring + (it % kBwdStages) * kStage;
+    const float* Vs = Ks + TILE * LD;
+    const float* Bs = Vs + TILE * LD;
+    const ptrdiff_t sm = small - Ks;  // from a big part to its small part
+    split_tile<LD, CHUNKS>(Ks, small, 2 * TILE);  // K and V
+    __syncthreads();
+    const int k0 = it * TILE;
+
+    float s[TILE / 8][4], dp[TILE / 8][4];
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NT; kk += 2) {
+      const FragA qa0 = frag_a(Qw, a_at, 8 * kk), qa1 = frag_a(Qw, a_at, 8 * kk + 8);
+      const FragA ga0 = frag_a(dOw, a_at, 8 * kk), ga1 = frag_a(dOw, a_at, 8 * kk + 8);
+#pragma unroll
+      for (int j = 0; j < TILE / 8; ++j) {
+        FragB b0, b1;
+        frag_b_rows(b0, b1, Ks + 8 * j * LD, sm, b_at, 8 * kk);
+        mma3_pair(s[j], qa0, b0, qa1, b1);
+        frag_b_rows(b0, b1, Vs + 8 * j * LD, sm, b_at, 8 * kk);
+        mma3_pair(dp[j], ga0, b0, ga1, b1);
       }
     }
+    // dS = P (dP - delta) with P = exp(s - lse), in place of s
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+    for (int j = 0; j < TILE / 8; ++j) {
+      const float2 b2 = brow ? *reinterpret_cast<const float2*>(Bs + 8 * j + 2 * t)
+                             : make_float2(0.f, 0.f);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx * 4 + j;
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 8 * (e / 2);
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
         float p = 0.f;
-        if (col < S && row_lse[i] > kDeadLse) {
-          float x = s[i][j] * scale;
-          if (brow) x += brow[col];
+        if (col < S && row_lse[e / 2] > kDeadLse) {
+          float x = s[j][e] * scale + ((e & 1) ? b2.y : b2.x);
           if (causal && col > row) x = kNeg;
-          p = expf(x - row_lse[i]);
+          p = expf(x - row_lse[e / 2]);
         }
-        dSt[(tx * 4 + j) * kLdRows + ty * 4 + i] = p * (dp[i][j] - row_delta[i]);
+        s[j][e] = p * (dp[j][e] - row_delta[e / 2]);
       }
     }
-    __syncthreads();
-    const int n_c = min(kCols, S - k0);
-    for (int c = 0; c < n_c; ++c)
-      rank1_update(acc, ld4(dSt + c * kLdRows + ty * 4), Ks + c * ldk, tx, D);
+    // dQ += dS K over the tile's keys
+#pragma unroll
+    for (int j = 0; j < TILE / 8; j += 2) {
+      const FragA a0 = frag_a_from_c(s[j]), a1 = frag_a_from_c(s[j + 1]);
+      const float* kj = Ks + 8 * j * LD;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        mma3_pair(acc[nt], a0, frag_b_cols<LD>(kj, sm, 8 * nt, g, t), a1,
+                  frag_b_cols<LD>(kj + 8 * LD, sm, 8 * nt, g, t));
+    }
   }
-  const float mul[4] = {scale, scale, scale, scale};
-  store_rows(dq + base, acc, mul, q0, ty, tx, S, D);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= S) continue;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = 8 * nt + 2 * t;
+      if (col < D)
+        *reinterpret_cast<float2*>(dq + base + static_cast<size_t>(row) * D + col) =
+            make_float2(acc[nt][2 * i] * scale, acc[nt][2 * i + 1] * scale);
+    }
+  }
 }
 
 // ---- K2a: dK, dV, dbias ---------------------------------------------------
-// Block: (head, 32 keys). Shared: Kt, Vt [D][36], Qt, dOt [D][68],
-// Q, dO [64][D+4], P, dS [64][36] (query-major, 4 keys per 16 bytes).
-__global__ void __launch_bounds__(kThreads)
+// Block: (head, 64 keys). Shared: K, V [64][LD]; the ring of (Q, dO
+// [TILE][LD], lse, delta [TILE]) tiles; the small parts of the tile in use
+// [2 * TILE][LD]. The products run key-major: S^T = K Q^T and dP^T = V
+// dO^T, so P^T and dS^T are A fragments of dV += P^T dO and dK += dS^T Q,
+// and dbias is a row sum of dS^T.
+template <int NT>
+__global__ void __launch_bounds__(kBwdThreads)
 flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ bias,
                       const float* __restrict__ dout, const float* __restrict__ lse,
                       const float* __restrict__ delta, float* __restrict__ dk,
                       float* __restrict__ dv, float* __restrict__ dbias, int H,
                       int S, int D, float scale, int causal) {
+  constexpr int LD = bwd_ld<NT>(), TILE = kDkdvTile, CHUNKS = 2 * NT;
+  constexpr int kStage = 2 * TILE * LD + 2 * TILE;  // floats of one ring stage
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int ldq = D + 4;
-  float* Kt = smem;
-  float* Vt = Kt + D * kLdRows;
-  float* Qt = Vt + D * kLdRows;
-  float* dOt = Qt + D * kLdCols;
-  float* Qs = dOt + D * kLdCols;
-  float* dOs = Qs + kCols * ldq;
-  float* Ps = dOs + kCols * ldq;
-  float* dSs = Ps + kCols * kLdRows;
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + kBwdRows * LD;
+  float* ring = Vs + kBwdRows * LD;
+  float* small = ring + kBwdStages * kStage;
 
-  const int n_kt = (S + kRows - 1) / kRows;
+  const int n_kt = (S + kBwdRows - 1) / kBwdRows;
   const int bh = blockIdx.x / n_kt;
-  const int k0 = (blockIdx.x % n_kt) * kRows;
-  const int tid = threadIdx.x, ty = tid / kTx, tx = tid % kTx;
+  const int k0 = (blockIdx.x % n_kt) * kBwdRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const size_t base = static_cast<size_t>(bh) * S * D;
   const float* brow = bias ? bias + static_cast<size_t>(bh / H) * S : nullptr;
-  const float* lse_h = lse + static_cast<size_t>(bh) * S;
-  const float* delta_h = delta + static_cast<size_t>(bh) * S;
 
-  load_transposed(Kt, kLdRows, k + base, k0, kRows, S, D);
-  load_transposed(Vt, kLdRows, v + base, k0, kRows, S, D);
-  float key_bias[4], dk_acc[4][4 * kJ], dv_acc[4][4 * kJ], db[4];
+  const int n_qt = (S + TILE - 1) / TILE;
+  const int t0 = causal ? k0 / TILE : 0;  // earlier query tiles see no key here
+  auto stage = [&](int tile) {
+    float* Qs = ring + (tile % kBwdStages) * kStage;
+    stage_rows<LD, CHUNKS>(Qs, q + base, tile * TILE, TILE, S, D);
+    stage_rows<LD, CHUNKS>(Qs + TILE * LD, dout + base, tile * TILE, TILE, S, D);
+    stage_vec(Qs + 2 * TILE * LD, lse + static_cast<size_t>(bh) * S, tile * TILE, TILE, S);
+    stage_vec(Qs + 2 * TILE * LD + TILE, delta + static_cast<size_t>(bh) * S, tile * TILE,
+              TILE, S);
+  };
+  stage_rows<LD, CHUNKS>(Ks, k + base, k0, kBwdRows, S, D);
+  stage_rows<LD, CHUNKS>(Vs, v + base, k0, kBwdRows, S, D);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty * 4 + i;
-    key_bias[i] = (brow && key < S) ? brow[key] : 0.f;
-    db[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * kJ; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+  for (int i = 0; i < kBwdStages - 1; ++i) {
+    if (t0 + i < n_qt) stage(t0 + i);
+    cp_async_commit();
   }
 
-  const int n_qt = (S + kCols - 1) / kCols;
-  const int t0 = causal ? k0 / kCols : 0;  // earlier query tiles see no key here
-  for (int t = t0; t < n_qt; ++t) {
-    const int q0 = t * kCols;
-    __syncthreads();
-    load_transposed(Qt, kLdCols, q + base, q0, kCols, S, D);
-    load_transposed(dOt, kLdCols, dout + base, q0, kCols, S, D);
-    load_rows(Qs, ldq, q + base, q0, kCols, S, D);
-    load_rows(dOs, ldq, dout + base, q0, kCols, S, D);
-    __syncthreads();
-
-    float s[4][4] = {}, dp[4][4] = {};
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 a = ld4(Kt + d * kLdRows + ty * 4);
-      const float4 w = ld4(Vt + d * kLdRows + ty * 4);
-      const float4 b = ld4(Qt + d * kLdCols + tx * 4);
-      const float4 g = ld4(dOt + d * kLdCols + tx * 4);
+  const int key0 = k0 + 16 * warp + g;  // this thread's keys: key0, key0 + 8
+  float key_bias[2], db[2] = {0.f, 0.f}, dk_acc[NT][4], dv_acc[NT][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ai = comp(a, i), wi = comp(w, i);
-        s[i][0] += ai * b.x;
-        s[i][1] += ai * b.y;
-        s[i][2] += ai * b.z;
-        s[i][3] += ai * b.w;
-        dp[i][0] += wi * g.x;
-        dp[i][1] += wi * g.y;
-        dp[i][2] += wi * g.z;
-        dp[i][3] += wi * g.w;
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + 8 * i;
+    key_bias[i] = (brow && key < S) ? brow[key] : 0.f;
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[nt][e] = dv_acc[nt][e] = 0.f;
+  const float* Kw = Ks + 16 * warp * LD;
+  const float* Vw = Vs + 16 * warp * LD;
+  const int a_at = frag_a_lane<LD>(lane), b_at = frag_b_lane<LD>(lane);
+
+  for (int it = t0; it < n_qt; ++it) {
+    cp_async_wait<kBwdStages - 2>();
+    __syncthreads();  // tile `it` has landed; every warp is done with it - 1
+    if (it + kBwdStages - 1 < n_qt) stage(it + kBwdStages - 1);
+    cp_async_commit();
+    float* Qs = ring + (it % kBwdStages) * kStage;
+    const float* dOs = Qs + TILE * LD;
+    const float* Ls = dOs + TILE * LD;
+    const float* Ds = Ls + TILE;
+    const ptrdiff_t sm = small - Qs;  // from a big part to its small part
+    split_tile<LD, CHUNKS>(Qs, small, 2 * TILE);  // Q and dO
+    __syncthreads();
+    const int qt0 = it * TILE;
+
+    float s[TILE / 8][4], dp[TILE / 8][4];
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NT; kk += 2) {
+      const FragA ka0 = frag_a(Kw, a_at, 8 * kk), ka1 = frag_a(Kw, a_at, 8 * kk + 8);
+      const FragA va0 = frag_a(Vw, a_at, 8 * kk), va1 = frag_a(Vw, a_at, 8 * kk + 8);
+#pragma unroll
+      for (int j = 0; j < TILE / 8; ++j) {
+        FragB b0, b1;
+        frag_b_rows(b0, b1, Qs + 8 * j * LD, sm, b_at, 8 * kk);
+        mma3_pair(s[j], ka0, b0, ka1, b1);
+        frag_b_rows(b0, b1, dOs + 8 * j * LD, sm, b_at, 8 * kk);
+        mma3_pair(dp[j], va0, b0, va1, b1);
       }
     }
+    // P^T in s, dS^T = P^T (dP^T - delta) in dp
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = q0 + tx * 4 + j;
-      const float r_lse = row < S ? lse_h[row] : kNeg;
-      const float r_delta = row < S ? delta_h[row] : 0.f;
+    for (int j = 0; j < TILE / 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(Ls + 8 * j + 2 * t);
+      const float2 d2 = *reinterpret_cast<const float2*>(Ds + 8 * j + 2 * t);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + ty * 4 + i;
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + 8 * (e / 2);
+        const int row = qt0 + 8 * j + 2 * t + (e & 1);
+        const float r_lse = (e & 1) ? l2.y : l2.x;
+        const float r_delta = (e & 1) ? d2.y : d2.x;
         float p = 0.f;
-        if (key < S && r_lse > kDeadLse) {
-          float x = s[i][j] * scale + key_bias[i];
+        if (key < S && row < S && r_lse > kDeadLse) {
+          float x = s[j][e] * scale + key_bias[e / 2];
           if (causal && key > row) x = kNeg;
           p = expf(x - r_lse);
         }
-        const float ds = p * (dp[i][j] - r_delta);
-        db[i] += ds;
-        Ps[(tx * 4 + j) * kLdRows + ty * 4 + i] = p;
-        dSs[(tx * 4 + j) * kLdRows + ty * 4 + i] = ds;
+        const float ds = p * (dp[j][e] - r_delta);
+        db[e / 2] += ds;
+        s[j][e] = p;
+        dp[j][e] = ds;
       }
     }
-    __syncthreads();
-    const int n_r = min(kCols, S - q0);
-    for (int r = 0; r < n_r; ++r) {
-      rank1_update(dv_acc, ld4(Ps + r * kLdRows + ty * 4), dOs + r * ldq, tx, D);
-      rank1_update(dk_acc, ld4(dSs + r * kLdRows + ty * 4), Qs + r * ldq, tx, D);
+    // dV += P^T dO and dK += dS^T Q over the tile's queries
+#pragma unroll
+    for (int j = 0; j < TILE / 8; j += 2) {
+      const FragA pa0 = frag_a_from_c(s[j]), pa1 = frag_a_from_c(s[j + 1]);
+      const FragA sa0 = frag_a_from_c(dp[j]), sa1 = frag_a_from_c(dp[j + 1]);
+      const float* gj = dOs + 8 * j * LD;
+      const float* qj = Qs + 8 * j * LD;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        mma3_pair(dv_acc[nt], pa0, frag_b_cols<LD>(gj, sm, 8 * nt, g, t), pa1,
+                  frag_b_cols<LD>(gj + 8 * LD, sm, 8 * nt, g, t));
+        mma3_pair(dk_acc[nt], sa0, frag_b_cols<LD>(qj, sm, 8 * nt, g, t), sa1,
+                  frag_b_cols<LD>(qj + 8 * LD, sm, 8 * nt, g, t));
+      }
     }
   }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  const float mul[4] = {scale, scale, scale, scale};
-  store_rows(dv + base, dv_acc, one, k0, ty, tx, S, D);
-  store_rows(dk + base, dk_acc, mul, k0, ty, tx, S, D);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float total = row_sum(db[i]);
-    const int key = k0 + ty * 4 + i;
-    if (dbias && tx == 0 && key < S) dbias[static_cast<size_t>(bh) * S + key] = total;
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + 8 * i;
+    // the row's sum over the 4 lanes that share it, in a fixed order
+    float total = db[i];
+    total += __shfl_xor_sync(0xffffffffu, total, 1);
+    total += __shfl_xor_sync(0xffffffffu, total, 2);
+    if (key >= S) continue;
+    if (dbias && t == 0) dbias[static_cast<size_t>(bh) * S + key] = total;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = 8 * nt + 2 * t;
+      if (col < D) {
+        const size_t at = base + static_cast<size_t>(key) * D + col;
+        *reinterpret_cast<float2*>(dv + at) =
+            make_float2(dv_acc[nt][2 * i], dv_acc[nt][2 * i + 1]);
+        *reinterpret_cast<float2*>(dk + at) =
+            make_float2(dk_acc[nt][2 * i] * scale, dk_acc[nt][2 * i + 1] * scale);
+      }
+    }
   }
 }
 
@@ -478,6 +824,39 @@ int allow_smem(Kernel kernel, size_t smem) {
 bool bad_shape(int BH, int H, int S, int D) {
   return BH <= 0 || H <= 0 || BH % H != 0 || S <= 0 || D <= 0 || D % 4 != 0 ||
          D > kMaxD;
+}
+
+// The head-width class of D: 8 * NT padded columns.
+int bwd_class(int D) {
+  const int nt = (D + 7) / 8;
+  return nt <= 4 ? 4 : nt <= 8 ? 8 : nt <= 12 ? 12 : 16;
+}
+
+// Calls launch(std::integral_constant<int, NT>()) for D's head-width class.
+template <typename Launch>
+int by_class(int D, Launch launch) {
+  switch (bwd_class(D)) {
+    case 4:
+      return launch(std::integral_constant<int, 4>());
+    case 8:
+      return launch(std::integral_constant<int, 8>());
+    case 12:
+      return launch(std::integral_constant<int, 12>());
+    default:
+      return launch(std::integral_constant<int, 16>());
+  }
+}
+
+// Launches a backward kernel over its (head, 64 rows) blocks.
+template <typename... Params, typename... Args>
+int launch_bwd(void (*kernel)(Params...), size_t smem, int BH, int S, cudaStream_t stream,
+               Args... args) {
+  int err = allow_smem(kernel, smem);
+  if (err) return err;
+  const long long blocks = static_cast<long long>(BH) * ((S + kBwdRows - 1) / kBwdRows);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), kBwdThreads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -512,16 +891,12 @@ int flash_attention_bwd_dq_f32(const float* q, const float* k, const float* v,
                                int BH, int H, int S, int D, float scale,
                                int causal, void* stream) {
   if (bad_shape(BH, H, S, D)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (2 * D * kLdRows + 2 * D * kLdCols +
-                                       kCols * (D + 4) + kCols * kLdRows);
-  int err = allow_smem(flash_bwd_dq_kernel, smem);
-  if (err) return err;
-  const long long blocks = static_cast<long long>(BH) * ((S + kRows - 1) / kRows);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  flash_bwd_dq_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, bias, dout, lse, delta, dq, H, S, D, scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  return by_class(D, [&](auto nt) {
+    constexpr int NT = decltype(nt)::value;
+    return launch_bwd(flash_bwd_dq_kernel<NT>, bwd_smem<NT>(kDqTile, 1),  // the keys' bias
+                      BH, S, static_cast<cudaStream_t>(stream), q, k, v, bias, dout, lse,
+                      delta, dq, H, S, D, scale, causal);
+  });
 }
 
 int flash_attention_bwd_dkdv_f32(const float* q, const float* k, const float* v,
@@ -530,17 +905,14 @@ int flash_attention_bwd_dkdv_f32(const float* q, const float* k, const float* v,
                                  float* dv, float* dbias, int BH, int H, int S,
                                  int D, float scale, int causal, void* stream) {
   if (bad_shape(BH, H, S, D)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (2 * D * kLdRows + 2 * D * kLdCols +
-                                       2 * kCols * (D + 4) + 2 * kCols * kLdRows);
-  int err = allow_smem(flash_bwd_dkdv_kernel, smem);
-  if (err) return err;
-  const long long blocks = static_cast<long long>(BH) * ((S + kRows - 1) / kRows);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  flash_bwd_dkdv_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, bias, dout, lse, delta, dk, dv, bias ? dbias : nullptr, H, S, D,
-      scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  float* db = bias ? dbias : nullptr;
+  return by_class(D, [&](auto nt) {
+    constexpr int NT = decltype(nt)::value;
+    return launch_bwd(flash_bwd_dkdv_kernel<NT>,
+                      bwd_smem<NT>(kDkdvTile, 2),  // the rows' lse and delta
+                      BH, S, static_cast<cudaStream_t>(stream), q, k, v, bias, dout, lse,
+                      delta, dk, dv, db, H, S, D, scale, causal);
+  });
 }
 
 const char* flash_attention_error_string(int code) {

@@ -9,7 +9,10 @@ O and LSE agree within rtol = atol = 1e-5 (the JAX test's bar), the
 grads dq, dk, dv and dbias of a random dO within rtol 1e-4, atol 1e-5
 (float32 sums in another order). A bias without a grad (BERT's padding
 mask) asks the dK/dV function for no dbias. The CUDA kernels run only on the card;
-chip_smoke.py holds them against these plain versions there.
+chip_smoke.py holds them against these plain versions there. One test
+pins the backward kernels' numerics: every product in the 3xTF32 split
+(emulated here) keeps the backward within the card's bars, and plain
+TF32 does not.
 """
 
 import jax
@@ -26,6 +29,9 @@ from paddle_tpu_torch.models import bert
 
 B, H, D = 2, 2, 8
 SCALE = 1.0 / np.sqrt(D)
+# the card's bar for the backward kernels against their plain versions
+# (chip_smoke.py BWD_TOL: rtol, atol)
+BWD_TOL = (1e-4, 1e-5)
 
 
 def _inputs(S, with_bias, seed=0):
@@ -208,3 +214,73 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
         torch_flash._check("q", q.double(), q.shape, q.device)
     with pytest.raises(ValueError, match="contiguous"):
         torch_flash._check("q", q.transpose(2, 3), (1, 1, 8, 4), q.device)
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: float32 rounded to 10 mantissa bits, half away
+    from zero (add half of the dropped 13 bits' range to the magnitude's
+    bits, then clear them)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _matmul(a, b, route):
+    """a @ b with f32 accumulation, the operands taken as the route takes
+    them: "f32" as they are, "tf32" rounded once, "3xtf32" split into big =
+    tf32(x) and small = tf32(x - big), three products summed."""
+    if route == "f32":
+        return a @ b
+    a_big, b_big = _tf32(a), _tf32(b)
+    if route == "tf32":
+        return a_big @ b_big
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
+
+
+def _backward_by_route(route, q, k, v, bias, out, lse, dout, scale):
+    """The composite backward (non-causal) with every product of K2a and
+    K2b (S, dP, dV, dK, dQ) taken by ``route``."""
+    s = _matmul(q, k.transpose(-1, -2), route) * scale + bias[:, None, None, :]
+    lse = lse[..., None]
+    p = torch.where(lse <= -5e29, torch.zeros(()), torch.exp(s - lse))
+    delta = (dout * out).sum(-1)
+    dv = _matmul(p.transpose(-1, -2), dout, route)
+    ds = p * (_matmul(dout, v.transpose(-1, -2), route) - delta[..., None])
+    dk = _matmul(ds.transpose(-1, -2), q, route) * scale
+    dq = _matmul(ds, k, route) * scale
+    return dq, dk, dv, ds.sum(dim=2).sum(dim=1)
+
+
+def _within(got, want, tol):
+    rtol, atol = tol
+    return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+
+
+def test_the_backward_needs_3xtf32_products_for_the_float32_bars():
+    """BERT-base's head (S=128, D=64) with its padding bias: with every
+    product in the 3xTF32 split, as the kernels take them, dq, dk, dv and
+    dbias stay within the card's bars of the float32 composite; with plain
+    TF32 products dq, dk and dv do not."""
+    one = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12])
+    assert _tf32(one).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0]
+
+    rng = np.random.RandomState(7)
+    b, h, s, d = 2, 4, 128, 64
+    q, k, v, dout = (torch.from_numpy(rng.randn(b, h, s, d).astype(np.float32))
+                     for _ in range(4))
+    keep = rng.randint(s // 2, s + 1, size=(b, 1))
+    bias = torch.from_numpy(np.where(np.arange(s)[None] < keep, 0.0,
+                                     -10000.0).astype(np.float32))
+    scale = 1.0 / np.sqrt(d)
+    out, lse = torch_flash.flash_attention_composite(q, k, v, bias, False, scale)
+    want = torch_flash.flash_attention_bwd_composite(q, k, v, bias, out, lse,
+                                                     dout, False, scale)
+    args = (q, k, v, bias, out, lse, dout, scale)
+    # the emulation itself: f32 products give the composite's numbers
+    for g, w in zip(_backward_by_route("f32", *args), want):
+        assert _within(g, w, (1e-6, 1e-6))
+    for g, w in zip(_backward_by_route("3xtf32", *args), want):
+        assert _within(g, w, BWD_TOL)
+    plain = _backward_by_route("tf32", *args)
+    for name, g, w in zip(("dq", "dk", "dv"), plain, want):
+        assert not _within(g, w, BWD_TOL), name

@@ -1,14 +1,19 @@
 """The three flash-attention CUDA kernels against their plain versions on
 the card, over the shapes the kernels claim beyond BERT-base's (ragged
-S, head widths 8 to 128, one or many heads, with and without bias,
-causal or not), and the ``autograd.Function`` end to end. Marked
-``cuda``: it skips without a card and runs on one with
+S on both sides of the backward's 16-row warp tiles and 64-row block
+tiles, up to 512; head widths 4 to 128, with and without a multiple of
+8 (the backward's MMA step) and across its 32-column classes; one or
+many heads; with and without bias; causal or not), two launches giving
+the same bits, dK and dV the same with and without dbias, and the
+``autograd.Function`` end to end. Marked ``cuda``: it skips without a
+card and runs on one with
 
     python -m pytest -m cuda tests/test_torch_flash_cuda.py -q
 
 Bars are the CPU tests' (O and LSE rtol = atol = 1e-5; grads rtol 1e-4,
 atol 1e-5): the kernels and the plain versions compute the same float32
-function with sums in another order.
+function with sums in another order (the backward's products in the
+3xTF32 split, which keeps float32 accuracy).
 """
 
 import numpy as np
@@ -26,6 +31,15 @@ SHAPES = [  # B, H, S, D
     (3, 1, 200, 8),
     (2, 4, 64, 32),
     (1, 1, 1, 4),
+    (2, 2, 1, 64),
+    (2, 2, 15, 64),
+    (2, 3, 16, 12),
+    (1, 3, 17, 36),
+    (2, 2, 63, 72),
+    (2, 1, 64, 128),
+    (1, 2, 65, 4),
+    (2, 2, 129, 64),
+    (1, 2, 512, 64),
 ]
 
 
@@ -112,3 +126,33 @@ def test_a_frozen_bias_gets_no_dbias(dev):
     delta = (dout * o).sum(-1)
     assert FA.flash_attention_bwd_dkdv(q, k, v, bias, dout, lse, delta, False,
                                        1.0 / 8.0, want_dbias=False)[2] is None
+
+
+def _backward_args(dev, shape, causal, seed):
+    B, H, S, D = shape
+    q, k, v, dout, bias = _inputs(dev, B, H, S, D, True, seed=seed)
+    scale = 1.0 / D ** 0.5
+    o, lse = FA.flash_attention_composite(q, k, v, bias, causal, scale)
+    delta = (dout * o).sum(-1)
+    return q, k, v, bias, dout, lse, delta, causal, scale
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(2, 3, 100, 96), (2, 2, 129, 64), (4, 12, 128, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_two_launches_give_the_same_bits(dev, shape, causal):
+    args = _backward_args(dev, shape, causal, seed=7)
+    first = (*FA.flash_attention_bwd_dkdv(*args), FA.flash_attention_bwd_dq(*args))
+    second = (*FA.flash_attention_bwd_dkdv(*args), FA.flash_attention_bwd_dq(*args))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 100, 96), (2, 2, 65, 36)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_dk_dv_are_the_same_with_and_without_dbias(dev, shape):
+    args = _backward_args(dev, shape, False, seed=8)
+    dk, dv, dbias = FA.flash_attention_bwd_dkdv(*args)
+    dk_n, dv_n, none = FA.flash_attention_bwd_dkdv(*args, want_dbias=False)
+    assert dbias is not None and none is None
+    assert torch.equal(dk, dk_n) and torch.equal(dv, dv_n)
