@@ -27,7 +27,11 @@ Phases:
    slot), timed on the device (``device_ms``: median of 5 windows of 10
    passes over 12 layers' arenas) beside the plain version, one PyTorch
    library call (``scaled_dot_product_attention`` on the gathered views,
-   a yardstick the port never calls) and the card's bound.
+   a yardstick the port never calls), the card's bound (the rows this
+   run's data needs) and, in the log, the floor for reading every
+   position's K and V rows once, as the composite does; each call makes
+   one kernel launch (a profiler trace; the arrival counters' memset
+   beside it is no kernel).
 3. engine — ``GenerationEngine()`` on the default place serving 16
    requests of 8-512 prompt tokens (4 share a 256-token prefix), 32 new
    tokens each, at the GPT-base width (vocab 32000, hidden 768, 12
@@ -39,8 +43,8 @@ Phases:
    launches of each giving the same bits: at BERT-base's training shape
    (B=32, H=12, S=128, D=64, padding-mask bias, not causal), timed on the
    device (``device_ms``) beside the plain version, the bound of the
-   kernel's route (K1 f32 FFMA, K2a and K2b 3xTF32 tensor-core products;
-   the FFMA bound printed beside) and one PyTorch library call
+   kernel's route (3xTF32 tensor-core products; the FFMA bound printed
+   beside) and one PyTorch library call
    (``scaled_dot_product_attention`` with its backend pinned to memory-
    efficient attention: forward; its backward for dq + dk + dv together),
    and the whole backward as BERT's training step runs it (delta, K2a
@@ -169,8 +173,8 @@ NEG_INF = -1e9
 PARITY_ATOL = 1e-4
 # Flash attention: the plain versions compute the same float32 function
 # with cuBLAS products and one softmax, the kernels over tiles in another
-# order (K1 with FFMA, K2a and K2b with 3xTF32 tensor-core products, which
-# keep float32 accuracy), so both sit within float32 rounding of each
+# order (with 3xTF32 tensor-core products, which keep float32 accuracy),
+# so both sit within float32 rounding of each
 # other (about 1e-6 relative). The bars are the CPU tests' (O and LSE
 # rtol = atol = 1e-5, the JAX test's; grads rtol 1e-4, atol 1e-5),
 # applied elementwise.
@@ -536,6 +540,10 @@ def phase_parity():
     results["paged_attention"] = dict(max_abs_err=err, ms=kernel_ms,
                                       plain_ms=plain_ms, bound_ms=b_ms,
                                       bound_by=b_by, library_ms=lib_ms)
+    # the floor of reading every position's K and V rows once, as the
+    # composite does and the kernel must (log only)
+    every_row = {"paged_attention": bound(S * L, S * L,
+                                          S * H * 4 * 2 + S * L * (8 + 4))[0]}
     del gk, gv
 
     # dense: the same kernel over [S, L, H] caches
@@ -564,10 +572,25 @@ def phase_parity():
     results["decode_attention"] = dict(max_abs_err=err, ms=kernel_ms,
                                        plain_ms=plain_ms, bound_ms=b_ms,
                                        bound_by=b_by, library_ms=lib_ms)
+    every_row["decode_attention"] = bound(S * L, S * L,
+                                          S * H * 4 * 2 + S * L * 4)[0]
+    # one kernel launch a call: the slot's combine runs inside it
+    calls = {"paged_attention": lambda: A.paged_attention(
+                 q, x["k"][0], x["v"][0], rows, bias, S, L, scale),
+             "decode_attention": lambda: A.decode_attention(
+                 q, kc[0], vc[0], bias, scale)}
+    for name, fn in calls.items():
+        kernels, ops = cuda_launches(fn, kernels_only=True), cuda_launches(fn)
+        log(f"[parity] {name}: {kernels} kernel launches a call ({ops} "
+            "device operations with the counters' memset; profiler trace)")
+        if kernels != 1:
+            raise AssertionError(f"{name}: {kernels} kernel launches a call, "
+                                 "expected one")
     for name, r in results.items():
         log(f"[parity] {name}: kernel_ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
-            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}; reading every "
+            f"position's K and V rows once: {every_row[name]:.4f})")
     return results
 
 
@@ -603,8 +626,8 @@ def flash_inputs(gen, dev, B, H, S, D):
     return q, k, v, dout, bias
 
 
-# the rate of each flash kernel's route: K1 f32 FFMA, K2a and K2b 3xTF32
-FLASH_RATES = {"flash_attention_fwd": PEAK_F32_FLOPS,
+# the rate of each flash kernel's route: all three 3xTF32
+FLASH_RATES = {"flash_attention_fwd": PEAK_3XTF32_FLOPS,
                "flash_attention_bwd_dkdv": PEAK_3XTF32_FLOPS,
                "flash_attention_bwd_dq": PEAK_3XTF32_FLOPS}
 
@@ -1288,10 +1311,10 @@ def log_ctr_costs(costs):
 
 
 # -- phase 2d ---------------------------------------------------------------
-def cuda_launches(fn, calls=4):
-    """CUDA kernels (and copies or sets) that one call of ``fn`` puts on
-    the card, from a ``torch.profiler`` trace of ``calls`` calls; None
-    when the trace shows no device activity."""
+def cuda_launches(fn, calls=4, kernels_only=False):
+    """CUDA kernels (and copies or sets, unless ``kernels_only``) that one
+    call of ``fn`` puts on the card, from a ``torch.profiler`` trace of
+    ``calls`` calls; None when the trace shows no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1303,8 +1326,12 @@ def cuda_launches(fn, calls=4):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
-    return n / calls if n else None
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return None
+    if kernels_only:
+        events = [e for e in events if not e.name.startswith(("Memset", "Memcpy"))]
+    return len(events) / calls
 
 
 def _topk_vector(gen, dev, n, kind):

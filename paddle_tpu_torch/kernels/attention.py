@@ -15,9 +15,13 @@ are the plain composites (``paddle_tpu/kernels/attention.py``). Here:
   cache, viewed as a ``[S * L, H]`` arena with identity rows (a null row
   pointer, which the kernel reads as ``row = s * L + p``).
 
-The kernel sums in another order than the composite's matmuls, so the
-two agree to a stated tolerance (``chip_smoke.py`` checks it on the
-card), not bit for bit. The JAX package's VMEM size gate has no
+A call is one kernel launch (after a memset of the slots' arrival
+counters in the scratch): the block of a slot that finishes last combines
+the slot's partials, in split order, so two launches give the same bits.
+``split_plan`` sizes the chunks from the slots, the positions and the
+card's SM count. The kernel sums in another order than the composite's
+matmuls, so the two agree to a stated tolerance (``chip_smoke.py`` checks
+it on the card), not bit for bit. The JAX package's VMEM size gate has no
 counterpart: the kernel streams rows from device memory at any size.
 """
 
@@ -34,7 +38,8 @@ __all__ = [
 ]
 
 _SOURCE = "paged_attention.cu"
-_CHUNK_MIN = 16
+_CHUNK_STEP, _CHUNK_MAX, _SPLIT_MAX = 16, 8192, 65535
+_BLOCKS_PER_SM = 2
 
 
 def cached_attention_composite(q, k_cache, v_cache, bias, sm_scale):
@@ -74,13 +79,29 @@ def _lib():
     return lib
 
 
-def split_plan(seqs, length, device):
-    """(chunk, n_split): positions per block and blocks per slot, so that
-    the grid holds about four blocks per SM."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    per_block = -(-seqs * length // (4 * sms))
-    chunk = max(_CHUNK_MIN, -(-per_block // _CHUNK_MIN) * _CHUNK_MIN)
-    return chunk, -(-length // chunk)
+def split_plan(seqs, length, sms):
+    """(chunk, n_split): positions a block takes and blocks a slot gets, for
+    ``seqs`` slots of ``length`` positions on a card of ``sms`` SMs. About
+    two blocks an SM: each block keeps a few dozen row loads in flight, so
+    two of them cover the memory's latency, and fewer, larger chunks leave
+    the block that combines a slot fewer partials to read. ``chunk`` is a
+    multiple of 16 up to 8192 (the kernel's scores sit in shared memory)
+    and ``n_split`` at most 65535, as the C entry point requires."""
+    per_block = -(-seqs * length // (_BLOCKS_PER_SM * sms))
+    chunk = -(-per_block // _CHUNK_STEP) * _CHUNK_STEP
+    chunk = min(_CHUNK_MAX, max(_CHUNK_STEP, chunk))
+    n_split = -(-length // chunk)
+    if n_split > _SPLIT_MAX:
+        raise ValueError(f"{length} positions need more than {_SPLIT_MAX} "
+                         f"chunks of {chunk}")
+    return chunk, n_split
+
+
+def scratch_sizes(seqs, n_split, width):
+    """Elements of the two float32 scratch tensors the kernel takes: the
+    partials' accumulators, and their (max, sum) pairs followed by one
+    32-bit arrival counter a slot."""
+    return seqs * n_split * width, seqs * n_split * 2 + seqs
 
 
 def _check(name, t, dtype, device, shape=None, numel=None):
@@ -112,10 +133,12 @@ def _launch(name, q, k_arena, v_arena, rows, bias, seqs, length, sm_scale):
     if rows is not None:
         _check("rows", rows, torch.int64, dev, numel=S * L)
     _check("bias", bias, torch.float32, dev, numel=S * L)
-    chunk, n_split = split_plan(S, L, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk, n_split = split_plan(S, L, sms)
+    acc_size, ml_size = scratch_sizes(S, n_split, H)
     out = torch.empty((S, H), dtype=torch.float32, device=dev)
-    part_acc = torch.empty((S, n_split, H), dtype=torch.float32, device=dev)
-    part_ml = torch.empty((S, n_split, 2), dtype=torch.float32, device=dev)
+    part_acc = torch.empty(acc_size, dtype=torch.float32, device=dev)
+    part_ml = torch.empty(ml_size, dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

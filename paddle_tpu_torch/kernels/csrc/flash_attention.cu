@@ -32,49 +32,48 @@
 // zero-filled in shared memory and masked, and nothing is written for them.
 // D is a multiple of 4 up to 128.
 //
-// Forward (K1). One block per (head, tile of 32 query rows), looping over
-// tiles of 64 keys; 128 threads, each a 4 x 4 micro-tile of the score tile
-// and 4 rows of the accumulator; f32 FFMA over tiles staged in shared
-// memory (the operand of each product stored transposed), row maxima and
-// sums reduced with shuffles. At BERT-base's shapes (B=32, H=12, S=128,
-// D=64) its 4 * B*H*S^2*D FLOPs bound it at 0.024 ms of FFMA (67 TFLOP/s).
-//
-// Backward (K2a, K2b). At BERT-base's shapes K2a does 8 and K2b 6 *
-// B*H*S^2*D FLOPs: 0.048 and 0.036 ms at the FFMA rate, which a first
-// design in FFMA (paced by its shared-memory loads) reached only a fifth
-// of. So every product runs on the tensor cores, as mma.sync m16n8k8 TF32
-// in the 3xTF32 split (each f32 operand as big = tf32(x) plus small =
+// Bound. At BERT-base's shapes (B=32, H=12, S=128, D=64) K1 does 2, K2a
+// 4 and K2b 3 * B*H*S^2*D multiply-adds: 0.024, 0.048 and 0.036 ms at the
+// f32 FFMA rate (67 TFLOP/s), which first designs in FFMA (paced by their
+// shared-memory loads) reached a quarter (K1) to a fifth (K2a, K2b) of. So
+// every product of all three runs on the tensor cores, as mma.sync m16n8k8
+// TF32 in the 3xTF32 split (each f32 operand as big = tf32(x) plus small =
 // tf32(x - big), three MMAs a product, f32 accumulators): f32-accurate,
-// where plain TF32 misses the float32 bars by two orders. At 495 / 3 = 165
-// TFLOP/s of f32 work the two would be bound by bytes: 76 MB (K2a) and 63
-// MB (K2b) at 3.35 TB/s, 0.023 and 0.019 ms. On the card they are bound
-// by instruction throughput and latency instead: at BERT-base's shapes
-// they run 4.7M and 3.5M mma.sync, and mma.sync's TF32 rate is well under
-// wgmma's: on an H100 at most 322 TFLOP/s, and 226 with one dependent
-// chain a warp at these kernels' 12 warps an SM (tools/torch_mma_rate.py),
-// while each tile's splits, loads and softmax come on top. The design
-// keeps the instructions per MMA few and three blocks on each SM (D <= 64):
-// - A block is 4 warps and owns 64 rows, 16 a warp (the MMA's m16): K2a 64
-//   keys, looping over query tiles of 16; K2b 64 queries, looping over key
-//   tiles of 16 (768 blocks each at BERT-base's shapes, three on an SM).
-//   The dK/dV (dQ) accumulators stay in registers in the MMA's C layout.
-//   Wider tiles cost registers and shared memory, and so blocks on an SM,
-//   more than they save.
-// - The block's own rows (K, V or Q, dO) are staged once; the streamed
-//   tiles (Q, dO, lse, delta for K2a; K, V and the keys' bias for K2b) go
-//   through a 2-stage ring of 16-byte cp.async copies, so the next tile
-//   loads under this tile's products. Every tile sits once in shared
-//   memory, row-major: the fragment layouts, not a transposed copy, do the
-//   transposes.
+// where plain TF32 misses the float32 bars by 40x (K1) to two orders (K2a,
+// K2b; tests/test_torch_flash_attention.py emulates both routes). At 495 / 3 = 165 TFLOP/s of f32 work all three are bound by
+// bytes: 50.5 MB (K1), 76 MB (K2a) and 63 MB (K2b) at 3.35 TB/s, 0.015,
+// 0.023 and 0.019 ms. On the card they are bound by instruction throughput
+// and latency instead: at BERT-base's shapes they run 2.4M, 4.7M and 3.5M
+// mma.sync, and mma.sync's TF32 rate is well under wgmma's: on an H100 at
+// most 322 TFLOP/s, and 226 with one dependent chain a warp at these
+// kernels' 12 warps an SM (tools/torch_mma_rate.py), while each tile's
+// splits, loads and softmax come on top. The design keeps the instructions
+// per MMA few and three blocks on each SM (D <= 64):
+// - A block is 4 warps and owns 64 rows, 16 a warp (the MMA's m16): K1 and
+//   K2b 64 queries, looping over key tiles of 16; K2a 64 keys, looping over
+//   query tiles of 16 (768 blocks each at BERT-base's shapes, three on an
+//   SM). The O (dK/dV, dQ) accumulators stay in registers in the MMA's C
+//   layout. Wider tiles cost registers and shared memory, and so blocks on
+//   an SM, more than they save.
+// - The block's own rows (Q for K1; K, V or Q, dO) are staged once; the
+//   streamed tiles (K, V and the keys' bias for K1 and K2b; Q, dO, lse,
+//   delta for K2a) go through a 2-stage ring of 16-byte cp.async copies, so
+//   the next tile loads under this tile's products. Every tile sits once in
+//   shared memory, row-major: the fragment layouts, not a transposed copy,
+//   do the transposes.
 // - A streamed tile is split once when it lands (big parts in place, small
 //   parts beside it), since all four warps read it as B operands; the
 //   block's own rows, read by one warp each as A operands, are split as
-//   they are loaded (splitting them in shared memory too costs a block an
-//   SM). Fragments along rows load with ldmatrix.
+//   they are loaded, at every tile (splitting them in shared memory too
+//   costs a block an SM; K1 holding its Q fragments in registers for the
+//   whole loop was no faster at D = 64 and 8% slower at D = 128, where
+//   they spill). Fragments along rows load with ldmatrix.
 // - P and dS never leave registers: the products over them take their k
 //   steps in an order that makes the score tile's C fragment the A
 //   fragment (frag_a_from_c), so they need neither a pass through shared
-//   memory nor shuffles.
+//   memory nor shuffles. K1's online softmax runs on that C fragment: a
+//   row's max and sum over the 4 lanes that hold it, its rescale of O in
+//   registers.
 // - Each two k steps' six MMAs go into a fresh accumulator, added to the
 //   running sum in f32: the tensor core rounds toward zero as it adds.
 // - Shared rows have a leading dim of 4 (mod 32) floats, so every fragment
@@ -90,214 +89,11 @@
 
 namespace {
 
-constexpr int kThreads = 128;       // kTy x kTx threads, a 4 x 4 tile each
-constexpr int kTx = 16;
-constexpr int kRows = 32;           // rows of a block's tile (4 * kTy)
-constexpr int kCols = 64;           // columns of a streamed tile (4 * kTx)
 constexpr int kMaxD = 128;
-constexpr int kJ = kMaxD / 64;      // accumulator column groups per thread
 constexpr float kNeg = -1e30f;
 constexpr float kDeadLse = -5e29f;  // lse of a row with no live key
 
-constexpr int kLdRows = kRows + 4;  // leading dims of transposed tiles
-constexpr int kLdCols = kCols + 4;
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// dst[d * ld + r] = src[(row0 + r) * D + d] for r < n, zero past S.
-__device__ void load_transposed(float* dst, int ld, const float* src, int row0,
-                                int n, int S, int D) {
-  const int d4s = D / 4;
-  for (int i = threadIdx.x; i < n * d4s; i += kThreads) {
-    const int r = i / d4s, d = (i % d4s) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < S) v = ld4(src + static_cast<size_t>(row0 + r) * D + d);
-    dst[(d + 0) * ld + r] = v.x;
-    dst[(d + 1) * ld + r] = v.y;
-    dst[(d + 2) * ld + r] = v.z;
-    dst[(d + 3) * ld + r] = v.w;
-  }
-}
-
-// dst[r * ld + d] = src[(row0 + r) * D + d] for r < n, zero past S.
-__device__ void load_rows(float* dst, int ld, const float* src, int row0,
-                          int n, int S, int D) {
-  const int d4s = D / 4;
-  for (int i = threadIdx.x; i < n * d4s; i += kThreads) {
-    const int r = i / d4s, d = (i % d4s) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < S) v = ld4(src + static_cast<size_t>(row0 + r) * D + d);
-    *reinterpret_cast<float4*>(dst + r * ld + d) = v;
-  }
-}
-
-// Reductions over the 16 threads (tx) that share a row group: lanes
-// 0-15 and 16-31 of a warp.
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// acc[i][4j+e] += a[i] * src[c * ld + 64j + tx*4 + e] over the 4 rows i a
-// thread owns, for the column groups inside D.
-__device__ __forceinline__ void rank1_update(float (&acc)[4][4 * kJ],
-                                             const float4& a, const float* src,
-                                             int tx, int D) {
-#pragma unroll
-  for (int j = 0; j < kJ; ++j) {
-    const int col = 64 * j + tx * 4;
-    if (col < D) {
-      const float4 b = ld4(src + col);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ai = comp(a, i);
-        acc[i][4 * j + 0] += ai * b.x;
-        acc[i][4 * j + 1] += ai * b.y;
-        acc[i][4 * j + 2] += ai * b.z;
-        acc[i][4 * j + 3] += ai * b.w;
-      }
-    }
-  }
-}
-
-// out[(row0 + 4ty + i) * D + col] = acc[i][...] * mul for rows below S.
-__device__ __forceinline__ void store_rows(float* out, const float (&acc)[4][4 * kJ],
-                                           const float (&mul)[4], int row0,
-                                           int ty, int tx, int S, int D) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty * 4 + i;
-    if (row >= S) continue;
-#pragma unroll
-    for (int j = 0; j < kJ; ++j) {
-      const int col = 64 * j + tx * 4;
-      if (col < D)
-        *reinterpret_cast<float4*>(out + static_cast<size_t>(row) * D + col) =
-            make_float4(acc[i][4 * j] * mul[i], acc[i][4 * j + 1] * mul[i],
-                        acc[i][4 * j + 2] * mul[i], acc[i][4 * j + 3] * mul[i]);
-    }
-  }
-}
-
-// ---- K1: forward ---------------------------------------------------------
-// Block: (head, 32 query rows). Shared: Qt [D][36], Kt [D][68], V [64][D+4],
-// Pt [64][36].
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ bias,
-                 float* __restrict__ o, float* __restrict__ lse, int H, int S,
-                 int D, float scale, int causal) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int ldv = D + 4;
-  float* Qt = smem;
-  float* Kt = Qt + D * kLdRows;
-  float* Vs = Kt + D * kLdCols;
-  float* Pt = Vs + kCols * ldv;
-
-  const int n_qt = (S + kRows - 1) / kRows;
-  const int bh = blockIdx.x / n_qt;
-  const int q0 = (blockIdx.x % n_qt) * kRows;
-  const int tid = threadIdx.x, ty = tid / kTx, tx = tid % kTx;
-  const size_t base = static_cast<size_t>(bh) * S * D;
-  const float* brow = bias ? bias + static_cast<size_t>(bh / H) * S : nullptr;
-
-  load_transposed(Qt, kLdRows, q + base, q0, kRows, S, D);
-
-  float m[4], l[4], acc[4][4 * kJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * kJ; ++c) acc[i][c] = 0.f;
-  }
-
-  int n_kt = (S + kCols - 1) / kCols;
-  if (causal) n_kt = min(n_kt, (q0 + kRows + kCols - 1) / kCols);
-  for (int t = 0; t < n_kt; ++t) {
-    const int k0 = t * kCols;
-    __syncthreads();  // the previous tile's readers are done
-    load_transposed(Kt, kLdCols, k + base, k0, kCols, S, D);
-    load_rows(Vs, ldv, v + base, k0, kCols, S, D);
-    __syncthreads();
-
-    float s[4][4] = {};
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 a = ld4(Qt + d * kLdRows + ty * 4);
-      const float4 b = ld4(Kt + d * kLdCols + tx * 4);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ai = comp(a, i);
-        s[i][0] += ai * b.x;
-        s[i][1] += ai * b.y;
-        s[i][2] += ai * b.z;
-        s[i][3] += ai * b.w;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx * 4 + j;
-        float x = s[i][j] * scale;
-        if (col >= S) {
-          x = -INFINITY;  // exp() gives 0 exactly: the key does not exist
-        } else {
-          if (brow) x += brow[col];
-          if (causal && col > row) x = kNeg;
-        }
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        Pt[(tx * 4 + j) * kLdRows + ty * 4 + i] = p;
-      }
-      l[i] = l[i] * alpha + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4 * kJ; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-    const int n_c = min(kCols, S - k0);
-    for (int c = 0; c < n_c; ++c)
-      rank1_update(acc, ld4(Pt + c * kLdRows + ty * 4), Vs + c * ldv, tx, D);
-  }
-
-  float inv[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float l_safe = l[i] == 0.f ? 1.f : l[i];
-    inv[i] = 1.f / l_safe;
-    const int row = q0 + ty * 4 + i;
-    if (tx == 0 && row < S) lse[static_cast<size_t>(bh) * S + row] = m[i] + logf(l_safe);
-  }
-  store_rows(o + base, acc, inv, q0, ty, tx, S, D);
-}
-
-// ---- K2a and K2b: the backward on the tensor cores ------------------------
+// ---- The tensor-core pieces of K1, K2a and K2b ------------------------------
 // Every product is an m16n8k8 TF32 mma.sync in the 3xTF32 split: x = big +
 // small with big = tf32(x), small = tf32(x - big), and a * b is taken as
 // small(a) big(b) + big(a) small(b) + big(a) big(b), summed in f32 registers.
@@ -305,22 +101,23 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 //   A 16x8:  a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
 //   B 8x8:   b0 (k = t, n = g), b1 (k = t + 4, n = g)
 //   C 16x8:  c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
-// A product over the columns of an accumulator (P^T dO, dS^T Q, dS K) takes
-// its k steps in the order k = t -> column 2t, k = t + 4 -> column 2t + 1,
-// which makes the C fragment {c0, c2, c1, c3} its A fragment: P and dS stay
-// in registers. Tiles sit in shared memory row-major with a leading dim of
-// 4 (mod 32) floats, so both ways of reading them (lanes along rows by g, or
-// along rows by 2t) hit 32 distinct banks. Every warp reads every streamed
-// tile as B operands, so a tile is split once when it lands: its big parts
-// in place, its small parts beside it.
+// A product over the columns of an accumulator (P V, P^T dO, dS^T Q, dS K)
+// takes its k steps in the order k = t -> column 2t, k = t + 4 -> column
+// 2t + 1, which makes the C fragment {c0, c2, c1, c3} its A fragment: P and
+// dS stay in registers. Tiles sit in shared memory row-major with a leading
+// dim of 4 (mod 32) floats, so both ways of reading them (lanes along rows by
+// g, or along rows by 2t) hit 32 distinct banks. Every warp reads every
+// streamed tile as B operands, so a tile is split once when it lands: its
+// big parts in place, its small parts beside it.
 
-constexpr int kBwdWarps = 4;
-constexpr int kBwdThreads = 32 * kBwdWarps;
-constexpr int kBwdRows = 16 * kBwdWarps;  // keys (K2a) or queries (K2b) a block owns
-constexpr int kBwdStages = 2;             // depth of the cp.async ring
-constexpr int kDkdvTile = 16;             // rows of K2a's query tiles
-constexpr int kDqTile = 16;               // rows of K2b's key tiles
-static_assert(kDkdvTile % 16 == 0 && kDqTile % 16 == 0,
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;  // queries (K1, K2b) or keys (K2a) a block owns
+constexpr int kStages = 2;          // depth of the cp.async ring
+constexpr int kFwdTile = 16;        // rows of K1's key tiles
+constexpr int kDkdvTile = 16;       // rows of K2a's query tiles
+constexpr int kDqTile = 16;         // rows of K2b's key tiles
+static_assert(kFwdTile % 16 == 0 && kDkdvTile % 16 == 0 && kDqTile % 16 == 0,
               "a tile is a whole number of k-step pairs (mma3_pair)");
 
 // The leading dim of a tile's rows in head-width class NT: D zero-padded to
@@ -328,7 +125,7 @@ static_assert(kDkdvTile % 16 == 0 && kDqTile % 16 == 0,
 // fixed trip count and unrolls into one basic block that the compiler can
 // schedule across; 4 more floats put row r at bank 4r (mod 32).
 template <int NT>
-__host__ __device__ constexpr int bwd_ld() {
+__host__ __device__ constexpr int row_ld() {
   return 8 * NT + 4;
 }
 
@@ -337,9 +134,27 @@ __host__ __device__ constexpr int bwd_ld() {
 // and the small parts of one tile.
 template <int NT>
 __host__ __device__ constexpr size_t bwd_smem(int tile, int extra) {
-  return sizeof(float) * (2 * kBwdRows * bwd_ld<NT>() +
-                          kBwdStages * (2 * tile * bwd_ld<NT>() + extra * tile) +
-                          2 * tile * bwd_ld<NT>());
+  return sizeof(float) * (2 * kRows * row_ld<NT>() +
+                          kStages * (2 * tile * row_ld<NT>() + extra * tile) +
+                          2 * tile * row_ld<NT>());
+}
+
+// Shared bytes of a K1 block: its 64 query rows, the ring of (K, V, bias)
+// tiles, and the small parts of one.
+template <int NT>
+__host__ __device__ constexpr size_t fwd_smem() {
+  return sizeof(float) * (kRows * row_ld<NT>() +
+                          kStages * (2 * kFwdTile * row_ld<NT>() + kFwdTile) +
+                          2 * kFwdTile * row_ld<NT>());
+}
+
+// K1's register cap: 3 blocks an SM (168 registers a thread) where its
+// accumulator (4 NT registers) leaves room and 3 fit by shared memory
+// (NT <= 8: 44 KB at most); a wider class takes as many registers as it
+// needs and fewer blocks.
+template <int NT>
+__host__ __device__ constexpr int fwd_blocks() {
+  return NT <= 8 ? 3 : 1;
 }
 
 // K2b's blocks an SM for its register cap: 3 (168 registers a thread)
@@ -385,7 +200,7 @@ __device__ __forceinline__ void cp_async_wait() {
 template <int LD, int CHUNKS>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src, int row0, int n,
                                            int S, int D) {
-  for (int i = threadIdx.x; i < n * CHUNKS; i += kBwdThreads) {
+  for (int i = threadIdx.x; i < n * CHUNKS; i += kThreads) {
     const int r = i / CHUNKS, c = (i - r * CHUNKS) * 4;
     const bool valid = row0 + r < S && c < D;
     cp_async16(dst + r * LD + c, valid ? src + static_cast<size_t>(row0 + r) * D + c : src,
@@ -396,7 +211,7 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, int row
 // dst[i] = src[row0 + i] for i < n, zero past S.
 __device__ __forceinline__ void stage_vec(float* dst, const float* src, int row0, int n,
                                           int S) {
-  for (int i = threadIdx.x; i < n; i += kBwdThreads) {
+  for (int i = threadIdx.x; i < n; i += kThreads) {
     const bool valid = row0 + i < S;
     cp_async4(dst + i, valid ? src + row0 + i : src, valid);
   }
@@ -419,7 +234,7 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& sma
 // its small parts go to the same places of `small`.
 template <int LD, int CHUNKS>
 __device__ __forceinline__ void split_tile(float* tile, float* small, int n) {
-  for (int i = threadIdx.x; i < n * CHUNKS; i += kBwdThreads) {
+  for (int i = threadIdx.x; i < n * CHUNKS; i += kThreads) {
     const int at = (i / CHUNKS) * LD + (i % CHUNKS) * 4;
     const float4 x = *reinterpret_cast<const float4*>(tile + at);
     uint4 b, s;
@@ -527,44 +342,198 @@ __device__ __forceinline__ FragA frag_a_from_c(const float (&c)[4]) {
   return f;
 }
 
-// ---- K2b: dQ --------------------------------------------------------------
-// Block: (head, 64 queries). Shared: Q, dO [64][LD]; the ring of (K, V
+// ---- K1: O and LSE ---------------------------------------------------------
+// Block: (head, 64 queries). Shared: Q [64][LD]; the ring of (K, V
 // [TILE][LD], bias [TILE]) tiles; the small parts of the tile in use
-// [2 * TILE][LD].
+// [2 * TILE][LD]. Per key tile, a warp takes S = Q K^T for its 16 rows, the
+// online softmax on S's C fragments (a row's max and sum over the 4 lanes
+// that hold it), and O += P V with P as the A fragment.
 template <int NT>
-__global__ void __launch_bounds__(kBwdThreads, dq_blocks<NT>())
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ bias,
-                    const float* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
-                    int H, int S, int D, float scale, int causal) {
-  constexpr int LD = bwd_ld<NT>(), TILE = kDqTile, CHUNKS = 2 * NT;
+__global__ void __launch_bounds__(kThreads, fwd_blocks<NT>())
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ bias,
+                 float* __restrict__ o, float* __restrict__ lse, int H, int S, int D,
+                 float scale, int causal) {
+  constexpr int LD = row_ld<NT>(), TILE = kFwdTile, CHUNKS = 2 * NT;
   constexpr int kStage = 2 * TILE * LD + TILE;  // floats of one ring stage
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
-  float* dOs = Qs + kBwdRows * LD;
-  float* ring = dOs + kBwdRows * LD;
-  float* small = ring + kBwdStages * kStage;
+  float* ring = Qs + kRows * LD;
+  float* small = ring + kStages * kStage;
 
-  const int n_qt = (S + kBwdRows - 1) / kBwdRows;
+  const int n_qt = (S + kRows - 1) / kRows;
   const int bh = blockIdx.x / n_qt;
-  const int q0 = (blockIdx.x % n_qt) * kBwdRows;
+  const int q0 = (blockIdx.x % n_qt) * kRows;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const size_t base = static_cast<size_t>(bh) * S * D;
   const float* brow = bias ? bias + static_cast<size_t>(bh / H) * S : nullptr;
 
   int n_kt = (S + TILE - 1) / TILE;
-  if (causal) n_kt = min(n_kt, (q0 + kBwdRows + TILE - 1) / TILE);  // later keys masked
+  if (causal) n_kt = min(n_kt, (q0 + kRows + TILE - 1) / TILE);  // later keys masked
   auto stage = [&](int tile) {
-    float* Ks = ring + (tile % kBwdStages) * kStage;
+    float* Ks = ring + (tile % kStages) * kStage;
     stage_rows<LD, CHUNKS>(Ks, k + base, tile * TILE, TILE, S, D);
     stage_rows<LD, CHUNKS>(Ks + TILE * LD, v + base, tile * TILE, TILE, S, D);
     if (brow) stage_vec(Ks + 2 * TILE * LD, brow, tile * TILE, TILE, S);
   };
-  stage_rows<LD, CHUNKS>(Qs, q + base, q0, kBwdRows, S, D);
-  stage_rows<LD, CHUNKS>(dOs, dout + base, q0, kBwdRows, S, D);
+  stage_rows<LD, CHUNKS>(Qs, q + base, q0, kRows, S, D);
 #pragma unroll
-  for (int i = 0; i < kBwdStages - 1; ++i) {
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_kt) stage(i);
+    cp_async_commit();
+  }
+  const float* Qw = Qs + 16 * warp * LD;
+  const int a_at = frag_a_lane<LD>(lane), b_at = frag_b_lane<LD>(lane);
+
+  const int row0 = q0 + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f}, acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+
+  for (int it = 0; it < n_kt; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile `it` has landed; every warp is done with it - 1
+    if (it + kStages - 1 < n_kt) stage(it + kStages - 1);
+    cp_async_commit();
+    float* Ks = ring + (it % kStages) * kStage;
+    const float* Vs = Ks + TILE * LD;
+    const float* Bs = Vs + TILE * LD;
+    const ptrdiff_t sm = small - Ks;  // from a big part to its small part
+    split_tile<LD, CHUNKS>(Ks, small, 2 * TILE);  // K and V
+    __syncthreads();
+    const int k0 = it * TILE;
+
+    float s[TILE / 8][4];
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NT; kk += 2) {
+      const FragA qa0 = frag_a(Qw, a_at, 8 * kk), qa1 = frag_a(Qw, a_at, 8 * kk + 8);
+#pragma unroll
+      for (int j = 0; j < TILE / 8; ++j) {
+        FragB b0, b1;
+        frag_b_rows(b0, b1, Ks + 8 * j * LD, sm, b_at, 8 * kk);
+        mma3_pair(s[j], qa0, b0, qa1, b1);
+      }
+    }
+    // the masked scores, and the rows' maxima over the tile
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j) {
+      const float2 b2 = brow ? *reinterpret_cast<const float2*>(Bs + 8 * j + 2 * t)
+                             : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 8 * (e / 2);
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
+        float x = s[j][e] * scale;
+        if (col >= S) {
+          x = -INFINITY;  // exp() gives 0 exactly: the key does not exist
+        } else {
+          x += (e & 1) ? b2.y : b2.x;
+          if (causal && col > row) x = kNeg;
+        }
+        s[j][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - m[e / 2]);
+        s[j][e] = p;
+        sum[e / 2] += p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      // the row's sum over the 4 lanes that share it, in a fixed order
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      l[i] = l[i] * alpha[i] + sum[i];
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      acc[nt][0] *= alpha[0];
+      acc[nt][1] *= alpha[0];
+      acc[nt][2] *= alpha[1];
+      acc[nt][3] *= alpha[1];
+    }
+    // O += P V over the tile's keys
+#pragma unroll
+    for (int j = 0; j < TILE / 8; j += 2) {
+      const FragA pa0 = frag_a_from_c(s[j]), pa1 = frag_a_from_c(s[j + 1]);
+      const float* vj = Vs + 8 * j * LD;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        mma3_pair(acc[nt], pa0, frag_b_cols<LD>(vj, sm, 8 * nt, g, t), pa1,
+                  frag_b_cols<LD>(vj + 8 * LD, sm, 8 * nt, g, t));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= S) continue;
+    const float l_safe = l[i] == 0.f ? 1.f : l[i];
+    const float inv = 1.f / l_safe;
+    if (t == 0) lse[static_cast<size_t>(bh) * S + row] = m[i] + logf(l_safe);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = 8 * nt + 2 * t;
+      if (col < D)
+        *reinterpret_cast<float2*>(o + base + static_cast<size_t>(row) * D + col) =
+            make_float2(acc[nt][2 * i] * inv, acc[nt][2 * i + 1] * inv);
+    }
+  }
+}
+
+// ---- K2b: dQ --------------------------------------------------------------
+// Block: (head, 64 queries). Shared: Q, dO [64][LD]; the ring of (K, V
+// [TILE][LD], bias [TILE]) tiles; the small parts of the tile in use
+// [2 * TILE][LD].
+template <int NT>
+__global__ void __launch_bounds__(kThreads, dq_blocks<NT>())
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ bias,
+                    const float* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    int H, int S, int D, float scale, int causal) {
+  constexpr int LD = row_ld<NT>(), TILE = kDqTile, CHUNKS = 2 * NT;
+  constexpr int kStage = 2 * TILE * LD + TILE;  // floats of one ring stage
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* dOs = Qs + kRows * LD;
+  float* ring = dOs + kRows * LD;
+  float* small = ring + kStages * kStage;
+
+  const int n_qt = (S + kRows - 1) / kRows;
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (blockIdx.x % n_qt) * kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const size_t base = static_cast<size_t>(bh) * S * D;
+  const float* brow = bias ? bias + static_cast<size_t>(bh / H) * S : nullptr;
+
+  int n_kt = (S + TILE - 1) / TILE;
+  if (causal) n_kt = min(n_kt, (q0 + kRows + TILE - 1) / TILE);  // later keys masked
+  auto stage = [&](int tile) {
+    float* Ks = ring + (tile % kStages) * kStage;
+    stage_rows<LD, CHUNKS>(Ks, k + base, tile * TILE, TILE, S, D);
+    stage_rows<LD, CHUNKS>(Ks + TILE * LD, v + base, tile * TILE, TILE, S, D);
+    if (brow) stage_vec(Ks + 2 * TILE * LD, brow, tile * TILE, TILE, S);
+  };
+  stage_rows<LD, CHUNKS>(Qs, q + base, q0, kRows, S, D);
+  stage_rows<LD, CHUNKS>(dOs, dout + base, q0, kRows, S, D);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
     if (i < n_kt) stage(i);
     cp_async_commit();
   }
@@ -584,11 +553,11 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int a_at = frag_a_lane<LD>(lane), b_at = frag_b_lane<LD>(lane);
 
   for (int it = 0; it < n_kt; ++it) {
-    cp_async_wait<kBwdStages - 2>();
+    cp_async_wait<kStages - 2>();
     __syncthreads();  // tile `it` has landed; every warp is done with it - 1
-    if (it + kBwdStages - 1 < n_kt) stage(it + kBwdStages - 1);
+    if (it + kStages - 1 < n_kt) stage(it + kStages - 1);
     cp_async_commit();
-    float* Ks = ring + (it % kBwdStages) * kStage;
+    float* Ks = ring + (it % kStages) * kStage;
     const float* Vs = Ks + TILE * LD;
     const float* Bs = Vs + TILE * LD;
     const ptrdiff_t sm = small - Ks;  // from a big part to its small part
@@ -664,24 +633,24 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // dO^T, so P^T and dS^T are A fragments of dV += P^T dO and dK += dS^T Q,
 // and dbias is a row sum of dS^T.
 template <int NT>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ bias,
                       const float* __restrict__ dout, const float* __restrict__ lse,
                       const float* __restrict__ delta, float* __restrict__ dk,
                       float* __restrict__ dv, float* __restrict__ dbias, int H,
                       int S, int D, float scale, int causal) {
-  constexpr int LD = bwd_ld<NT>(), TILE = kDkdvTile, CHUNKS = 2 * NT;
+  constexpr int LD = row_ld<NT>(), TILE = kDkdvTile, CHUNKS = 2 * NT;
   constexpr int kStage = 2 * TILE * LD + 2 * TILE;  // floats of one ring stage
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + kBwdRows * LD;
-  float* ring = Vs + kBwdRows * LD;
-  float* small = ring + kBwdStages * kStage;
+  float* Vs = Ks + kRows * LD;
+  float* ring = Vs + kRows * LD;
+  float* small = ring + kStages * kStage;
 
-  const int n_kt = (S + kBwdRows - 1) / kBwdRows;
+  const int n_kt = (S + kRows - 1) / kRows;
   const int bh = blockIdx.x / n_kt;
-  const int k0 = (blockIdx.x % n_kt) * kBwdRows;
+  const int k0 = (blockIdx.x % n_kt) * kRows;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const size_t base = static_cast<size_t>(bh) * S * D;
   const float* brow = bias ? bias + static_cast<size_t>(bh / H) * S : nullptr;
@@ -689,17 +658,17 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int n_qt = (S + TILE - 1) / TILE;
   const int t0 = causal ? k0 / TILE : 0;  // earlier query tiles see no key here
   auto stage = [&](int tile) {
-    float* Qs = ring + (tile % kBwdStages) * kStage;
+    float* Qs = ring + (tile % kStages) * kStage;
     stage_rows<LD, CHUNKS>(Qs, q + base, tile * TILE, TILE, S, D);
     stage_rows<LD, CHUNKS>(Qs + TILE * LD, dout + base, tile * TILE, TILE, S, D);
     stage_vec(Qs + 2 * TILE * LD, lse + static_cast<size_t>(bh) * S, tile * TILE, TILE, S);
     stage_vec(Qs + 2 * TILE * LD + TILE, delta + static_cast<size_t>(bh) * S, tile * TILE,
               TILE, S);
   };
-  stage_rows<LD, CHUNKS>(Ks, k + base, k0, kBwdRows, S, D);
-  stage_rows<LD, CHUNKS>(Vs, v + base, k0, kBwdRows, S, D);
+  stage_rows<LD, CHUNKS>(Ks, k + base, k0, kRows, S, D);
+  stage_rows<LD, CHUNKS>(Vs, v + base, k0, kRows, S, D);
 #pragma unroll
-  for (int i = 0; i < kBwdStages - 1; ++i) {
+  for (int i = 0; i < kStages - 1; ++i) {
     if (t0 + i < n_qt) stage(t0 + i);
     cp_async_commit();
   }
@@ -720,11 +689,11 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int a_at = frag_a_lane<LD>(lane), b_at = frag_b_lane<LD>(lane);
 
   for (int it = t0; it < n_qt; ++it) {
-    cp_async_wait<kBwdStages - 2>();
+    cp_async_wait<kStages - 2>();
     __syncthreads();  // tile `it` has landed; every warp is done with it - 1
-    if (it + kBwdStages - 1 < n_qt) stage(it + kBwdStages - 1);
+    if (it + kStages - 1 < n_qt) stage(it + kStages - 1);
     cp_async_commit();
-    float* Qs = ring + (it % kBwdStages) * kStage;
+    float* Qs = ring + (it % kStages) * kStage;
     const float* dOs = Qs + TILE * LD;
     const float* Ls = dOs + TILE * LD;
     const float* Ds = Ls + TILE;
@@ -827,7 +796,7 @@ bool bad_shape(int BH, int H, int S, int D) {
 }
 
 // The head-width class of D: 8 * NT padded columns.
-int bwd_class(int D) {
+int head_class(int D) {
   const int nt = (D + 7) / 8;
   return nt <= 4 ? 4 : nt <= 8 ? 8 : nt <= 12 ? 12 : 16;
 }
@@ -835,7 +804,7 @@ int bwd_class(int D) {
 // Calls launch(std::integral_constant<int, NT>()) for D's head-width class.
 template <typename Launch>
 int by_class(int D, Launch launch) {
-  switch (bwd_class(D)) {
+  switch (head_class(D)) {
     case 4:
       return launch(std::integral_constant<int, 4>());
     case 8:
@@ -847,15 +816,15 @@ int by_class(int D, Launch launch) {
   }
 }
 
-// Launches a backward kernel over its (head, 64 rows) blocks.
+// Launches a kernel over its (head, 64 rows) blocks.
 template <typename... Params, typename... Args>
-int launch_bwd(void (*kernel)(Params...), size_t smem, int BH, int S, cudaStream_t stream,
+int launch_blocks(void (*kernel)(Params...), size_t smem, int BH, int S, cudaStream_t stream,
                Args... args) {
   int err = allow_smem(kernel, smem);
   if (err) return err;
-  const long long blocks = static_cast<long long>(BH) * ((S + kBwdRows - 1) / kBwdRows);
+  const long long blocks = static_cast<long long>(BH) * ((S + kRows - 1) / kRows);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<static_cast<unsigned>(blocks), kBwdThreads, smem, stream>>>(args...);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -873,16 +842,12 @@ int flash_attention_fwd_f32(const float* q, const float* k, const float* v,
                             int H, int S, int D, float scale, int causal,
                             void* stream) {
   if (bad_shape(BH, H, S, D)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (D * kLdRows + D * kLdCols +
-                                       kCols * (D + 4) + kCols * kLdRows);
-  int err = allow_smem(flash_fwd_kernel, smem);
-  if (err) return err;
-  const long long blocks = static_cast<long long>(BH) * ((S + kRows - 1) / kRows);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  flash_fwd_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, bias, o, lse, H, S, D, scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  return by_class(D, [&](auto nt) {
+    constexpr int NT = decltype(nt)::value;
+    return launch_blocks(flash_fwd_kernel<NT>, fwd_smem<NT>(), BH, S,
+                         static_cast<cudaStream_t>(stream), q, k, v, bias, o, lse, H, S,
+                         D, scale, causal);
+  });
 }
 
 int flash_attention_bwd_dq_f32(const float* q, const float* k, const float* v,
@@ -893,7 +858,7 @@ int flash_attention_bwd_dq_f32(const float* q, const float* k, const float* v,
   if (bad_shape(BH, H, S, D)) return static_cast<int>(cudaErrorInvalidValue);
   return by_class(D, [&](auto nt) {
     constexpr int NT = decltype(nt)::value;
-    return launch_bwd(flash_bwd_dq_kernel<NT>, bwd_smem<NT>(kDqTile, 1),  // the keys' bias
+    return launch_blocks(flash_bwd_dq_kernel<NT>, bwd_smem<NT>(kDqTile, 1),  // the keys' bias
                       BH, S, static_cast<cudaStream_t>(stream), q, k, v, bias, dout, lse,
                       delta, dq, H, S, D, scale, causal);
   });
@@ -908,7 +873,7 @@ int flash_attention_bwd_dkdv_f32(const float* q, const float* k, const float* v,
   float* db = bias ? dbias : nullptr;
   return by_class(D, [&](auto nt) {
     constexpr int NT = decltype(nt)::value;
-    return launch_bwd(flash_bwd_dkdv_kernel<NT>,
+    return launch_blocks(flash_bwd_dkdv_kernel<NT>,
                       bwd_smem<NT>(kDkdvTile, 2),  // the rows' lse and delta
                       BH, S, static_cast<cudaStream_t>(stream), q, k, v, bias, dout, lse,
                       delta, dk, dv, db, H, S, D, scale, causal);

@@ -12,22 +12,45 @@
 // `decode_attention` is the same kernel over the [S*L, H] view of a dense
 // [S, L, H] cache, with rows == nullptr meaning rows[i] == i.
 //
-// Bound. Each output needs L K rows and L V rows of H floats and does two
-// multiply-adds per element read, so the kernel is bound by memory traffic:
-// at the decode engine's shapes (S=8, L=1024, H=768) that is 50 MB of rows
-// per call, about 15 us at 3.35 TB/s, against about 25 MFLOP.
+// Bound: bytes. Each output needs L K rows and L V rows of H floats and
+// does two multiply-adds per element read: at the decode engine's shapes
+// (S=8, L=1024, H=768) the kernel reads 50.3 MB of rows a call, 15 us at
+// 3.35 TB/s, against 25 MFLOP. Every row the composite reads is read: a
+// position whose weight comes out 0 still has its V row read (0 * inf is
+// NaN in both).
 //
-// Design. Eight slots are far too few blocks for 132 SMs, so each slot's L
-// positions are split into chunks (flash-decoding): grid (S, n_split), one
-// block per chunk. A block stages q and its chunk's row indices in shared
-// memory; each warp takes whole positions and reads K rows as 16-byte
-// vectors (lanes on neighbouring addresses), reduces the dot product with
-// shuffles, and writes the chunk's scores to shared memory. The block then
-// takes the chunk max m and the exponentials (sum l), and every thread
-// accumulates one float4 column of sum_p e_p * V[row_p]. The partial
-// (acc, m, l) goes to scratch that the caller allocates; a second kernel
-// rescales the partials of one slot by exp(m_i - max m) and divides,
-// its column groups in parallel.
+// Design: one launch that keeps many row loads in flight.
+// - Eight slots are far too few blocks for 132 SMs, so each slot's L
+//   positions are split into chunks (flash-decoding): grid (n_split, S),
+//   one block of 256 threads per chunk. The chunk size comes from the
+//   caller (kernels/attention.py `split_plan`, a host-side function of S,
+//   L and the SM count): about two blocks an SM, 32 positions a block at
+//   the engine's shapes.
+// - The block's row indices go to shared memory; then each warp takes
+//   kBatch positions at a time and issues all of their 16-byte K loads
+//   (lanes on neighbouring addresses; 24 a lane at H = 768) before it
+//   reduces the kBatch dot products with interleaved shuffles.
+// - After one barrier every warp takes the chunk's max from the scores in
+//   shared memory, the block writes the weights exp(score - max) once, and
+//   after a second barrier each thread owns a float4 column of the chunk's
+//   weighted V sum, with kUnroll rows' loads in flight before it adds them
+//   in position order. Three barriers before the partial is written (the
+//   two-kernel design before it had six), two around the arrival.
+// - The partial (acc, m, l) goes to scratch that the caller allocates,
+//   and the block bumps its slot's arrival counter; the block that arrives
+//   last combines the slot's partials: every split's (m, l) loaded at once
+//   into shared memory, the weights exp(m_i - max m) and the total weight
+//   summed there in split order, then each thread's column of the rescaled
+//   partials, kUnroll of them in flight, in split order. The order does
+//   not depend on which block arrives last, so two launches give the same
+//   bits. The counters live in the scratch's tail and are zeroed by a
+//   cudaMemsetAsync in the same C call, on the same stream, before the
+//   launch.
+// - Measured on an H100 (PERF.md §6): the combine's tail and the
+//   arrival cost about 3 us of the call and the memset about 1 us; larger
+//   or smaller chunks, other unrolls and batches, prefetching V into L2,
+//   or staging a chunk's rows in shared memory were all slower or no
+//   faster.
 // Rows must lie in [0, R): the decode engine checks its row map on the
 // host before each step, so a bad map raises there on every device. The
 // kernel clamps an index outside that range only so that it never reads
@@ -48,6 +71,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kBatch = 4;   // positions whose K loads a warp issues together
+constexpr int kUnroll = 16;  // V rows (partials) a thread has in flight
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -57,148 +82,170 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
-// Block-wide reductions through `red` (kWarps floats). Every thread gets
-// the result; `red` is free again when the function returns.
-__device__ float block_max(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_max(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = lane < kWarps ? red[lane] : -INFINITY;
-  r = warp_max(r);
-  __syncthreads();
-  return r;
+__device__ __forceinline__ float dot4(const float4& a, const float4& b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
-__device__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = lane < kWarps ? red[lane] : 0.f;
-  r = warp_sum(r);
-  __syncthreads();
-  return r;
+__device__ __forceinline__ void fma4(float4& acc, float w, const float4& b) {
+  acc.x += w * b.x;
+  acc.y += w * b.y;
+  acc.z += w * b.z;
+  acc.w += w * b.w;
 }
 
-// One block per (slot, chunk of `chunk` positions).
-// Shared memory: q [H] | scores [chunk] | rows [chunk] (int64) | red [kWarps].
+// One block per (chunk of `chunk` positions, slot). Shared memory: rows
+// [chunk] (int64) | scores [W] | weights [W], W = max(chunk, n_split) (the
+// combine keeps a slot's split weights there).
 __global__ void __launch_bounds__(kThreads)
-paged_attention_partial(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const int64_t* __restrict__ rows,
-                        const float* __restrict__ bias,
-                        float* __restrict__ part_acc,
-                        float* __restrict__ part_ml,
-                        int L, int H, long long R, float sm_scale, int chunk) {
+paged_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const int64_t* __restrict__ rows,
+                       const float* __restrict__ bias, float* __restrict__ out,
+                       float* __restrict__ part_acc, float* __restrict__ part_ml,
+                       unsigned* __restrict__ arrivals, int L, int H, long long R,
+                       float sm_scale, int chunk) {
   extern __shared__ __align__(16) float smem[];
-  const int s = blockIdx.x;
-  const int split = blockIdx.y;
-  const int n_split = gridDim.y;
+  long long* row_sh = reinterpret_cast<long long*>(smem);
+  float* score = reinterpret_cast<float*>(row_sh + chunk);
+  float* weight = score + max(chunk, static_cast<int>(gridDim.x));
+  __shared__ float red[kWarps];
+  __shared__ bool last;
+  const int split = blockIdx.x, n_split = gridDim.x, s = blockIdx.y;
   const int H4 = H / 4;
-  float4* q_sh = reinterpret_cast<float4*>(smem);
-  float* score = smem + H;
-  long long* row_sh = reinterpret_cast<long long*>(score + chunk);
-  float* red = reinterpret_cast<float*>(row_sh + chunk);
-
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int p0 = split * chunk;
-  const int n = min(chunk, L - p0);
+  const int n = min(chunk, L - p0);  // <= 0 only past a caller's surplus splits
   const size_t base = static_cast<size_t>(s) * L + p0;
 
-  const float4* q4 = reinterpret_cast<const float4*>(q + static_cast<size_t>(s) * H);
-  for (int c = threadIdx.x; c < H4; c += kThreads) q_sh[c] = q4[c];
   for (int i = threadIdx.x; i < n; i += kThreads) {
     const long long r = rows ? rows[base + i] : static_cast<long long>(base + i);
     row_sh[i] = r < 0 ? 0 : (r >= R ? R - 1 : r);
   }
   __syncthreads();
 
-  // scores: one warp per position, 16-byte loads across the row
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = warp; i < n; i += kWarps) {
-    const float4* k4 = reinterpret_cast<const float4*>(k + row_sh[i] * H);
-    float acc = 0.f;
-    for (int c = lane; c < H4; c += 32) {
-      const float4 a = q_sh[c];
-      const float4 b = __ldg(k4 + c);
-      acc += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+  // scores: a warp takes kBatch positions, all their K loads in flight
+  const float4* q4 = reinterpret_cast<const float4*>(q + static_cast<size_t>(s) * H);
+  const float4* k4 = reinterpret_cast<const float4*>(k);
+  for (int i0 = warp * kBatch; i0 < n; i0 += kWarps * kBatch) {
+    const float4* kr[kBatch];
+    float d[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      kr[b] = k4 + (i0 + b < n ? row_sh[i0 + b] : row_sh[i0]) * H4;
+      d[b] = 0.f;
     }
-    acc = warp_sum(acc);
-    if (lane == 0) score[i] = acc * sm_scale + bias[base + i];
+#pragma unroll 6
+    for (int c = lane; c < H4; c += 32) {
+      const float4 a = __ldg(q4 + c);
+      float4 x[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+        if (i0 + b < n) x[b] = __ldg(kr[b] + c);
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+        if (i0 + b < n) d[b] += dot4(a, x[b]);
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) d[b] = warp_sum(d[b]);
+    if (lane == 0)
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+        if (i0 + b < n) score[i0 + b] = d[b] * sm_scale + bias[base + i0 + b];
   }
   __syncthreads();
 
+  // the chunk's max (every warp the same) and its weights
   float m = -INFINITY;
-  for (int i = threadIdx.x; i < n; i += kThreads) m = fmaxf(m, score[i]);
-  m = block_max(m, red);
-  float l = 0.f;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const float e = expf(score[i] - m);
-    score[i] = e;
-    l += e;
-  }
-  l = block_sum(l, red);  // its barriers also publish score[]
+  for (int i = lane; i < n; i += 32) m = fmaxf(m, score[i]);
+  m = warp_max(m);
+  for (int i = threadIdx.x; i < n; i += kThreads) weight[i] = expf(score[i] - m);
+  __syncthreads();
 
-  // weighted V rows: thread c owns float4 column c
-  float4* out4 = reinterpret_cast<float4*>(
-      part_acc + (static_cast<size_t>(s) * n_split + split) * H);
+  // weighted V rows: thread c owns float4 column c, in position order
+  const size_t part = static_cast<size_t>(s) * n_split + split;
+  const float4* v4 = reinterpret_cast<const float4*>(v);
+  float4* acc4 = reinterpret_cast<float4*>(part_acc + part * H);
   for (int c = threadIdx.x; c < H4; c += kThreads) {
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-    for (int i = 0; i < n; ++i) {
-      const float w = score[i];
-      const float4 b = __ldg(reinterpret_cast<const float4*>(v + row_sh[i] * H) + c);
-      acc.x += w * b.x;
-      acc.y += w * b.y;
-      acc.z += w * b.z;
-      acc.w += w * b.w;
+    int i = 0;
+    for (; i + kUnroll <= n; i += kUnroll) {
+      float4 x[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) x[u] = __ldg(v4 + row_sh[i + u] * H4 + c);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) fma4(acc, weight[i + u], x[u]);
     }
-    out4[c] = acc;
+    for (; i < n; ++i) fma4(acc, weight[i], __ldg(v4 + row_sh[i] * H4 + c));
+    acc4[c] = acc;
   }
-  if (threadIdx.x == 0) {
-    float* ml = part_ml + (static_cast<size_t>(s) * n_split + split) * 2;
-    ml[0] = m;
-    ml[1] = l;
+  if (warp == 0) {
+    float l = 0.f;
+    for (int i = lane; i < n; i += 32) l += weight[i];
+    l = warp_sum(l);
+    if (lane == 0) {
+      part_ml[2 * part] = m;
+      part_ml[2 * part + 1] = l;
+    }
   }
-}
 
-// Grid (S, column groups): rescale the chunk partials of one slot to its
-// max and divide by the total weight. Every block recomputes the slot's
-// n_split weights (a block-wide reduction), then each thread owns one
-// output column. Shared memory: n_split weights.
-__global__ void __launch_bounds__(kThreads)
-paged_attention_combine(const float* __restrict__ part_acc,
-                        const float* __restrict__ part_ml,
-                        float* __restrict__ out, int H, int n_split) {
-  extern __shared__ __align__(16) float w_sh[];
-  __shared__ float red[kWarps];
-  const int s = blockIdx.x;
-  const float* ml = part_ml + static_cast<size_t>(s) * n_split * 2;
-  float M = -INFINITY;
-  for (int i = threadIdx.x; i < n_split; i += kThreads)
-    if (ml[2 * i + 1] > 0.f) M = fmaxf(M, ml[2 * i]);
-  M = block_max(M, red);
-  float d = 0.f;
-  for (int i = threadIdx.x; i < n_split; i += kThreads) {
-    const float l = ml[2 * i + 1];
-    const float w = l > 0.f ? expf(ml[2 * i] - M) : 0.f;
-    w_sh[i] = w;
-    d += w * l;
+  // the last block of the slot to arrive combines its partials (the
+  // fences as in a grid-wide barrier: thread 0 fences after the block's
+  // barrier, so the block's partial is visible before its arrival, and
+  // the last block's thread 0 fences before its barrier releases the reads)
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(arrivals + s, 1u) == static_cast<unsigned>(n_split - 1);
+    if (last) __threadfence();
   }
-  d = block_sum(d, red);  // its barriers also publish w_sh[]
-  const float* acc = part_acc + static_cast<size_t>(s) * n_split * H;
-  for (int c = blockIdx.y * kThreads + threadIdx.x; c < H;
-       c += gridDim.y * kThreads) {
-    float a = 0.f;
-#pragma unroll 8
-    for (int i = 0; i < n_split; ++i) a += w_sh[i] * acc[static_cast<size_t>(i) * H + c];
-    out[static_cast<size_t>(s) * H + c] = a / d;
+  __syncthreads();
+  if (!last) return;
+  // the slot's split weights, every split's (m, l) loaded at once: m_i
+  // into score[], then w_i = exp(m_i - max m) into weight[] and w_i l_i
+  // into score[] (l_i == 0 marks a split with no position)
+  const float* ml = part_ml + static_cast<size_t>(s) * n_split * 2;
+  float mx = -INFINITY;
+  for (int i = threadIdx.x; i < n_split; i += kThreads) {
+    const float mi = __ldcg(ml + 2 * i), li = __ldcg(ml + 2 * i + 1);
+    score[i] = mi;
+    weight[i] = li;
+    if (li > 0.f) mx = fmaxf(mx, mi);
+  }
+  mx = warp_max(mx);
+  if (lane == 0) red[warp] = mx;
+  __syncthreads();
+  float M = red[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) M = fmaxf(M, red[w]);
+  for (int i = threadIdx.x; i < n_split; i += kThreads) {
+    const float li = weight[i];
+    const float wi = li > 0.f ? expf(score[i] - M) : 0.f;
+    weight[i] = wi;
+    score[i] = wi * li;
+  }
+  __syncthreads();
+  float total = 0.f;  // in split order, the same in every thread
+  for (int i = 0; i < n_split; ++i) total += score[i];
+  const float inv = 1.f / total;
+  const float4* slot4 = reinterpret_cast<const float4*>(part_acc) +
+                        static_cast<size_t>(s) * n_split * H4;
+  float4* out4 = reinterpret_cast<float4*>(out + static_cast<size_t>(s) * H);
+  for (int c = threadIdx.x; c < H4; c += kThreads) {
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    int i = 0;
+    for (; i + kUnroll <= n_split; i += kUnroll) {
+      float4 x[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        x[u] = __ldcg(slot4 + static_cast<size_t>(i + u) * H4 + c);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) fma4(a, weight[i + u], x[u]);
+    }
+    for (; i < n_split; ++i) fma4(a, weight[i], __ldcg(slot4 + static_cast<size_t>(i) * H4 + c));
+    out4[c] = make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
   }
 }
 
@@ -206,12 +253,12 @@ paged_attention_combine(const float* __restrict__ part_acc,
 
 extern "C" {
 
-// Launches both kernels on `stream` (a cudaStream_t) and returns
-// cudaGetLastError() as an int (0 = launched). Pointers are device
-// pointers; q/k/v/bias/out must be 16-byte aligned and contiguous; H must
-// be a multiple of 4; rows may be null (identity rows, R >= S*L);
-// part_acc holds S*n_split*H floats, part_ml S*n_split*2, with
-// n_split*chunk >= L.
+// Zeroes the slots' arrival counters and launches the kernel on `stream` (a
+// cudaStream_t); returns the first CUDA error as an int (0 = launched).
+// Pointers are device pointers; q/k/v/bias/out must be 16-byte aligned and
+// contiguous; H must be a multiple of 4; rows may be null (identity rows,
+// R >= S*L); part_acc holds S*n_split*H floats, part_ml S*n_split*2 floats
+// followed by S 32-bit words (the counters), with n_split*chunk >= L.
 int paged_attention_f32(const float* q, const float* k, const float* v,
                         const int64_t* rows, const float* bias, float* out,
                         float* part_acc, float* part_ml, int S, int L, int H,
@@ -219,25 +266,21 @@ int paged_attention_f32(const float* q, const float* k, const float* v,
                         void* stream) {
   if (S <= 0 || L <= 0 || H <= 0 || H % 4 != 0 || R <= 0 || chunk <= 0 ||
       chunk % 2 != 0 || n_split <= 0 ||
-      static_cast<long long>(n_split) * chunk < L || n_split > 65535)
+      static_cast<long long>(n_split) * chunk < L || n_split > 65535 || S > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * (H + chunk) + sizeof(long long) * chunk +
-                      sizeof(float) * kWarps;
+  unsigned* arrivals = reinterpret_cast<unsigned*>(part_ml + static_cast<size_t>(S) * n_split * 2);
+  cudaError_t e = cudaMemsetAsync(arrivals, 0, sizeof(unsigned) * S, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const size_t smem = sizeof(long long) * chunk + 2 * sizeof(float) * (chunk > n_split ? chunk : n_split);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_partial, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    e = cudaFuncSetAttribute(paged_attention_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  paged_attention_partial<<<dim3(S, n_split), kThreads, smem, st>>>(
-      q, k, v, rows, bias, part_acc, part_ml, L, H, R, sm_scale, chunk);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int col_groups = (H + kThreads - 1) / kThreads;
-  paged_attention_combine<<<dim3(S, col_groups), kThreads,
-                            sizeof(float) * n_split, st>>>(
-      part_acc, part_ml, out, H, n_split);
+  paged_attention_kernel<<<dim3(n_split, S), kThreads, smem, st>>>(
+      q, k, v, rows, bias, out, part_acc, part_ml, arrivals, L, H, R, sm_scale, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -26,12 +26,12 @@ Layout: q, k, v ``[B, H, S, D]``; ``bias`` an optional additive key bias
 ``[B, S]``; ``causal`` masks ``cols > rows`` with -1e30. The kernels take
 float32 with D a multiple of 4 up to 128, at any S. They sum in another
 order than the composites, so the two agree to a stated tolerance
-(``chip_smoke.py`` checks it on the card), not bit for bit. K1 computes
-in f32 FFMA; K2a and K2b take every product on the tensor cores in the
-3xTF32 split (each operand as a TF32 big part plus a TF32 small part,
-three products summed in f32), which keeps float32 accuracy where plain
-TF32 would not (``tests/test_torch_flash_attention.py`` emulates both).
-Two launches on the same inputs give the same bits.
+(``chip_smoke.py`` checks it on the card), not bit for bit. All three
+take every product on the tensor cores in the 3xTF32 split (each operand
+as a TF32 big part plus a TF32 small part, three products summed in f32),
+which keeps float32 accuracy where plain TF32 would not
+(``tests/test_torch_flash_attention.py`` emulates both). Two launches on
+the same inputs give the same bits.
 """
 
 import ctypes
@@ -130,8 +130,8 @@ def flash_attention_bwd_composite(q, k, v, bias, out, lse, dout, causal,
 
 def _declare(lib):
     """Declares the C entry points' argument and result types on ``lib``, a
-    build of ``csrc/flash_attention.cu`` (or of a variant of it, as
-    ``tools/torch_flash_bwd_sweep.py`` builds), and returns it."""
+    build of ``csrc/flash_attention.cu`` (or of a variant of it), and
+    returns it."""
     p, i = ctypes.c_void_p, ctypes.c_int
     tail = [i, i, i, i, ctypes.c_float, i, p]   # BH, H, S, D, scale, causal, stream
     lib.flash_attention_fwd_f32.argtypes = [p] * 6 + tail

@@ -9,10 +9,10 @@ O and LSE agree within rtol = atol = 1e-5 (the JAX test's bar), the
 grads dq, dk, dv and dbias of a random dO within rtol 1e-4, atol 1e-5
 (float32 sums in another order). A bias without a grad (BERT's padding
 mask) asks the dK/dV function for no dbias. The CUDA kernels run only on the card;
-chip_smoke.py holds them against these plain versions there. One test
-pins the backward kernels' numerics: every product in the 3xTF32 split
-(emulated here) keeps the backward within the card's bars, and plain
-TF32 does not.
+chip_smoke.py holds them against these plain versions there. Two tests
+pin the kernels' numerics: every product in the 3xTF32 split (emulated
+here) keeps the forward and the backward within the card's bars, and
+plain TF32 does not.
 """
 
 import jax
@@ -29,9 +29,9 @@ from paddle_tpu_torch.models import bert
 
 B, H, D = 2, 2, 8
 SCALE = 1.0 / np.sqrt(D)
-# the card's bar for the backward kernels against their plain versions
-# (chip_smoke.py BWD_TOL: rtol, atol)
-BWD_TOL = (1e-4, 1e-5)
+# the card's bars for the kernels against their plain versions
+# (chip_smoke.py FWD_TOL and BWD_TOL: rtol, atol)
+FWD_TOL, BWD_TOL = (1e-5, 1e-5), (1e-4, 1e-5)
 
 
 def _inputs(S, with_bias, seed=0):
@@ -284,3 +284,59 @@ def test_the_backward_needs_3xtf32_products_for_the_float32_bars():
     plain = _backward_by_route("tf32", *args)
     for name, g, w in zip(("dq", "dk", "dv"), plain, want):
         assert not _within(g, w, BWD_TOL), name
+
+
+def _pairs_product(a, b, route):
+    """a @ b as the kernels sum it: each two MMA k steps (16 of the inner
+    dim) into a fresh accumulator, the partial products added in f32 in
+    order."""
+    out = None
+    for c0 in range(0, a.shape[-1], 16):
+        part = _matmul(a[..., c0:c0 + 16], b[..., c0:c0 + 16, :], route)
+        out = part if out is None else out + part
+    return out
+
+
+def _forward_by_route(route, q, k, v, bias, scale, tile=16):
+    """K1's sums (non-causal): key tiles of ``tile``, each tile's scores
+    and P V taken by ``route`` in fresh accumulators, the online softmax's
+    running max and sum, O and LSE at the end."""
+    rows = q.shape[:-1]
+    m = torch.full(rows, -1e30)
+    l = torch.zeros(rows)
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, k.shape[-2], tile):
+        kt, vt = k[..., k0:k0 + tile, :], v[..., k0:k0 + tile, :]
+        s = (_pairs_product(q, kt.transpose(-1, -2), route) * scale
+             + bias[:, None, None, k0:k0 + tile])
+        m_new = torch.maximum(m, s.max(dim=-1).values)
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + _pairs_product(p, vt, route)
+        m = m_new
+    return acc / l[..., None], m + torch.log(l)
+
+
+def test_the_forward_needs_3xtf32_products_for_the_float32_bars():
+    """BERT-base's head (S=128, D=64) with its padding bias: with both
+    products (S = Q K^T, O += P V) in the 3xTF32 split, as K1 takes them,
+    O and the LSE stay within the card's bars of the float32 composite;
+    with plain TF32 products they do not."""
+    rng = np.random.RandomState(8)
+    b, h, s, d = 2, 4, 128, 64
+    q, k, v = (torch.from_numpy(rng.randn(b, h, s, d).astype(np.float32))
+               for _ in range(3))
+    keep = rng.randint(s // 2, s + 1, size=(b, 1))
+    bias = torch.from_numpy(np.where(np.arange(s)[None] < keep, 0.0,
+                                     -10000.0).astype(np.float32))
+    scale = 1.0 / np.sqrt(d)
+    want = torch_flash.flash_attention_composite(q, k, v, bias, False, scale)
+    # the emulation itself: f32 products give the composite's numbers
+    for g, w in zip(_forward_by_route("f32", q, k, v, bias, scale), want):
+        assert _within(g, w, (1e-6, 1e-6))
+    for g, w in zip(_forward_by_route("3xtf32", q, k, v, bias, scale), want):
+        assert _within(g, w, FWD_TOL)
+    plain = _forward_by_route("tf32", q, k, v, bias, scale)
+    for name, g, w in zip(("O", "LSE"), plain, want):
+        assert not _within(g, w, FWD_TOL), name

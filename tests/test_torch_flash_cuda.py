@@ -4,7 +4,9 @@ S on both sides of the backward's 16-row warp tiles and 64-row block
 tiles, up to 512; head widths 4 to 128, with and without a multiple of
 8 (the backward's MMA step) and across its 32-column classes; one or
 many heads; with and without bias; causal or not), two launches giving
-the same bits, dK and dV the same with and without dbias, and the
+the same bits, a batch row whose keys all carry a -inf bias (K1's
+``l == 0`` branch) or -1e9 (the uniform average), dK and dV the same
+with and without dbias, and the
 ``autograd.Function`` end to end. Marked ``cuda``: it skips without a
 card and runs on one with
 
@@ -138,14 +140,43 @@ def _backward_args(dev, shape, causal, seed):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("shape", [(2, 3, 100, 96), (2, 2, 129, 64), (4, 12, 128, 64)],
+@pytest.mark.parametrize("shape", [(2, 3, 100, 96), (2, 2, 129, 64), (4, 12, 128, 64),
+                                   (2, 2, 129, 128)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_two_launches_give_the_same_bits(dev, shape, causal):
     args = _backward_args(dev, shape, causal, seed=7)
-    first = (*FA.flash_attention_bwd_dkdv(*args), FA.flash_attention_bwd_dq(*args))
-    second = (*FA.flash_attention_bwd_dkdv(*args), FA.flash_attention_bwd_dq(*args))
-    for a, b in zip(first, second):
+    q, k, v, bias = args[:4]
+
+    def launch():
+        return (*FA.flash_attention_fwd(q, k, v, bias, causal, args[-1]),
+                *FA.flash_attention_bwd_dkdv(*args), FA.flash_attention_bwd_dq(*args))
+
+    for a, b in zip(launch(), launch()):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [(3, 2, 100, 64), (3, 2, 129, 128), (3, 1, 16, 12)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_a_row_whose_keys_are_all_masked(dev, shape):
+    """Batch row 1 gives every key a -inf bias: K1 takes its ``l == 0``
+    branch, O = 0 and LSE = -1e30 there (the plain version has NaN and
+    -inf). Batch row 2 gives every key -1e9: every score rounds to the
+    same float and O is the uniform average of V, as in the plain version.
+    The other rows are the plain version's."""
+    B, H, S, D = shape
+    q, k, v, _, _ = _inputs(dev, B, H, S, D, False, seed=sum(shape))
+    bias = torch.zeros(B, S, device=dev)
+    bias[1] = -float("inf")
+    bias[2] = -1e9
+    scale = 1.0 / D ** 0.5
+    o, lse = FA.flash_attention_fwd(q, k, v, bias, False, scale)
+    o_p, lse_p = FA.flash_attention_composite(q, k, v, bias, False, scale)
+    assert torch.equal(o[1], torch.zeros_like(o[1]))
+    assert torch.equal(lse[1], torch.full_like(lse[1], -1e30))
+    keep = torch.arange(B, device=dev) != 1
+    _close(o[keep], o_p[keep], 1e-5, 1e-5)
+    _close(lse[keep], lse_p[keep], 1e-5, 1e-5)
+    _close(o[2], v[2].mean(dim=1, keepdim=True).expand_as(v[2]), 1e-5, 1e-5)
 
 
 @pytest.mark.parametrize("shape", [(2, 3, 100, 96), (2, 2, 65, 36)],

@@ -99,6 +99,29 @@ def test_retired_slot_is_uniform_average_and_masked_rows_vanish():
     np.testing.assert_array_equal(got2[0], got[0])
 
 
+@pytest.mark.parametrize("length", [1, 17, 1024, 8192])
+@pytest.mark.parametrize("seqs", [1, 8, 64])
+def test_split_plan_covers_every_position_within_the_kernels_limits(seqs,
+                                                                     length):
+    """The plan is a host-side function of (slots, positions, SMs): its
+    chunks cover every position with no chunk left empty, it stays within
+    what the C entry point takes (an even chunk of at most 8192 positions,
+    at most 65535 chunks a slot), gives the card's 132 SMs work, and the
+    scratch the wrapper allocates holds a partial a chunk plus a counter a
+    slot."""
+    sms = 132
+    chunk, n_split = torch_attention.split_plan(seqs, length, sms)
+    assert chunk > 0 and chunk % 2 == 0 and chunk <= 8192
+    assert 0 < n_split <= 65535
+    assert n_split * chunk >= length > (n_split - 1) * chunk
+    blocks = seqs * n_split
+    assert blocks >= min(sms, seqs * -(-length // 16))
+    assert blocks <= 4 * sms or chunk == 16
+    assert torch_attention.split_plan(seqs, length, sms) == (chunk, n_split)
+    acc, ml = torch_attention.scratch_sizes(seqs, n_split, H)
+    assert (acc, ml) == (seqs * n_split * H, seqs * n_split * 2 + seqs)
+
+
 @pytest.mark.parametrize("bad_row", [-1, R])
 def test_plain_paged_attention_raises_on_a_row_outside_the_arena(bad_row):
     q, ka, va, rows, bias, _, _ = _inputs(5)
