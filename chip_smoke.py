@@ -38,6 +38,28 @@ Phases:
    layers, FFN 3072, 8 slots, context 1024, blocks of 16). Launch
    counters are zeroed just before and read just after; 4 requests are
    checked against ``offline_decode`` on the card.
+3b. decode modes — the engine's other modes on one ``GenerationEngine()``
+   at the same width: a target built with a chunk budget of 128 tokens,
+   a draft "same" holding the target's weights (``convert.load_params``,
+   checked equal) and a draft "small" of 2 layers. Leg A hand-steps the
+   scheduler (the loop thread's body, one iteration at a time): 4 short
+   prompts decode while 8 long ones (129-960 tokens, two sharing a
+   256-token prefix) stream through the chunk program; every request
+   completes, 4 hold against ``offline_decode`` under phase 3's near-tie
+   rule (the 960-token one among them), the chunk count equals what the
+   prompt lengths and the radix-shared chunks predict, and no iteration
+   runs more than one chunk while a decode slot is live. Leg B (the loop
+   threads) runs spec_k=4 speculation: 4 requests on "same" with
+   draft-KV proposals, 1 with replay proposals and 2 plain greedy
+   requests, then 2 on "small"; every speculative stream equals
+   ``offline_decode`` bit for bit, "same" is accepted every time at no
+   more than 0.7 target steps a token, no draft-KV proposal falls back to
+   replay, and K3 launches at least (draft layers x draft-KV steps) times.
+   Leg C samples (temperature 0.8, top-k 50, top-p 0.95): 4 plain requests
+   hold under the near-tie rule on the Gumbel-perturbed scores, 1
+   speculative one on "same" bit for bit. Launch counters are zeroed
+   before each leg and read after; the ``paged_attention`` row of the
+   kernels line adds these launches to phase 3's.
 2b. flash parity — the flash-attention forward (K1), dK/dV (K2a) and dQ
    (K2b) kernels against their plain versions on the same inputs, and two
    launches of each giving the same bits: at BERT-base's training shape
@@ -164,6 +186,17 @@ MODEL = dict(vocab_size=32000, hidden=768, num_layers=12, ffn_dim=3072,
              slots=8, max_len=1024, block_size=16)
 N_REQUESTS, SHARED_PREFIX, MAX_NEW = 16, 256, 32
 PROMPT_LEN = (8, 512)
+# Phase 3b, the engine's other modes on the same target: a chunk budget of
+# 128 tokens; leg A's 4 short prompts (whole-prompt prefill) and 8 long
+# ones (129-960 tokens: two share the 256-token prefix, `first` and
+# `second`); legs B and C at spec_k 4, prompts of 16-300 tokens, a draft of
+# 2 layers beside the one holding the target's weights
+CHUNK_TOKENS, SPEC_K, SMALL_LAYERS = 128, 4, 2
+SHORT_LENS = (16, 40, 72, 100)
+FIRST_SHARED_TAIL, SECOND_SHARED_TAIL = 150, 300
+LONG_LENS = (960, 129, 300, 517, 700, 850)
+SPEC_PROMPT_LEN = (16, 301)
+SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)
 NEG_INF = -1e9
 # The kernel and its plain version both produce convex combinations of
 # N(0, 1) value rows, summed in float32 over 1024 positions in different
@@ -795,29 +828,44 @@ def make_prompts(vocab):
     return prompts
 
 
-def check_against_offline(entry, prompt, got, want):
-    """Equal tokens, or a first divergence where the offline top-2 logit
-    gap is below 1e-4 of the largest |logit| (a near-tie that float32
-    sums in another order may break either way)."""
+def check_against_offline(entry, prompt, got, want, sampling=None,
+                          tag="engine"):
+    """Equal tokens, or a first divergence where the offline top-2 gap
+    is below 1e-4 of the largest |logit| (a near-tie that float32 sums in
+    another order may break either way). For a sampled stream the scores
+    are the offline row's Gumbel-perturbed ``z + g`` (``z`` the filtered
+    logits over the temperature, ``g`` the request's committed noise at
+    that token), and the bar is 1e-4 of the largest |logit| over the
+    temperature, the scale of ``z``."""
     import torch
+
+    from paddle_tpu_torch.serving.decode.generate import sampling as smp
 
     for t, (a, b) in enumerate(zip(got, want)):
         if a == b:
             continue
         toks = list(prompt) + list(want[:t])
         row = entry.prefill_logits(toks)[len(toks) - 1]
-        top2 = torch.topk(row, 2).values
-        gap = float(top2[0] - top2[1])
-        tol = 1e-4 * float(row.abs().max())
-        log(f"[engine] divergence at step {t}: engine {a} offline {b}, "
+        if sampling is None:
+            top2 = torch.topk(row, 2).values
+            gap = float(top2[0] - top2[1])
+            tol = 1e-4 * float(row.abs().max())
+        else:
+            x = row.cpu().numpy().astype(np.float32)
+            scores = (smp.filtered_scores(x, sampling)
+                      + smp.gumbel_vector(sampling.seed, t, x.size))
+            top2 = np.sort(scores[np.isfinite(scores)])[-2:]
+            gap = float(top2[1] - top2[0])
+            tol = 1e-4 * float(np.abs(x).max()) / sampling.temperature
+        log(f"[{tag}] divergence at step {t}: engine {a} offline {b}, "
             f"offline top-2 gap {gap:.3e} (tolerated below {tol:.3e})")
         if gap >= tol:
             raise AssertionError(
-                f"engine tokens diverge from offline_decode at step {t} "
+                f"{tag}: tokens diverge from offline_decode at step {t} "
                 f"with a clear top-2 gap {gap}")
         return "near-tie"
     if len(got) != len(want):
-        raise AssertionError(f"engine produced {len(got)} tokens, "
+        raise AssertionError(f"{tag}: engine produced {len(got)} tokens, "
                              f"offline {len(want)}")
     return "equal"
 
@@ -874,7 +922,272 @@ def phase_engine():
         f"{np.median(prefill_ms):.3f} ms over {len(prefill_ms)}, "
         f"{generated / wall:.1f} tokens/s, radix hits "
         f"{st['block_pool']['radix_hits']}")
+    return launches, generated / wall
+
+
+# -- phase 3b ---------------------------------------------------------------
+def _mode_of(entry, resp):
+    """The scheduling mode of the slot serving ``resp``, or None when no
+    slot serves it (queued, or finished)."""
+    for st in entry._slots:
+        if st is not None and st.request.response is resp:
+            return st.mode
+    return None
+
+
+def _leg_chunked(engine, target):
+    """Leg A: long prompts through the chunk program, admitted while 4
+    short prompts decode, hand-stepped one scheduler iteration at a time
+    (the loop thread's body) so each iteration's chunks, steps and time
+    are on record."""
+    from paddle_tpu_torch import kernels
+
+    C = CHUNK_TOKENS
+    rng = np.random.RandomState(SEED + 3)
+    vocab = MODEL["vocab_size"]
+
+    def toks(n):
+        return rng.randint(0, vocab, n).tolist()
+
+    prefix = toks(SHARED_PREFIX)
+    shorts = [toks(n) for n in SHORT_LENS]
+    first = prefix + toks(FIRST_SHARED_TAIL)     # shares with `second`
+    second = prefix + toks(SECOND_SHARED_TAIL)
+    longs = [toks(n) for n in LONG_LENS]         # 960 first
+    # chunks each long prompt needs: all of its positions, but `second`
+    # starts past the 256 positions the radix holds from `first`
+    predicted = (sum(-(-len(p) // C) for p in [first] + longs)
+                 + -(-(len(second) - SHARED_PREFIX) // C))
+    kernels.reset_launches()
+    runs0 = target.metrics.count("chunk_runs")
+    record = []                 # (decoding before, chunks, seconds)
+
+    def iterate():
+        decoding = sum(1 for st in target._slots
+                       if st is not None and st.mode == "decode")
+        runs = target.metrics.count("chunk_runs")
+        t0 = time.perf_counter()
+        if target._iterate():
+            raise AssertionError("the scheduler loop asked to exit")
+        record.append((decoding, target.metrics.count("chunk_runs") - runs,
+                       time.perf_counter() - t0))
+        if len(record) > 5000:
+            raise AssertionError("leg A did not finish in 5000 iterations")
+
+    resps = [engine.submit(p, model="target", max_new_tokens=MAX_NEW)
+             for p in shorts + [first]]
+    # `second` comes once `first` has landed its last chunk (its blocks are
+    # then in the radix), the other long prompts with it
+    while _mode_of(target, resps[-1]) != "decode" and not resps[-1].done():
+        iterate()
+    resps += [engine.submit(p, model="target", max_new_tokens=MAX_NEW)
+              for p in [second] + longs]
+    while not all(r.done() for r in resps):
+        iterate()
+    launches = kernels.launches("paged_attention")
+    outs = [[int(t) for t in r.result(timeout=60)["tokens"]] for r in resps]
+    chunks = target.metrics.count("chunk_runs") - runs0
+    st = target.stats()
+    if any(len(o) != MAX_NEW for o in outs) or st["completed"] != len(resps):
+        raise AssertionError(f"leg A: not every request completed: {st}")
+    if chunks != predicted:
+        raise AssertionError(f"leg A: {chunks} chunks, the prompt lengths "
+                             f"and the shared prefix predict {predicted}")
+    busy = [r for r in record if r[0]]
+    if any(r[1] > 1 for r in busy):
+        raise AssertionError("leg A: an iteration ran more than one chunk "
+                             "while a decode slot was live")
+    chunked_busy = sum(1 for r in busy if r[1])
+    if launches != MODEL["num_layers"] * st["steps"] or not st["steps"]:
+        raise AssertionError(f"leg A: paged_attention launched {launches} "
+                             f"times over {st['steps']} decode steps")
+    prompts = shorts + [first, second] + longs
+    verdicts = []
+    for i in (len(shorts) + 2, len(shorts) + 1, len(shorts),
+              len(shorts) + 3):           # 960, second, first, 129
+        want = target.offline_decode(prompts[i], MAX_NEW)
+        verdicts.append(check_against_offline(target, prompts[i], outs[i],
+                                              want, tag="modes A"))
+    chunk_ms = np.asarray(st["chunk_seconds"]) * 1e3
+    prefill_ms = np.asarray(st["prefill_seconds"]) * 1e3
+    step_ms = np.asarray(st["step_seconds"]) * 1e3
+    gap_ms = max(r[2] for r in busy) * 1e3
+    log(f"[modes A] {len(resps)} requests (prompts {sorted(map(len, prompts))}"
+        f"), {len(record)} iterations, {chunks} chunks (predicted "
+        f"{predicted}; {chunked_busy} beside a live decode slot, at most one "
+        f"an iteration), {st['steps']} decode steps, paged_attention "
+        f"launches {launches}")
+    log(f"[modes A] offline_decode checks (960, shared, first, 129 tokens): "
+        f"{verdicts}")
+    log(f"[modes A] chunk p50 {np.median(chunk_ms):.3f} ms over "
+        f"{len(chunk_ms)} (C={C}), unchunked prefill p50 "
+        f"{np.median(prefill_ms):.3f} ms over {len(prefill_ms)}, decode step "
+        f"p50 {np.median(step_ms):.3f} ms (p90 "
+        f"{np.percentile(step_ms, 90):.3f}), longest gap between decode "
+        f"steps of an in-flight request {gap_ms:.3f} ms")
     return launches
+
+
+SPEC_KEYS = ("spec_target_steps", "spec_emitted_tokens", "spec_proposed_tokens",
+             "spec_accepted_tokens", "spec_draft_kv_steps",
+             "spec_draft_kv_fallbacks", "spec_draft_steps", "steps",
+             "sampled_tokens")
+
+
+def _spec_wave(engine, target, label, requests, greedy_tps=None):
+    """Submit ``requests`` ([(prompt, submit options)]) together, wait for
+    all, and check each against ``offline_decode``: speculative streams
+    bit for bit, the others under the near-tie rule. Returns the wave's
+    counter deltas, its paged_attention launches and its tokens/s."""
+    import torch
+
+    from paddle_tpu_torch import kernels
+
+    before = target.stats()
+    verify0 = len(before["verify_seconds"])
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    resps = [engine.submit(p, model="target", max_new_tokens=MAX_NEW, **kw)
+             for p, kw in requests]
+    outs = [[int(t) for t in r.result(timeout=600)["tokens"]] for r in resps]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launches("paged_attention")
+    after = target.stats()
+    d = {k: after.get(k, 0) - before.get(k, 0) for k in SPEC_KEYS}
+    verify_ms = np.asarray(after["verify_seconds"][verify0:]) * 1e3
+    verdicts = []
+    for (p, kw), got in zip(requests, outs):
+        if len(got) != MAX_NEW:
+            raise AssertionError(f"{label}: {len(got)} tokens, not {MAX_NEW}")
+        sampling = kw.get("sampling")
+        want = target.offline_decode(p, MAX_NEW, sampling=sampling)
+        if "draft_model" in kw:
+            if got != want:
+                raise AssertionError(
+                    f"{label}: a speculative stream differs from "
+                    f"offline_decode: {got} != {want}")
+            verdicts.append("bit-equal")
+        else:
+            verdicts.append(check_against_offline(
+                target, p, got, want, sampling=sampling, tag=label))
+    if d["spec_draft_kv_fallbacks"]:
+        raise AssertionError(f"{label}: {d['spec_draft_kv_fallbacks']} "
+                             "draft-KV fallbacks")
+    emitted = sum(len(o) for o in outs)
+    log(f"[{label}] {len(requests)} requests in {wall:.2f}s: "
+        f"{emitted / wall:.1f} tokens/s"
+        + (f" (phase 3 greedy: {greedy_tps:.1f})" if greedy_tps else "")
+        + f", offline_decode checks {verdicts}")
+    if d["spec_emitted_tokens"]:
+        log(f"[{label}] acceptance {d['spec_accepted_tokens']}/"
+            f"{d['spec_proposed_tokens']}, target steps per token "
+            f"{d['spec_target_steps'] / d['spec_emitted_tokens']:.4f}, "
+            f"draft-KV steps per token "
+            f"{d['spec_draft_kv_steps'] / d['spec_emitted_tokens']:.4f}, "
+            f"replay draft forwards {d['spec_draft_steps']}, verify p50 "
+            f"{np.median(verify_ms):.3f} ms over {len(verify_ms)}, target "
+            f"decode steps {d['steps']}, paged_attention launches {launches}")
+    return d, launches
+
+
+def _draft_entries(engine, target):
+    """Draft "same": the target's geometry and weights (loaded through
+    ``convert.load_params`` and checked equal); draft "small": the same
+    widths at 2 layers with the weights its own startup drew."""
+    import torch
+
+    from paddle_tpu_torch.convert import load_params, persistables_to_numpy
+    from paddle_tpu_torch.serving import build_decoder_model
+
+    same = engine.register_model(build_decoder_model(**MODEL, name="same"))
+    small = engine.register_model(build_decoder_model(
+        **dict(MODEL, num_layers=SMALL_LAYERS), name="small"))
+    arenas = {n for kv in target.model.state_names for n in kv}
+    weights = {n: a for n, a in persistables_to_numpy(
+        target.scope, target.model.startup_program).items()
+        if n not in arenas}
+    src, dst = "target_v1.", "same_v1."
+    load_params(same.scope, {dst + n[len(src):]: a
+                             for n, a in weights.items()})
+    for n in weights:
+        if not torch.equal(same.scope.find_var(dst + n[len(src):]),
+                           target.scope.find_var(n)):
+            raise AssertionError(f"draft 'same' does not hold {n}")
+    log(f"[modes] draft 'same' holds the target's {len(weights)} weight "
+        f"tensors; draft 'small' {SMALL_LAYERS} layers of its own")
+    return same, small
+
+
+def phase_decode_modes(greedy_tps):
+    """Phase 3b: chunked prefill (leg A), speculative decoding with
+    draft-KV and replay proposals (leg B) and committed-stream sampling
+    (leg C) through ``GenerationEngine()`` at the decoder's full width.
+    Returns the paged_attention launches of the three legs."""
+    import torch
+
+    from paddle_tpu_torch.serving import GenerationEngine, build_decoder_model
+    from paddle_tpu_torch.serving.decode import SamplingParams
+
+    t0 = time.perf_counter()
+    engine = GenerationEngine(seed=SEED)          # CUDAPlace(0) by default
+    target = engine.register_model(build_decoder_model(
+        **MODEL, chunk_tokens=CHUNK_TOKENS, name="target"))
+    same, small = _draft_entries(engine, target)
+    torch.cuda.synchronize()
+    log(f"[modes] place={engine.place} startup {time.perf_counter() - t0:.2f}s")
+    launches = {"A": _leg_chunked(engine, target)}
+    engine.start()
+    rng = np.random.RandomState(SEED + 4)
+    vocab = MODEL["vocab_size"]
+
+    def prompt():
+        return rng.randint(0, vocab, int(rng.randint(*SPEC_PROMPT_LEN))
+                           ).tolist()
+
+    spec = dict(draft_model="same", spec_k=SPEC_K)
+    wave_same = ([(prompt(), spec) for _ in range(4)]
+                 + [(prompt(), dict(spec, draft_kv=False))]
+                 + [(prompt(), {}) for _ in range(2)])
+    d, launches["B same"] = _spec_wave(engine, target, "modes B same",
+                                       wave_same, greedy_tps)
+    if d["spec_accepted_tokens"] != d["spec_proposed_tokens"]:
+        raise AssertionError(
+            f"modes B: draft 'same' accepted {d['spec_accepted_tokens']} of "
+            f"{d['spec_proposed_tokens']} proposals, not all")
+    steps_per_token = d["spec_target_steps"] / d["spec_emitted_tokens"]
+    if not steps_per_token <= 0.7:
+        raise AssertionError(f"modes B: {steps_per_token} target steps a "
+                             "token with draft 'same' (bar 0.7)")
+    if not d["spec_draft_steps"] or not d["spec_draft_kv_steps"]:
+        raise AssertionError("modes B: replay or draft-KV proposals missing")
+    if launches["B same"] < MODEL["num_layers"] * d["spec_draft_kv_steps"]:
+        raise AssertionError("modes B: fewer paged_attention launches than "
+                             "draft layers x draft-KV steps")
+    wave_small = [(prompt(), dict(draft_model="small", spec_k=SPEC_K))
+                  for _ in range(2)]
+    d, launches["B small"] = _spec_wave(engine, target, "modes B small",
+                                        wave_small)
+    if launches["B small"] < SMALL_LAYERS * d["spec_draft_kv_steps"] or \
+            not d["spec_draft_kv_steps"]:
+        raise AssertionError("modes B: fewer paged_attention launches than "
+                             "draft layers x draft-KV steps")
+    sampled = [SamplingParams(**SAMPLING, seed=i) for i in range(5)]
+    wave_sampled = ([(prompt(), dict(sampling=sp)) for sp in sampled[:4]]
+                    + [(prompt(), dict(spec, sampling=sampled[4]))])
+    d, launches["C"] = _spec_wave(engine, target, "modes C", wave_sampled)
+    if d["sampled_tokens"] < 5 * MAX_NEW:
+        raise AssertionError(f"modes C: {d['sampled_tokens']} sampled "
+                             "tokens")
+    engine.shutdown()
+    for entry, name in ((target, "target"), (same, "same"), (small, "small")):
+        st = entry.stats()
+        if st["active_slots"] or st["spec_draft_kv_fallbacks"]:
+            raise AssertionError(f"modes: {name} ends with {st}")
+    if not same.stats()["draft_pinned"] or not small.stats()["draft_pinned"]:
+        raise AssertionError("modes: a draft-KV draft was not pinned")
+    log(f"[modes] paged_attention launches by leg {launches}")
+    return sum(launches.values())
 
 
 # -- phase 4 ----------------------------------------------------------------
@@ -2050,13 +2363,17 @@ def main():
     parity.update(phase_flash())
     parity.update(phase_ctr_kernels())
     parity.update(phase_topk())
-    engine_launches = phase_engine()
+    engine_launches, greedy_tps = phase_engine()
+    modes_launches = phase_decode_modes(greedy_tps)
     dense_launches = phase_dense()
     train_launches = phase_train()
     wide_deep_launches = phase_wide_deep()
     ctr_launches = phase_dense_ctr()
     dgc_launches = phase_dgc()
-    path_launches = {"paged_attention": engine_launches["paged_attention"],
+    log(f"[done] paged_attention launches: phase 3 "
+        f"{engine_launches['paged_attention']}, phase 3b {modes_launches}")
+    path_launches = {"paged_attention": engine_launches["paged_attention"]
+                                        + modes_launches,
                      "decode_attention": dense_launches["decode_attention"],
                      "embedding_admission":
                          wide_deep_launches["embedding_admission"],

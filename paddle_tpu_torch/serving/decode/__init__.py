@@ -1,10 +1,12 @@
 """Continuous-batching paged decode: the port of the JAX package's
-``serving/decode`` (greedy paged path)."""
+``serving/decode`` (decode, chunked prefill, speculative decoding and
+committed-stream sampling)."""
 
 from paddle_tpu_torch.serving.decode.engine import (
     GenerationEngine,
     GenerationRequest,
 )
+from paddle_tpu_torch.serving.decode.generate import SamplingParams
 from paddle_tpu_torch.serving.decode.model import DecodeModel, build_decoder_model
 from paddle_tpu_torch.serving.decode.pool import (
     BlockPool,
@@ -20,6 +22,7 @@ __all__ = [
     "GenerationEngine",
     "GenerationRequest",
     "PrefixCache",
+    "SamplingParams",
     "SlotPool",
     "block_hashes",
     "build_decoder_model",

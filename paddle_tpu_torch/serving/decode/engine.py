@@ -1,26 +1,47 @@
-"""GenerationEngine: continuous-batching greedy decode over a paged KV arena.
+"""GenerationEngine: continuous-batching decode over a paged KV arena.
 
-The port of the JAX package's ``serving/decode/engine.py``, cut down to
-its greedy paged path. A fixed batch of S slots is stepped once per
-model iteration through the ``[S, 1]`` decode program (Orca, OSDI'22):
-finished sequences retire between iterations and admitted prompts
-prefill into free slots mid-flight. KV rows live in fixed-size blocks of
-one flat ``[R, H]`` arena per layer per K/V (vLLM's PagedAttention,
-SOSP'23); the programs see only row-index feeds. Prompts sharing a
-prefix share physical blocks through the radix index, and a shared
-partial block is copied on write when a sequence diverges inside it.
+The port of the JAX package's ``serving/decode/engine.py``. A fixed batch
+of S slots is stepped once per model iteration through the ``[S, 1]``
+decode program (Orca, OSDI'22): finished sequences retire between
+iterations and admitted prompts prefill into free slots mid-flight. KV
+rows live in fixed-size blocks of one flat ``[R, H]`` arena per layer per
+K/V (vLLM's PagedAttention, SOSP'23); the programs see only row-index
+feeds. Prompts sharing a prefix share physical blocks through the radix
+index, and a shared partial block is copied on write when a sequence
+diverges inside it.
+
+Scheduling modes, each equal to the offline whole-sequence reference
+(``offline_decode``) for any admission order:
+
+* **decode** — the ``[S, 1]`` hot path.
+* **chunked prefill** — on a model built with ``chunk_tokens``, a prompt
+  longer than the budget streams through the ``[1, C]`` chunk program
+  ONE chunk per engine iteration, interleaved with decode steps; chunks
+  the radix already holds are skipped.
+* **speculative** — ``submit(draft_model=...)``: a draft entry of the
+  same engine proposes ``spec_k`` tokens, the target verifies them in ONE
+  prefill forward and emits the tokens its own selection picks (committed
+  coupling), so the output is the target-only stream. With ``draft_kv``
+  (the default) the proposals come from a slot of the draft's own arena,
+  one ``[S, 1]`` draft step a token, when the draft entry can be pinned;
+  otherwise from whole-prefix replays of the draft.
+* **sampling** — ``submit(sampling=SamplingParams(...))``:
+  temperature/top-k/top-p by Gumbel-max over a threefry stream keyed by
+  the request's seed and the token's absolute index (``generate/``), in
+  every mode above.
 
 What runs where: the programs run eagerly through ``core/executor.py``
 on the engine's place, which is ``CUDAPlace(0)`` unless the caller
 passes another; the decode step's ``paged_attention`` op launches the
-hand-written CUDA kernel there. The scheduler (slots, blocks, radix,
-queue) is host Python on one thread per hosted model.
+hand-written CUDA kernel there (the target's steps and the draft-KV
+proposal steps alike). The scheduler (slots, blocks, radix, queue) and
+token selection are host Python on one thread per hosted model.
 
-Left to later work (each raises ``NotImplementedError`` at ``submit``
-where a caller asks for it): chunked prefill, speculative decoding,
-sampling, beam search, grammar constraints, host-tier parking and
-preemption, brownout, the circuit breaker, weighted-fair tenants, the
-HBM gate and the fleet router.
+Still refused, each with ``NotImplementedError`` at ``submit`` naming its
+ROADMAP.md item: beam search and grammar constraints (M4), weighted-fair
+tenants (M3c) and ``deadline_at`` (M6). Not ported either, with no
+option to ask for them: host-tier parking and preemption, brownout, the
+circuit breaker, the HBM gate and the fleet router.
 """
 
 import threading
@@ -32,6 +53,10 @@ import torch
 from paddle_tpu_torch.core.executor import Executor
 from paddle_tpu_torch.core.places import default_place
 from paddle_tpu_torch.core.scope import Scope
+from paddle_tpu_torch.serving.decode.generate import (
+    SamplingParams,
+    sample_token,
+)
 from paddle_tpu_torch.serving.decode.model import NEG_INF, DecodeModel
 from paddle_tpu_torch.serving.decode.pool import (
     BlockPool,
@@ -54,27 +79,28 @@ __all__ = ["GenerationEngine", "GenerationRequest"]
 # submit() options of the JAX engine that this port does not serve yet,
 # with the ROADMAP item that brings each
 _NOT_PORTED = {
-    "sampling": "M4 (sampling)",
     "beam_width": "M4 (beam search)",
     "grammar": "M4 (grammar constraints)",
-    "draft_model": "M3b (speculative decoding)",
-    "draft_version": "M3b (speculative decoding)",
-    "spec_k": "M3b (speculative decoding)",
-    "draft_kv": "M3b (speculative decoding)",
     "tenant": "M3c (weighted-fair tenants)",
     "deadline_at": "M6 (fleet re-dispatch)",
 }
 
 
 class GenerationRequest:
-    """One admitted greedy generation request. ``response.result()``
-    yields ``{"tokens": int64 array}`` — the generated tokens, including
-    the stop token when eos fired."""
+    """One admitted generation request. ``response.result()`` yields
+    ``{"tokens": int64 array}`` — the generated tokens, including the
+    stop token when eos fired. ``draft_key`` (a registry ``(name,
+    version)``) opts the request into speculative decoding with
+    ``spec_k`` proposals per verify cycle, from the draft's own KV slot
+    when ``draft_kv``; ``sampling`` is a SamplingParams or None
+    (greedy)."""
 
     __slots__ = ("id", "prompt", "max_new", "priority", "deadline",
-                 "submit_time", "response", "rows")
+                 "submit_time", "response", "rows", "draft_key", "spec_k",
+                 "sampling", "draft_kv")
 
-    def __init__(self, rid, prompt, max_new, priority, deadline):
+    def __init__(self, rid, prompt, max_new, priority, deadline,
+                 draft_key=None, spec_k=0, sampling=None, draft_kv=False):
         self.id = rid
         self.prompt = list(prompt)
         self.max_new = int(max_new)
@@ -83,6 +109,10 @@ class GenerationRequest:
         self.submit_time = time.perf_counter()
         self.response = Response()
         self.rows = 1       # queue admission unit: one batch slot
+        self.draft_key = draft_key
+        self.spec_k = int(spec_k)
+        self.sampling = sampling
+        self.draft_kv = bool(draft_kv)
 
     def expired(self, now=None):
         if self.deadline is None:
@@ -102,48 +132,72 @@ class _DeferAdmission(Exception):
 
 
 class _Slot:
-    """Host-side state of one live batch slot. ``blocks`` is the slot's
-    block table; ``row_map[p]`` the physical arena row of position ``p``
-    (the device half of the table)."""
+    """Host-side state of one live batch slot.
 
-    __slots__ = ("request", "cursor", "last_token", "generated", "blocks",
-                 "row_map", "plen", "shared_len")
+    ``mode`` is "decode" (stepping through the [S, 1] program), "prefill"
+    (a long prompt streaming through the chunk program) or "spec"
+    (speculative verify cycles — holds no TARGET arena blocks).
+    ``blocks`` is the slot's block table; ``row_map[p]`` the physical
+    arena row of position ``p`` (the device half of the table). ``d_*``
+    is the draft-KV footprint of a speculative slot: its slot, blocks and
+    row map ON THE DRAFT ENTRY plus ``d_cursor``, the next draft arena
+    position without a committed KV row."""
 
-    def __init__(self, request):
+    __slots__ = ("request", "mode", "cursor", "last_token", "generated",
+                 "blocks", "row_map", "plen", "done", "shared_len", "toks",
+                 "sampling", "d_entry", "d_slot", "d_blocks", "d_row_map",
+                 "d_cursor")
+
+    def __init__(self, request, mode="decode"):
         self.request = request
+        self.mode = mode
         self.cursor = 0
         self.last_token = None
         self.generated = []
         self.blocks = []
         self.row_map = None
         self.plen = len(request.prompt)
+        self.done = 0           # chunked prefill: prompt positions landed
         self.shared_len = 0     # positions served by radix-shared blocks
+        self.toks = None        # spec mode: prompt + emitted so far
+        self.sampling = None    # SamplingParams (committed-stream sampling)
+        self.d_entry = None     # draft-KV: the draft _ModelEntry
+        self.d_slot = None
+        self.d_blocks = None
+        self.d_row_map = None
+        self.d_cursor = 0
 
 
 class _Counters:
-    """Thread-safe named counters plus the step/prefill time samples the
-    engine's ``stats()`` summarises (host clock; each sample ends in a
-    device-to-host copy, so it includes the device work)."""
+    """Thread-safe named counters plus the time samples the engine's
+    ``stats()`` lists: decode steps, whole-prompt prefills, prefill
+    chunks and speculative verify forwards (host clock; each sample ends
+    in a device-to-host copy, so it includes the device work)."""
+
+    SAMPLES = ("step_seconds", "prefill_seconds", "chunk_seconds",
+               "verify_seconds")
 
     def __init__(self):
         self._lock = threading.Lock()
         self._counts = {}
-        self.step_seconds = []
-        self.prefill_seconds = []
+        self._samples = {name: [] for name in self.SAMPLES}
 
     def incr(self, name, n=1):
         with self._lock:
             self._counts[name] = self._counts.get(name, 0) + n
 
+    def count(self, name):
+        with self._lock:
+            return self._counts.get(name, 0)
+
     def observe(self, samples, seconds):
         with self._lock:
-            samples.append(seconds)
+            self._samples[samples].append(seconds)
 
     def snapshot(self):
         with self._lock:
             out = dict(self._counts)
-            out["step_seconds"] = list(self.step_seconds)
-            out["prefill_seconds"] = list(self.prefill_seconds)
+            out.update({k: list(v) for k, v in self._samples.items()})
         return out
 
 
@@ -151,7 +205,10 @@ class _ModelEntry:
     """One hosted (model, version): programs + executor + scope + slot
     batch + block pool + its scheduler thread. All slot/arena/block
     mutation happens on the loop thread; admission hand-off goes through
-    the queue."""
+    the queue. When this entry serves as another entry's draft-KV
+    proposal server, the target's loop thread runs its draft programs
+    under ``_draft_lock`` (taken OUTSIDE the block pool's lock, never the
+    reverse)."""
 
     def __init__(self, engine, model, queue_depth, prefix_cache_size):
         self._engine = engine
@@ -168,6 +225,17 @@ class _ModelEntry:
         self._stop = False
         self._scope = None
         self._exe = None
+        self._pref_rr = 0       # round-robin cursor over prefilling slots
+        # draft-KV speculation, when THIS entry serves as the draft: every
+        # draft-side call from a target's loop thread holds _draft_lock;
+        # _draft_pinned closes the entry to primary submissions (its own
+        # loop then never touches the arena the draft steps write);
+        # _draft_ok poisons the entry after a failed draft arena call —
+        # its users go back to replay proposals instead of reading an
+        # undefined arena
+        self._draft_lock = threading.Lock()
+        self._draft_pinned = False
+        self._draft_ok = True
         m = model
         self._plans = {
             "step": (m.decode_program, [m.logits_fetch]),
@@ -176,6 +244,8 @@ class _ModelEntry:
                         + [n for kv in m.prefill_kv_fetches for n in kv]),
             "inject": (m.inject_program, []),
         }
+        if m.chunk_program is not None:
+            self._plans["chunk"] = (m.chunk_program, [m.chunk_logits_fetch])
 
     # -- build -------------------------------------------------------------
     def build(self):
@@ -188,8 +258,8 @@ class _ModelEntry:
 
     def _run(self, kind, feeds):
         """Run one program against the entry scope; returns its fetches
-        as tensors on the engine's device. The arenas the decode and
-        inject programs write are updated in place."""
+        as tensors on the engine's device. The arenas the decode, inject
+        and chunk programs write are updated in place."""
         program, fetches = self._plans[kind]
         return self._exe.run(program, feed=feeds, fetch_list=fetches,
                              scope=self._scope, return_numpy=False)
@@ -239,7 +309,10 @@ class _ModelEntry:
 
     def _iterate(self):
         """ONE scheduler iteration: expire, admit up to the free slots,
-        then one decode step. Returns True when the loop should exit."""
+        advance AT MOST ONE prefill chunk, run one verify cycle per
+        speculative slot, then one decode step. Tests hand-step it for a
+        deterministic interleaving. Returns True when the loop should
+        exit."""
         with self._cond:
             for r in self._queue.expire():
                 self._reject(r, DeadlineExceededError(
@@ -249,8 +322,10 @@ class _ModelEntry:
                     and self._pool.active_count == 0 and not self._pending):
                 return True
         admitted = self._retry_pending() + self._admit_free_slots()
-        if not any(st is not None for st in self._slots):
-            if not admitted:
+        progressed = self._advance_prefills() + self._advance_spec()
+        if not any(st is not None and st.mode == "decode"
+                   for st in self._slots):
+            if not admitted and not progressed:
                 with self._cond:
                     if not self._stop and self._queue.empty():
                         self._cond.wait(timeout=0.02)
@@ -357,13 +432,40 @@ class _ModelEntry:
 
     def _prefill_into(self, req, slot):
         m = self._model
+        if req.draft_key is not None:
+            # speculative: no TARGET arena footprint — each verify cycle
+            # recomputes the KV it needs inside the (stateless) prefill.
+            # With draft_kv the proposals get their own slot + blocks on
+            # the DRAFT entry; a failure there falls back to replay.
+            st = _Slot(req, mode="spec")
+            st.toks = list(req.prompt)
+            st.sampling = req.sampling
+            self._slots[slot] = st
+            if req.draft_kv:
+                self._admit_draft_kv(st, self._engine._entries[req.draft_key])
+            self._metrics.incr("admitted")
+            return
         prompt = req.prompt
         plen = len(prompt)
+        if "chunk" in self._plans and plen > m.chunk_tokens:
+            blocks, shared_len = self._acquire_blocks(req)
+            st = _Slot(req, mode="prefill")
+            st.blocks = blocks
+            st.shared_len = shared_len
+            # the FINAL chunk always runs (it produces the last-position
+            # logits), even when the radix served every block. (The JAX
+            # engine also restores evicted blocks from its host KV tier
+            # here: ROADMAP.md, M3c.)
+            st.done = min(shared_len, plen - 1)
+            self._rebuild_row_map(st)
+            self._slots[slot] = st
+            self._metrics.incr("admitted")
+            return
         key = prompt_key(prompt)
         cached = self._prefix.get(key)
+        greedy = None
         if cached is not None:
             kv_rows, logits_row = cached
-            first = self._choose_token(logits_row)
         else:
             t0 = time.perf_counter()
             fetches = self._run("prefill", self._prefill_feeds(prompt))
@@ -371,12 +473,12 @@ class _ModelEntry:
             # clone: a view would pin the whole [1, L, V] logits buffer
             logits_row = fetches[0][0, plen - 1].clone()
             # the argmax's host copy ends the sample after the device work
-            first = self._choose_token(logits_row)
-            self._metrics.observe(self._metrics.prefill_seconds,
+            greedy = int(torch.argmax(logits_row))
+            self._metrics.observe("prefill_seconds",
                                   time.perf_counter() - t0)
             self._prefix.put(key, kv_rows, logits_row)
         blocks, shared_len = self._acquire_blocks(req)
-        st = _Slot(req)
+        st = _Slot(req, mode="decode")
         st.blocks = blocks
         st.shared_len = shared_len
         self._rebuild_row_map(st)
@@ -404,6 +506,15 @@ class _ModelEntry:
         st.cursor = plen
         self._slots[slot] = st
         self._metrics.incr("admitted")
+        self._begin_decode(slot, logits_row, greedy)
+
+    def _begin_decode(self, slot, logits_row, greedy=None):
+        """A prefilled slot picks its first token from the prompt's
+        last-position logits and joins the decode batch."""
+        st = self._slots[slot]
+        st.mode = "decode"
+        st.sampling = st.request.sampling
+        first = self._choose_token(st, logits_row, greedy)
         st.last_token = first
         st.generated = [first]
         self._metrics.incr("prefill_tokens")
@@ -420,6 +531,353 @@ class _ModelEntry:
         return {DecodeModel.PRE_TOKENS: toks,
                 DecodeModel.PRE_POSITIONS: pos,
                 DecodeModel.PRE_BIAS: bias}
+
+    # -- chunked prefill ---------------------------------------------------
+    def _advance_prefills(self):
+        """Process ONE budgeted chunk for ONE prefilling slot
+        (round-robin): the per-iteration prompt work is bounded by
+        ``chunk_tokens``, so in-flight decode slots stall for at most one
+        chunk's compute per iteration. (The JAX engine halves the budget
+        under brownout: ROADMAP.md, M3c.)"""
+        m = self._model
+        pref = [s for s in range(m.slots)
+                if self._slots[s] is not None
+                and self._slots[s].mode == "prefill"]
+        if not pref:
+            return 0
+        s = pref[self._pref_rr % len(pref)]
+        self._pref_rr += 1
+        st = self._slots[s]
+        req = st.request
+        if req.expired():
+            self._reject_in_flight(req, DeadlineExceededError(
+                f"deadline expired during chunked prefill after "
+                f"{st.done}/{st.plen} tokens"), slot=s)
+            return 1
+        C, L, R = m.chunk_tokens, m.max_len, m.rows
+        start = st.done
+        stop = min(start + C, st.plen)
+        real = stop - start
+        toks = np.zeros((1, C), "int64")
+        toks[0, :real] = req.prompt[start:stop]
+        pos = np.zeros((1, C), "int64")
+        pos[0, :real] = np.arange(start, stop)
+        bias = np.full((1, C, L), NEG_INF, "float32")
+        bias[0, :real] = np.where(
+            np.arange(L)[None, :] <= (start + np.arange(real))[:, None],
+            np.float32(0.0), np.float32(NEG_INF))
+        wrows = np.full((C,), R, dtype="int64")
+        for c in range(real):
+            p = start + c
+            if p >= st.shared_len:   # never rewrite radix-shared rows
+                wrows[c] = st.row_map[p]
+        t0 = time.perf_counter()
+        try:
+            logits = self._run("chunk", {
+                DecodeModel.CHU_TOKENS: toks,
+                DecodeModel.CHU_POSITIONS: pos,
+                DecodeModel.CHU_BIAS: bias,
+                DecodeModel.CHU_ROWS: st.row_map,
+                DecodeModel.CHU_WRITE_ROWS: wrows,
+            })[0]                                    # [1, C, V]
+            row = logits[0, real - 1]
+            # the argmax's host copy ends the sample after the device work
+            greedy = int(torch.argmax(row))
+        except Exception as e:
+            # the chunk writes the arenas in place: a failure leaves them
+            # undefined, so every in-flight sequence is lost
+            self._arena_lost(f"chunk-prefill failure: {e}")
+            return 1
+        self._metrics.observe("chunk_seconds", time.perf_counter() - t0)
+        self._metrics.incr("chunk_runs")
+        self._metrics.incr("chunk_tokens", real)
+        st.done = stop
+        if st.done < st.plen:
+            return 1
+        self._blocks.register_prompt_blocks(st.blocks, req.prompt)
+        st.cursor = st.plen
+        self._begin_decode(s, row, greedy)
+        return 1
+
+    # -- speculative decoding ----------------------------------------------
+    def _advance_spec(self):
+        """One draft-propose + target-verify cycle per speculative slot.
+        The draft greedily proposes up to ``spec_k`` tokens; the target
+        verifies ALL of them in ONE prefill forward — logits at position
+        ``n-1+j`` depend only on tokens ``<= n-1+j`` (causal mask,
+        exact-zero padding), so each emitted token equals what
+        target-only decode would emit."""
+        m = self._model
+        progressed = 0
+        for s in range(m.slots):
+            st = self._slots[s]
+            if st is None or st.mode != "spec":
+                continue
+            progressed += 1
+            req = st.request
+            if req.expired():
+                self._reject_in_flight(req, DeadlineExceededError(
+                    "deadline expired mid-speculation after "
+                    f"{len(st.generated)} tokens"), slot=s)
+                continue
+            draft = self._engine._entries[req.draft_key]
+            n = len(st.toks)
+            k = max(min(req.spec_k, req.max_new - len(st.generated),
+                        m.max_len - n, draft.model.max_len - n), 0)
+            # the verify forward and the replay proposals are stateless
+            # prefills: a failure loses nothing but this request
+            try:
+                props = None
+                if st.d_slot is not None and k > 0:
+                    props = self._draft_propose_kv(st, draft, k)
+                if props is None:
+                    props = []
+                    dtoks = list(st.toks)
+                    for _ in range(k):
+                        logits = draft._run(
+                            "prefill", draft._prefill_feeds(dtoks))[0]
+                        nxt = int(torch.argmax(logits[0, len(dtoks) - 1]))
+                        props.append(nxt)
+                        dtoks.append(nxt)
+                    self._metrics.incr("spec_draft_steps", k)
+                else:
+                    dtoks = list(st.toks) + props
+                self._metrics.incr("spec_proposed_tokens", k)
+                t0 = time.perf_counter()
+                logits = self._run("prefill", self._prefill_feeds(dtoks))[0]
+                rows = logits[0, n - 1:n + k]                # [k + 1, V]
+                # one host copy ends the sample after the device work
+                greedy = torch.argmax(rows, dim=-1).tolist()
+                self._metrics.observe("verify_seconds",
+                                      time.perf_counter() - t0)
+            except Exception as e:
+                self._reject_in_flight(req, RequestError(
+                    f"request {req.id} failed in speculative cycle: "
+                    f"{e}"), slot=s)
+                continue
+            self._metrics.incr("spec_target_steps")
+            if self._samples(st):
+                rows = rows.cpu().numpy()
+            finished = False
+            accepted_n = 0
+            for j in range(k + 1):
+                # COMMITTED COUPLING: the target derives ITS OWN token at
+                # this position (sampled or greedy); a proposal is
+                # accepted iff it equals that token, so the stream is the
+                # target-only stream in every policy
+                t = self._choose_token(st, rows[j], greedy[j])
+                st.generated.append(t)
+                st.toks.append(t)
+                st.last_token = t
+                self._metrics.incr("spec_emitted_tokens")
+                accepted = j < k and props[j] == t
+                if accepted:
+                    self._metrics.incr("spec_accepted_tokens")
+                    accepted_n += 1
+                if (len(st.generated) >= req.max_new
+                        or (m.eos_id is not None and t == m.eos_id)
+                        or len(st.toks) >= m.max_len):
+                    finished = True
+                    break
+                if not accepted:
+                    break   # t was the correction token: later positions
+                            # saw the wrong draft prefix
+            st.cursor = len(st.toks)
+            if st.d_slot is not None:
+                # roll the draft cursor back to the first position whose
+                # written KV row may disagree with the committed tokens;
+                # the next cycle's catch-up rewrites from there
+                st.d_cursor = min(st.d_cursor, n + accepted_n)
+            if finished:
+                self._retire(s)
+        return progressed
+
+    # -- draft-KV speculative slots ---------------------------------------
+    def _admit_draft_kv(self, st, draft):
+        """Give a speculative slot its own KV slot + blocks on the DRAFT
+        entry and prefill the prompt into them ONCE; every later proposal
+        is then one [S, 1] draft decode step instead of a whole-prefix
+        replay. Draft blocks are never radix-registered, so the proposal
+        path never copies on write. Any failure falls back to replay
+        proposals (counted in ``spec_draft_kv_fallbacks``), never fails
+        the request."""
+        if not draft._draft_ok or not draft._draft_pinned:
+            return
+        prompt = st.request.prompt
+        d_slot = None
+        blocks = None
+        try:
+            with draft._draft_lock:
+                d_slot = draft._pool.acquire()
+                if d_slot is None:
+                    self._metrics.incr("spec_draft_kv_fallbacks")
+                    return
+                blocks, _shared = draft._blocks.acquire_for_prompt(prompt)
+                if blocks is None:
+                    draft._pool.release(d_slot)
+                    d_slot = None
+                    self._metrics.incr("spec_draft_kv_fallbacks")
+                    return
+                fetches = draft._run("prefill", draft._prefill_feeds(prompt))
+                kv_rows = fetches[1:]
+                st.d_entry = draft
+                st.d_slot = d_slot
+                st.d_blocks = blocks
+                st.d_row_map = None
+                self._rebuild_draft_row_map(draft, st)
+                dm = draft.model
+                plen = len(prompt)
+                inj_rows = np.full((dm.max_len,), dm.rows, dtype="int64")
+                inj_rows[:plen] = st.d_row_map[:plen]
+                inj = {DecodeModel.INJ_ROWS: inj_rows}
+                for i, (kn, vn) in enumerate(dm.inject_kv_feeds):
+                    inj[kn] = kv_rows[2 * i]
+                    inj[vn] = kv_rows[2 * i + 1]
+                draft._run("inject", inj)
+                st.d_cursor = plen
+                self._metrics.incr("spec_draft_kv_prefills")
+        except Exception:
+            # the inject writes the draft arena in place: poison the entry
+            # (all draft-KV users revert to replay) rather than trust an
+            # undefined arena
+            draft._draft_ok = False
+            st.d_entry = None
+            st.d_slot = None
+            st.d_blocks = None
+            st.d_row_map = None
+            st.d_cursor = 0
+            if blocks is not None:
+                draft._blocks.release(blocks)
+            if d_slot is not None:
+                draft._pool.release(d_slot)
+            self._metrics.incr("spec_draft_kv_fallbacks")
+
+    def _rebuild_draft_row_map(self, draft, st):
+        dm = draft.model
+        bs = dm.block_size
+        if st.d_row_map is None:
+            st.d_row_map = np.zeros(dm.max_len, dtype="int64")
+        for i, b in enumerate(st.d_blocks):
+            lo = i * bs
+            hi = min(lo + bs, dm.max_len)
+            st.d_row_map[lo:hi] = b.row0 + np.arange(hi - lo)
+
+    def _release_draft(self, st):
+        """Return a spec slot's draft-side footprint (the caller holds the
+        draft lock)."""
+        draft = st.d_entry
+        if draft is None:
+            return
+        if st.d_blocks:
+            draft._blocks.release(st.d_blocks)
+        if st.d_slot is not None:
+            draft._pool.release(st.d_slot)
+        st.d_entry = None
+        st.d_slot = None
+        st.d_blocks = None
+        st.d_row_map = None
+        st.d_cursor = 0
+
+    def _release_draft_locked(self, st):
+        draft = st.d_entry
+        if draft is None:
+            return
+        with draft._draft_lock:
+            self._release_draft(st)
+
+    def _draft_propose_kv(self, st, draft, k):
+        """Greedy draft proposals, one draft decode step a token, from
+        the draft's own arena slot. Catch-up first feeds every committed
+        token whose draft KV row is not written yet (at most the last
+        cycle's correction and bonus positions) — the last catch-up
+        step's logits give the first proposal — then each further
+        proposal is one more draft step. Returns the k proposals, or None
+        to make the caller fall back to replay."""
+        if not draft._draft_ok:
+            self._release_draft_locked(st)
+            self._metrics.incr("spec_draft_kv_fallbacks")
+            return None
+        n = len(st.toks)
+        props = []
+        with draft._draft_lock:
+            cur = None
+            for p in range(min(st.d_cursor, n - 1), n):
+                cur = self._draft_step_kv(st, draft, st.toks[p], p,
+                                          write=p >= st.d_cursor)
+                if cur is None:
+                    return None
+                st.d_cursor = max(st.d_cursor, p + 1)
+            props.append(int(torch.argmax(cur)))
+            for j in range(1, k):
+                cur = self._draft_step_kv(st, draft, props[j - 1],
+                                          n + j - 1, write=True)
+                if cur is None:
+                    return None
+                st.d_cursor = max(st.d_cursor, n + j)
+                props.append(int(torch.argmax(cur)))
+        return props
+
+    def _draft_step_kv(self, st, draft, token, p, write):
+        """ONE draft decode step: feed ``token`` at position ``p`` into the
+        spec slot's draft arena slot (writing KV row p when asked;
+        rewriting an already-correct row writes the same bytes) and
+        return the [V] logits row. Returns None after releasing the draft
+        footprint when the draft pool is exhausted or the draft arena
+        died — the caller reverts to replay proposals."""
+        dm = draft.model
+        if write:
+            blocks, nb, cow = draft._blocks.ensure_appendable(
+                st.d_blocks, p)
+            if blocks is None or cow is not None:
+                # the pool is exhausted, or p lands in a partial block the
+                # draft's radix shared from its earlier primary traffic
+                # (proposal slots register none): propose by replay
+                if blocks is not None:
+                    st.d_blocks = blocks
+                self._release_draft(st)
+                self._metrics.incr("spec_draft_kv_fallbacks")
+                return None
+            st.d_blocks = blocks
+            if nb is not None:
+                self._rebuild_draft_row_map(draft, st)
+        S, L, R = dm.slots, dm.max_len, dm.rows
+        tok = np.zeros((S, 1), "int64")
+        pos = np.zeros((S, 1), "int64")
+        bias = np.full((S, 1, L), NEG_INF, "float32")
+        rows = np.zeros((S, L), "int64")
+        wrows = np.full((S,), R, dtype="int64")
+        s = st.d_slot
+        tok[s, 0] = int(token)
+        pos[s, 0] = p
+        bias[s, 0, :p + 1] = 0.0
+        rows[s] = st.d_row_map
+        if write:
+            b = st.d_blocks[p // dm.block_size]
+            wrows[s] = b.row0 + p % dm.block_size
+        feeds = {DecodeModel.DEC_TOKEN: tok, DecodeModel.DEC_POSITION: pos,
+                 DecodeModel.DEC_BIAS: bias,
+                 DecodeModel.DEC_ROWS: rows.reshape(-1),
+                 DecodeModel.DEC_WRITE_ROWS: wrows}
+        if dm.logits_mask:
+            feeds[DecodeModel.DEC_MASK] = np.zeros(
+                (S, 1, dm.vocab_size), "float32")
+        try:
+            # the kernel clamps a row outside [0, R) where the plain
+            # version raises: checked here, as the decode step checks
+            if rows.min() < 0 or rows.max() >= R:
+                raise ValueError(f"draft row map outside [0, {R})")
+            logits = draft._run("step", feeds)[0]
+        except Exception:
+            # the draft step writes the DRAFT arena in place: poison the
+            # draft for every user; this request reverts to replay
+            draft._draft_ok = False
+            self._release_draft(st)
+            self._metrics.incr("spec_draft_kv_fallbacks")
+            return None
+        if write:
+            draft._blocks.note_append(st.d_blocks[p // dm.block_size])
+        self._metrics.incr("spec_draft_kv_steps")
+        return logits[s, 0]
 
     # -- the decode iteration ---------------------------------------------
     def _arena_lost(self, why):
@@ -450,9 +908,26 @@ class _ModelEntry:
         self._run("inject", inj)
         self._rebuild_row_map(st)
 
+    # -- generation policy (host-side selection over fetched logits) ------
     @staticmethod
-    def _choose_token(logits_row):
-        """Greedy selection: the first index of the largest logit."""
+    def _samples(st):
+        return st.sampling is not None and not st.sampling.greedy
+
+    def _choose_token(self, st, logits_row, greedy=None):
+        """The ONE token-selection point: the committed-stream sampler
+        over the row in float32 on the host when the slot samples, else
+        the first index of the largest logit (``greedy``, when the caller
+        already took it for a batch of rows). The sampler's step index is
+        the absolute emitted-token index, so a sampled stream replays
+        bit for bit for any admission order, batchmates or slot."""
+        if self._samples(st):
+            if torch.is_tensor(logits_row):
+                logits_row = logits_row.cpu().numpy()
+            row = np.asarray(logits_row, dtype=np.float32).reshape(-1)
+            self._metrics.incr("sampled_tokens")
+            return sample_token(row, st.sampling, len(st.generated))
+        if greedy is not None:
+            return int(greedy)
         return int(torch.argmax(logits_row))
 
     def _step(self):
@@ -466,7 +941,7 @@ class _ModelEntry:
         active = []
         for s in range(S):
             st = self._slots[s]
-            if st is None:
+            if st is None or st.mode != "decode":
                 continue
             # make the cursor position writable: a fresh block when it
             # opens a new chunk, COW when it lands in a SHARED partial
@@ -524,12 +999,12 @@ class _ModelEntry:
             self._arena_lost(f"decode-step failure: {e}")
             return
         now = time.perf_counter()
-        self._metrics.observe(self._metrics.step_seconds, now - t0)
+        self._metrics.observe("step_seconds", now - t0)
         self._metrics.incr("steps")
         for s in active:
             st = self._slots[s]
             self._blocks.note_append(st.blocks[st.cursor // m.block_size])
-            nxt = int(nxt_all[s])
+            nxt = self._choose_token(st, logits[s, 0], nxt_all[s])
             st.generated.append(nxt)
             st.cursor += 1
             st.last_token = nxt
@@ -553,8 +1028,10 @@ class _ModelEntry:
         st = self._slots[slot]
         self._slots[slot] = None
         self._pool.release(slot)
-        if st is not None and st.blocks:
-            self._blocks.release(st.blocks)
+        if st is not None:
+            if st.blocks:
+                self._blocks.release(st.blocks)
+            self._release_draft_locked(st)
 
     def _retire(self, slot):
         req = self._slots[slot].request
@@ -571,18 +1048,24 @@ class _ModelEntry:
         self._reject(req, error)
 
     # -- reference path ----------------------------------------------------
-    def offline_decode(self, prompt, max_new):
+    def offline_decode(self, prompt, max_new, sampling=None):
         """Offline whole-sequence reference: re-run the full causal
         prefill forward per generated token (no KV cache, no slots, no
-        paged-attention kernel) with the same finish rules and greedy
-        selection."""
+        paged-attention kernel) with the same finish rules and the same
+        selection (committed-stream sampling when ``sampling`` samples,
+        else greedy). Every scheduling mode is compared against THIS."""
         m = self._model
+        if isinstance(sampling, dict):
+            sampling = SamplingParams(**sampling)
         toks = list(prompt)
         out = []
         for _ in range(int(max_new)):
             t = len(toks) - 1
-            logits = self._run("prefill", self._prefill_feeds(toks))[0]
-            nxt = self._choose_token(logits[0, t])
+            row = self._run("prefill", self._prefill_feeds(toks))[0][0, t]
+            if sampling is not None and not sampling.greedy:
+                nxt = sample_token(row.cpu().numpy(), sampling, len(out))
+            else:
+                nxt = int(torch.argmax(row))
             out.append(nxt)
             toks.append(nxt)
             if m.eos_id is not None and nxt == m.eos_id:
@@ -600,9 +1083,16 @@ class _ModelEntry:
     def stats(self):
         m = self._model
         snap = self._metrics.snapshot()
-        steps = snap.pop("step_seconds")
-        prefills = snap.pop("prefill_seconds")
         pool = self._blocks.stats()
+        spec_t = snap.get("spec_target_steps", 0)
+        spec_e = snap.get("spec_emitted_tokens", 0)
+        spec_p = snap.get("spec_proposed_tokens", 0)
+        for name in ("spec_target_steps", "spec_emitted_tokens",
+                     "spec_proposed_tokens", "spec_accepted_tokens",
+                     "spec_draft_steps", "spec_draft_kv_prefills",
+                     "spec_draft_kv_steps", "spec_draft_kv_fallbacks",
+                     "chunk_runs", "chunk_tokens"):
+            snap.setdefault(name, 0)
         snap.update({
             "model": m.name, "version": m.version,
             "slots": m.slots, "max_len": m.max_len,
@@ -616,8 +1106,12 @@ class _ModelEntry:
             "prefix_cache_entries": len(self._prefix),
             "prefix_hits": self._prefix.hits,
             "prefix_misses": self._prefix.misses,
-            "step_seconds": steps,
-            "prefill_seconds": prefills,
+            "spec_steps_per_token": (spec_t / spec_e) if spec_e else None,
+            "spec_acceptance_rate": (
+                snap["spec_accepted_tokens"] / spec_p if spec_p else None),
+            "spec_draft_kv_steps_per_token": (
+                snap["spec_draft_kv_steps"] / spec_e if spec_e else None),
+            "draft_pinned": self._draft_pinned,
         })
         return snap
 
@@ -670,9 +1164,6 @@ class GenerationEngine:
             model = model()        # zero-arg builder
         if model.key in self._entries:
             raise ValueError(f"model {model.label} already registered")
-        if model.chunk_tokens:
-            raise NotImplementedError(
-                "chunked prefill is not ported yet (ROADMAP.md, M3b)")
         entry = _ModelEntry(self, model, self._queue_depth,
                             self._prefix_cache_size).build()
         self._entries[model.key] = entry
@@ -732,11 +1223,24 @@ class GenerationEngine:
     # -- admission --------------------------------------------------------
     def submit(self, prompt_ids, model=None, version=None,
                priority=Priority.NORMAL, max_new_tokens=16,
-               deadline_ms=None, **options):
-        """Admit one greedy generation request; returns its Response
-        future (``result()`` -> ``{"tokens": int64 array}``). Raises
-        RejectedError on invalid prompts or a full queue, and
-        NotImplementedError for a generation mode not ported yet."""
+               deadline_ms=None, draft_model=None, draft_version=None,
+               spec_k=4, sampling=None, draft_kv=True, **options):
+        """Admit one generation request; returns its Response future
+        (``result()`` -> ``{"tokens": int64 array}``). Raises
+        RejectedError on invalid requests or a full queue, and
+        NotImplementedError for a generation mode not ported yet
+        (``beam_width``, ``grammar``, ``tenant``, ``deadline_at``).
+
+        ``sampling`` — a SamplingParams (or its kwargs as a dict):
+        temperature/top-k/top-p on the request's committed threefry
+        stream. ``draft_model`` (+ optional ``draft_version``) opts into
+        speculative decoding with ``spec_k`` proposals a cycle: the draft
+        must be another hosted entry sharing the target's vocabulary;
+        committed coupling keeps the output the target-only stream.
+        ``draft_kv`` (default on) gives the proposals their own KV slot on
+        the draft entry when that entry can be PINNED (it carries no
+        primary traffic, and refuses it from then on); a busy draft makes
+        this request use replay proposals."""
         for opt in options:
             if opt not in _NOT_PORTED:
                 raise TypeError(f"submit() got an unexpected keyword "
@@ -745,15 +1249,62 @@ class GenerationEngine:
                 f"submit({opt}=...) is not ported yet: ROADMAP.md, "
                 f"{_NOT_PORTED[opt]}")
         entry = self._resolve(model, version)
+        m = entry.model
         entry.metrics.incr("submitted")
         self._validate(entry, prompt_ids, max_new_tokens, priority)
+        if isinstance(sampling, dict):
+            sampling = SamplingParams(**sampling)
+        if sampling is not None and not isinstance(sampling, SamplingParams):
+            self._bad(entry, "sampling must be a SamplingParams or dict")
+        draft_key = None
+        draft_kv = bool(draft_kv)
+        if draft_model is not None:
+            draft_entry = self._resolve(draft_model, draft_version)
+            dm = draft_entry.model
+            if dm.key == m.key:
+                self._bad(entry, "draft model must differ from the target")
+            if dm.vocab_size != m.vocab_size:
+                self._bad(entry,
+                          f"draft vocab {dm.vocab_size} != target vocab "
+                          f"{m.vocab_size}")
+            need = len(list(prompt_ids)) + int(max_new_tokens)
+            if need > dm.max_len:
+                self._bad(entry,
+                          f"prompt + max_new_tokens ({need}) exceeds the "
+                          f"draft model's max_len {dm.max_len}")
+            if int(spec_k) < 1:
+                self._bad(entry, f"spec_k must be >= 1, got {spec_k}")
+            draft_key = dm.key
+            if draft_kv:
+                # pin the draft: draft-KV steps write the draft arena, so
+                # the draft entry must carry no primary traffic. Pinning
+                # is best-effort at admission (a request picked but not
+                # yet slotted can slip the busy check); _draft_lock
+                # serializes every spec user either way.
+                with draft_entry._cond:
+                    busy = (not draft_entry._queue.empty()
+                            or draft_entry._pool.active_count > 0)
+                    if busy and not draft_entry._draft_pinned:
+                        draft_kv = False    # replay proposals, this request
+                    else:
+                        draft_entry._draft_pinned = True
+        else:
+            draft_kv = False
         deadline = (time.perf_counter() + deadline_ms / 1e3
                     if deadline_ms is not None else None)
         with self._id_lock:
             self._next_id += 1
             rid = self._next_id
         req = GenerationRequest(rid, prompt_ids, max_new_tokens, priority,
-                                deadline)
+                                deadline, draft_key=draft_key, spec_k=spec_k,
+                                sampling=sampling, draft_kv=draft_kv)
+        with entry._cond:
+            pinned = entry._draft_pinned
+        if pinned:
+            # a pinned draft entry serves proposals through in-place arena
+            # writes — primary traffic would corrupt them
+            self._bad(entry, "entry is pinned as a draft-KV proposal "
+                             "server; submit primary traffic elsewhere")
         try:
             with entry._cond:
                 entry._queue.put(req)
@@ -764,12 +1315,16 @@ class GenerationEngine:
         return req.response
 
     @staticmethod
-    def _validate(entry, prompt_ids, max_new, priority):
+    def _bad(entry, msg):
+        entry.metrics.incr("rejected")
+        raise RejectedError(msg)
+
+    @classmethod
+    def _validate(cls, entry, prompt_ids, max_new, priority):
         m = entry.model
 
         def bad(msg):
-            entry.metrics.incr("rejected")
-            raise RejectedError(msg)
+            cls._bad(entry, msg)
 
         try:
             prompt = [int(t) for t in prompt_ids]

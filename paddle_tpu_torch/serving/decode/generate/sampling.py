@@ -1,0 +1,143 @@
+"""Replayable sampled decode: temperature/top-k/top-p on a committed
+threefry stream.
+
+The port's copy of the JAX package's
+``serving/decode/generate/sampling.py``: the same float64 numpy, with the
+threefry bits drawn from ``paddle_tpu_torch/core/prng.py`` instead of
+``jax.random`` (the same bytes for every seed and step).
+
+The sampling contract that makes continuous-batching sampling REPLAYABLE
+is the same one that makes paged decode bit-exact: make every source of
+randomness a pure function of request-local state. The stream here is
+counter-based threefry — ``PRNGKey(seed)`` folded with the ABSOLUTE
+index of the token being chosen — so the noise for request R's token t is
+a function of ``(R.seed, t)`` and NOTHING else: not the batchmates, not
+the slot index, not the admission order, not whether the token was
+emitted by a plain decode step or inside a speculative verify cycle.
+Replaying a request with the same seed reproduces the byte-identical
+token stream in any of those configurations because
+
+* threefry is counter-based uint32 arithmetic, bit-exact on any host,
+  and
+* everything downstream of the raw bits is float64 numpy on the host —
+  one IEEE-deterministic code path shared by the engine, the
+  speculative verify loop, and the offline reference.
+
+Selection is **Gumbel-max**: ``argmax(z + g)`` over the filtered scaled
+logits ``z`` (an exact draw from ``softmax(z)``). Argmax-with-noise
+keeps greedy decode (``temperature == 0``) and sampled decode on ONE
+code shape, and is what the speculative coupling below rides on.
+
+Speculative acceptance — the committed-coupling rejection rule
+--------------------------------------------------------------
+Greedy speculative decoding accepts a draft proposal iff it equals the
+target's argmax. The sampled graduation keeps the same shape: at each
+position the target draws ITS OWN committed-stream sample ``t`` (from
+the Gumbel vector keyed by the absolute position), always emits ``t``,
+and accepts the draft's proposal iff ``proposal == t`` (acceptance lets
+the cycle keep consuming verify positions; a mismatch makes ``t`` the
+correction token and ends the cycle). This is the rejection-sampling
+rule under the maximal coupling induced by the shared committed stream:
+the acceptance probability of a draft token is exactly the target's
+probability mass on it, and the residual (correction) draw IS the
+target's own Gumbel-max sample. The payoff over the distributional
+rule: the realized stream is bit-for-bit the target-only sampled
+stream — replay, drift gates, and the offline reference stay
+byte-comparable, and ``temperature -> 0`` degrades exactly to the
+greedy-match rule instead of to a different code path.
+"""
+
+import numpy as np
+
+from paddle_tpu_torch.core import prng
+
+__all__ = ["SamplingParams", "gumbel_vector", "filtered_scores",
+           "sample_token"]
+
+
+class SamplingParams:
+    """Per-request sampling policy. ``temperature == 0`` is greedy (the
+    stream is never consulted); ``top_k``/``top_p`` filter BEFORE the
+    Gumbel draw in the usual nucleus order (k-truncate, then p-truncate
+    over the survivors). ``seed`` is the replay contract: same seed +
+    same prompt => byte-identical stream under ANY admission order."""
+
+    __slots__ = ("temperature", "top_k", "top_p", "seed")
+
+    def __init__(self, temperature=1.0, top_k=0, top_p=1.0, seed=0):
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
+        self.seed = int(seed)
+        if self.temperature < 0:
+            raise ValueError(
+                f"temperature must be >= 0, got {self.temperature}")
+        if self.top_k < 0:
+            raise ValueError(f"top_k must be >= 0, got {self.top_k}")
+        if not (0.0 < self.top_p <= 1.0):
+            raise ValueError(
+                f"top_p must be in (0, 1], got {self.top_p}")
+
+    @property
+    def greedy(self):
+        return self.temperature == 0.0
+
+    def describe(self):
+        return {"temperature": self.temperature, "top_k": self.top_k,
+                "top_p": self.top_p, "seed": self.seed}
+
+
+def gumbel_vector(seed, step, vocab_size):
+    """The committed noise for token index ``step`` of a request seeded
+    ``seed``: a ``[V]`` float64 Gumbel(0,1) vector, a pure function of
+    ``(seed, step)``. Threefry bits -> open-interval uniforms
+    ``(b + 0.5) / 2^32`` (never exactly 0 or 1, so the double log below
+    is always finite) -> ``-log(-log(u))``, all float64 numpy."""
+    key = prng.fold_in(prng.prng_key(seed), step)
+    bits = prng.random_bits(key, (int(vocab_size),))
+    u = (bits.astype(np.float64) + 0.5) / np.float64(2.0 ** 32)
+    return -np.log(-np.log(u))
+
+
+def filtered_scores(logits, params):
+    """Scaled-and-filtered scores ``z`` (float64 ``[V]``): kept tokens
+    carry ``logits / temperature``, filtered tokens ``-inf``. The keep
+    order is fully deterministic — ties in the logits break by token id
+    (ascending), via one stable lexsort shared with nothing
+    platform-dependent."""
+    x = np.asarray(logits, dtype=np.float64).reshape(-1)
+    v = x.size
+    # tokens sorted by (logit desc, id asc): the canonical nucleus order
+    order = np.lexsort((np.arange(v), -x))
+    keep = np.ones(v, dtype=bool)
+    if params.top_k and params.top_k < v:
+        keep[order[params.top_k:]] = False
+    if params.top_p < 1.0:
+        xs = x[order]
+        m = xs[0]
+        probs = np.exp(xs - m)
+        probs /= probs.sum()
+        cum = np.cumsum(probs)
+        # the token that CROSSES top_p is included (standard nucleus);
+        # everything past it is cut
+        cut = int(np.searchsorted(cum, params.top_p, side="left")) + 1
+        drop = order[cut:]
+        keep[drop] = False
+    z = np.where(keep, x / np.float64(params.temperature or 1.0),
+                 -np.inf)
+    return z
+
+
+def sample_token(logits, params, step):
+    """Choose token index ``step`` of the request: greedy argmax when
+    ``temperature == 0`` (ties by lowest id, numpy argmax), else
+    Gumbel-max over the filtered scaled scores with the committed noise
+    for ``(params.seed, step)``. Pure host function — the engine's
+    decode step, the speculative verify loop, and the offline reference
+    all call exactly this."""
+    x = np.asarray(logits, dtype=np.float64).reshape(-1)
+    if params is None or params.greedy:
+        return int(np.argmax(x))
+    z = filtered_scores(x, params)
+    g = gumbel_vector(params.seed, step, x.size)
+    return int(np.argmax(z + g))

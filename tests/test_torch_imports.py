@@ -18,6 +18,7 @@ import sys
 import paddle_tpu_torch
 import paddle_tpu_torch.compiler
 import paddle_tpu_torch.convert
+import paddle_tpu_torch.core.prng
 import paddle_tpu_torch.analysis.usedef
 import paddle_tpu_torch.core.backward
 import paddle_tpu_torch.dataio.sparse
@@ -42,6 +43,7 @@ import paddle_tpu_torch.parallel.dgc
 import paddle_tpu_torch.parallel.env
 import paddle_tpu_torch.passes
 import paddle_tpu_torch.serving.decode.engine
+import paddle_tpu_torch.serving.decode.generate.sampling
 import paddle_tpu_torch.utils.flags
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
