@@ -60,6 +60,30 @@ Phases:
    speculative one on "same" bit for bit. Launch counters are zeroed
    before each leg and read after; the ``paged_attention`` row of the
    kernels line adds these launches to phase 3's.
+3c. beam search and grammars — one ``GenerationEngine()`` at the same
+   width hosting a target with ``eos_id=95``, ``logits_mask=True`` (the
+   ``DEC_MASK`` feed) and the chunk budget of 128, beside the 2-layer
+   draft "small". The grammars' vocabulary is made from the seed: ids
+   0-94 the printable ASCII characters, 95 the stop token, the rest
+   strings of 2-8 of them. Leg A hand-steps the scheduler with block
+   conservation checked after every iteration: 4 beams of width 4 (16-300
+   prompt tokens, two sharing the 256-token prefix; two groups fill the
+   8 slots and two wait on the row budget), then one of a 300-token
+   prompt (its beam begins after the chunks), then one with a JSON-schema
+   grammar; each result holds against ``offline_beam`` (the prefill
+   program): equal hypotheses, or, where they part, the engine's
+   re-scored by the prefill forward within 1e-3 of the reference's at the
+   same rank; K3 launches 12 times a decode step. Leg B (the loop
+   threads) runs 9 requests side by side: 3 greedy on the schema, 2 on a
+   regex, 2 unconstrained, 1 sampled on the schema, 1 speculative on the
+   schema through "small". Every constrained stream walks its grammar
+   with no banned token (a stream ending at EOS in an accepting state,
+   and its text parses as JSON); the speculative stream is bit-equal to
+   ``offline_decode(grammar=)``, the others pass the near-tie rule on the
+   masked scores. Prints forks, prunes, finished hypotheses, the decode
+   step's p50, the selection rule's host time, the mask builds' host
+   time a state and their count, tokens/s beside phase 3's, and the K3
+   launches, which the kernels line adds to phase 3's.
 2b. flash parity — the flash-attention forward (K1), dK/dV (K2a) and dQ
    (K2b) kernels against their plain versions on the same inputs, and two
    launches of each giving the same bits: at BERT-base's training shape
@@ -197,6 +221,21 @@ FIRST_SHARED_TAIL, SECOND_SHARED_TAIL = 150, 300
 LONG_LENS = (960, 129, 300, 517, 700, 850)
 SPEC_PROMPT_LEN = (16, 301)
 SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)
+# Phase 3c, beam search and grammars on a target with an eos_id and the
+# DEC_MASK feed: beams of width 4 (one a 300-token prompt, past the chunk
+# budget); the grammar vocabulary's stop token; the leg-B grammars
+EOS, BEAM_WIDTH, BEAM_CHUNKED_LEN = 95, 4, 300
+GRAMMAR_SCHEMA = {"type": "object", "properties": {
+    "name": {"type": "string"}, "age": {"type": "integer"},
+    "tags": {"type": "array", "items": {"enum": ["a", "b", "c"]}},
+    "ok": {"type": "boolean"}}}
+GRAMMAR_REGEX = "[A-Z][a-z]+( [A-Z][a-z]+)*"
+# The beam bar: the engine's hypotheses come from K3 steps, the reference's
+# from the [1, L] prefill program; their float32 logits differ in the last
+# bits (about 1e-6 relative), so their float64 log-prob sums over 32
+# tokens differ by about 1e-5. 1e-3 leaves two orders of margin and still
+# fails any hypothesis that a real selection error would change.
+BEAM_TOL = 1e-3
 NEG_INF = -1e9
 # The kernel and its plain version both produce convex combinations of
 # N(0, 1) value rows, summed in float32 over 1024 positions in different
@@ -829,16 +868,19 @@ def make_prompts(vocab):
 
 
 def check_against_offline(entry, prompt, got, want, sampling=None,
-                          tag="engine"):
+                          tag="engine", grammar=None):
     """Equal tokens, or a first divergence where the offline top-2 gap
     is below 1e-4 of the largest |logit| (a near-tie that float32 sums in
     another order may break either way). For a sampled stream the scores
     are the offline row's Gumbel-perturbed ``z + g`` (``z`` the filtered
     logits over the temperature, ``g`` the request's committed noise at
     that token), and the bar is 1e-4 of the largest |logit| over the
-    temperature, the scale of ``z``."""
+    temperature, the scale of ``z``. With a ``grammar`` the scores are
+    the masked ones (the grammar's state after ``want[:t]``), the bar
+    the unmasked row's."""
     import torch
 
+    from paddle_tpu_torch.serving.decode.generate import GrammarConstraint
     from paddle_tpu_torch.serving.decode.generate import sampling as smp
 
     for t, (a, b) in enumerate(zip(got, want)):
@@ -846,13 +888,20 @@ def check_against_offline(entry, prompt, got, want, sampling=None,
             continue
         toks = list(prompt) + list(want[:t])
         row = entry.prefill_logits(toks)[len(toks) - 1]
+        mask = 0.0
+        if grammar is not None:
+            c = GrammarConstraint(grammar)
+            for tok in want[:t]:
+                c.advance(tok)
+            mask = torch.from_numpy(c.mask()).to(row.device)
         if sampling is None:
-            top2 = torch.topk(row, 2).values
+            top2 = torch.topk(row + mask, 2).values
             gap = float(top2[0] - top2[1])
             tol = 1e-4 * float(row.abs().max())
         else:
             x = row.cpu().numpy().astype(np.float32)
-            scores = (smp.filtered_scores(x, sampling)
+            masked = (row + mask).cpu().numpy().astype(np.float32)
+            scores = (smp.filtered_scores(masked, sampling)
                       + smp.gumbel_vector(sampling.seed, t, x.size))
             top2 = np.sort(scores[np.isfinite(scores)])[-2:]
             gap = float(top2[1] - top2[0])
@@ -922,7 +971,7 @@ def phase_engine():
         f"{np.median(prefill_ms):.3f} ms over {len(prefill_ms)}, "
         f"{generated / wall:.1f} tokens/s, radix hits "
         f"{st['block_pool']['radix_hits']}")
-    return launches, generated / wall
+    return launches, generated / wall, float(np.median(step_ms))
 
 
 # -- phase 3b ---------------------------------------------------------------
@@ -1187,6 +1236,310 @@ def phase_decode_modes(greedy_tps):
     if not same.stats()["draft_pinned"] or not small.stats()["draft_pinned"]:
         raise AssertionError("modes: a draft-KV draft was not pinned")
     log(f"[modes] paged_attention launches by leg {launches}")
+    return sum(launches.values())
+
+
+# -- phase 3c ---------------------------------------------------------------
+def grammar_vocab():
+    """The grammar's vocabulary, from ``SEED``: ids 0-94 the printable
+    ASCII characters, ``EOS`` (95) the stop token, every other id a
+    string of 2-8 of those characters. Every character a grammar needs
+    can be emitted."""
+    chars = [chr(c) for c in range(32, 127)]
+    rng = np.random.default_rng(SEED)
+    vocab = chars + ["<eos>"]
+    for k in rng.integers(2, 9, MODEL["vocab_size"] - len(vocab)):
+        vocab.append("".join(rng.choice(chars, int(k))))
+    assert len(vocab) == MODEL["vocab_size"] and vocab[EOS] == "<eos>"
+    return vocab
+
+
+def walk_grammar(grammar, toks, build_ms, tag):
+    """Walk ``toks`` through ``grammar`` (a freshly compiled one, so each
+    state's first mask is built here and timed into ``build_ms``):
+    every token allowed by its state's mask, and a stream that ends in
+    EOS ends in an accepting state."""
+    from paddle_tpu_torch.serving.decode.generate import GrammarConstraint
+
+    c = GrammarConstraint(grammar)
+    for i, t in enumerate(toks):
+        if c.state not in build_ms:
+            t0 = time.perf_counter()
+            c.mask()
+            build_ms[c.state] = (time.perf_counter() - t0) * 1e3
+        if c.mask()[t] != 0.0:
+            raise AssertionError(f"{tag}: token {t} at {i} is banned by "
+                                 "the grammar")
+        c.advance(t)
+    if toks and toks[-1] == EOS and not c.accepting():
+        raise AssertionError(f"{tag}: EOS in a non-accepting state")
+    return c
+
+
+def rescore(entry, prompt, toks, grammar=None):
+    """A hypothesis's score by the reference's prefill forward: the
+    float64 sum of its tokens' log-probs, masked as the beam's rows
+    were."""
+    from paddle_tpu_torch.serving.decode.generate import GrammarConstraint
+    from paddle_tpu_torch.serving.decode.generate.beam import log_softmax64
+
+    c = GrammarConstraint(grammar) if grammar is not None else None
+    seq = list(prompt)
+    total = 0.0
+    for t in toks:
+        row = entry.prefill_logits(seq)[len(seq) - 1].cpu().numpy()
+        if c is not None:
+            row = row + c.mask()
+            c.advance(t)
+        total += float(log_softmax64(row)[t])
+        seq.append(t)
+    return total
+
+
+def check_beams(entry, prompt, out, want, grammar=None):
+    """The beam bar: the ranked hypotheses equal ``offline_beam``'s; where
+    they part, each of the engine's, re-scored by the prefill forward, is
+    within ``BEAM_TOL`` of the reference's at the same rank. Returns
+    (partings, largest gap)."""
+    got = [([int(t) for t in h["tokens"]], h["score"]) for h in out["beams"]]
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} hypotheses, offline_beam "
+                             f"{len(want)}")
+    partings, worst = 0, 0.0
+    for (toks, score), (rtoks, rscore) in zip(got, want):
+        if toks == list(rtoks):
+            gap = abs(score - rscore)
+        else:
+            partings += 1
+            gap = abs(rescore(entry, prompt, toks, grammar) - rscore)
+        worst = max(worst, gap)
+        if gap > BEAM_TOL:
+            raise AssertionError(
+                f"a beam hypothesis scores {gap} away from offline_beam's "
+                f"at its rank (bar {BEAM_TOL}): {toks[:8]}... against "
+                f"{list(rtoks)[:8]}...")
+    return partings, worst
+
+
+def _leg_beam(engine, target, schema, greedy_tps):
+    """Leg A: beams of width 4, hand-stepped one scheduler iteration at a
+    time with block conservation checked after each. Four together (two
+    groups fill the 8 slots, two wait on the row budget), then one whose
+    prompt streams through the chunk program first, then one with a
+    JSON-schema grammar. Each against ``offline_beam``."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.serving.decode import BeamParams
+
+    rng = np.random.RandomState(SEED + 5)
+    vocab = MODEL["vocab_size"]
+
+    def toks(n):
+        return rng.randint(0, vocab, n).tolist()
+
+    prefix = toks(SHARED_PREFIX)
+    first = [toks(16), toks(100), prefix + toks(20), prefix + toks(44)]
+    waves = [[(p, None) for p in first], [(toks(BEAM_CHUNKED_LEN), None)],
+             [(toks(40), schema)]]
+    before = target.stats()
+    steps0 = len(before["step_seconds"])
+    rank0 = len(before["beam_rank_seconds"])
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    results = []
+    for w, wave in enumerate(waves):
+        resps = [engine.submit(p, model="gen", max_new_tokens=MAX_NEW,
+                               beam_width=BEAM_WIDTH, grammar=g)
+                 for p, g in wave]
+        for it in range(5000):
+            if all(r.done() for r in resps):
+                break
+            if target._iterate():
+                raise AssertionError("the scheduler loop asked to exit")
+            target.block_pool.check_conservation()
+            if w == 0 and it == 0:
+                waiting = target._queue.depth()
+                if waiting != 2 * BEAM_WIDTH:
+                    raise AssertionError(
+                        f"beam A: {waiting} rows wait after the first "
+                        f"admission round, not {2 * BEAM_WIDTH}")
+        else:
+            raise AssertionError("beam A did not finish in 5000 iterations")
+        results += [(p, g, r.result(timeout=60)) for (p, g), r in
+                    zip(wave, resps)]
+    wall = time.perf_counter() - t0
+    launches = kernels.launches("paged_attention")
+    st = target.stats()
+    d = {k: st.get(k, 0) - before.get(k, 0) for k in (
+        "beam_requests", "beam_forks", "beam_prunes", "beam_finished",
+        "steps", "generated_tokens", "chunk_runs")}
+    d["pool_forks"] = (st["block_pool"]["forks"]
+                       - before["block_pool"]["forks"])
+    if d["beam_requests"] != len(results) or not d["beam_forks"]:
+        raise AssertionError(f"beam A: counters {d}")
+    if d["pool_forks"] != d["beam_forks"] or not d["chunk_runs"]:
+        raise AssertionError(f"beam A: counters {d}")
+    if st["active_slots"] or st["block_pool"]["blocks_live"]:
+        raise AssertionError(f"beam A: the groups left {st['block_pool']}")
+    if launches != MODEL["num_layers"] * d["steps"] or not d["steps"]:
+        raise AssertionError(f"beam A: paged_attention launched {launches} "
+                             f"times over {d['steps']} decode steps")
+    partings, worst = 0, 0.0
+    for p, g, out in results:
+        # a grammar may thin a beam below its width (offline_beam too)
+        if len(out["beams"]) != BEAM_WIDTH and g is None:
+            raise AssertionError(f"beam A: {len(out['beams'])} hypotheses")
+        if g is not None:
+            for h in out["beams"]:
+                walk_grammar(g, [int(t) for t in h["tokens"]], {}, "beam A")
+        want = target.offline_beam(p, MAX_NEW, BeamParams(BEAM_WIDTH),
+                                   grammar=g)
+        n, gap = check_beams(target, p, out, want, g)
+        partings += n
+        worst = max(worst, gap)
+    step_ms = np.asarray(st["step_seconds"][steps0:]) * 1e3
+    rank_ms = np.asarray(st["beam_rank_seconds"][rank0:]) * 1e3
+    log(f"[beam A] {len(results)} requests of width {BEAM_WIDTH} (prompts "
+        f"{[len(p) for p, _g, _o in results]}) in {wall:.2f}s: forks "
+        f"{d['beam_forks']}, prunes {d['beam_prunes']}, finished "
+        f"{d['beam_finished']}, {d['steps']} decode steps, {d['chunk_runs']}"
+        f" chunks, paged_attention launches {launches}")
+    log(f"[beam A] offline_beam: {partings} partings, largest score gap "
+        f"{worst:.3e} (bar {BEAM_TOL})")
+    log(f"[beam A] decode step p50 {np.median(step_ms):.3f} ms (p90 "
+        f"{np.percentile(step_ms, 90):.3f}), rank_candidates + split p50 "
+        f"{np.median(rank_ms):.3f} ms a group (p90 "
+        f"{np.percentile(rank_ms, 90):.3f}, {len(rank_ms)} selections), "
+        f"{d['generated_tokens'] / wall:.1f} hypothesis tokens/s (phase 3 "
+        f"greedy: {greedy_tps:.1f})")
+    return launches
+
+
+def _leg_grammar(engine, target, schema, regex, greedy_tps, greedy_step):
+    """Leg B: 3 greedy schema requests, 2 greedy regex ones, 2
+    unconstrained, 1 sampled schema one and 1 speculative schema one on
+    the draft "small", side by side through the loop threads."""
+    import torch
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.serving.decode import SamplingParams
+
+    rng = np.random.RandomState(SEED + 6)
+    vocab = MODEL["vocab_size"]
+    sampled = SamplingParams(**SAMPLING, seed=SEED % 1000)
+    kinds = ([("schema", schema, {})] * 3 + [("regex", regex, {})] * 2
+             + [("free", None, {})] * 2
+             + [("sampled", schema, dict(sampling=sampled)),
+                ("spec", schema, dict(draft_model="small", spec_k=SPEC_K))])
+    requests = [(rng.randint(0, vocab, int(rng.randint(16, 200))).tolist(),
+                 kind, g, kw) for kind, g, kw in kinds]
+    before = target.stats()
+    steps0 = len(before["step_seconds"])
+    mask0 = len(before["mask_seconds"])
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    resps = [engine.submit(p, model="gen", max_new_tokens=MAX_NEW, grammar=g,
+                           **kw) for p, _k, g, kw in requests]
+    outs = [[int(t) for t in r.result(timeout=600)["tokens"]] for r in resps]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launches("paged_attention")
+    st = target.stats()
+    d = {k: st.get(k, 0) - before.get(k, 0) for k in (
+        "steps", "grammar_steps", "spec_draft_kv_steps", "spec_target_steps")}
+    if launches != (MODEL["num_layers"] * d["steps"]
+                    + SMALL_LAYERS * d["spec_draft_kv_steps"]):
+        raise AssertionError(f"grammar B: paged_attention launched "
+                             f"{launches} times over {d}")
+    constrained = sum(len(o) for o, (_p, _k, g, _kw) in zip(outs, requests)
+                      if g is not None)
+    if d["grammar_steps"] != constrained:
+        raise AssertionError(f"grammar B: {d['grammar_steps']} grammar "
+                             f"steps for {constrained} constrained tokens")
+    # conformance on freshly compiled grammars: each state's first mask
+    # is built (and timed) here
+    fresh = {"schema": type(schema).from_json_schema(
+                 GRAMMAR_SCHEMA, schema.vocab, EOS),
+             "regex": type(regex).from_regex(GRAMMAR_REGEX, regex.vocab, EOS)}
+    build_ms = {"schema": {}, "regex": {}}
+    verdicts = []
+    for (p, kind, g, kw), got in zip(requests, outs):
+        tag = f"grammar B {kind}"
+        if g is not None:
+            key = "regex" if kind == "regex" else "schema"
+            walk_grammar(fresh[key], got, build_ms[key], tag)
+        want = target.offline_decode(p, MAX_NEW, sampling=kw.get("sampling"),
+                                     grammar=g)
+        if kind == "spec":
+            if got != want:
+                raise AssertionError(f"{tag}: the speculative stream differs "
+                                     f"from offline_decode: {got} != {want}")
+            verdicts.append("bit-equal")
+        else:
+            verdicts.append(check_against_offline(
+                target, p, got, want, sampling=kw.get("sampling"), tag=tag,
+                grammar=g))
+    texts = ["".join(schema.vocab[t] for t in o if t != EOS)
+             for o, (_p, k, _g, _kw) in zip(outs, requests) if k == "schema"]
+    for o, (_p, k, _g, _kw) in zip(outs, requests):
+        if k == "schema" and o[-1] == EOS:
+            json.loads("".join(schema.vocab[t] for t in o[:-1]))
+    step_ms = np.asarray(st["step_seconds"][steps0:]) * 1e3
+    mask_ms = np.asarray(st["mask_seconds"][mask0:]) * 1e3
+    ms = [v for b in build_ms.values() for v in b.values()]
+    log(f"[grammar B] {len(requests)} requests in {wall:.2f}s: "
+        f"{sum(len(o) for o in outs) / wall:.1f} tokens/s (phase 3 greedy: "
+        f"{greedy_tps:.1f}), {d['grammar_steps']} grammar steps, "
+        f"offline_decode checks {verdicts}")
+    log(f"[grammar B] decode step p50 with the mask feed "
+        f"{np.median(step_ms):.3f} ms (p90 {np.percentile(step_ms, 90):.3f};"
+        f" phase 3: {greedy_step:.3f}), {d['steps']} steps, paged_attention "
+        f"launches {launches}; the feed's host time before a step p50 "
+        f"{np.median(mask_ms):.3f} ms (p90 {np.percentile(mask_ms, 90):.3f},"
+        f" max {mask_ms.max():.3f}; first-visit mask builds)")
+    log(f"[grammar B] mask builds: {len(build_ms['schema'])} schema and "
+        f"{len(build_ms['regex'])} regex states, p50 "
+        f"{np.median(ms):.3f} ms a state (max {max(ms):.3f}) over "
+        f"{MODEL['vocab_size']} tokens")
+    log(f"[grammar B] a schema stream: {texts[0][:120]!r}")
+    return launches
+
+
+def phase_beam_grammar(greedy_tps, greedy_step):
+    """Phase 3c: beam search (leg A) and grammar-constrained decode in
+    every composition (leg B) through ``GenerationEngine()`` at the
+    decoder's full width. Returns the paged_attention launches of both
+    legs."""
+    import torch
+
+    from paddle_tpu_torch.serving import GenerationEngine, build_decoder_model
+    from paddle_tpu_torch.serving.decode import CompiledGrammar
+
+    t0 = time.perf_counter()
+    engine = GenerationEngine(seed=SEED)          # CUDAPlace(0) by default
+    target = engine.register_model(build_decoder_model(
+        **MODEL, eos_id=EOS, logits_mask=True, chunk_tokens=CHUNK_TOKENS,
+        name="gen"))
+    small = engine.register_model(build_decoder_model(
+        **dict(MODEL, num_layers=SMALL_LAYERS), name="small"))
+    torch.cuda.synchronize()
+    vocab = grammar_vocab()
+    t1 = time.perf_counter()
+    schema = CompiledGrammar.from_json_schema(GRAMMAR_SCHEMA, vocab, EOS)
+    regex = CompiledGrammar.from_regex(GRAMMAR_REGEX, vocab, EOS)
+    log(f"[beam] startup {t1 - t0:.2f}s; grammars compiled in "
+        f"{(time.perf_counter() - t1) * 1e3:.1f} ms ({len(schema.dfa.table)}"
+        f" and {len(regex.dfa.table)} DFA states over {len(vocab)} tokens)")
+    launches = {"A": _leg_beam(engine, target, schema, greedy_tps)}
+    engine.start()
+    launches["B"] = _leg_grammar(engine, target, schema, regex, greedy_tps,
+                                 greedy_step)
+    engine.shutdown()
+    for entry, name in ((target, "gen"), (small, "small")):
+        st = entry.stats()
+        if st["active_slots"] or st["spec_draft_kv_fallbacks"]:
+            raise AssertionError(f"beam/grammar: {name} ends with {st}")
+        entry.block_pool.check_conservation()
+    log(f"[beam] paged_attention launches by leg {launches}")
     return sum(launches.values())
 
 
@@ -2363,17 +2716,19 @@ def main():
     parity.update(phase_flash())
     parity.update(phase_ctr_kernels())
     parity.update(phase_topk())
-    engine_launches, greedy_tps = phase_engine()
+    engine_launches, greedy_tps, greedy_step = phase_engine()
     modes_launches = phase_decode_modes(greedy_tps)
+    beam_launches = phase_beam_grammar(greedy_tps, greedy_step)
     dense_launches = phase_dense()
     train_launches = phase_train()
     wide_deep_launches = phase_wide_deep()
     ctr_launches = phase_dense_ctr()
     dgc_launches = phase_dgc()
     log(f"[done] paged_attention launches: phase 3 "
-        f"{engine_launches['paged_attention']}, phase 3b {modes_launches}")
+        f"{engine_launches['paged_attention']}, phase 3b {modes_launches}, "
+        f"phase 3c {beam_launches}")
     path_launches = {"paged_attention": engine_launches["paged_attention"]
-                                        + modes_launches,
+                                        + modes_launches + beam_launches,
                      "decode_attention": dense_launches["decode_attention"],
                      "embedding_admission":
                          wide_deep_launches["embedding_admission"],

@@ -1,12 +1,18 @@
 """Continuous-batching paged decode: the port of the JAX package's
-``serving/decode`` (decode, chunked prefill, speculative decoding and
-committed-stream sampling)."""
+``serving/decode`` (decode, chunked prefill, speculative decoding,
+committed-stream sampling, beam search and grammar-constrained
+decode)."""
 
 from paddle_tpu_torch.serving.decode.engine import (
     GenerationEngine,
     GenerationRequest,
 )
-from paddle_tpu_torch.serving.decode.generate import SamplingParams
+from paddle_tpu_torch.serving.decode.generate import (
+    BeamParams,
+    CompiledGrammar,
+    GrammarConstraint,
+    SamplingParams,
+)
 from paddle_tpu_torch.serving.decode.model import DecodeModel, build_decoder_model
 from paddle_tpu_torch.serving.decode.pool import (
     BlockPool,
@@ -17,10 +23,13 @@ from paddle_tpu_torch.serving.decode.pool import (
 )
 
 __all__ = [
+    "BeamParams",
     "BlockPool",
+    "CompiledGrammar",
     "DecodeModel",
     "GenerationEngine",
     "GenerationRequest",
+    "GrammarConstraint",
     "PrefixCache",
     "SamplingParams",
     "SlotPool",

@@ -11,7 +11,7 @@ index, and a shared partial block is copied on write when a sequence
 diverges inside it.
 
 Scheduling modes, each equal to the offline whole-sequence reference
-(``offline_decode``) for any admission order:
+(``offline_decode``, ``offline_beam``) for any admission order:
 
 * **decode** — the ``[S, 1]`` hot path.
 * **chunked prefill** — on a model built with ``chunk_tokens``, a prompt
@@ -29,23 +29,34 @@ Scheduling modes, each equal to the offline whole-sequence reference
   temperature/top-k/top-p by Gumbel-max over a threefry stream keyed by
   the request's seed and the token's absolute index (``generate/``), in
   every mode above.
+* **beam search** — ``submit(beam_width=N)``: each live hypothesis is a
+  slot of the shared decode step; a fork is one more owner of the
+  parent's full blocks plus a private tail block filled by a device copy
+  of the parent's rows; the request reserves N slots (admission counts
+  rows, not requests) and fails or finishes as a unit.
+* **grammar** — ``submit(grammar=CompiledGrammar)``: the per-state
+  ``[V]`` masks ride the decode step's ``DEC_MASK`` feed as data; logits
+  from a prefill, a chunk or a verify are masked on the host with the
+  same float32 add. Composes with every mode above.
 
 What runs where: the programs run eagerly through ``core/executor.py``
 on the engine's place, which is ``CUDAPlace(0)`` unless the caller
 passes another; the decode step's ``paged_attention`` op launches the
-hand-written CUDA kernel there (the target's steps and the draft-KV
-proposal steps alike). The scheduler (slots, blocks, radix, queue) and
-token selection are host Python on one thread per hosted model.
+hand-written CUDA kernel there (the target's steps, beam and constrained
+slots included, and the draft-KV proposal steps alike). The scheduler
+(slots, blocks, radix, queue) and token selection are host Python on one
+thread per hosted model.
 
 Still refused, each with ``NotImplementedError`` at ``submit`` naming its
-ROADMAP.md item: beam search and grammar constraints (M4), weighted-fair
-tenants (M3c) and ``deadline_at`` (M6). Not ported either, with no
-option to ask for them: host-tier parking and preemption, brownout, the
+ROADMAP.md item: weighted-fair tenants (M3c) and ``deadline_at`` (M6).
+Not ported either, with no option to ask for them: host-tier parking and
+preemption (a beam group too), brownout (its beam-width cap too), the
 circuit breaker, the HBM gate and the fleet router.
 """
 
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -54,9 +65,17 @@ from paddle_tpu_torch.core.executor import Executor
 from paddle_tpu_torch.core.places import default_place
 from paddle_tpu_torch.core.scope import Scope
 from paddle_tpu_torch.serving.decode.generate import (
+    BeamParams,
+    CompiledGrammar,
+    GrammarConstraint,
     SamplingParams,
+    offline_beam_decode,
     sample_token,
 )
+from paddle_tpu_torch.serving.decode.generate.beam import (
+    finished_ranking as beam_finished_ranking,
+)
+from paddle_tpu_torch.serving.decode.generate.beam import select as beam_select
 from paddle_tpu_torch.serving.decode.model import NEG_INF, DecodeModel
 from paddle_tpu_torch.serving.decode.pool import (
     BlockPool,
@@ -79,8 +98,6 @@ __all__ = ["GenerationEngine", "GenerationRequest"]
 # submit() options of the JAX engine that this port does not serve yet,
 # with the ROADMAP item that brings each
 _NOT_PORTED = {
-    "beam_width": "M4 (beam search)",
-    "grammar": "M4 (grammar constraints)",
     "tenant": "M3c (weighted-fair tenants)",
     "deadline_at": "M6 (fleet re-dispatch)",
 }
@@ -89,18 +106,23 @@ _NOT_PORTED = {
 class GenerationRequest:
     """One admitted generation request. ``response.result()`` yields
     ``{"tokens": int64 array}`` — the generated tokens, including the
-    stop token when eos fired. ``draft_key`` (a registry ``(name,
-    version)``) opts the request into speculative decoding with
-    ``spec_k`` proposals per verify cycle, from the draft's own KV slot
-    when ``draft_kv``; ``sampling`` is a SamplingParams or None
-    (greedy)."""
+    stop token when eos fired (beam requests add ``"beams"``: every
+    finished hypothesis with its score, best first). ``draft_key`` (a
+    registry ``(name, version)``) opts the request into speculative
+    decoding with ``spec_k`` proposals per verify cycle, from the
+    draft's own KV slot when ``draft_kv``; ``sampling`` is a
+    SamplingParams or None (greedy); ``beam`` a BeamParams or None;
+    ``grammar`` a CompiledGrammar or None. ``rows`` is the slot
+    footprint: 1, or a beam's width (each live hypothesis holds a
+    slot)."""
 
     __slots__ = ("id", "prompt", "max_new", "priority", "deadline",
                  "submit_time", "response", "rows", "draft_key", "spec_k",
-                 "sampling", "draft_kv")
+                 "sampling", "beam", "grammar", "draft_kv")
 
     def __init__(self, rid, prompt, max_new, priority, deadline,
-                 draft_key=None, spec_k=0, sampling=None, draft_kv=False):
+                 draft_key=None, spec_k=0, sampling=None, beam=None,
+                 grammar=None, draft_kv=False):
         self.id = rid
         self.prompt = list(prompt)
         self.max_new = int(max_new)
@@ -108,10 +130,12 @@ class GenerationRequest:
         self.deadline = deadline
         self.submit_time = time.perf_counter()
         self.response = Response()
-        self.rows = 1       # queue admission unit: one batch slot
+        self.sampling = sampling
+        self.beam = beam
+        self.grammar = grammar
+        self.rows = beam.width if beam is not None else 1
         self.draft_key = draft_key
         self.spec_k = int(spec_k)
-        self.sampling = sampling
         self.draft_kv = bool(draft_kv)
 
     def expired(self, now=None):
@@ -135,8 +159,9 @@ class _Slot:
     """Host-side state of one live batch slot.
 
     ``mode`` is "decode" (stepping through the [S, 1] program), "prefill"
-    (a long prompt streaming through the chunk program) or "spec"
-    (speculative verify cycles — holds no TARGET arena blocks).
+    (a long prompt streaming through the chunk program), "spec"
+    (speculative verify cycles — holds no TARGET arena blocks) or "beam"
+    (one live beam hypothesis; its group coordinates through ``beam``).
     ``blocks`` is the slot's block table; ``row_map[p]`` the physical
     arena row of position ``p`` (the device half of the table). ``d_*``
     is the draft-KV footprint of a speculative slot: its slot, blocks and
@@ -145,8 +170,8 @@ class _Slot:
 
     __slots__ = ("request", "mode", "cursor", "last_token", "generated",
                  "blocks", "row_map", "plen", "done", "shared_len", "toks",
-                 "sampling", "d_entry", "d_slot", "d_blocks", "d_row_map",
-                 "d_cursor")
+                 "sampling", "grammar", "beam", "score", "d_entry",
+                 "d_slot", "d_blocks", "d_row_map", "d_cursor")
 
     def __init__(self, request, mode="decode"):
         self.request = request
@@ -161,6 +186,9 @@ class _Slot:
         self.shared_len = 0     # positions served by radix-shared blocks
         self.toks = None        # spec mode: prompt + emitted so far
         self.sampling = None    # SamplingParams (committed-stream sampling)
+        self.grammar = None     # per-hypothesis GrammarConstraint
+        self.beam = None        # _BeamGroup this slot belongs to
+        self.score = 0.0        # beam: cumulative float64 log-prob
         self.d_entry = None     # draft-KV: the draft _ModelEntry
         self.d_slot = None
         self.d_blocks = None
@@ -168,14 +196,39 @@ class _Slot:
         self.d_cursor = 0
 
 
+class _BeamGroup:
+    """One beam request's shared state across its live hypothesis slots.
+    ``order`` is the live slot ids in the reference's hypothesis order —
+    the rank order of the last selection — so the engine breaks ties by
+    the same parent index as ``offline_beam_decode``'s live list."""
+
+    __slots__ = ("request", "width", "finished", "order", "spare")
+
+    def __init__(self, request):
+        self.request = request
+        self.width = request.beam.width
+        self.finished = []      # [(token list, float64 score), ...]
+        self.order = []         # live slot ids, hypothesis order
+        # the group RESERVES width slots for its lifetime (what
+        # request.rows promised admission): a pruned hypothesis parks its
+        # slot here for later forks instead of returning it to the pool,
+        # so a fork never loses its slot to another admission
+        self.spare = []
+
+
 class _Counters:
     """Thread-safe named counters plus the time samples the engine's
     ``stats()`` lists: decode steps, whole-prompt prefills, prefill
     chunks and speculative verify forwards (host clock; each sample ends
-    in a device-to-host copy, so it includes the device work)."""
+    in a device-to-host copy, so it includes the device work), and two
+    host costs of the generation modes: each beam group's selection rule
+    a step (``beam_rank_seconds``: ``rank_candidates`` and the in-order
+    split) and the DEC_MASK feed of a step with a constrained slot
+    (``mask_seconds``: first-visit mask builds, uploads and the stack;
+    ``step_seconds`` starts after it)."""
 
     SAMPLES = ("step_seconds", "prefill_seconds", "chunk_seconds",
-               "verify_seconds")
+               "verify_seconds", "beam_rank_seconds", "mask_seconds")
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -236,6 +289,11 @@ class _ModelEntry:
         self._draft_lock = threading.Lock()
         self._draft_pinned = False
         self._draft_ok = True
+        # the DEC_MASK feed on the device: one all-zero [S, 1, V] tensor
+        # for steps with no constrained slot, and each grammar state's
+        # [V] mask uploaded once (keyed by the CompiledGrammar)
+        self._zero_mask = None
+        self._state_masks = weakref.WeakKeyDictionary()
         m = model
         self._plans = {
             "step": (m.decode_program, [m.logits_fetch]),
@@ -323,7 +381,7 @@ class _ModelEntry:
                 return True
         admitted = self._retry_pending() + self._admit_free_slots()
         progressed = self._advance_prefills() + self._advance_spec()
-        if not any(st is not None and st.mode == "decode"
+        if not any(st is not None and st.mode in ("decode", "beam")
                    for st in self._slots):
             if not admitted and not progressed:
                 with self._cond:
@@ -343,12 +401,15 @@ class _ModelEntry:
     def _admit_free_slots(self):
         picked = []
         with self._cond:
-            while len(picked) < self._pool.free_count:
-                req = self._queue.head()
+            rows = 0
+            while self._pool.free_count - rows > 0:
+                # budget in ROWS, not requests: a beam admission claims
+                # width slots (its seed and its reserved spares)
+                req = self._pick(self._pool.free_count - rows)
                 if req is None:
                     break
-                self._queue.remove([req], batch=True)
                 picked.append(req)
+                rows += req.rows
             # the round's picks are ONE drain event for the rate EWMA
             self._queue.note_drained()
         for req in picked:
@@ -356,12 +417,28 @@ class _ModelEntry:
                 self._pending.append(req)
         return len(picked)
 
+    def _pick(self, max_rows):
+        """The next request to dispatch (caller holds the queue lock): the
+        head of the highest non-empty lane, FIFO within it. A head that
+        needs more rows than ``max_rows`` (a beam wider than the free
+        slots) waits at the head of its lane; lower lanes may still
+        dispatch. (The JAX engine's weighted-fair pick with its one
+        ``default`` tenant; more tenants: ROADMAP.md, M3c.)"""
+        for lane in Priority.LANES:
+            requests = self._queue.lane(lane)
+            if requests and requests[0].rows <= max_rows:
+                self._queue.remove([requests[0]], batch=True)
+                return requests[0]
+        return None
+
     def _retry_pending(self):
         """Retry admissions deferred for lack of blocks, oldest first;
-        stop at the first that still does not fit."""
+        stop at the first that still does not fit (a beam also waits for
+        its width in free slots)."""
         progressed = 0
         while self._pending:
-            if self._admit_one(self._pending[0]) == "deferred":
+            if (self._pending[0].rows > self._pool.free_count
+                    or self._admit_one(self._pending[0]) == "deferred"):
                 break
             self._pending.pop(0)
             progressed += 1
@@ -384,8 +461,8 @@ class _ModelEntry:
             self._slots[slot] = None
             return "deferred"
         except _ArenaInvalidError as e:
-            self._slots[slot] = None
-            self._pool.release(slot)
+            # the arena reset frees every slot, this one (and a beam
+            # group's) too
             self._reject(req, RequestError(
                 f"request {req.id} failed in inject: {e}"))
             self._arena_lost(f"arena failure during admission: {e}")
@@ -440,6 +517,8 @@ class _ModelEntry:
             st = _Slot(req, mode="spec")
             st.toks = list(req.prompt)
             st.sampling = req.sampling
+            if req.grammar is not None:
+                st.grammar = GrammarConstraint(req.grammar)
             self._slots[slot] = st
             if req.draft_kv:
                 self._admit_draft_kv(st, self._engine._entries[req.draft_key])
@@ -459,6 +538,9 @@ class _ModelEntry:
             st.done = min(shared_len, plen - 1)
             self._rebuild_row_map(st)
             self._slots[slot] = st
+            if req.beam is not None:
+                # hold the rows admission counted while the chunks land
+                self._open_beam_group(slot)
             self._metrics.incr("admitted")
             return
         key = prompt_key(prompt)
@@ -506,14 +588,21 @@ class _ModelEntry:
         st.cursor = plen
         self._slots[slot] = st
         self._metrics.incr("admitted")
+        if req.beam is not None:
+            self._begin_beam(slot, logits_row)
+            return
         self._begin_decode(slot, logits_row, greedy)
 
     def _begin_decode(self, slot, logits_row, greedy=None):
         """A prefilled slot picks its first token from the prompt's
-        last-position logits and joins the decode batch."""
+        last-position logits (masked on the host when constrained) and
+        joins the decode batch."""
         st = self._slots[slot]
+        req = st.request
         st.mode = "decode"
-        st.sampling = st.request.sampling
+        st.sampling = req.sampling
+        if req.grammar is not None:
+            st.grammar = GrammarConstraint(req.grammar)
         first = self._choose_token(st, logits_row, greedy)
         st.last_token = first
         st.generated = [first]
@@ -550,9 +639,9 @@ class _ModelEntry:
         st = self._slots[s]
         req = st.request
         if req.expired():
-            self._reject_in_flight(req, DeadlineExceededError(
+            self._fail_slot(s, DeadlineExceededError(
                 f"deadline expired during chunked prefill after "
-                f"{st.done}/{st.plen} tokens"), slot=s)
+                f"{st.done}/{st.plen} tokens"))
             return 1
         C, L, R = m.chunk_tokens, m.max_len, m.rows
         start = st.done
@@ -596,6 +685,12 @@ class _ModelEntry:
             return 1
         self._blocks.register_prompt_blocks(st.blocks, req.prompt)
         st.cursor = st.plen
+        if req.beam is not None:
+            try:
+                self._begin_beam(s, row)
+            except _ArenaInvalidError as e:
+                self._arena_lost(f"beam fork inject failure: {e}")
+            return 1
         self._begin_decode(s, row, greedy)
         return 1
 
@@ -656,7 +751,7 @@ class _ModelEntry:
                     f"{e}"), slot=s)
                 continue
             self._metrics.incr("spec_target_steps")
-            if self._samples(st):
+            if self._samples(st) or st.grammar is not None:
                 rows = rows.cpu().numpy()
             finished = False
             accepted_n = 0
@@ -859,8 +954,8 @@ class _ModelEntry:
                  DecodeModel.DEC_ROWS: rows.reshape(-1),
                  DecodeModel.DEC_WRITE_ROWS: wrows}
         if dm.logits_mask:
-            feeds[DecodeModel.DEC_MASK] = np.zeros(
-                (S, 1, dm.vocab_size), "float32")
+            # proposals are unconstrained: the draft's cached zero mask
+            feeds[DecodeModel.DEC_MASK] = draft._mask_feed([])
         try:
             # the kernel clamps a row outside [0, R) where the plain
             # version raises: checked here, as the decode step checks
@@ -882,13 +977,23 @@ class _ModelEntry:
     # -- the decode iteration ---------------------------------------------
     def _arena_lost(self, why):
         """An arena update failed: fail every in-flight sequence loudly
-        and reset the arena."""
+        (ONE completion per request, a beam group's too) and reset the
+        arena."""
         self._metrics.incr("step_failures")
-        for s, st in enumerate(list(self._slots)):
-            if st is not None:
-                self._reject_in_flight(st.request, ReplicaLostError(
-                    f"request {st.request.id} lost to {why}"), slot=s)
+        for s in range(len(self._slots)):
+            st = self._slots[s]
+            if st is not None:      # a failed group empties all its slots
+                self._fail_slot(s, ReplicaLostError(
+                    f"request {st.request.id} lost to {why}"))
         self._reset_arenas()
+
+    def _fail_slot(self, s, error):
+        """Fail the request slot ``s`` serves: a beam group as a unit."""
+        st = self._slots[s]
+        if st.beam is not None:
+            self._reject_beam_group(st.beam, error)
+        else:
+            self._reject_in_flight(st.request, error, slot=s)
 
     def _apply_cow(self, st, cow):
         """Copy-on-write landed a fresh block: re-inject the shared
@@ -913,22 +1018,254 @@ class _ModelEntry:
     def _samples(st):
         return st.sampling is not None and not st.sampling.greedy
 
-    def _choose_token(self, st, logits_row, greedy=None):
-        """The ONE token-selection point: the committed-stream sampler
-        over the row in float32 on the host when the slot samples, else
-        the first index of the largest logit (``greedy``, when the caller
-        already took it for a batch of rows). The sampler's step index is
-        the absolute emitted-token index, so a sampled stream replays
-        bit for bit for any admission order, batchmates or slot."""
+    @staticmethod
+    def _host_row(logits_row):
+        """A ``[V]`` logits row as float32 numpy on the host."""
+        if torch.is_tensor(logits_row):
+            logits_row = logits_row.cpu().numpy()
+        return np.asarray(logits_row, dtype=np.float32).reshape(-1)
+
+    def _choose_token(self, st, logits_row, greedy=None, device_masked=False):
+        """The ONE token-selection point for non-beam paths: the grammar
+        mask (added on the host unless the decode program already added
+        the DEC_MASK feed — the same float32 add either way), then the
+        committed-stream sampler over the row in float32 on the host when
+        the slot samples, else the first index of the largest logit
+        (``greedy``, when the caller already took it over the same row
+        for a batch of rows), then the grammar's advance. The sampler's
+        step index is the absolute emitted-token index, so a sampled
+        stream replays bit for bit for any admission order, batchmates
+        or slot."""
+        if st.grammar is not None and not device_masked:
+            logits_row = self._host_row(logits_row) + st.grammar.mask()
+            greedy = None
         if self._samples(st):
-            if torch.is_tensor(logits_row):
-                logits_row = logits_row.cpu().numpy()
-            row = np.asarray(logits_row, dtype=np.float32).reshape(-1)
+            row = self._host_row(logits_row)
             self._metrics.incr("sampled_tokens")
-            return sample_token(row, st.sampling, len(st.generated))
-        if greedy is not None:
-            return int(greedy)
-        return int(torch.argmax(logits_row))
+            t = sample_token(row, st.sampling, len(st.generated))
+        elif greedy is not None:
+            t = int(greedy)
+        elif torch.is_tensor(logits_row):
+            t = int(torch.argmax(logits_row))
+        else:
+            t = int(np.argmax(logits_row))
+        if st.grammar is not None:
+            st.grammar.advance(t)
+            self._metrics.incr("grammar_steps")
+        return t
+
+    # -- beam search (copy-on-write forks over the block arena) ------------
+    def _open_beam_group(self, s):
+        """Give the beam request in slot ``s`` its group and claim the
+        rest of its row reservation (admission budgeted width rows)."""
+        st = self._slots[s]
+        group = _BeamGroup(st.request)
+        st.beam = group
+        group.order = [s]
+        for _ in range(group.width - 1):
+            sid = self._pool.acquire()
+            if sid is None:
+                break
+            group.spare.append(sid)
+        return group
+
+    def _begin_beam(self, s, logits_row):
+        """First selection of a freshly prefilled beam request: the seed
+        hypothesis (empty continuation, score 0) expands into up to
+        ``width`` live beams — the seed slot hosts the top survivor in
+        place, the rest fork from it."""
+        st = self._slots[s]
+        req = st.request
+        st.mode = "beam"
+        st.score = 0.0
+        group = st.beam if st.beam is not None else self._open_beam_group(s)
+        if req.grammar is not None:
+            st.grammar = GrammarConstraint(req.grammar)
+        self._metrics.incr("beam_requests")
+        try:
+            row = self._host_row(logits_row)
+            if st.grammar is not None:
+                row = row + st.grammar.mask()
+            self._commit_beam_selection(group, [row])
+        except _ArenaInvalidError:
+            raise               # the caller's arena handler owns cleanup
+        except Exception as e:
+            self._reject_beam_group(group, RequestError(
+                f"request {req.id} failed in first beam selection: {e}"))
+
+    def _commit_beam_selection(self, group, rows):
+        """ONE beam step's bookkeeping: run the committed selection rule
+        over the live hypotheses' (masked) logits rows in ``order``,
+        divert EOS and length-exhausted continuations to ``finished``,
+        release pruned parents, keep each parent's top continuation in
+        its slot, fork the rest (refcount++ and a private tail copy), and
+        re-assert block row conservation. Returns False when the group
+        retired or failed (its slots are gone)."""
+        m = self._model
+        req = group.request
+        live_ids = list(group.order)
+        live = [self._slots[s] for s in live_ids]
+        room = group.width - len(group.finished)
+        t0 = time.perf_counter()
+        sel_live, sel_fin = beam_select(
+            [b.score for b in live], rows, room, m.eos_id)
+        self._metrics.observe("beam_rank_seconds", time.perf_counter() - t0)
+        for p, t, sc in sel_fin:
+            group.finished.append((live[p].generated + [t], sc))
+        survivors = []
+        for p, t, sc in sel_live:
+            n2 = len(live[p].generated) + 1
+            if n2 >= req.max_new or live[p].plen + n2 >= m.max_len:
+                group.finished.append((live[p].generated + [t], sc))
+            else:
+                survivors.append((p, t, sc))
+        keep = {p for p, _t, _s in survivors}
+        for i, sid in enumerate(live_ids):
+            if i not in keep:
+                self._release_beam_slot(sid, to_spare=True)
+                self._metrics.incr("beam_prunes")
+        # slot assignment keeps RANK order in group.order; children fork
+        # BEFORE their parent's in-place update (deferred), so every fork
+        # sees the parent's pre-step tokens, grammar state and score
+        new_order = []
+        taken = set()
+        deferred = []
+        for p, t, sc in survivors:
+            if p not in taken:
+                taken.add(p)
+                new_order.append(live_ids[p])
+                deferred.append((live[p], t, sc))
+            else:
+                try:
+                    child = self._fork_beam(group, live[p], t, sc)
+                except _ArenaInvalidError:
+                    raise
+                except Exception as e:
+                    self._reject_beam_group(group, RequestError(
+                        f"request {req.id} beam fork failed: {e}"))
+                    return False
+                new_order.append(child)
+                self._metrics.incr("beam_forks")
+        for st, t, sc in deferred:
+            st.generated = st.generated + [t]
+            st.last_token = t
+            st.score = sc
+            if st.grammar is not None:
+                st.grammar.advance(t)
+        group.order = new_order
+        self._blocks.check_conservation()
+        if len(group.finished) >= group.width or not new_order:
+            self._retire_beam(group)
+            return False
+        return True
+
+    def _fork_beam(self, group, parent, token, score):
+        """COW-fork one live hypothesis: a second owner of the parent's
+        full blocks, a private tail block filled by a device-to-device
+        copy of the parent's tail rows in every layer's K and V arena,
+        and a slot (from the group's reservation) carrying the forked
+        host state."""
+        m = self._model
+        child_blocks, nb, src = self._blocks.fork_blocks(
+            parent.blocks, parent.cursor)
+        if child_blocks is None:
+            self._metrics.incr("blocks_exhausted")
+            raise RuntimeError("block pool exhausted forking a beam")
+        slot = group.spare.pop() if group.spare else self._pool.acquire()
+        if slot is None:
+            self._blocks.release(child_blocks)
+            raise RuntimeError("slot pool exhausted forking a beam")
+        if nb is not None:
+            u = nb.size_used
+            try:
+                for kn, vn in m.state_names:
+                    for n in (kn, vn):
+                        arena = self._scope.find_var(n)
+                        arena[nb.row0:nb.row0 + u].copy_(
+                            arena[src.row0:src.row0 + u])
+            except Exception as e:
+                raise _ArenaInvalidError(str(e)) from e
+        st = _Slot(group.request, mode="beam")
+        st.beam = group
+        st.blocks = child_blocks
+        st.plen = parent.plen
+        st.shared_len = parent.shared_len
+        st.cursor = parent.cursor
+        st.last_token = int(token)
+        st.generated = parent.generated + [int(token)]
+        st.score = score
+        if parent.grammar is not None:
+            st.grammar = parent.grammar.fork().advance(token)
+        self._rebuild_row_map(st)
+        self._slots[slot] = st
+        return slot
+
+    def _release_beam_slot(self, sid, to_spare=False):
+        st = self._slots[sid]
+        self._slots[sid] = None
+        if to_spare and st is not None and st.beam is not None:
+            st.beam.spare.append(sid)   # keep the group's reservation
+        else:
+            self._pool.release(sid)
+        if st is not None and st.blocks:
+            self._blocks.release(st.blocks)
+
+    def _release_group_slots(self, group):
+        for sid, st in enumerate(self._slots):
+            if st is not None and st.beam is group:
+                self._release_beam_slot(sid)
+        for sid in group.spare:
+            self._pool.release(sid)
+        group.spare = []
+        group.order = []
+
+    def _retire_beam(self, group):
+        self._release_group_slots(group)
+        req = group.request
+        ranked = beam_finished_ranking(group.finished)
+        if not ranked:
+            self._reject(req, RequestError(
+                f"request {req.id}: beam search finished no hypothesis"))
+            return
+        req.response._complete(outputs={
+            "tokens": np.asarray(ranked[0][0], dtype="int64"),
+            "beams": [{"tokens": np.asarray(t, dtype="int64"),
+                       "score": float(sc)} for t, sc in ranked],
+        })
+        self._metrics.incr("completed")
+        self._metrics.incr("beam_finished", len(ranked))
+
+    def _reject_beam_group(self, group, error):
+        """Fail one beam request as a UNIT: release every slot the group
+        still holds, then complete its single response once (an arena
+        failure during its admission completed it already)."""
+        self._release_group_slots(group)
+        if not group.request.response.done():
+            self._reject(group.request, error)
+
+    # -- the decode iteration ---------------------------------------------
+    def _mask_feed(self, constrained):
+        """The ``[S, 1, V]`` DEC_MASK feed on the engine's device, built
+        with no host sync: the cached all-zero tensor when no slot is
+        constrained (``x + 0.0 == x``), else one stack of each
+        constrained slot's state mask (uploaded once per grammar state)
+        beside zero rows."""
+        m = self._model
+        if self._zero_mask is None:
+            self._zero_mask = torch.zeros(
+                (m.slots, 1, m.vocab_size), dtype=torch.float32,
+                device=self._engine.device)
+        if not constrained:
+            return self._zero_mask
+        rows = [self._zero_mask[s, 0] for s in range(m.slots)]
+        for s, gc in constrained:
+            cache = self._state_masks.setdefault(gc.grammar, {})
+            mask = cache.get(gc.state)
+            if mask is None:
+                mask = torch.from_numpy(gc.mask()).to(self._engine.device)
+                cache[gc.state] = mask
+            rows[s] = mask
+        return torch.stack(rows).unsqueeze(1)
 
     def _step(self):
         m = self._model
@@ -939,9 +1276,12 @@ class _ModelEntry:
         rows = np.zeros((S, L), "int64")
         wrows = np.full((S,), R, dtype="int64")
         active = []
+        groups = []         # beam groups with a live slot this step
+        fed = {}            # slot -> the _Slot its feed rows belong to
+        constrained = []    # (slot, GrammarConstraint) riding DEC_MASK
         for s in range(S):
             st = self._slots[s]
-            if st is None or st.mode != "decode":
+            if st is None or st.mode not in ("decode", "beam"):
                 continue
             # make the cursor position writable: a fresh block when it
             # opens a new chunk, COW when it lands in a SHARED partial
@@ -951,15 +1291,14 @@ class _ModelEntry:
                 blocks, nb, cow = self._blocks.ensure_appendable(
                     st.blocks, st.cursor)
             except RuntimeError as e:
-                self._reject_in_flight(st.request, RequestError(
-                    f"request {st.request.id} failed: {e}"), slot=s)
+                self._fail_slot(s, RequestError(
+                    f"request {st.request.id} failed: {e}"))
                 continue
             if blocks is None:
                 self._metrics.incr("blocks_exhausted")
-                self._reject_in_flight(st.request, RequestError(
+                self._fail_slot(s, RequestError(
                     f"request {st.request.id} failed: block pool exhausted "
-                    "mid-generation (preemption is not ported yet)"),
-                    slot=s)
+                    "mid-generation (preemption is not ported yet)"))
                 continue
             st.blocks = blocks
             if cow is not None:
@@ -970,29 +1309,54 @@ class _ModelEntry:
                     return
             elif nb is not None:
                 self._rebuild_row_map(st)
-            active.append(s)
+            if st.mode == "beam":
+                if st.beam not in groups:
+                    groups.append(st.beam)
+            else:
+                active.append(s)
+            fed[s] = st
             tok[s, 0] = st.last_token
             pos[s, 0] = st.cursor
             bias[s, 0, :st.cursor + 1] = 0.0
             rows[s] = st.row_map
             wrows[s] = self._row_of(st, st.cursor)
-        if not active:
+            if m.logits_mask and st.grammar is not None:
+                # the grammar's next-token constraint rides in as DATA:
+                # the same program for every request
+                constrained.append((s, st.grammar))
+        for s, st in fed.items():
+            if self._slots[s] is not st:
+                # a beam group failed after this slot was fed: its blocks
+                # are free again, so it writes no row this step
+                rows[s] = 0
+                wrows[s] = R
+                constrained = [(c, g) for c, g in constrained if c != s]
+        groups = [g for g in groups if not g.request.response.done()]
+        if not active and not groups:
             return
         feeds = {DecodeModel.DEC_TOKEN: tok, DecodeModel.DEC_POSITION: pos,
                  DecodeModel.DEC_BIAS: bias,
                  DecodeModel.DEC_ROWS: rows.reshape(-1),
                  DecodeModel.DEC_WRITE_ROWS: wrows}
-        if m.logits_mask:
-            feeds[DecodeModel.DEC_MASK] = np.zeros((S, 1, m.vocab_size),
-                                                   "float32")
         t0 = time.perf_counter()
         try:
+            if m.logits_mask:
+                feeds[DecodeModel.DEC_MASK] = self._mask_feed(constrained)
+                if constrained:
+                    # a grammar state's first visit builds its mask here
+                    self._metrics.observe("mask_seconds",
+                                          time.perf_counter() - t0)
+                    t0 = time.perf_counter()
             # the kernel clamps a row outside [0, R) where the plain
             # version raises: checked here, a bad map raises on any device
             if rows.min() < 0 or rows.max() >= R:
                 raise ValueError(f"row map outside [0, {R})")
             logits = self._run("step", feeds)[0]          # [S, 1, V]
             nxt_all = torch.argmax(logits[:, 0], dim=-1).tolist()
+            beam_ids = [sid for g in groups for sid in g.order]
+            # beams rank whole rows on the host: ONE copy of their rows
+            beam_rows = (logits[beam_ids, 0].cpu().numpy()
+                         if beam_ids else None)
         except Exception as e:
             # the step writes the arenas in place: a failure leaves them
             # undefined, so every in-flight sequence is lost
@@ -1004,7 +1368,8 @@ class _ModelEntry:
         for s in active:
             st = self._slots[s]
             self._blocks.note_append(st.blocks[st.cursor // m.block_size])
-            nxt = self._choose_token(st, logits[s, 0], nxt_all[s])
+            nxt = self._choose_token(st, logits[s, 0], nxt_all[s],
+                                     device_masked=m.logits_mask)
             st.generated.append(nxt)
             st.cursor += 1
             st.last_token = nxt
@@ -1017,6 +1382,32 @@ class _ModelEntry:
                 self._reject_in_flight(st.request, DeadlineExceededError(
                     "deadline expired mid-generation after "
                     f"{len(st.generated)} tokens"), slot=s)
+        at = 0
+        for group in groups:
+            # commit this step's KV append per live hypothesis, take its
+            # (device-masked) row in HYPOTHESIS order, then run the shared
+            # selection rule once for the whole group
+            rows_l = []
+            for sid in group.order:
+                bst = self._slots[sid]
+                self._blocks.note_append(
+                    bst.blocks[bst.cursor // m.block_size])
+                bst.cursor += 1
+                row = beam_rows[at]
+                at += 1
+                if bst.grammar is not None and not m.logits_mask:
+                    row = row + bst.grammar.mask()
+                rows_l.append(row)
+            self._metrics.incr("generated_tokens", len(rows_l))
+            try:
+                alive = self._commit_beam_selection(group, rows_l)
+            except _ArenaInvalidError as e:
+                self._arena_lost(f"beam fork inject failure: {e}")
+                return
+            if alive and group.request.expired(now):
+                self._reject_beam_group(group, DeadlineExceededError(
+                    "deadline expired mid-generation after "
+                    f"{len(group.finished)} finished hypotheses"))
 
     def _finished(self, st):
         m = self._model
@@ -1048,24 +1439,32 @@ class _ModelEntry:
         self._reject(req, error)
 
     # -- reference path ----------------------------------------------------
-    def offline_decode(self, prompt, max_new, sampling=None):
+    def offline_decode(self, prompt, max_new, sampling=None, grammar=None):
         """Offline whole-sequence reference: re-run the full causal
         prefill forward per generated token (no KV cache, no slots, no
         paged-attention kernel) with the same finish rules and the same
-        selection (committed-stream sampling when ``sampling`` samples,
-        else greedy). Every scheduling mode is compared against THIS."""
+        selection (the grammar's mask added on the host, then
+        committed-stream sampling when ``sampling`` samples, else
+        greedy). Every scheduling mode is compared against THIS."""
         m = self._model
         if isinstance(sampling, dict):
             sampling = SamplingParams(**sampling)
+        g = GrammarConstraint(grammar) if grammar is not None else None
         toks = list(prompt)
         out = []
         for _ in range(int(max_new)):
             t = len(toks) - 1
             row = self._run("prefill", self._prefill_feeds(toks))[0][0, t]
+            if g is not None:
+                row = self._host_row(row) + g.mask()
             if sampling is not None and not sampling.greedy:
-                nxt = sample_token(row.cpu().numpy(), sampling, len(out))
+                nxt = sample_token(self._host_row(row), sampling, len(out))
+            elif g is not None:
+                nxt = int(np.argmax(row))
             else:
                 nxt = int(torch.argmax(row))
+            if g is not None:
+                g.advance(nxt)
             out.append(nxt)
             toks.append(nxt)
             if m.eos_id is not None and nxt == m.eos_id:
@@ -1073,6 +1472,21 @@ class _ModelEntry:
             if len(toks) >= m.max_len:
                 break
         return out
+
+    def offline_beam(self, prompt, max_new, params, grammar=None):
+        """Offline beam reference: ``generate.offline_beam_decode`` with
+        this entry's prefill forward (the ``[1, L]`` prefill program) as
+        the whole-sequence logits oracle. ``params`` is a BeamParams.
+        Returns ``[(tokens, score), ...]`` best-first."""
+        m = self._model
+
+        def logits_fn(tokens):
+            logits = self._run("prefill", self._prefill_feeds(tokens))[0]
+            return self._host_row(logits[0, len(tokens) - 1])
+
+        g = GrammarConstraint(grammar) if grammar is not None else None
+        return offline_beam_decode(logits_fn, prompt, int(max_new), params,
+                                   m.eos_id, m.max_len, grammar=g)
 
     def prefill_logits(self, prompt):
         """``[L, V]`` prefill logits of ``prompt`` (rows past the prompt
@@ -1091,7 +1505,9 @@ class _ModelEntry:
                      "spec_proposed_tokens", "spec_accepted_tokens",
                      "spec_draft_steps", "spec_draft_kv_prefills",
                      "spec_draft_kv_steps", "spec_draft_kv_fallbacks",
-                     "chunk_runs", "chunk_tokens"):
+                     "chunk_runs", "chunk_tokens", "beam_requests",
+                     "beam_forks", "beam_prunes", "beam_finished",
+                     "grammar_steps"):
             snap.setdefault(name, 0)
         snap.update({
             "model": m.name, "version": m.version,
@@ -1224,12 +1640,13 @@ class GenerationEngine:
     def submit(self, prompt_ids, model=None, version=None,
                priority=Priority.NORMAL, max_new_tokens=16,
                deadline_ms=None, draft_model=None, draft_version=None,
-               spec_k=4, sampling=None, draft_kv=True, **options):
+               spec_k=4, sampling=None, beam_width=None, grammar=None,
+               draft_kv=True, **options):
         """Admit one generation request; returns its Response future
-        (``result()`` -> ``{"tokens": int64 array}``). Raises
-        RejectedError on invalid requests or a full queue, and
-        NotImplementedError for a generation mode not ported yet
-        (``beam_width``, ``grammar``, ``tenant``, ``deadline_at``).
+        (``result()`` -> ``{"tokens": int64 array}``, plus ``"beams"``
+        for beam search). Raises RejectedError on invalid requests or a
+        full queue, and NotImplementedError for an option not ported yet
+        (``tenant``, ``deadline_at``).
 
         ``sampling`` — a SamplingParams (or its kwargs as a dict):
         temperature/top-k/top-p on the request's committed threefry
@@ -1240,7 +1657,14 @@ class GenerationEngine:
         ``draft_kv`` (default on) gives the proposals their own KV slot on
         the draft entry when that entry can be PINNED (it carries no
         primary traffic, and refuses it from then on); a busy draft makes
-        this request use replay proposals."""
+        this request use replay proposals.
+
+        ``beam_width`` — beam search over that many slot hypotheses
+        (deterministic: refused with sampling or speculation; at most
+        the entry's slots). ``grammar`` — a CompiledGrammar whose
+        per-state masks constrain the output (the model needs an
+        ``eos_id`` and, except on the speculative path, which masks on
+        the host, ``logits_mask=True``)."""
         for opt in options:
             if opt not in _NOT_PORTED:
                 raise TypeError(f"submit() got an unexpected keyword "
@@ -1256,6 +1680,39 @@ class GenerationEngine:
             sampling = SamplingParams(**sampling)
         if sampling is not None and not isinstance(sampling, SamplingParams):
             self._bad(entry, "sampling must be a SamplingParams or dict")
+        beam = None
+        if beam_width is not None:
+            beam = BeamParams(beam_width)
+            if beam.width > m.slots:
+                self._bad(entry,
+                          f"beam width {beam.width} exceeds the entry's "
+                          f"{m.slots} batch slots")
+            if sampling is not None and not sampling.greedy:
+                self._bad(entry, "beam search is deterministic; it does "
+                                 "not compose with sampling")
+            if draft_model is not None:
+                self._bad(entry, "beam search does not compose with "
+                                 "speculative decoding")
+        if grammar is not None:
+            if not isinstance(grammar, CompiledGrammar):
+                self._bad(entry, "grammar must be a CompiledGrammar")
+            if m.eos_id is None:
+                self._bad(entry, "grammar-constrained decode needs a "
+                                 "model with an eos_id")
+            if grammar.eos_id != m.eos_id:
+                self._bad(entry,
+                          f"grammar eos_id {grammar.eos_id} != model "
+                          f"eos_id {m.eos_id}")
+            if len(grammar.vocab) != m.vocab_size:
+                self._bad(entry,
+                          f"grammar vocab size {len(grammar.vocab)} != "
+                          f"model vocab {m.vocab_size}")
+            if draft_model is None and not m.logits_mask:
+                self._bad(entry,
+                          "grammar-constrained decode needs a model "
+                          "built with logits_mask=True (the DEC_MASK "
+                          "feed); only the speculative path masks "
+                          "host-side")
         draft_key = None
         draft_kv = bool(draft_kv)
         if draft_model is not None:
@@ -1297,7 +1754,8 @@ class GenerationEngine:
             rid = self._next_id
         req = GenerationRequest(rid, prompt_ids, max_new_tokens, priority,
                                 deadline, draft_key=draft_key, spec_k=spec_k,
-                                sampling=sampling, draft_kv=draft_kv)
+                                sampling=sampling, beam=beam, grammar=grammar,
+                                draft_kv=draft_kv)
         with entry._cond:
             pinned = entry._draft_pinned
         if pinned:

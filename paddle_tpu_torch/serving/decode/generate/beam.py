@@ -1,0 +1,158 @@
+"""Beam search as copy-on-write forks: the selection rule, committed
+once.
+
+The port's copy of the JAX package's ``serving/decode/generate/beam.py``:
+the same host numpy, so the engine's beams and the offline reference rank
+the same bytes the same way in both packages.
+
+A beam is just a slot: the live hypotheses of one request occupy
+ordinary batch slots of the shared ``[S, 1]`` decode step, a fork is a
+block-table copy (one more owner of the shared full blocks and one
+private tail block) over the paged arena, and a pruned hypothesis
+releases its blocks the way any finished request does, so the block
+pool's row conservation can be checked after every fork and prune and
+the program shapes never change.
+
+This module owns the host half: candidate scoring and the selection
+rule, shared verbatim by the engine's incremental loop and by
+``offline_beam_decode`` (the whole-sequence reference every beam result
+is compared against). Determinism contract:
+
+* scores are float64 log-softmax sums computed from the fetched float32
+  logits: one IEEE code path, no device-dependent reductions;
+* candidates rank by ``(-score, parent index, token id)``: every tie
+  breaks by position in the PARENT ORDER, then token id, so equal-score
+  hypotheses resolve identically everywhere;
+* masked tokens (the additive ``-1e9`` grammar mask) never become
+  candidates, rather than relying on their score sinking: a constrained
+  beam can THIN below its width, never violate the grammar;
+* a step fills ``width - |finished|`` places, diverting EOS candidates
+  to the finished set as they rank, and a continuation that exhausts
+  ``max_new`` or the arena length finishes at once with its score.
+
+Beam search is deterministic: it composes with grammar masks and is
+refused with sampling or speculation at ``submit``.
+"""
+
+import numpy as np
+
+__all__ = ["BeamParams", "log_softmax64", "rank_candidates", "select",
+           "finished_ranking", "offline_beam_decode"]
+
+# candidacy floor: anything at or below half the additive mask value is
+# a banned token, not a real logit (real logits live at |x| << 5e8)
+_BANNED = -5e8
+
+
+class BeamParams:
+    """Per-request beam policy: ``width`` live hypotheses (slots). The
+    score is the plain sum of token log-probabilities — no length
+    penalty, so the reference stays a pure argmax-free fold."""
+
+    __slots__ = ("width",)
+
+    def __init__(self, width):
+        self.width = int(width)
+        if self.width < 1:
+            raise ValueError(f"beam width must be >= 1, got {self.width}")
+
+    def describe(self):
+        return {"width": self.width}
+
+
+def log_softmax64(logits):
+    """Float64 log-softmax of a ``[V]`` logits row, max-shifted."""
+    x = np.asarray(logits, dtype=np.float64).reshape(-1)
+    m = x.max()
+    return x - (m + np.log(np.exp(x - m).sum()))
+
+
+def rank_candidates(scores, logits_rows):
+    """All (parent, token) continuations ranked by
+    ``(-total_score, parent, token)``; banned (masked) tokens never
+    become candidates. ``scores`` are the parents' cumulative float64
+    log-probs; ``logits_rows`` their fetched (already masked, when a
+    grammar is active) float32 logits."""
+    parents, tokens, totals = [], [], []
+    for p, (s, row) in enumerate(zip(scores, logits_rows)):
+        raw = np.asarray(row, dtype=np.float64).reshape(-1)
+        ls = log_softmax64(raw)
+        ok = np.nonzero(raw > _BANNED)[0]
+        parents.append(np.full(ok.shape, p, dtype=np.int64))
+        tokens.append(ok.astype(np.int64))
+        totals.append(np.float64(s) + ls[ok])
+    if not parents:
+        return []
+    parents = np.concatenate(parents)
+    tokens = np.concatenate(tokens)
+    totals = np.concatenate(totals)
+    order = np.lexsort((tokens, parents, -totals))
+    return [(int(parents[i]), int(tokens[i]), float(totals[i]))
+            for i in order]
+
+
+def select(scores, logits_rows, room, eos_id):
+    """ONE beam step's selection: consume ranked candidates in order,
+    diverting EOS continuations to ``finished`` until
+    ``len(live) + len(finished) == room`` (``room`` = width minus the
+    hypotheses already finished). Returns ``(live, finished)`` lists of
+    ``(parent, token, score)``."""
+    live, finished = [], []
+    for parent, token, total in rank_candidates(scores, logits_rows):
+        if len(live) + len(finished) >= room:
+            break
+        if eos_id is not None and token == eos_id:
+            finished.append((parent, token, total))
+        else:
+            live.append((parent, token, total))
+    return live, finished
+
+
+def finished_ranking(finished):
+    """Final ranking of finished hypotheses: score desc, then token
+    sequence (ascending lexicographic) — fully deterministic even for
+    exact score ties."""
+    return sorted(finished, key=lambda f: (-f[1], tuple(f[0])))
+
+
+def offline_beam_decode(logits_fn, prompt, max_new, params, eos_id,
+                        max_len, grammar=None):
+    """The whole-sequence beam reference: ``logits_fn(tokens)`` returns
+    the float32 ``[V]`` next-token logits of a full forward over
+    ``tokens`` (the engine wires the prefill program in). The loop here
+    IS the committed selection semantics — the engine's slot-based
+    incremental beam reproduces its output byte-for-byte on the same
+    logits (on the card, decode-step and prefill logits differ in the
+    last bits; ``chip_smoke.py`` holds the beams to a score bar there).
+
+    Returns finished hypotheses ``[(tokens, score), ...]`` best-first
+    (``finished_ranking``); tokens include the EOS when one fired."""
+    prompt = [int(t) for t in prompt]
+    live = [([], 0.0, grammar.fork() if grammar is not None else None)]
+    finished = []
+    while live and len(finished) < params.width:
+        rows = []
+        for toks, _score, g in live:
+            row = np.asarray(logits_fn(prompt + toks),
+                             dtype="float32").reshape(-1)
+            if g is not None:
+                row = row + g.mask()          # float32, the DEC_MASK add
+            rows.append(row)
+        room = params.width - len(finished)
+        sel_live, sel_fin = select([s for _t, s, _g in live], rows,
+                                   room, eos_id)
+        for parent, token, total in sel_fin:
+            finished.append((live[parent][0] + [token], total))
+        nxt = []
+        for parent, token, total in sel_live:
+            toks2 = live[parent][0] + [token]
+            g2 = live[parent][2]
+            if g2 is not None:
+                g2 = g2.fork().advance(token)
+            if (len(toks2) >= max_new
+                    or len(prompt) + len(toks2) >= max_len):
+                finished.append((toks2, total))
+            else:
+                nxt.append((toks2, total, g2))
+        live = nxt
+    return finished_ranking(finished)

@@ -313,6 +313,7 @@ class BlockPool:
         self.cow_copies = 0
         self.evictions = 0
         self.radix_hits = 0            # shared-block references served
+        self.forks = 0                 # beam forks served (refcount++ paths)
 
     @property
     def rows(self):
@@ -463,6 +464,39 @@ class BlockPool:
         with self._lock:
             block.size_used = min(block.size_used + 1, self.block_size)
 
+    def fork_blocks(self, blocks, written):
+        """Beam fork: a second owner for the first ``written`` positions
+        of ``blocks``. Full covered blocks are SHARED (refcount++ — they
+        are immutable history for both beams; appends can never land in
+        them because the cursor is past their last offset), and a
+        partial tail gets a fresh PRIVATE block the caller must fill by
+        copying the parent's ``written % block_size`` arena rows on the
+        device.
+
+        Returns ``(child_blocks, new_tail, src_tail)`` — ``new_tail`` /
+        ``src_tail`` are None when ``written`` is block-aligned — or
+        ``(None, None, None)`` when the pool is exhausted."""
+        bs = self.block_size
+        full = int(written) // bs
+        tail_used = int(written) % bs
+        with self._lock:
+            child = list(blocks[:full])
+            nb = None
+            src = None
+            if tail_used:
+                src = blocks[full]
+                nb = self._alloc_locked()
+                if nb is None:
+                    return None, None, None
+                nb.size_used = tail_used
+                nb.tokens = src.tokens
+            for b in child:
+                b.refcount += 1
+            self.forks += 1
+            if nb is not None:
+                child.append(nb)
+            return child, nb, src
+
     def release(self, blocks):
         """Drop one owner's references. Registered refcount-0 blocks
         stay cached (LRU) for future prefix hits; private ones free."""
@@ -490,8 +524,8 @@ class BlockPool:
             self._cached.clear()
 
     def check_conservation(self):
-        """The row-conservation invariant, assertable after any admission
-        or retirement: each block is in EXACTLY ONE of {free list, LRU
+        """The row-conservation invariant, assertable after any admission,
+        retirement, beam fork or prune: each block is in EXACTLY ONE of {free list, LRU
         cache, live (refcount > 0)}, the three counts sum to the pool
         size, and no refcount is negative. Raises AssertionError naming
         the violation; returns the three counts when clean."""
@@ -536,6 +570,7 @@ class BlockPool:
                 "occupancy": physical / float(max(self.rows, 1)),
                 "dedup_ratio": logical / float(max(physical, 1)),
                 "cow_copies": self.cow_copies,
+                "forks": self.forks,
                 "evictions": self.evictions,
                 "radix_hits": self.radix_hits,
                 "radix_entries": len(self._radix),

@@ -142,14 +142,10 @@ class RequestQueue:
             self._note_drained(rows, time.perf_counter())
         return dead
 
-    def head(self):
-        """Oldest request in the highest non-empty lane (dispatch order),
-        or None."""
-        with self.lock:
-            for p in Priority.LANES:
-                if self._lanes[p]:
-                    return self._lanes[p][0]
-        return None
+    def lane(self, priority):
+        """The queued requests of one priority lane, in FIFO order (the
+        decode engine's picker scans this under ``lock``)."""
+        return tuple(self._lanes[priority])
 
     def remove(self, requests, batch=False):
         """Remove specific admitted requests (they were taken for a

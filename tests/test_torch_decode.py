@@ -22,8 +22,9 @@ import torch
 import paddle_tpu_torch as pt
 from paddle_tpu.serving.decode import GenerationEngine as JaxEngine
 from paddle_tpu.serving.decode import build_decoder_model as jax_build
+from paddle_tpu.serving.request import RejectedError as JaxRejected
 from paddle_tpu_torch.convert import load_params, params_from_numpy
-from paddle_tpu_torch.serving.request import ReplicaLostError
+from paddle_tpu_torch.serving.request import RejectedError, ReplicaLostError
 from paddle_tpu_torch.serving.decode import GenerationEngine as TorchEngine
 from paddle_tpu_torch.serving.decode import build_decoder_model as torch_build
 from paddle_tpu_torch.serving.decode.model import DecodeModel
@@ -207,11 +208,15 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
 
 
 def test_unported_generation_modes_raise(pair):
-    teng = pair[2]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, M4"):
-        teng.submit([1, 2, 3], max_new_tokens=2, beam_width=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, M4"):
-        teng.submit([1, 2, 3], max_new_tokens=2, grammar=object())
+    jeng, teng = pair[0], pair[2]
+    # beam search and grammars are served now: they reach the JAX
+    # engine's validation (tests/test_torch_generate_engine.py serves them)
+    for kw in (dict(beam_width=99), dict(grammar=object())):
+        with pytest.raises(RejectedError) as got:
+            teng.submit([1, 2, 3], max_new_tokens=2, **kw)
+        with pytest.raises(JaxRejected) as want:
+            jeng.submit([1, 2, 3], max_new_tokens=2, **kw)
+        assert str(got.value) == str(want.value)
     with pytest.raises(NotImplementedError, match="ROADMAP.md, M3c"):
         teng.submit([1, 2, 3], max_new_tokens=2, tenant="a")
     with pytest.raises(NotImplementedError, match="ROADMAP.md, M6"):

@@ -43,6 +43,8 @@ import paddle_tpu_torch.parallel.dgc
 import paddle_tpu_torch.parallel.env
 import paddle_tpu_torch.passes
 import paddle_tpu_torch.serving.decode.engine
+import paddle_tpu_torch.serving.decode.generate.beam
+import paddle_tpu_torch.serving.decode.generate.grammar
 import paddle_tpu_torch.serving.decode.generate.sampling
 import paddle_tpu_torch.utils.flags
 bad = sorted(m for m in sys.modules
