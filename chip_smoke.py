@@ -9,8 +9,9 @@ It builds every CUDA kernel from the sources in the checkout, holds each
 kernel against its plain PyTorch version at the shapes its path gives
 it, then serves requests through the port's entry points at the full
 width of the decoder and checks the tokens against the port's offline
-reference, trains full-size BERT-base with the flash-attention
-kernels against the same steps with the kernels off, and trains the two
+reference, trains full-size BERT-base with dropout (the flash recipe and
+the unfused default) against the same steps with the kernels off, and
+trains the two
 CTR configurations (Wide&Deep over the two-tier embedding engine, and CTR
 with on-device tables and sparse SGD) against the same steps with the
 kernels off. Any failure exits non-zero. It imports nothing of JAX or of
@@ -101,18 +102,38 @@ Phases:
    slotted-cache form, served by ``decode_attention``) through
    ``Executor.run``, counters zeroed before and read after.
 5. train — ``build_bert_pretrain(BertConfig.base())`` with flash
-   attention, no dropout, seq 128, P=20, float32, run by ``Executor()``
-   on the default place: startup, the step counter set to the end of the
-   lr warmup (so every step applies the full lr of 1e-4), then 4 steps at
-   batch 32 on one synthetic batch, launch counters zeroed before and
-   read after (K1 at least 24 launches a step, K2a and K2b 12); the loss
-   finite and the parameters changed. Then 2 steps from the same starting
-   state (a snapshot, in its own scope) with the kernels off: the loss
-   streams, every ``param@GRAD`` of the first step and the whole training
-   state after 2 steps (parameters, Adam moments and beta powers, the step
-   counter) agree within the stated tolerances. Prints the step time
-   (p50 of the steps after the first), device memory peak, tokens/s and
-   the parameter count.
+   attention, hidden dropout 0.1 (the JAX bench recipe), seq 128, P=20,
+   float32, run by ``Executor()`` on the default place, the programs'
+   ``random_seed`` set: launch counters zeroed, startup (its truncated
+   normals draw through K8's ``random_bits``), the step counter set to the
+   end of the lr warmup (so every step applies the full lr of 1e-4), then
+   4 steps at batch 32 on one synthetic batch, counters read after (K1 at
+   least 24 launches a step, K2a and K2b 12, K8's dropout 25); the loss
+   finite and the parameters changed. Then, on a fresh executor (so the
+   run keys repeat), startup and 2 steps from the same starting state (a
+   snapshot, in its own scope) with the kernels off: the dropout masks
+   bit-equal (a fingerprint of each, kept on the card), the loss streams,
+   every ``param@GRAD`` of the first step and the whole training state
+   after 2 steps (parameters, Adam moments and beta powers, the step
+   counter) within the stated tolerances. Prints the step time (p50 of
+   the steps after the first), device memory peak, tokens/s, the
+   parameter count, and the step p50 of the same model without dropout.
+5b. train, unfused — the JAX package's default BERT-base (unfused
+   attention, hidden and attention-prob dropout 0.1: 37 sites), batch
+   32, seq 128, P=20: 3 steps with the kernels on, 2 off on fresh
+   executors; masks bit-equal, losses within phase 5's bars, K8 launched
+   once a site a step. Prints step p50, tokens/s and the memory peak.
+2e. random — K8 (``kernels/csrc/threefry.cu``) against its plain version,
+   bit for bit: ``random_bits`` at n = 1,000,003 and BERT-base's
+   word_embedding size, each also equal to the host numpy copy of
+   ``jax.random.bits`` (``core/prng.py``, which the CPU tests hold equal
+   to JAX), so JAX's bytes reach the card; the fused dropout at
+   ``[32, 128, 768]`` p = 0.1 in both implementations, ``[32, 12, 128,
+   128]`` and an odd n. Timed on the device (``device_ms``) at the hidden
+   site and the word_embedding draw beside the plain version, the bound
+   (bytes, or 73 integer operations a draw at the SM's dispatch rate) and
+   ``torch.nn.functional.dropout`` (Philox: another stream, a yardstick
+   only); prints the compiled SASS's instructions by opcode.
 
 2c. ctr kernels — the embedding admission kernel (K5) and the sparse row
    update kernel (K6) against their plain versions, bit for bit, rows the
@@ -171,15 +192,18 @@ Phases:
    whole function's and ``torch.topk``'s host µs a call (``host_us``) and
    their CUDA launches a call (``cuda_launches``, a profiler trace).
 8. dgc — Transformer-base (``build_wmt_train(TransformerConfig.base()``,
-   no dropout, seq 64, DGC momentum with warm-up at step 0, sparsity
+   dropout 0.1, seq 64, DGC momentum with warm-up at step 0, sparsity
    0.996 then 0.999) trained data-parallel on 2 ranks of
    ``paddle_tpu_torch.distributed.launch`` sharing the card over gloo,
    ``CompiledProgram.with_parallel``, global batch 128, 6 steps with
    ``FLAGS_pallas_dgc_topk`` on; then the same 6 steps with the kernels
-   off. Each rank runs this script with ``--dgc-rank``. Checks: K7
+   off (a fresh executor, so the run keys repeat). Each rank runs this
+   script with ``--dgc-rank``. Checks: K7
    launched 97 times a rank on each sparse step (the parameters over one
-   block) and never on the dense one; both ranks hold bit-identical
-   parameters after every step; kernels on and off give the same losses,
+   block) and never on the dense one; K8 once a dropout site a step; both
+   ranks hold bit-identical parameters after every step; the ranks'
+   dropout masks at the first site differ (each folds its rank into the
+   run key); kernels on and off give the same losses, dropout masks,
    parameters and per-rank U/V bit for bit (both runs deterministic:
    ``torch.use_deterministic_algorithms``); the loss is finite and falls.
    Prints step time, target tokens/s, memory peak per rank, the K7
@@ -254,8 +278,11 @@ FLASH_SHAPES = (dict(B=32, H=12, S=128, D=64, causal=False, timed=True),
                 dict(B=32, H=12, S=512, D=64, causal=True, timed=False))
 FWD_TOL, BWD_TOL = (1e-5, 1e-5), (1e-4, 1e-5)
 # Training: BERT-base pretraining as the JAX package's benchmark runs it
-# (bench.py:106-133), float32, no dropout.
+# (bench.py:106-133), float32.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_P, TRAIN_STEPS, OFF_STEPS = 32, 128, 20, 4, 2
+# hidden dropout as the JAX bench recipe keeps it (bench.py:106-116); the
+# unfused default config (phase 5b) runs 3 steps on, OFF_STEPS off
+TRAIN_DROPOUT, UNFUSED_STEPS = 0.1, 3
 # build_bert_pretrain warms the learning rate up from 0 over 10000 steps.
 # Both runs start with the step counter there, so every step applies the
 # full rate and the comparison below sees real updates.
@@ -320,6 +347,9 @@ TOPK_CASES = (("word_emb k=75776", 37000 * 512, 75776, TOPK_BLOCK, "normal"),
 # steps: step 0 dense (rampup_begin_step 1), step 1 sparse at 0.996,
 # steps 2-5 at 0.999 (rampup_step 2), where the keep mask cuts k
 DGC_RANKS, DGC_BATCH, DGC_SEQ, DGC_STEPS = 2, 128, 64, 6
+# steps of the same model without dropout (the first dense, then sparse),
+# timed for the cost of dropout on the same host clock
+DGC_NODROP_STEPS = 5
 DGC_OPT = dict(learning_rate=0.01, momentum=0.9, rampup_begin_step=1,
                rampup_step=2, sparsity=[0.996, 0.999])
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
@@ -330,6 +360,27 @@ PEAK_F32_FLOPS = 67e12
 PEAK_3XTF32_FLOPS = 495e12 / 3
 # the empty kernel that gives the launch floor (not a port of a TPU kernel)
 FLOOR_SOURCE = "launch_floor.cu"
+# K8 (threefry bits, fused dropout): the random_bits sizes checked against
+# the host copy of jax.random (an odd n, BERT-base's largest startup draw,
+# word_embedding [30522, 768]); the dropout sites of the training paths
+# (BERT-base's hidden [32, 128, 768] at 0.1 in both implementations, the
+# unfused attention probabilities [32, 12, 128, 128]); a draw's integer
+# work: one threefry2x32 is 73 32-bit operations at least (2 adds in, 20
+# rounds of add, rotate and xor, 10 key-injection adds, the output xor;
+# the SASS the compiler makes, printed, holds about 104 a draw), over the
+# most integer work an SM can dispatch: one warp instruction a scheduler a
+# cycle, 4 x 32 = 128 an SM a cycle (the 64 INT32 lanes plus the FMA
+# lanes that run IMAD; the 64-lane rate alone is beaten on the card), 132
+# SMs at 1.98 GHz
+K8_SOURCE = "threefry.cu"
+K8_TIMED_BITS = 30522 * 768
+K8_BITS_SHAPES = (1_000_003, K8_TIMED_BITS)
+K8_DROPOUT_CASES = (((32, 128, 768), 0.1, True, True),
+                    ((32, 128, 768), 0.1, False, False),
+                    ((32, 12, 128, 128), 0.1, True, False),
+                    ((1_000_003,), 0.5, True, False))
+K8_OPS_PER_DRAW = 73
+PEAK_INT32_OPS = 128 * 132 * 1.98e9
 
 
 def log(*a):
@@ -1616,19 +1667,24 @@ def phase_train():
 
     cfg = bert.BertConfig.base()
     cfg.use_flash_attention = True
-    cfg.hidden_dropout_prob = 0.0
-    cfg.attention_probs_dropout_prob = 0.0
+    cfg.hidden_dropout_prob = TRAIN_DROPOUT     # the JAX bench recipe
+    cfg.attention_probs_dropout_prob = 0.0      # the flash path refuses it
     main, startup, _, fetches = bert.build_bert_pretrain(
         cfg, seq_len=TRAIN_SEQ, lr=TRAIN_LR, max_predictions_per_seq=TRAIN_P)
+    startup.random_seed = main.random_seed = SEED
     loss = fetches[0]
     params = main.all_parameters()
     grads = [p.name + "@GRAD" for p in params]
     n_params = sum(int(np.prod(p.shape)) for p in params)
+    sites = sum(op.type == "dropout" for op in main.global_block().ops)
     batch = bert.synthetic_batch(np.random.RandomState(SEED), TRAIN_BATCH,
                                  TRAIN_SEQ, cfg, TRAIN_P)
-    exe = fluid.Executor(seed=SEED)               # CUDAPlace(0) by default
+    exe = fluid.Executor()                        # CUDAPlace(0) by default
     scope = fluid.Scope()
     t0 = time.perf_counter()
+    # the startup is the path's first run: its truncated normals draw
+    # their bits through K8's random_bits
+    kernels.reset_launches()
     exe.run(startup, scope=scope)
     load_params(scope, {COUNTER: np.full([1], WARMED_UP, np.float32)})
     torch.cuda.synchronize()
@@ -1639,9 +1695,9 @@ def phase_train():
 
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()          # weights, Adam state, ...
-    kernels.reset_launches()
-    losses, grads_on, seconds, state_on = _train_steps(
-        exe, main, scope, batch, loss, grads, TRAIN_STEPS)
+    with _MaskTap() as tap_on:
+        losses, grads_on, seconds, state_on = _train_steps(
+            exe, main, scope, batch, loss, grads, TRAIN_STEPS)
     launches = kernels.launches()
     peak = torch.cuda.max_memory_allocated()
     per_step = {n: launches[n] / TRAIN_STEPS for n in
@@ -1649,6 +1705,11 @@ def phase_train():
                  "flash_attention_bwd_dq")}
     log(f"[train] losses {losses}, launches {launches}")
     layers = cfg.num_hidden_layers
+    if (launches["threefry_dropout"] != sites * TRAIN_STEPS
+            or not launches["threefry_random_bits"]):
+        raise AssertionError(f"K8 launches {launches}: want "
+                             f"{sites} dropout sites x {TRAIN_STEPS} steps "
+                             "and the startup's random_bits")
     if (launches["flash_attention_fwd"] < 2 * layers * TRAIN_STEPS
             or launches["flash_attention_bwd_dkdv"] < layers * TRAIN_STEPS
             or launches["flash_attention_bwd_dq"] < layers * TRAIN_STEPS):
@@ -1671,15 +1732,22 @@ def phase_train():
         f"{len(params)} "
         f"parameters changed, launches per step {per_step}")
 
-    off_scope = fluid.Scope()
-    exe.run(startup, scope=off_scope)
-    load_params(off_scope, snapshot)
+    # a fresh executor: its run counter, and so its keys, repeat the first
+    # run's (startup, then the steps)
+    off_exe, off_scope = fluid.Executor(), fluid.Scope()
     with kernels.scoped_mode("off"):
         kernels.reset_launches()
-        off_losses, grads_off, off_seconds, state_off = _train_steps(
-            exe, main, off_scope, batch, loss, grads, OFF_STEPS)
+        off_exe.run(startup, scope=off_scope)
+        load_params(off_scope, snapshot)
+        with _MaskTap() as tap_off:
+            off_losses, grads_off, off_seconds, state_off = _train_steps(
+                off_exe, main, off_scope, batch, loss, grads, OFF_STEPS)
         if any(kernels.launches().values()):
             raise AssertionError("a kernel launched with the kernels off")
+    masks_equal = tap_on.digests[:len(tap_off.digests)] == tap_off.digests
+    if not masks_equal or len(tap_off.digests) != sites * OFF_STEPS:
+        raise AssertionError(f"dropout masks differ between kernels on and "
+                             f"off ({len(tap_off.digests)} masks off)")
     rtol, atol = TRAIN_LOSS_TOL
     loss_err = max(abs(a - b) for a, b in zip(losses, off_losses))
     if not all(abs(a - b) <= atol + rtol * abs(b)
@@ -1700,12 +1768,167 @@ def phase_train():
              if float(g.abs().max()) <= floor}
     worst_state = _compare_states(state_on, state_off, snapshot,
                                   {p.name for p in params}, noise)
+    log(f"[train] dropout: {sites} sites at p={TRAIN_DROPOUT}, "
+        f"{len(tap_off.digests)} masks of {OFF_STEPS} steps bit-equal "
+        f"between kernels on and off, kept share {tap_on.kept:.5f}")
     log(f"[train] kernels off: losses {off_losses} (max diff {loss_err:.3e}), "
         f"step p50 {float(np.median(off_seconds[1:])) * 1e3:.2f} ms; "
         f"{len(grads)} grads agree, worst error {worst:.3e} of its bar; "
         f"{len(state_off)} persistables after {OFF_STEPS} steps agree, worst "
         f"{worst_state:.3e} of its bar ({len(noise)} parameters with grads "
         f"of rounding noise left out: {sorted(noise)})")
+    del scope, off_scope, grads_on, grads_off
+    nodrop_ms, nodrop_peak = _bert_nodropout_steps(fluid, bert, batch)
+    log(f"[train] the same steps without dropout, same call: step p50 "
+        f"{nodrop_ms:.2f} ms against {step_ms:.2f} with it "
+        f"({step_ms / nodrop_ms:.4f}x); device memory peak "
+        f"{nodrop_peak / 2**30:.3f} GiB against {peak / 2**30:.3f}")
+    return launches
+
+
+def _bert_nodropout_steps(fluid, bert, batch):
+    """Step p50 (ms) and device memory peak of phase 5's BERT-base without
+    dropout: 4 steps (the p50 of the last 3), on the same host clock as
+    the steps with it."""
+    import torch
+
+    from paddle_tpu_torch.convert import load_params
+
+    cfg = bert.BertConfig.base()
+    cfg.use_flash_attention = True
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    main, startup, _, fetches = bert.build_bert_pretrain(
+        cfg, seq_len=TRAIN_SEQ, lr=TRAIN_LR, max_predictions_per_seq=TRAIN_P)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    load_params(scope, {COUNTER: np.full([1], WARMED_UP, np.float32)})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        exe.run(main, feed=batch, fetch_list=[fetches[0]], scope=scope)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    return (float(np.median(seconds[1:])) * 1e3,
+            torch.cuda.max_memory_allocated())
+
+
+class _MaskTap:
+    """Within the block, a fingerprint of every ``Mask`` the dropout op
+    returns (in order) and the kept count: the op def's kernel lowering is
+    wrapped, so the executor's plan calls the wrapper. Both stay on the
+    card until read (no sync in the steps): the fingerprint is the int64
+    sum of the mask's 0/1 values times fixed random int32 weights (the
+    same weights for every run of a size), so equal masks give equal
+    fingerprints and a differing mask differs with near certainty."""
+
+    _weights = {}
+
+    def __enter__(self):
+        from paddle_tpu_torch.core.registry import get_op_def
+
+        self._op = get_op_def("dropout")
+        self._inner = self._op.kernel
+        self._prints, self._kept, self._n = [], [], 0
+
+        def tapped(ins, attrs):
+            import torch
+
+            outs = self._inner(ins, attrs)
+            m = outs["Mask"][0].reshape(-1)
+            w = self._weights.get((m.numel(), m.device))
+            if w is None:
+                gen = torch.Generator(device=m.device).manual_seed(SEED + 9)
+                w = self._weights[(m.numel(), m.device)] = torch.randint(
+                    -2 ** 31, 2 ** 31 - 1, (m.numel(),), generator=gen,
+                    dtype=torch.int32, device=m.device)
+            self._prints.append((m.to(torch.int64) * w).sum())
+            self._kept.append(m.sum(dtype=torch.float64))
+            self._n += m.numel()
+            return outs
+
+        self._op.kernel = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self._op.kernel = self._inner
+        return False
+
+    @property
+    def digests(self):
+        return [int(t) for t in self._prints]
+
+    @property
+    def kept(self):
+        return sum(float(t) for t in self._kept) / max(self._n, 1)
+
+
+def phase_bert_unfused():
+    """Phase 5b: the JAX package's default BERT-base (unfused attention,
+    hidden and attention-prob dropout at 0.1), K8 on against off."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.convert import load_params, persistables_to_numpy
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.base()                # unfused, dropouts 0.1
+    main, startup, _, fetches = bert.build_bert_pretrain(
+        cfg, seq_len=TRAIN_SEQ, lr=TRAIN_LR, max_predictions_per_seq=TRAIN_P)
+    startup.random_seed = main.random_seed = SEED
+    loss = fetches[0]
+    sites = sum(op.type == "dropout" for op in main.global_block().ops)
+    batch = bert.synthetic_batch(np.random.RandomState(SEED + 1),
+                                 TRAIN_BATCH, TRAIN_SEQ, cfg, TRAIN_P)
+
+    def run(mode, steps):
+        exe, scope = fluid.Executor(), fluid.Scope()
+        with kernels.scoped_mode(mode):
+            exe.run(startup, scope=scope)
+            load_params(scope, {COUNTER: np.full([1], WARMED_UP, np.float32)})
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            with _MaskTap() as tap:
+                losses, _, seconds, _ = _train_steps(
+                    exe, main, scope, batch, loss, [], steps)
+            launches = kernels.launches()
+        peak = torch.cuda.max_memory_allocated()
+        del scope
+        return losses, seconds, launches, tap, peak
+
+    t0 = time.perf_counter()
+    on = run("auto", UNFUSED_STEPS)
+    off = run("off", OFF_STEPS)
+    losses, seconds, launches, tap_on, peak = on
+    off_losses, off_seconds, off_launches, tap_off, _ = off
+    rtol, atol = TRAIN_LOSS_TOL
+    checks = {
+        "K8 dropout launches": launches["threefry_dropout"]
+        == sites * UNFUSED_STEPS,
+        "no launch off": not any(off_launches.values()),
+        "masks bit-equal on/off": tap_on.digests[:len(tap_off.digests)]
+        == tap_off.digests and len(tap_off.digests) == sites * OFF_STEPS,
+        "losses within the bars": all(abs(a - b) <= atol + rtol * abs(b)
+                                      for a, b in zip(losses, off_losses)),
+        "loss finite": bool(np.isfinite(losses).all()),
+    }
+    step_ms = float(np.median(seconds[1:])) * 1e3
+    log(f"[train-unfused] BERT-base, unfused attention, hidden and "
+        f"attention-prob dropout {cfg.hidden_dropout_prob}/"
+        f"{cfg.attention_probs_dropout_prob}: {len(main.global_block().ops)} "
+        f"ops, {sites} dropout sites; losses {losses}, kernels off "
+        f"{off_losses}; step p50 {step_ms:.2f} ms (all "
+        f"{[round(x * 1e3, 2) for x in seconds]}), "
+        f"{TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.1f} tokens/s, device "
+        f"memory peak {peak / 2**30:.3f} GiB, kept share {tap_on.kept:.5f}; "
+        f"K8 launches {launches['threefry_dropout']}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    log(f"[train-unfused] checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"phase 5b failed: {checks}")
     return launches
 
 
@@ -2121,8 +2344,7 @@ def _dgc_topk_pairs():
     from paddle_tpu_torch.ops.optimizers import dgc_k
     from paddle_tpu_torch.utils import unique_name
 
-    cfg = T.TransformerConfig.base()
-    cfg.dropout = 0.0
+    cfg = T.TransformerConfig.base()            # dropout 0.1, as phase 8
     with unique_name.guard():
         main = T.build_wmt_train(
             cfg, src_len=DGC_SEQ, tgt_len=DGC_SEQ,
@@ -2184,7 +2406,8 @@ def _wide_deep_run(batches, capacity, state=None, timed=False):
     with unique_name.guard():
         main, startup, feeds, (loss, _pred) = wd.build_programs(
             capacity=capacity)
-    exe, scope = fluid.Executor(seed=SEED), fluid.Scope()   # CUDAPlace(0)
+    startup.random_seed = SEED
+    exe, scope = fluid.Executor(), fluid.Scope()   # CUDAPlace(0)
     exe.run(startup, scope=scope)
     if state is None:
         state = persistables_to_numpy(scope, startup)
@@ -2334,10 +2557,11 @@ def phase_dense_ctr():
     tables = [v.name for v in main.global_block().vars.values()
               if v.persistable and v.name.endswith("_w")
               and v.shape[0] == CTR_VOCAB]
+    startup.random_seed = SEED
     scopes = {}
     for arm in ("on", "off"):       # the same seed gives the same init
         scopes[arm] = fluid.Scope()
-        fluid.Executor(seed=SEED).run(startup, scope=scopes[arm])
+        fluid.Executor().run(startup, scope=scopes[arm])
     if not all(torch.equal(scopes["on"].find_var(n), scopes["off"].find_var(n))
                for n in tables):
         raise AssertionError("the two startups differ")
@@ -2346,7 +2570,7 @@ def phase_dense_ctr():
     old = flags.pallas_sparse_update
     flags.pallas_sparse_update = True
     try:
-        exe = fluid.Executor(seed=SEED)
+        exe = fluid.Executor()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
@@ -2511,6 +2735,128 @@ def _bad_id_check():
 
 
 # -- phase 8 ----------------------------------------------------------------
+# -- phase 2e ---------------------------------------------------------------
+def _sass_counts(function):
+    """Instructions by opcode in ``function`` of K8's built library
+    (``cuobjdump -sass``), or None where the toolkit has no cuobjdump."""
+    from paddle_tpu_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(build.library_path(K8_SOURCE))],
+                         capture_output=True, text=True, timeout=120).stdout
+    counts, inside = {}, False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = function in line
+            continue
+        if inside and "/*" in line and ";" in line:
+            op = line.split("*/", 1)[1].strip().split()[0]
+            if op.startswith("@"):
+                op = line.split("*/", 1)[1].strip().split()[1]
+            op = op.split(".")[0].rstrip(";")
+            counts[op] = counts.get(op, 0) + 1
+    return counts
+
+
+def k8_bound(n, bytes_per_draw):
+    """(bound_ms, bound_by) of ``n`` threefry draws: the larger of the
+    bytes over the HBM rate and K8_OPS_PER_DRAW integer operations a draw
+    over the card's INT32 rate."""
+    t_bytes = n * bytes_per_draw / PEAK_BYTES_S * 1e3
+    t_ops = n * K8_OPS_PER_DRAW / PEAK_INT32_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_random():
+    """K8 against its plain version on the card, bit for bit, and its
+    random bits against the host numpy copy of jax.random's bytes; timed
+    beside the plain version, the bound and torch's own dropout."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core import prng
+    from paddle_tpu_torch.kernels import random as KR
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    key = prng.fold_in(prng.prng_key(SEED), 11)
+    kernels.reset_launches()
+    for n in K8_BITS_SHAPES:
+        got = KR.random_bits(key, n, dev)
+        plain = KR.random_bits_plain(key, n, dev)
+        host = prng.random_bits(key, (n,))
+        torch.cuda.synchronize()
+        if not torch.equal(got, plain):
+            raise AssertionError(f"K8 random_bits n={n}: kernel and plain "
+                                 "version differ")
+        if not np.array_equal(got.cpu().numpy().view(np.uint32), host):
+            raise AssertionError(f"K8 random_bits n={n}: not the host copy "
+                                 "of jax.random's bytes")
+        log(f"[random] random_bits n={n}: bit-equal to the plain version and "
+            "to the host numpy copy of jax.random.bits")
+    results = {}
+    for shape, p, upscale, timed in K8_DROPOUT_CASES:
+        x = torch.randn(shape, generator=gen, device=dev)
+        out, mask = KR.dropout_fwd(x, key, p, upscale)
+        pout, pmask = KR.dropout_fwd_plain(x, key, p, upscale)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, pout) and torch.equal(mask, pmask)):
+            raise AssertionError(f"K8 dropout {shape} p={p} upscale={upscale}"
+                                 ": kernel and plain version differ")
+        kept = float(mask.mean())
+        log(f"[random] dropout {list(shape)} p={p} "
+            f"{'upscale_in_train' if upscale else 'downgrade_in_infer'}: Out "
+            f"and Mask bit-equal to the plain version, {kept:.4f} kept")
+        if not timed:
+            continue
+        n = x.numel()
+        ms = device_ms(lambda: KR.dropout_fwd(x, key, p, upscale))
+        plain_ms = device_ms(lambda: KR.dropout_fwd_plain(x, key, p, upscale),
+                             5)
+        lib_ms = device_ms(lambda: F.dropout(x, p, training=True))
+        # x read once, Out and Mask written once
+        b_ms, b_by = k8_bound(n, 12)
+        results.setdefault("threefry_dropout", dict(
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms, shape=list(shape)))
+        log(f"[random] K8 dropout {list(shape)}: device ms {ms:.4f} plain "
+            f"{plain_ms:.4f} library {lib_ms:.4f} "
+            "(torch.nn.functional.dropout, Philox: another stream) bound "
+            f"{b_ms:.4f} ({b_by}; bytes {n * 12 / PEAK_BYTES_S * 1e3:.4f}, "
+            f"integer work {n * K8_OPS_PER_DRAW / PEAK_INT32_OPS * 1e3:.4f})")
+    n = K8_TIMED_BITS
+    ms = device_ms(lambda: KR.random_bits(key, n, dev))
+    plain_ms = device_ms(lambda: KR.random_bits_plain(key, n, dev), 5)
+    lib_ms = device_ms(lambda: torch.randint(
+        -2 ** 31, 2 ** 31, (n,), dtype=torch.int32, device=dev))
+    b_ms, b_by = k8_bound(n, 4)
+    # no PyTorch call computes threefry bits: library_ms is null, and
+    # torch.randint's Philox bits are printed beside for scale
+    results["threefry_random_bits"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, philox_randint_ms=lib_ms, n=n)
+    log(f"[random] K8 random_bits n={n} (BERT-base's word_embedding draw): "
+        f"device ms {ms:.4f} plain {plain_ms:.4f} bound {b_ms:.4f} ({b_by}); "
+        f"torch.randint int32 (Philox, another function) {lib_ms:.4f}")
+    # the executor's host cost of one key (a scalar fold_in in Python
+    # ints), about 50 a BERT-base step
+    t0 = time.perf_counter()
+    for i in range(20000):
+        prng.fold_in(key, i)
+    key_us = (time.perf_counter() - t0) / 20000 * 1e6
+    results["threefry_dropout"]["key_host_us"] = key_us
+    log(f"[random] one executor key (fold_in on the host): {key_us:.3f} us")
+    sass = _sass_counts("random_bits_kernel")
+    if sass is not None:
+        log(f"[random] random_bits_kernel SASS, instructions by opcode (a "
+            f"vector path of 4 draws and a scalar path of 1 a loop trip): "
+            f"{dict(sorted(sass.items(), key=lambda kv: -kv[1]))}")
+    return results
+
+
 def _digest(tensors):
     """One hash of the bytes of ``tensors``, in order (on the host)."""
     h = hashlib.blake2b(digest_size=16)
@@ -2570,17 +2916,19 @@ def dgc_rank_main(out_dir):
     mesh = penv.make_mesh()
     rank = mesh.rank
     t0 = time.perf_counter()
-    cfg = T.TransformerConfig.base()
-    cfg.dropout = 0.0
+    cfg = T.TransformerConfig.base()            # dropout 0.1
     main, startup, _, (loss,) = T.build_wmt_train(
         cfg, src_len=DGC_SEQ, tgt_len=DGC_SEQ,
         optimizer=fluid.optimizer.DGCMomentumOptimizer(**DGC_OPT))
+    startup.random_seed = main.random_seed = SEED
+    site = [op.output("Mask")[0] for op in main.global_block().ops
+            if op.type == "dropout"][0]
     params = [p.name for p in main.all_parameters()]
     uv = dgc_state_names(main)
     sizes = [int(np.prod(p.shape)) for p in main.all_parameters()]
     k7_per_step = sum(1 for n in sizes if n > TOPK_BLOCK
                       and n > 2 * dgc_k(n, DGC_OPT["sparsity"]))
-    exe = fluid.Executor(seed=SEED)               # CUDAPlace(0), shared
+    exe = fluid.Executor()                        # CUDAPlace(0), shared
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
     snapshot = persistables_to_numpy(scope, main)
@@ -2593,17 +2941,21 @@ def dgc_rank_main(out_dir):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    on = _dgc_steps(exe, prog, scope, feed, loss, params, uv, DGC_STEPS)
+    with _MaskTap() as tap_on:
+        on = _dgc_steps(exe, prog, scope, feed, loss, params, uv, DGC_STEPS)
     launches = kernels.launches()
     peak = torch.cuda.max_memory_allocated()
-    off_scope = fluid.Scope()
-    exe.run(startup, scope=off_scope)
+    # a fresh executor repeats the first one's run counter, so its keys
+    off_exe, off_scope = fluid.Executor(), fluid.Scope()
+    off_exe.run(startup, scope=off_scope)
     load_params(off_scope, snapshot)
     with kernels.scoped_mode("off"):
         kernels.reset_launches()
-        off = _dgc_steps(exe, prog, off_scope, feed, loss, params, uv,
-                         DGC_STEPS)
+        with _MaskTap() as tap_off:
+            off = _dgc_steps(off_exe, prog, off_scope, feed, loss, params,
+                             uv, DGC_STEPS)
         off_launches = sum(kernels.launches().values())
+    nodrop_seconds = _dgc_nodropout_seconds(fluid, T, mesh, feed)
     diffs = {}
     if on["digests"][-1] != off["digests"][-1]:
         for n in params:
@@ -2615,9 +2967,35 @@ def dgc_rank_main(out_dir):
         n_params=len(params), n_values=sum(sizes), dense_bytes=sum(sizes) * 4,
         k7_per_step=k7_per_step, init=init, build_s=build_s, peak=peak,
         launches=launches, off_launches=off_launches, on=on, off=off,
-        diffs=diffs)
+        diffs=diffs, nodrop_seconds=nodrop_seconds, site=site,
+        masks_on=tap_on.digests,
+        masks_off=tap_off.digests, kept=tap_on.kept)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
+
+
+def _dgc_nodropout_seconds(fluid, T, mesh, feed):
+    """Host seconds of DGC_NODROP_STEPS compiled steps of phase 8's model
+    without dropout (from its own startup), for the cost of dropout on
+    the same host clock."""
+    import torch
+
+    cfg = T.TransformerConfig.base()
+    cfg.dropout = 0.0
+    main, startup, _, (loss,) = T.build_wmt_train(
+        cfg, src_len=DGC_SEQ, tgt_len=DGC_SEQ,
+        optimizer=fluid.optimizer.DGCMomentumOptimizer(**DGC_OPT))
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    prog = fluid.CompiledProgram(main).with_parallel(mesh=mesh,
+                                                     loss_name=loss.name)
+    seconds = []
+    for _ in range(DGC_NODROP_STEPS):
+        t0 = time.perf_counter()
+        exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    return seconds
 
 
 def phase_dgc():
@@ -2669,6 +3047,13 @@ def phase_dgc():
             r["off"]["uv_digest"] == r["on"]["uv_digest"] for r in ranks),
         "ranks' U/V differ": ranks[0]["on"]["uv_digest"]
         != ranks[1]["on"]["uv_digest"],
+        "kernels off: dropout masks": all(
+            r["masks_off"] == r["masks_on"] for r in ranks),
+        "K8 dropout launches": all(
+            r["launches"]["threefry_dropout"] == len(r["masks_on"]) > 0
+            for r in ranks),
+        f"ranks' masks differ at {r0['site']}": ranks[0]["masks_on"][0]
+        != ranks[1]["masks_on"][0],
         "loss finite and falling": bool(np.isfinite(losses).all())
         and losses[-1] < losses[0],
     }
@@ -2677,12 +3062,21 @@ def phase_dgc():
         f"{r0['backend']} on one card, global batch {DGC_BATCH} x seq "
         f"{DGC_SEQ}; build + startup {r0['build_s']:.2f}s")
     log(f"[dgc] losses {losses}; kernels off {r0['off']['losses']}")
+    log(f"[dgc] dropout {0.1}: {len(r0['masks_on'])} masks a rank over "
+        f"{DGC_STEPS} steps, kept share {r0['kept']:.5f} / "
+        f"{ranks[1]['kept']:.5f}; K8 dropout launches "
+        f"{[r['launches']['threefry_dropout'] for r in ranks]}")
     log(f"[dgc] K7 launches per step, rank 0 {r0['on']['k7']} (predicted "
         f"{want}: {r0['k7_per_step']} parameters over one block on the "
         f"sparse steps {sparse_steps}), rank 1 {ranks[1]['on']['k7']}")
     step_ms = float(np.median(r0["on"]["seconds"][1:])) * 1e3
     sparse_ms = float(np.median([r0["on"]["seconds"][i]
                                  for i in sparse_steps[1:]])) * 1e3
+    nodrop = r0["nodrop_seconds"]
+    log(f"[dgc] without dropout, same call: sparse steps p50 "
+        f"{float(np.median(nodrop[2:])) * 1e3:.2f} ms (steps "
+        f"{[round(x * 1e3, 2) for x in nodrop]}) against {sparse_ms:.2f} "
+        "with it")
     tokens = DGC_BATCH * DGC_SEQ
     log(f"[dgc] step p50 {step_ms:.2f} ms (steps {[round(x * 1e3, 2) for x in r0['on']['seconds']]}; "
         f"kernels off {[round(x * 1e3, 2) for x in r0['off']['seconds']]}), "
@@ -2716,11 +3110,13 @@ def main():
     parity.update(phase_flash())
     parity.update(phase_ctr_kernels())
     parity.update(phase_topk())
+    parity.update(phase_random())
     engine_launches, greedy_tps, greedy_step = phase_engine()
     modes_launches = phase_decode_modes(greedy_tps)
     beam_launches = phase_beam_grammar(greedy_tps, greedy_step)
     dense_launches = phase_dense()
     train_launches = phase_train()
+    unfused_launches = phase_bert_unfused()
     wide_deep_launches = phase_wide_deep()
     ctr_launches = phase_dense_ctr()
     dgc_launches = phase_dgc()
@@ -2736,6 +3132,15 @@ def main():
                      "blocked_topk_abs": dgc_launches["blocked_topk_abs"]}
     path_launches.update({n: train_launches[n] for n in KERNELS
                           if n.startswith("flash_attention")})
+    # K8: phase 5's startup (random_bits) and dropout sites, phase 5b's
+    # and rank 0's of phase 8
+    path_launches.update({n: train_launches[n] + unfused_launches[n]
+                          + dgc_launches[n] for n in KERNELS
+                          if n.startswith("threefry")})
+    log(f"[done] K8 launches: phase 5 "
+        f"{ {n: train_launches[n] for n in path_launches if n.startswith('threefry')} }, "
+        f"phase 5b {unfused_launches['threefry_dropout']}, phase 8 rank 0 "
+        f"{dgc_launches['threefry_dropout']}")
     rows = []
     for name, info in KERNELS.items():
         r = parity[name]

@@ -21,7 +21,10 @@ process group (``parallel.env.make_mesh``), one process per rank:
 * only scalar float fetches are allowed (a batch-shaped fetch would mix
   the ranks' rows); they come back as cross-rank means;
 * the step counter is read once per run (none for a statically sparse
-  schedule) and carried to the lowerings in the DGC context.
+  schedule) and carried to the lowerings in the DGC context;
+* a run takes one key from the executor's counter and folds the rank into
+  it (``paddle_tpu/compiler.py``'s ``fold_in(rng_key, axis_index)``), so
+  the ranks draw different dropout masks.
 
 A world of one runs the dense fused form through the plain executor, as
 the JAX package's one-device mesh does. What is not ported raises
@@ -274,7 +277,8 @@ class CompiledProgram:
         with penv.dgc_axis_context(axis if sparse else None, step):
             fetches = exe.run(program, feed=self._local_feed(feed, axis),
                               fetch_list=fetch_names, scope=scope,
-                              return_numpy=False)
+                              return_numpy=False,
+                              _rank=axis.rank if sparse else None)
         if sparse:
             fetches = [penv.pmean(f, axis) if f.is_floating_point() else f
                        for f in fetches]

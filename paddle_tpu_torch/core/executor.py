@@ -20,6 +20,16 @@ slot feeds) stays on the host.
 A ``CompiledProgram`` (``compiler.py``) runs through its own ``_run``,
 which calls back into ``run`` with this rank's rows of the batch.
 
+The random-key stream is the JAX executor's (``paddle_tpu/core/
+executor.py`` ``_next_rng_key``, ``_run_op_step``): every run, startup and
+eval runs too, increments ``_rng_counter``; the run key is
+``fold_in(PRNGKey(program.random_seed or 0), counter)`` (a data-parallel
+run folds in its rank next, as the JAX package folds ``axis_index``);
+each stateful op gets ``fold_in(run_key, rng_id)`` as
+``ins["__rng_key__"]``, ``rng_id`` being the op's ``__rng_id__`` (which
+its grad op carries too) or else its index in the block. Keys are pairs of
+Python ints (``core/prng.py``): no tensor, no device sync.
+
 Persistables written by the program — the optimizer's ``ParamOut`` /
 ``Moment*Out`` and the step counter's ``increment``, whose output names
 equal their input names — go back to the scope at the end of ``run``.
@@ -38,6 +48,7 @@ writes into ``X``'s tensor, and the assign hands back that same tensor.
 import numpy as np
 import torch
 
+from paddle_tpu_torch.core import prng
 from paddle_tpu_torch.core.backward import resolve_op_def
 from paddle_tpu_torch.core.ir import default_main_program
 from paddle_tpu_torch.core.places import default_place
@@ -53,16 +64,18 @@ ELIDED_OPS = {"feed", "fetch"}
 
 class _OpStep:
     """One op's pre-resolved execution plan: op-def lookup, attrs (with
-    the in-place mark applied) and the non-empty input/output slots."""
+    the in-place mark applied), the non-empty input/output slots and the id
+    its random key is folded from."""
 
-    __slots__ = ("op", "op_def", "attrs", "inputs", "outputs")
+    __slots__ = ("op", "op_def", "attrs", "inputs", "outputs", "rng_id")
 
-    def __init__(self, op, op_def, attrs, inputs, outputs):
+    def __init__(self, op, op_def, attrs, inputs, outputs, rng_id):
         self.op = op
         self.op_def = op_def
         self.attrs = attrs
         self.inputs = inputs
         self.outputs = outputs
+        self.rng_id = rng_id
 
 
 def _inplace_scatter(ops, i, block):
@@ -93,9 +106,11 @@ def _inplace_scatter(ops, i, block):
 def block_plan(block):
     """The per-op plan of ``block`` (uncached; ``Executor`` caches it per
     program version)."""
-    ops = [op for op in block.ops if op.type not in ELIDED_OPS]
+    indexed = [(i, op) for i, op in enumerate(block.ops)
+               if op.type not in ELIDED_OPS]
+    ops = [op for _, op in indexed]
     plan = []
-    for i, op in enumerate(ops):
+    for i, (op_index, op) in enumerate(indexed):
         attrs = op.attrs
         if op.type == "scatter" and _inplace_scatter(ops, i, block):
             attrs = dict(attrs, _inplace=True)
@@ -107,6 +122,7 @@ def block_plan(block):
             op, resolve_op_def(op.type), attrs,
             [(slot, names) for slot, names in op.inputs.items() if names],
             list(op.outputs.items()),
+            op.attrs.get("__rng_id__", op_index),
         ))
     return plan
 
@@ -116,14 +132,13 @@ class Executor:
     python/paddle/fluid/executor.py:432).
 
     ``place`` defaults to ``CUDAPlace(0)`` and raises when there is no
-    card; pass ``CPUPlace()`` to run on the CPU. Random ops draw from one
-    ``torch.Generator`` on the executor's device, seeded with ``seed``."""
+    card; pass ``CPUPlace()`` to run on the CPU. Random ops draw from the
+    run's key: ``program.random_seed`` and this executor's run counter."""
 
-    def __init__(self, place=None, seed=0):
+    def __init__(self, place=None):
         self.place = default_place(place)
         self.device = self.place.device
-        self._seed = int(seed)
-        self._generator = None
+        self._rng_counter = 0
         self._plans = {}
 
     def _plan(self, program):
@@ -141,14 +156,11 @@ class Executor:
             self._plans[key] = plan
         return plan
 
-    def _generator_for(self, attrs):
-        seed = attrs.get("seed", 0)
-        if seed:
-            return torch.Generator(device=self.device).manual_seed(int(seed))
-        if self._generator is None:
-            self._generator = torch.Generator(device=self.device)
-            self._generator.manual_seed(self._seed)
-        return self._generator
+    def _next_rng_key(self, program):
+        """The next run's key (the JAX executor's ``_next_rng_key``)."""
+        self._rng_counter += 1
+        return prng.fold_in(prng.prng_key(program.random_seed or 0),
+                            self._rng_counter)
 
     def _to_device(self, value, var):
         if isinstance(value, torch.Tensor):
@@ -173,7 +185,7 @@ class Executor:
             owner.set(name, v)
         return v
 
-    def _run_steps(self, steps, env, scope, block):
+    def _run_steps(self, steps, env, scope, block, run_key):
         for step in steps:
             ins = {}
             for slot, names in step.inputs:
@@ -185,7 +197,7 @@ class Executor:
                     vals.append(v)
                 ins[slot] = vals
             if step.op_def.stateful:
-                ins["__generator__"] = [self._generator_for(step.attrs)]
+                ins["__rng_key__"] = [prng.fold_in(run_key, step.rng_id)]
             if step.op_def.creates:
                 ins["__device__"] = [self.device]
             try:
@@ -207,12 +219,17 @@ class Executor:
                         env[name] = val
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
-            return_numpy=True):
+            return_numpy=True, _rank=None):
+        """``_rank`` (``CompiledProgram``'s data-parallel run) is folded
+        into the run key before the per-op fold."""
         from paddle_tpu_torch.compiler import CompiledProgram
 
         if isinstance(program, CompiledProgram):
             return program._run(self, feed, fetch_list, scope, return_numpy)
         program = program if program is not None else default_main_program()
+        run_key = self._next_rng_key(program)
+        if _rank is not None:
+            run_key = prng.fold_in(run_key, _rank)
         apply_deferred_sparse_rewrite(program)
         apply_deferred_sharded_embedding_rewrite(program)
         feed = feed or {}
@@ -229,7 +246,7 @@ class Executor:
             if name in read or name in fetch_names
         }
         with torch.no_grad():
-            self._run_steps(steps, env, scope, block)
+            self._run_steps(steps, env, scope, block, run_key)
         for name in persistable:
             if name in env:
                 (scope._find_owner(name) or scope).set(name, env[name])

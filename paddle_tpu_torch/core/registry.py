@@ -18,7 +18,8 @@ Inputs/outputs are dicts: slot name -> list of tensors, mirroring the
 reference's named variable lists on OpDesc. ``nondiff_inputs`` names the
 input slots that never receive gradients (indices, labels, masks). Two
 flags ask the executor for run-time context: ``stateful`` ops receive
-the run's ``torch.Generator`` as ``ins["__generator__"]``, and
+their random key (``core/prng.py``: the run key folded with the op's
+``__rng_id__``) as ``ins["__rng_key__"]``, and
 ``creates`` ops (which have no tensor input to take a device from)
 receive the target ``torch.device`` as ``ins["__device__"]``. A third,
 ``reports_late``, marks ops whose kernel finds a bad input on the card

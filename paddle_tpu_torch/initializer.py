@@ -2,8 +2,10 @@
 
 Same architecture as the reference (reference: python/paddle/fluid/
 initializer.py — initializers append fill_constant/uniform_random/... ops
-to the startup program). The port carries the initializers its builders
-use: constant, (Xavier-)uniform and truncated normal.
+to the startup program). The port carries constant, uniform, normal,
+truncated normal, Xavier and MSRA (both forms); their random ops draw
+``jax.random``'s values from the executor's keys, so a seed gives the JAX
+package's startup weights.
 """
 
 import math
@@ -46,6 +48,24 @@ class UniformInitializer(Initializer):
         )
 
 
+class NormalInitializer(Initializer):
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        block.append_op(
+            "gaussian_random",
+            outputs={"Out": [var.name]},
+            attrs={
+                "shape": list(var.shape),
+                "dtype": var.dtype,
+                "mean": self.loc,
+                "std": self.scale,
+                "seed": self.seed,
+            },
+        )
+
+
 class TruncatedNormalInitializer(Initializer):
     """Normal draws truncated to two standard deviations, as the
     ``truncated_gaussian_random`` op (``ops/tensor.py``) makes them."""
@@ -83,24 +103,46 @@ def _fan_in_out(var):
 
 
 class XavierInitializer(Initializer):
-    """reference: python/paddle/fluid/initializer.py XavierInitializer
-    (the uniform form; the normal form needs ``gaussian_random``, which
-    the port does not lower yet)."""
+    """reference: python/paddle/fluid/initializer.py XavierInitializer."""
 
     def __init__(self, uniform=True, fan_in=None, fan_out=None, seed=0):
-        enforce(uniform, "XavierInitializer(uniform=False) is not ported yet")
-        self.fan_in, self.fan_out, self.seed = fan_in, fan_out, seed
+        self.uniform, self.fan_in, self.fan_out, self.seed = (
+            uniform, fan_in, fan_out, seed)
 
     def __call__(self, var, block):
         fin, fout = _fan_in_out(var)
         fin = self.fan_in if self.fan_in is not None else fin
         fout = self.fan_out if self.fan_out is not None else fout
-        limit = math.sqrt(6.0 / (fin + fout))
-        UniformInitializer(-limit, limit, self.seed)(var, block)
+        if self.uniform:
+            limit = math.sqrt(6.0 / (fin + fout))
+            UniformInitializer(-limit, limit, self.seed)(var, block)
+        else:
+            std = math.sqrt(2.0 / (fin + fout))
+            NormalInitializer(0.0, std, self.seed)(var, block)
+
+
+class MSRAInitializer(Initializer):
+    """Kaiming He init (reference: python/paddle/fluid/initializer.py
+    MSRAInitializer)."""
+
+    def __init__(self, uniform=True, fan_in=None, seed=0):
+        self.uniform, self.fan_in, self.seed = uniform, fan_in, seed
+
+    def __call__(self, var, block):
+        fin, _ = _fan_in_out(var)
+        fin = self.fan_in if self.fan_in is not None else fin
+        if self.uniform:
+            limit = math.sqrt(6.0 / fin)
+            UniformInitializer(-limit, limit, self.seed)(var, block)
+        else:
+            std = math.sqrt(2.0 / fin)
+            NormalInitializer(0.0, std, self.seed)(var, block)
 
 
 # public aliases matching the reference API surface
 Constant = ConstantInitializer
 Uniform = UniformInitializer
+Normal = NormalInitializer
 TruncatedNormal = TruncatedNormalInitializer
 Xavier = XavierInitializer
+MSRA = MSRAInitializer

@@ -6,7 +6,8 @@
 ``flash_attention`` the training attention's forward and backward
 wrappers, ``embedding`` the embedding engine's admission scatter and
 ``sparse_update`` the sparse SGD row update, ``topk`` DGC's blocked
-top-k of |x|, each with its plain PyTorch version. Importing this package builds nothing.
+top-k of |x|, ``random`` the threefry bits and fused dropout forward
+behind the random ops, each with its plain PyTorch version. Importing this package builds nothing.
 """
 
 from paddle_tpu_torch.kernels import registry  # noqa: F401

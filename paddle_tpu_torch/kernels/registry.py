@@ -33,7 +33,8 @@ MODE_ENV = "PADDLE_TPU_TORCH_KERNELS"
 _MODES = ("auto", "off")
 
 #: one entry per wrapper: the CUDA source it launches (repo-relative)
-#: and the JAX package's Pallas kernel it replaces
+#: and the JAX package's Pallas kernel it replaces (K8 replaces the code
+#: XLA generates for ``jax.random``, which has no Pallas kernel)
 KernelInfo = namedtuple("KernelInfo", ["source", "replaces"])
 
 KERNELS = {
@@ -61,6 +62,12 @@ KERNELS = {
     "blocked_topk_abs": KernelInfo(
         "paddle_tpu_torch/kernels/csrc/topk.cu",
         "paddle_tpu/ops/pallas/topk.py:66"),
+    "threefry_random_bits": KernelInfo(
+        "paddle_tpu_torch/kernels/csrc/threefry.cu",
+        "XLA's threefry2x32 under jax.random (no Pallas kernel)"),
+    "threefry_dropout": KernelInfo(
+        "paddle_tpu_torch/kernels/csrc/threefry.cu",
+        "XLA's threefry2x32 under jax.random (no Pallas kernel)"),
 }
 
 _lock = threading.Lock()

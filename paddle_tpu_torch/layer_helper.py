@@ -47,7 +47,7 @@ def infer_op_shapes(op_type, block, inputs, attrs):
                                     device=_META))
         ins[slot] = vals
     if op_def.stateful:
-        ins["__generator__"] = [None]
+        ins["__rng_key__"] = [(0, 0)]
     if op_def.creates:
         ins["__device__"] = [_META]
     clean_attrs = {k: v for k, v in attrs.items() if k != "op_callstack"}

@@ -45,6 +45,7 @@ __all__ = [
     "elementwise_mul",
     "unsqueeze",
     "squeeze",
+    "dropout",
 ]
 
 
@@ -555,5 +556,32 @@ def squeeze(input, axes=None, name=None):
         {"X": [input.name]},
         {"Out": [out.name], "XShape": [xshape.name]},
         {"axes": axes or []},
+    )
+    return out
+
+
+def dropout(
+    x,
+    dropout_prob,
+    is_test=False,
+    seed=0,
+    name=None,
+    dropout_implementation="downgrade_in_infer",
+):
+    """reference: python/paddle/fluid/layers/nn.py dropout. ``Mask`` is a
+    saved output (``x.dtype``, no gradient) that the grad op reuses."""
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mask = helper.create_variable_for_type_inference(x.dtype, stop_gradient=True)
+    helper.append_op(
+        "dropout",
+        {"X": [x.name]},
+        {"Out": [out.name], "Mask": [mask.name]},
+        {
+            "dropout_prob": dropout_prob,
+            "is_test": is_test,
+            "seed": seed,
+            "dropout_implementation": dropout_implementation,
+        },
     )
     return out

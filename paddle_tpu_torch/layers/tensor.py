@@ -25,6 +25,8 @@ __all__ = [
     "concat",
     "not_equal",
     "less_than",
+    "uniform_random",
+    "gaussian_random",
 ]
 
 
@@ -236,3 +238,27 @@ def _make_compare(op_type):
 
 not_equal = _make_compare("not_equal")
 less_than = _make_compare("less_than")
+
+
+def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, seed=0, name=None):
+    helper = LayerHelper("uniform_random", name=name)
+    out = helper.create_variable_for_type_inference(convert_dtype(dtype))
+    helper.append_op(
+        "uniform_random",
+        {},
+        {"Out": [out.name]},
+        {"shape": list(shape), "dtype": convert_dtype(dtype), "min": min, "max": max, "seed": seed},
+    )
+    return out
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32", name=None):
+    helper = LayerHelper("gaussian_random", name=name)
+    out = helper.create_variable_for_type_inference(convert_dtype(dtype))
+    helper.append_op(
+        "gaussian_random",
+        {},
+        {"Out": [out.name]},
+        {"shape": list(shape), "dtype": convert_dtype(dtype), "mean": mean, "std": std, "seed": seed},
+    )
+    return out

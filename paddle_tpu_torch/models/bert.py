@@ -5,9 +5,13 @@ Transformer encoder built from framework layers. With
 ``use_flash_attention=True`` each layer's attention is one
 ``scaled_dot_product_attention`` op, which the port runs on its
 hand-written flash-attention kernels (``kernels/flash_attention.py``), and
-its grad op on their backward kernels. Dropout is not ported yet (it
-draws from ``jax.random`` in the JAX package; ROADMAP M4), so the builder
-refuses a configuration with a non-zero dropout probability.
+its grad op on their backward kernels. Hidden dropout (after the
+embeddings and after each attention and FFN block) and, on the unfused
+path, attention-prob dropout are ``dropout`` ops (``upscale_in_train``)
+drawing ``jax.random``'s masks from the executor's keys, on the card
+through K8 (``kernels/random.py``). The flash path refuses
+attention-prob dropout, as the JAX builder does: the fused kernel applies
+none.
 """
 
 import math
@@ -105,6 +109,12 @@ def multi_head_attention(x, attn_bias, cfg, name):
         )  # [B, n, S, S]
         scores = fluid.layers.elementwise_add(scores, attn_bias)
         probs = fluid.layers.softmax(scores)
+        if cfg.attention_probs_dropout_prob:
+            probs = fluid.layers.dropout(
+                probs,
+                cfg.attention_probs_dropout_prob,
+                dropout_implementation="upscale_in_train",
+            )
         ctx = fluid.layers.matmul(probs, v)  # [B, n, S, d]
     ctx = fluid.layers.transpose(ctx, [0, 2, 1, 3])
     ctx = fluid.layers.reshape(ctx, [0, 0, B_H])
@@ -113,11 +123,19 @@ def multi_head_attention(x, attn_bias, cfg, name):
 
 def encoder_layer(x, attn_bias, cfg, name):
     attn = multi_head_attention(x, attn_bias, cfg, name + ".attn")
+    if cfg.hidden_dropout_prob:
+        attn = fluid.layers.dropout(
+            attn, cfg.hidden_dropout_prob, dropout_implementation="upscale_in_train"
+        )
     x = fluid.layers.layer_norm(
         fluid.layers.elementwise_add(x, attn), begin_norm_axis=2, name=name + ".ln1"
     )
     ffn = _dense(x, cfg.intermediate_size, cfg, act="gelu", name=name + ".ffn1")
     ffn = _dense(ffn, cfg.hidden_size, cfg, name=name + ".ffn2")
+    if cfg.hidden_dropout_prob:
+        ffn = fluid.layers.dropout(
+            ffn, cfg.hidden_dropout_prob, dropout_implementation="upscale_in_train"
+        )
     return fluid.layers.layer_norm(
         fluid.layers.elementwise_add(x, ffn), begin_norm_axis=2, name=name + ".ln2"
     )
@@ -145,6 +163,10 @@ def bert_encoder(input_ids, token_type_ids, input_mask, cfg, seq_len):
         fluid.layers.elementwise_add(word_emb, pos_emb), type_emb
     )
     emb = fluid.layers.layer_norm(emb, begin_norm_axis=2, name="emb_ln")
+    if cfg.hidden_dropout_prob:
+        emb = fluid.layers.dropout(
+            emb, cfg.hidden_dropout_prob, dropout_implementation="upscale_in_train"
+        )
     # additive attention bias [B, 1, 1, S]: 0 keep, -10000 masked
     mask_f = fluid.layers.cast(input_mask, "float32")
     neg = fluid.layers.scale(mask_f, scale=10000.0, bias=-10000.0)
@@ -190,18 +212,14 @@ def build_bert_pretrain(cfg=None, seq_len=128, lr=1e-4, use_amp=False,
     masked_positions [B, P] + mlm_labels [B, P], -1 padded).
     Returns (main, startup, feeds, fetches)."""
     cfg = cfg or BertConfig.base()
-    if cfg.hidden_dropout_prob or cfg.attention_probs_dropout_prob:
-        if cfg.use_flash_attention and cfg.attention_probs_dropout_prob:
-            raise EnforceError(
-                "use_flash_attention=True cannot honor "
-                f"attention_probs_dropout_prob="
-                f"{cfg.attention_probs_dropout_prob}: the fused kernel "
-                "applies no attention-prob dropout. Set it to 0 (the "
-                "common large-model recipe) or disable the flash path."
-            )
-        raise NotImplementedError(
-            "dropout is not ported yet (ROADMAP M4): set hidden_dropout_prob "
-            "and attention_probs_dropout_prob to 0")
+    if cfg.use_flash_attention and cfg.attention_probs_dropout_prob:
+        raise EnforceError(
+            "use_flash_attention=True cannot honor "
+            f"attention_probs_dropout_prob="
+            f"{cfg.attention_probs_dropout_prob}: the fused kernel "
+            "applies no attention-prob dropout. Set it to 0 (the "
+            "common large-model recipe) or disable the flash path."
+        )
     if use_amp:
         raise NotImplementedError("bf16 AMP is not ported yet (ROADMAP M1b)")
     main = fluid.Program()

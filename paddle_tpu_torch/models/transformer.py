@@ -6,9 +6,12 @@ program (op types, attributes and var names).
 Teacher-forced training with label smoothing, a tied output projection
 and, by default, Adam over the Noam learning-rate schedule; any optimizer
 may be passed instead (``DGCMomentumOptimizer`` for data-parallel training
-with Deep Gradient Compression, through ``CompiledProgram``). Dropout is
-not ported yet (it draws from ``jax.random`` in the JAX package; ROADMAP
-M4), so the builder refuses a configuration with ``dropout > 0``. The
+with Deep Gradient Compression, through ``CompiledProgram``). With
+``dropout > 0`` (0.1 in ``base()``, Vaswani et al.'s recipe) the
+embeddings, the attention probabilities and each sublayer's output go
+through ``dropout`` ops (``upscale_in_train``) whose masks are
+``jax.random``'s, drawn from the executor's keys; a data-parallel run
+folds the rank into its key, so the ranks' masks differ. The
 functional beam decoder (``make_beam_decoder``, ``BucketedBeamTranslator``)
 waits for a later slice (M4).
 """
@@ -123,6 +126,10 @@ def _mha(q_in, kv_in, bias, cfg, name):
     scores = fluid.layers.matmul(q, k, transpose_y=True, alpha=1.0 / math.sqrt(d))
     scores = fluid.layers.elementwise_add(scores, bias)
     probs = fluid.layers.softmax(scores)
+    if cfg.dropout:
+        probs = fluid.layers.dropout(
+            probs, cfg.dropout, dropout_implementation="upscale_in_train"
+        )
     ctx = fluid.layers.matmul(probs, v)
     ctx = fluid.layers.transpose(ctx, [0, 2, 1, 3])
     ctx = fluid.layers.reshape(ctx, [0, 0, H])
@@ -130,6 +137,10 @@ def _mha(q_in, kv_in, bias, cfg, name):
 
 
 def _res_drop(x, y, cfg):
+    if cfg.dropout:
+        y = fluid.layers.dropout(
+            y, cfg.dropout, dropout_implementation="upscale_in_train"
+        )
     return fluid.layers.elementwise_add(x, y)
 
 
@@ -144,7 +155,12 @@ def _embed(ids, cfg, pos_table, name_prefix=""):
         param_attr=ParamAttr(name="word_emb", initializer=_init(cfg)),
     )
     emb = fluid.layers.scale(emb, scale=math.sqrt(cfg.d_model))
-    return fluid.layers.elementwise_add(emb, pos_table)
+    emb = fluid.layers.elementwise_add(emb, pos_table)
+    if cfg.dropout:
+        emb = fluid.layers.dropout(
+            emb, cfg.dropout, dropout_implementation="upscale_in_train"
+        )
+    return emb
 
 
 def _const(arr, name, dtype):
@@ -169,9 +185,6 @@ def build_wmt_train(cfg=None, src_len=64, tgt_len=64, lr=2.0, warmup=4000,
     labels [B,T] (gold, EOS-suffixed); pad_id positions are masked out.
     Returns (main, startup, feeds, fetches=[loss])."""
     cfg = cfg or TransformerConfig.base()
-    if cfg.dropout:
-        raise NotImplementedError(
-            "dropout is not ported yet (ROADMAP M4); build with dropout=0.0")
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         src_ids = fluid.data("src_ids", shape=[-1, src_len], dtype="int64")

@@ -2,6 +2,8 @@
 
 import torch
 
+from paddle_tpu_torch.core import prng
+
 
 def first(ins, slot):
     return ins[slot][0]
@@ -10,6 +12,30 @@ def first(ins, slot):
 def maybe(ins, slot, default=None):
     vals = ins.get(slot)
     return vals[0] if vals else default
+
+
+def rng_key(ins):
+    """The key the executor gave a stateful op (two Python ints)."""
+    key = ins.get("__rng_key__")
+    if key is None:
+        raise RuntimeError("stateful op executed without an rng key")
+    return key[0]
+
+
+def seeded_rng_key(ins, attrs):
+    """The op's key, honouring a fixed per-op ``seed`` attribute while
+    still advancing between executor runs: ``fold_in(PRNGKey(seed),
+    k[0] ^ k[1])`` of the executor's key ``k`` (the JAX package's
+    ``paddle_tpu/ops/common.py`` ``seeded_rng_key``)."""
+    seed = attrs.get("seed", 0)
+    if not seed:
+        return rng_key(ins)
+    base = prng.prng_key(seed)
+    injected = ins.get("__rng_key__")
+    if injected is None:
+        return base
+    k = injected[0]
+    return prng.fold_in(base, int(k[0]) ^ int(k[1]))
 
 
 def broadcast_y(x, y, axis):

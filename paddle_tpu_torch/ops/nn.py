@@ -2,21 +2,24 @@
 loss, embedding, and the three attention ops, with the semantics of the
 JAX package's ``ops/nn.py``.
 
-``scaled_dot_product_attention``, ``cached_attention`` and
-``paged_attention`` register their plain composite as ``lower`` (what
-shape inference and the ``off`` mode run) and a ``kernel`` lowering that
-goes through the CUDA kernel wrappers in ``kernels/``.
+``scaled_dot_product_attention``, ``cached_attention``,
+``paged_attention`` and ``dropout`` register their plain composite as
+``lower`` (what shape inference and the ``off`` mode run) and a ``kernel``
+lowering that goes through the CUDA kernel wrappers in ``kernels/``.
 """
 
 import math
 
 import torch
 
-from paddle_tpu_torch.core.registry import OpDef, OpRegistry, register_op
+from paddle_tpu_torch.core import prng
+from paddle_tpu_torch.core.registry import (
+    OpDef, OpRegistry, register_grad, register_op)
 from paddle_tpu_torch.kernels import attention as fused
 from paddle_tpu_torch.kernels import flash_attention as flash
+from paddle_tpu_torch.kernels import random as random_kernels
 from paddle_tpu_torch.kernels import registry as kernel_registry
-from paddle_tpu_torch.ops.common import first, maybe
+from paddle_tpu_torch.ops.common import first, maybe, seeded_rng_key
 
 
 @register_op("relu")
@@ -194,3 +197,68 @@ def _sdpa_kernel(ins, attrs):
 OpRegistry.register(OpDef(
     "scaled_dot_product_attention", _sdpa_reference, kernel=_sdpa_kernel,
 ))
+
+
+# -- dropout (stateful: the executor's key) ---------------------------------
+
+
+def _dropout_lowering(fwd):
+    """The dropout op (reference: paddle/fluid/operators/dropout_op.cc;
+    the JAX package's ``paddle_tpu/ops/nn.py`` ``_dropout``) over
+    ``fwd(x, key, p, upscale) -> (Out, Mask)``. ``Mask`` (``x.dtype``) is
+    a saved output that the grad reuses, so the backward never draws
+    again. ``is_test`` draws nothing."""
+
+    def lower(ins, attrs):
+        x = first(ins, "X")
+        p = attrs.get("dropout_prob", 0.5)
+        upscale = (attrs.get("dropout_implementation", "downgrade_in_infer")
+                   == "upscale_in_train")
+        if attrs.get("is_test", False):
+            out = x if upscale else x * _f32_scalar(1.0 - p, x)
+            return {"Out": [out], "Mask": [torch.ones_like(x)]}
+        if x.is_meta:
+            return {"Out": [torch.empty_like(x)], "Mask": [torch.empty_like(x)]}
+        out, mask = fwd(x, seeded_rng_key(ins, attrs), p, upscale)
+        return {"Out": [out], "Mask": [mask]}
+
+    return lower
+
+
+def _f32_scalar(v, like):
+    """``v`` as a 0-d tensor of the float32 nearest it, beside ``like``:
+    the JAX op's Python scalar is a float32 operand, and a 0-d tensor
+    divisor divides (torch multiplies by the reciprocal of a Python
+    scalar divisor on CUDA)."""
+    return torch.full((), prng.f32(v), dtype=like.dtype, device=like.device)
+
+
+_dropout_reference = _dropout_lowering(random_kernels.dropout_fwd_plain)
+_dropout_fused = _dropout_lowering(random_kernels.dropout_fwd)
+
+
+def _dropout_kernel(ins, attrs):
+    if kernel_registry.mode() == "off":
+        return _dropout_reference(ins, attrs)
+    return _dropout_fused(ins, attrs)
+
+
+OpRegistry.register(OpDef("dropout", _dropout_reference,
+                          kernel=_dropout_kernel, stateful=True))
+
+
+@register_grad("dropout")
+def _dropout_grad(ins, attrs):
+    """``dOut * Mask``, divided by ``1 - p`` (float32, a true division)
+    when upscaling; ``is_test`` passes ``dOut`` through (scaled by
+    ``1 - p`` for ``downgrade_in_infer``)."""
+    dout = first(ins, "Out@GRAD")
+    p = attrs.get("dropout_prob", 0.5)
+    upscale = (attrs.get("dropout_implementation", "downgrade_in_infer")
+               == "upscale_in_train")
+    if attrs.get("is_test", False):
+        return {"X@GRAD": [dout if upscale else dout * _f32_scalar(1.0 - p, dout)]}
+    dx = dout * first(ins, "Mask")
+    if upscale:
+        dx = dx / _f32_scalar(1.0 - p, dx)
+    return {"X@GRAD": [dx]}

@@ -5,9 +5,12 @@ import math
 
 import torch
 
+from paddle_tpu_torch.core import prng
 from paddle_tpu_torch.core.dtypes import to_torch_dtype
 from paddle_tpu_torch.core.registry import register_op
-from paddle_tpu_torch.ops.common import first, maybe, xshape
+from paddle_tpu_torch.kernels import random as random_kernels
+from paddle_tpu_torch.kernels import registry as kernel_registry
+from paddle_tpu_torch.ops.common import first, maybe, seeded_rng_key, xshape
 
 
 @register_op("fill_constant", creates=True)
@@ -166,34 +169,112 @@ def _scatter(ins, attrs):
     return {"Out": [out]}
 
 
+# -- random (stateful) -------------------------------------------------------
+#
+# ``jax.random``'s values from the op's key (``seeded_rng_key``): the bits
+# come from K8's ``random_bits`` on the card (its plain version on the CPU
+# or with the kernels off), the float conversion is plain torch
+# (``core/prng.py``): these ops run in startup programs, once.
+
+
+def _bits(key, n, device):
+    if kernel_registry.mode() == "off":
+        return random_kernels.random_bits_plain(key, n, device)
+    return random_kernels.random_bits(key, n, device)
+
+
+def _shape(ins, attrs):
+    shape = maybe(ins, "ShapeTensor")
+    if shape is None:
+        return tuple(int(d) for d in attrs.get("shape"))
+    return tuple(int(d) for d in shape.reshape(-1).tolist())
+
+
+def draw(ins, attrs, shape, convert, device):
+    """``convert(bits)`` of ``numel(shape)`` draws from the op's key, in
+    the op's dtype (default float32) on ``device`` (an empty meta tensor
+    under shape inference)."""
+    dtype = to_torch_dtype(attrs.get("dtype", "float32"))
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    n = math.prod(shape)
+    out = convert(_bits(seeded_rng_key(ins, attrs), n, device))
+    return out.reshape(shape).to(dtype)
+
+
+@register_op("gaussian_random", stateful=True, creates=True)
+def _gaussian_random(ins, attrs):
+    """``mean + std * jax.random.normal(key, shape)``."""
+    z = draw(ins, attrs, _shape(ins, attrs), prng.normal,
+             first(ins, "__device__"))
+    return {"Out": [mean_std(z, attrs)]}
+
+
+def mean_std(z, attrs):
+    """``mean + std * z`` in float32, as the JAX op computes it (the
+    Python scalars are float32 there)."""
+    if z.is_meta:
+        return z
+    std = torch.full((), prng.f32(attrs.get("std", 1.0)), dtype=torch.float32,
+                     device=z.device)
+    mean = torch.full((), prng.f32(attrs.get("mean", 0.0)),
+                      dtype=torch.float32, device=z.device)
+    return (mean + std * z.to(torch.float32)).to(z.dtype)
+
+
 @register_op("uniform_random", stateful=True, creates=True)
 def _uniform_random(ins, attrs):
-    """Uniform draws from the executor's ``torch.Generator``. The stream
-    differs from the JAX package's threefry keys for the same seed; the
-    distribution is the same."""
-    shape = tuple(attrs.get("shape"))
-    out = torch.empty(shape, dtype=torch.float32,
-                      device=first(ins, "__device__"))
-    gen = first(ins, "__generator__")
-    if not out.is_meta:
-        out.uniform_(attrs.get("min", -1.0), attrs.get("max", 1.0),
-                     generator=gen)
-    return {"Out": [out.to(to_torch_dtype(attrs.get("dtype", "float32")))]}
+    """``jax.random.uniform(key, shape, float32, min, max)``; the shape
+    from ``ShapeTensor`` where given (a host read)."""
+    lo, hi = attrs.get("min", -1.0), attrs.get("max", 1.0)
+    return {"Out": [draw(ins, attrs, _shape(ins, attrs),
+                         lambda b: prng.uniform(b, lo, hi),
+                         first(ins, "__device__"))]}
 
 
 @register_op("truncated_gaussian_random", stateful=True, creates=True)
 def _truncated_gaussian_random(ins, attrs):
-    """``mean + std * z`` with ``z`` a standard normal truncated to
-    [-2, 2], by inverse-CDF sampling from the executor's
-    ``torch.Generator``. The JAX package draws the same distribution from
-    threefry keys, so the two give different numbers for one seed."""
-    shape = tuple(attrs.get("shape"))
-    out = torch.empty(shape, dtype=torch.float32,
-                      device=first(ins, "__device__"))
-    if not out.is_meta:
-        lo, hi = (0.5 * (1.0 + math.erf(b / math.sqrt(2.0))) for b in (-2.0, 2.0))
-        out.uniform_(2.0 * lo - 1.0, 2.0 * hi - 1.0,
-                     generator=first(ins, "__generator__"))
-        out.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
-        out.mul_(attrs.get("std", 1.0)).add_(attrs.get("mean", 0.0))
-    return {"Out": [out.to(to_torch_dtype(attrs.get("dtype", "float32")))]}
+    """``mean + std * jax.random.truncated_normal(key, -2, 2, shape)``."""
+    z = draw(ins, attrs, tuple(int(d) for d in attrs.get("shape")),
+             lambda b: prng.truncated_normal(b, -2.0, 2.0),
+             first(ins, "__device__"))
+    return {"Out": [mean_std(z, attrs)]}
+
+
+@register_op("randint", stateful=True, creates=True)
+def _randint(ins, attrs):
+    """``jax.random.randint(key, shape, low, high)``: two bit draws from
+    ``split(key)``, int64 out (the JAX package's int32 values)."""
+    shape = tuple(int(d) for d in attrs.get("shape"))
+    device = first(ins, "__device__")
+    dtype = to_torch_dtype(attrs.get("dtype", "int64"))
+    if device.type == "meta":
+        return {"Out": [torch.empty(shape, dtype=dtype, device=device)]}
+    k1, k2 = prng.split(seeded_rng_key(ins, attrs))
+    n = math.prod(shape)
+    out = prng.randint_from(_bits(k1, n, device), _bits(k2, n, device),
+                            attrs.get("low", 0), attrs.get("high", 100))
+    return {"Out": [out.reshape(shape).to(dtype)]}
+
+
+@register_op("randperm", stateful=True, creates=True)
+def _randperm(ins, attrs):
+    """``jax.random.permutation(key, n)``."""
+    n = int(attrs["n"])
+    device = first(ins, "__device__")
+    dtype = to_torch_dtype(attrs.get("dtype", "int64"))
+    if device.type == "meta":
+        return {"Out": [torch.empty((n,), dtype=dtype, device=device)]}
+    out = prng.permutation(seeded_rng_key(ins, attrs), n, bits_fn=_bits,
+                           device=device)
+    return {"Out": [out.to(dtype)]}
+
+
+@register_op("bernoulli", stateful=True)
+def _bernoulli(ins, attrs):
+    """``jax.random.bernoulli(key, X)`` elementwise, in ``X``'s dtype."""
+    x = first(ins, "X")
+    if x.is_meta:
+        return {"Out": [torch.empty_like(x)]}
+    u = prng.uniform(_bits(seeded_rng_key(ins, attrs), x.numel(), x.device))
+    return {"Out": [(u.reshape(x.shape) < x.to(torch.float32)).to(x.dtype)]}

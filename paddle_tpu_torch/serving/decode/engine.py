@@ -308,10 +308,14 @@ class _ModelEntry:
     # -- build -------------------------------------------------------------
     def build(self):
         """Run the startup program: weights (drawn from the executor's
-        seeded ``torch.Generator``) and zeroed arenas into the scope."""
+        keys: the startup program's ``random_seed``, which a nonzero engine
+        ``seed`` sets) and zeroed arenas into the scope."""
         self._scope = Scope()
-        self._exe = Executor(self._engine.place, seed=self._engine.seed)
-        self._exe.run(self._model.startup_program, scope=self._scope)
+        self._exe = Executor(self._engine.place)
+        startup = self._model.startup_program
+        if self._engine.seed:
+            startup.random_seed = self._engine.seed
+        self._exe.run(startup, scope=self._scope)
         return self
 
     def _run(self, kind, feeds):
@@ -1552,8 +1556,10 @@ class GenerationEngine:
     """Front door over N hosted decode models.
 
     ``place`` defaults to ``CUDAPlace(0)`` and raises without a card;
-    pass ``CPUPlace()`` to run on the CPU. ``seed`` seeds the
-    ``torch.Generator`` the startup programs draw weights from."""
+    pass ``CPUPlace()`` to run on the CPU. A nonzero ``seed`` becomes the
+    startup programs' ``random_seed``, from which their weights are drawn
+    (``jax.random``'s values; the JAX package's engine has no such knob:
+    a model's program carries it)."""
 
     _SEQ = 0
 

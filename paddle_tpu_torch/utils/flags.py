@@ -13,11 +13,15 @@ class _FlagRegistry:
         object.__setattr__(self, "_defs", {})
         object.__setattr__(self, "_values", {})
 
-    def define(self, name, default, help=""):
-        self._defs[name] = (type(default), default, help)
+    def define(self, name, default, help="", check=None):
+        """``check(value)``, where given, raises on a value the port does
+        not take, when the flag is set (from the environment too)."""
+        self._defs[name] = (type(default), default, help, check)
         env = os.environ.get("FLAGS_" + name)
-        self._values[name] = (_parse(type(default), env) if env is not None
-                              else default)
+        value = _parse(type(default), env) if env is not None else default
+        if check is not None:
+            check(value)
+        self._values[name] = value
 
     def __getattr__(self, name):
         try:
@@ -28,9 +32,11 @@ class _FlagRegistry:
     def __setattr__(self, name, value):
         if name not in self._defs:
             raise AttributeError(f"undefined flag FLAGS_{name}")
-        ty = self._defs[name][0]
-        self._values[name] = (_parse(ty, value) if isinstance(value, str)
-                              else ty(value))
+        ty, _, _, check = self._defs[name]
+        value = _parse(ty, value) if isinstance(value, str) else ty(value)
+        if check is not None:
+            check(value)
+        self._values[name] = value
 
 
 def _parse(ty, s):
@@ -65,4 +71,22 @@ flags.define(
     "serve the DGC sparse exchange's top-k through the blocked top-k "
     "kernel (kernels/topk.py) instead of one exact sort of |v| (the name "
     "is the JAX package's flag)",
+)
+def _threefry_only(impl):
+    if impl != "threefry":
+        raise NotImplementedError(
+            f"FLAGS_rng_impl={impl!r}: the port draws only threefry2x32, "
+            "jax.random's default, whose bytes it gives on the card; the "
+            "JAX package's 'rbg' streams come from XLA's RngBitGenerator "
+            "(ROADMAP queue C)")
+
+
+flags.define(
+    "rng_impl", "threefry",
+    "PRNG implementation for stateful ops (dropout, the random ops): only "
+    "'threefry', jax.random's default, whose bytes the port gives on the "
+    "card through K8 (kernels/random.py); the JAX package's 'rbg' and "
+    "'unsafe_rbg' draw from XLA's RngBitGenerator, whose bytes the port "
+    "cannot give, and raise NotImplementedError when set",
+    check=_threefry_only,
 )

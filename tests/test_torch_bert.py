@@ -79,9 +79,11 @@ def test_programs_match_the_jax_builder(P, flash, program):
 
 
 def test_builder_refuses_what_the_port_does_not_run():
+    # the flash path applies no attention-prob dropout: refused, as the
+    # JAX builder refuses it
     cfg = _cfg(torch_bert)
-    cfg.hidden_dropout_prob = 0.1
-    with pytest.raises(NotImplementedError, match="M4"):
+    cfg.attention_probs_dropout_prob = 0.1
+    with pytest.raises(pt.EnforceError, match="attention_probs_dropout_prob"):
         torch_bert.build_bert_pretrain(cfg, seq_len=SEQ)
     with pytest.raises(NotImplementedError, match="M1b"):
         torch_bert.build_bert_pretrain(_cfg(torch_bert), seq_len=SEQ,

@@ -321,7 +321,8 @@ def test_world_of_one_runs_the_dense_fused_form():
     main, startup, loss = _regression()
     curves = []
     for compiled in (False, True):
-        exe, scope = pt.Executor(pt.CPUPlace(), seed=1), pt.Scope()
+        startup.random_seed = 1
+        exe, scope = pt.Executor(pt.CPUPlace()), pt.Scope()
         exe.run(startup, scope=scope)
         prog = (pt.CompiledProgram(main).with_data_parallel(
             loss_name=loss.name) if compiled else main)

@@ -7,7 +7,7 @@ CPU.
 
 The model: vocab 8192 (so ``word_emb``, 262,144 values, exceeds one
 131,072-element block of the top-k), d 32, 4 heads, FFN 64, 1+1 layers,
-seq 8, global batch 8 (4 sentences per rank), no dropout. The optimizer:
+seq 8, global batch 8 (4 sentences per rank), dropout 0.1. The optimizer:
 ``DGCMomentumOptimizer(0.01, 0.9, rampup_begin_step=1, rampup_step=2,
 sparsity=[0.996, 0.999])`` under ``FLAGS_pallas_dgc_topk`` (the port's
 blocked top-k through its plain stage on the CPU; the JAX package's falls
@@ -15,7 +15,12 @@ back to ``lax.top_k`` inside ``shard_map`` off the TPU): step 0 is the
 dense warm-up (``pmean``), step 1 sparse at 0.996, steps 2-3 at 0.999,
 where the keep mask cuts ``k_dyn`` below ``k_max``. Both start from one
 state: the JAX program's persistables made from a numpy seed; the port
-loads them by name and U/V become each rank's ``[1, ...]`` slice.
+loads them by name and U/V become each rank's ``[1, ...]`` slice. Both
+run their startup program first, so the executors' run counters agree:
+each rank's dropout masks of the first step equal ``jax.random``'s under
+the JAX package's key for that shard (``fold_in(fold_in(fold_in(
+PRNGKey(0), run), rank), __rng_id__)``, the JAX ``CompiledProgram``
+folding ``axis_index``), and the two ranks' masks differ.
 
 Over 4 steps: the loss streams agree within rtol 1e-5, atol 1e-6, and
 every parameter and each rank's U/V (put back together by
@@ -46,7 +51,7 @@ from torch_dgc_worker import run_gang
 
 N = 2
 CFG = dict(vocab_size=8192, d_model=32, n_heads=4, d_ffn=64,
-           n_enc_layers=1, n_dec_layers=1, max_len=16, dropout=0.0)
+           n_enc_layers=1, n_dec_layers=1, max_len=16, dropout=0.1)
 DGC = dict(learning_rate=0.01, momentum=0.9, rampup_begin_step=1,
            rampup_step=2, sparsity=[0.996, 0.999])
 SEQ, BATCH, STEPS = 8, 8, 4
@@ -74,7 +79,7 @@ def _state(main, rng):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     with jax_names.guard():
-        main, _, _, fetches = jax_tfm.build_wmt_train(
+        main, startup, _, fetches = jax_tfm.build_wmt_train(
             jax_tfm.TransformerConfig(**CFG), src_len=SEQ, tgt_len=SEQ,
             optimizer=fluid.optimizer.DGCMomentumOptimizer(**DGC))
     state = _state(main, np.random.RandomState(7))
@@ -96,6 +101,7 @@ def runs(tmp_path_factory):
         jax_flags.pallas_dgc_topk = True
         try:
             with fluid.scope_guard(scope):
+                exe.run(startup)     # the run counter, as the ranks' runs
                 for name, a in state.items():    # every persistable
                     scope.set(name, jnp.asarray(a))
                 losses = [float(np.asarray(exe.run(
@@ -147,3 +153,21 @@ def test_per_rank_state_and_sparse_exchange(runs):
     assert v.shape == (N, 8192, 32)
     assert not np.array_equal(v[0], v[1])
     assert (v != 0).mean() > 0.9
+
+
+def test_each_ranks_masks_are_jax_masks_for_its_shard(runs):
+    """The first compiled run is the executors' second (after startup)."""
+    ranks = [arrays for arrays, _ in runs["ranks"]]
+    ids = ranks[0]["tfm.mask_ids"]
+    assert len(ids) == 10
+    np.testing.assert_array_equal(ranks[1]["tfm.mask_ids"], ids)
+    for r, arrays in enumerate(ranks):
+        key = jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(0), 2),
+                                 r)
+        for j, rng_id in enumerate(ids):
+            got = arrays[f"tfm.mask_{j}"]
+            want = jax.random.bernoulli(jax.random.fold_in(key, int(rng_id)),
+                                        0.9, got.shape)
+            np.testing.assert_array_equal(got, np.asarray(want, np.float32),
+                                          err_msg=f"rank {r}, op {rng_id}")
+    assert not np.array_equal(ranks[0]["tfm.mask_0"], ranks[1]["tfm.mask_0"])

@@ -309,7 +309,8 @@ def test_wide_deep_is_bit_identical_across_capacities_on_the_card(dev):
         with unique_name.guard():
             main, startup, feeds, (loss, _p) = wd.build_programs(
                 capacity=capacity)
-        exe, scope = pt.Executor(seed=3), pt.Scope()
+        startup.random_seed = 3
+        exe, scope = pt.Executor(), pt.Scope()
         exe.run(startup, scope=scope)
         engine = EmbeddingEngine(scope=scope)
         kernels.reset_launches()

@@ -68,10 +68,13 @@ def test_scatter_writes_in_place_only_when_nothing_else_reads_the_arena(
 def test_startup_weights_follow_the_executor_seed():
     model = build_decoder_model(**GEOM)
 
+    # the executor's key comes from the program's random_seed and its run
+    # counter, as in the JAX executor: a fresh executor, one seed, one key
     def weights(seed):
         scope = pt.Scope()
-        pt.Executor(place=pt.CPUPlace(), seed=seed).run(
-            model.startup_program, scope=scope)
+        model.startup_program.random_seed = seed
+        pt.Executor(place=pt.CPUPlace()).run(model.startup_program,
+                                             scope=scope)
         return scope.find_var("decoder_v1.l0.q.w").clone()
 
     a, b, c = weights(5), weights(5), weights(6)

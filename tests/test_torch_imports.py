@@ -30,12 +30,14 @@ import paddle_tpu_torch.kernels.attention
 import paddle_tpu_torch.kernels.build
 import paddle_tpu_torch.kernels.embedding
 import paddle_tpu_torch.kernels.flash_attention
+import paddle_tpu_torch.kernels.random
 import paddle_tpu_torch.kernels.sparse_update
 import paddle_tpu_torch.kernels.topk
 import paddle_tpu_torch.models.bert
 import paddle_tpu_torch.models.ctr
 import paddle_tpu_torch.models.transformer
 import paddle_tpu_torch.models.wide_deep
+import paddle_tpu_torch.ops.misc_extra
 import paddle_tpu_torch.ops.sharded_embedding
 import paddle_tpu_torch.optimizer
 import paddle_tpu_torch.parallel

@@ -158,6 +158,11 @@ def test_kernel_table_names_sources_in_the_repo():
     root = Path(__file__).resolve().parents[1]
     for name, info in kernels.KERNELS.items():
         assert (root / info.source).is_file(), name
+        if name.startswith("threefry"):
+            # K8 replaces the code XLA generates for jax.random
+            assert info.replaces == ("XLA's threefry2x32 under jax.random "
+                                     "(no Pallas kernel)"), name
+            continue
         path, line = info.replaces.rsplit(":", 1)
         text = (root / path).read_text().splitlines()
         assert "pallas_call" in text[int(line) - 1], (name, info.replaces)

@@ -5,8 +5,8 @@ op type the port lowers: the same numpy inputs go through
 
 Float results agree within rtol=atol=1e-6 (float32 sums in another
 order: torch's CPU matmul vs XLA's); integer results and every shape
-agree exactly. ``uniform_random`` draws from two different generators,
-so its case compares shape, dtype and range only.
+agree exactly. A stateful op gets the same key in both (``PRNGKey(0)``),
+so ``uniform_random`` gives ``jax.random``'s bits: it is held equal.
 """
 
 import jax
@@ -88,7 +88,7 @@ def _run_torch(op_type, ins, attrs):
     op_def = TorchOps.get(op_type)
     tins = {k: [torch.from_numpy(a.copy()) for a in v] for k, v in ins.items()}
     if op_def.stateful:
-        tins["__generator__"] = [torch.Generator().manual_seed(0)]
+        tins["__rng_key__"] = [(0, 0)]       # jax.random.PRNGKey(0)
     if op_def.creates:
         tins["__device__"] = [torch.device("cpu")]
     out = op_def.lower(tins, dict(attrs))
@@ -97,11 +97,12 @@ def _run_torch(op_type, ins, attrs):
 
 def test_cases_cover_every_ported_op_type():
     from test_torch_ctr import CASES as CTR_CASES
+    from test_torch_random import CASES as RANDOM_CASES
     from test_torch_train_ops import CASES as TRAIN_CASES
     from test_torch_transformer import CASES as DGC_CASES
 
     assert sorted(set(CASES) | set(TRAIN_CASES) | set(CTR_CASES)
-                  | set(DGC_CASES)) == TorchOps.all_types()
+                  | set(DGC_CASES) | set(RANDOM_CASES)) == TorchOps.all_types()
 
 
 @pytest.mark.parametrize("op_type", sorted(CASES))
@@ -117,8 +118,7 @@ def test_op_matches_jax_lowering(op_type):
                 continue            # a shape record: only its shape matters
             if op_type == "uniform_random":
                 assert g.dtype == np.float32
-                assert g.min() >= attrs["min"] and g.max() < attrs["max"]
-                assert abs(float(g.mean())) < 0.05
+                np.testing.assert_array_equal(g, w)
                 continue
             if np.issubdtype(w.dtype, np.floating):
                 np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6)

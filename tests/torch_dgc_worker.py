@@ -19,7 +19,8 @@ it computes while the ranks run (``run_gang``). Cases:
 * ``errors``: a non-scalar fetch and a batch that does not divide;
 * ``allreduce``: ``parallel.dgc.dgc_allreduce`` on this rank's gradients,
   once, and 30 rounds of error feedback;
-* ``transformer``: the tiny Transformer from a given state.
+* ``transformer``: the tiny Transformer from a given state, with the
+  dropout masks of its first step.
 """
 
 import json
@@ -181,15 +182,29 @@ def run_transformer(case, data, mesh):
     prog = pt.CompiledProgram(main).with_parallel(
         mesh=mesh, loss_name=fetches[0].name)
     feed = {k: data[k] for k in ("src_ids", "tgt_ids", "labels")}
+    # the dropout masks of the first step, with each op's __rng_id__
+    op_def = get_op_def("dropout")
+    inner, masks = op_def.lowering(), []
+
+    def tapped(ins, attrs):
+        outs = inner(ins, attrs)
+        masks.append((attrs["__rng_id__"], outs["Mask"][0].numpy().copy()))
+        return outs
+
     old = flags.pallas_dgc_topk
     flags.pallas_dgc_topk = True
+    losses = []
     try:
-        losses = [float(exe.run(prog, feed=feed, fetch_list=fetches,
-                                scope=scope)[0].reshape(-1)[0])
-                  for _ in range(case["steps"])]
+        for step in range(case["steps"]):
+            op_def.kernel = tapped if step == 0 else inner
+            losses.append(float(exe.run(prog, feed=feed, fetch_list=fetches,
+                                        scope=scope)[0].reshape(-1)[0]))
     finally:
         flags.pallas_dgc_topk = old
-    arrays = {"losses": np.asarray(losses)}
+        op_def.kernel = inner
+    arrays = {"losses": np.asarray(losses),
+              "mask_ids": np.asarray([i for i, _ in masks])}
+    arrays.update({f"mask_{j}": m for j, (_, m) in enumerate(masks)})
     for i, n in enumerate(names):
         arrays[f"s_{i}"] = scope.find_var(n).numpy()
     return arrays, {}

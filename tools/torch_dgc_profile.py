@@ -88,7 +88,8 @@ def rank_main(trace):
         cfg, src_len=SEQ, tgt_len=SEQ,
         optimizer=fluid.optimizer.DGCMomentumOptimizer(**OPT))
     n_ops = len(main_prog.global_block().ops)
-    exe, scope = fluid.Executor(seed=SEED), fluid.Scope()
+    startup.random_seed = SEED
+    exe, scope = fluid.Executor(), fluid.Scope()
     exe.run(startup, scope=scope)
     feed = T.synthetic_batch(np.random.RandomState(SEED), BATCH, SEQ, SEQ, cfg)
     prog = fluid.CompiledProgram(main_prog).with_parallel(

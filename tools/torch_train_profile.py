@@ -2,10 +2,11 @@
 """Where a BERT-base training step of the PyTorch port spends its time, on
 one card.
 
-    python3 tools/torch_train_profile.py [--trace PATH]
+    python3 tools/torch_train_profile.py [--dropout P] [--trace PATH]
 
-Builds ``build_bert_pretrain(BertConfig.base())`` with flash attention, no
-dropout, seq 128, P=20, float32 (the slice ``chip_smoke.py`` trains), runs
+Builds ``build_bert_pretrain(BertConfig.base())`` with flash attention,
+hidden dropout P (default 0.1, the JAX bench recipe; 0 for none), seq 128,
+P=20, float32 (the slice ``chip_smoke.py`` trains), runs
 its startup program and two warm-up steps at batch 32 on one synthetic
 batch, then:
 
@@ -17,7 +18,8 @@ batch, then:
 2. A ``torch.profiler`` trace of ``STEPS`` steps with the kernels on:
    device busy time (union of GPU activity) against the host wall time
    (the profiler's own host cost included), the device's idle share, GPU
-   time by kernel, and the three flash kernels' share of the device time.
+   time by kernel, the three flash kernels' share of the device time and
+   K8's dropout kernel's time a step.
 
 Prints a summary and, as its last line, one JSON object; with
 ``--trace PATH`` it also writes the profiler's Chrome trace there. Needs
@@ -45,6 +47,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trace", default=None,
                     help="write the profiled steps' Chrome trace here")
+    ap.add_argument("--dropout", type=float, default=0.1,
+                    help="hidden dropout probability (0 for none)")
     args = ap.parse_args()
 
     import torch
@@ -65,12 +69,14 @@ def main():
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     cfg = bert.BertConfig.base()
     cfg.use_flash_attention = True
-    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    cfg.hidden_dropout_prob = args.dropout
+    cfg.attention_probs_dropout_prob = 0.0
     main_prog, startup, _, fetches = bert.build_bert_pretrain(
         cfg, seq_len=SEQ, lr=1e-4, max_predictions_per_seq=P)
     n_ops = len(main_prog.global_block().ops)
     batch = bert.synthetic_batch(np.random.RandomState(SEED), BATCH, SEQ, cfg, P)
-    exe, scope = fluid.Executor(seed=SEED), fluid.Scope()
+    startup.random_seed = SEED
+    exe, scope = fluid.Executor(), fluid.Scope()
     exe.run(startup, scope=scope)
 
     def steps(n):
@@ -110,12 +116,15 @@ def main():
     flash_us = {f: sum(us for k, us, _ in by_kernel if f in k) for f in FLASH}
     gemm_us = sum(us for k, us, _ in by_kernel if "gemm" in k.lower()
                   or "sgemm" in k.lower())
+    k8_us = sum(us for k, us, _ in by_kernel if "dropout_kernel" in k)
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
         prof.export_chrome_trace(args.trace)
 
     per = STEPS
     print(f"[card] {card}")
+    print(f"[profile] hidden dropout {args.dropout}: K8 dropout "
+          f"{k8_us / per / 1e3:.4f} ms/step")
     print(f"[profile] {per} steps, {n_ops} ops per step program, launches "
           f"{ {k: v for k, v in launches.items() if v} }")
     print(f"[profile] wall {wall_us / per / 1e3:.3f} ms/step, device busy "
@@ -128,7 +137,8 @@ def main():
     for key, us, count in by_kernel[:15]:
         print(f"[profile]   {us / per:10.1f} us/step  {count / per:6.1f}x  {key[:90]}")
     print(json.dumps({
-        "card": card, "ops_per_step": n_ops, "steps": per,
+        "card": card, "dropout": args.dropout, "ops_per_step": n_ops,
+        "steps": per, "k8_dropout_ms_per_step": k8_us / per / 1e3,
         "step_ms_kernels_off": ab["off"], "step_ms_kernels_on": ab["auto"],
         "profiled_wall_ms_per_step": wall_us / per / 1e3,
         "device_busy_ms_per_step": busy_us / per / 1e3,
