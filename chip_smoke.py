@@ -14,7 +14,9 @@ the unfused default) against the same steps with the kernels off, and
 trains the two
 CTR configurations (Wide&Deep over the two-tier embedding engine, and CTR
 with on-device tables and sparse SGD) against the same steps with the
-kernels off. Any failure exits non-zero. It imports nothing of JAX or of
+kernels off, and trains the conv nets (the two book programs, and
+ResNet-50 at full width and depth against the same step on the host's
+CPU). Any failure exits non-zero. It imports nothing of JAX or of
 the JAX package, and it refuses to run without a CUDA device (or outside
 a checkout of the repository).
 
@@ -210,6 +212,35 @@ Phases:
    launches and the bytes each rank sent per step beside the dense
    gradient's.
 
+9. conv nets — through ``Executor()`` on the default place, counters
+   zeroed before each path and read after. 9a: ``examples/
+   fit_a_line.py``'s program (fc, square_error_cost, mean, SGD 0.01),
+   built with the port's layers, 50 steps of 20 seeded rows: its loss
+   falls (the last five steps' mean below half the first five's);
+   ``examples/recognize_digits.py``'s (conv/pool twice, reshape, fc with
+   softmax, cross_entropy, accuracy, Adam 1e-3), 6 epochs of its 512
+   synthetic digits at batch 64: the last epoch's accuracy above 0.9, the
+   example's assertion; both startups draw through K8. 9b:
+   ``build_resnet_train(depth=50, class_dim=1000, image_shape=(3, 224,
+   224), lr=0.1)`` (momentum 0.9, L2Decay 1e-4), float32, its startup
+   drawn through K8 on the card; one step at batch 8 on the card and the
+   same step on the host's CPU from the startup's weights read back, in
+   float32 and in float64 (``RESNET_F32_TOLS``, ``RESNET_F64_TOLS``:
+   float32 grads in norm, since ReLU masks flip at inputs within rounding
+   of 0; float64 everything elementwise within 1e-8; the card's float32
+   grads no further from its float64 ones than twice the CPU's); prints
+   the largest error by layer. A failure here is raised at the end of the
+   phase, after 9c has printed its numbers. 9c: from the same weights,
+   bench.py's batch of 128 (one seeded batch fed every step), 3 warm-up
+   steps and 5 timed: step p50
+   and p90 (host clock ending in the loss's copy), images/s, the device
+   memory peak, the conv and fc work a step; 2 steps under
+   ``torch.profiler``: device busy a step, the idle share, the top ops by
+   device time and the top kernels; the loss stays finite and ends below
+   its peak (lr 0.1 with no warm-up overshoots on one batch first); then
+   ``build_resnet_infer`` (``clone(for_test=True)``) on the trained scope:
+   16 softmax rows that sum to 1.
+
 The last lines are the card's name and power limit, one JSON line of
 per-kernel results, and ``{"ok": true, "device": {...}}``.
 """
@@ -381,6 +412,42 @@ K8_DROPOUT_CASES = (((32, 128, 768), 0.1, True, True),
                     ((1_000_003,), 0.5, True, False))
 K8_OPS_PER_DRAW = 73
 PEAK_INT32_OPS = 128 * 132 * 1.98e9
+
+# Phase 9, the conv-net training path. 9a: fit_a_line (examples/
+# fit_a_line.py's program: fc, square_error_cost, mean, SGD 0.01) for 50
+# steps of 20 rows of 13 features, and recognize_digits (examples/
+# recognize_digits.py's: conv/pool twice, reshape, fc with softmax,
+# cross_entropy, accuracy, Adam 1e-3) for 6 epochs of its 512 synthetic
+# digits at batch 64, where the example asserts accuracy above 0.9.
+# 9b and 9c: ResNet-50 as bench.py:344-367 trains it (ImageNet widths,
+# class_dim 1000, lr 0.1, momentum 0.9, L2Decay 1e-4, batch 128, one
+# seeded batch fed every step, 3 warm-up steps), float32 (the bench runs
+# bf16 AMP, not ported: ROADMAP M1b)
+LINE_BATCH, LINE_STEPS = 20, 50
+DIGITS, DIGITS_BATCH, DIGITS_EPOCHS, DIGITS_ACC = 512, 64, 6, 0.9
+RESNET_IMAGE, RESNET_CHECK_BATCH, RESNET_BATCH = (3, 224, 224), 8, 128
+RESNET_WARMUP, RESNET_STEPS, RESNET_PROFILED = 3, 5, 2
+# 9b, one ResNet-50 step at batch 8 on the card against the same step on
+# the host's CPU from the same weights, in float32 (the path) and in
+# float64 (the same program fed float64 weights and images). Bars as
+# (loss rtol, moving statistics, grads). Float32: cuDNN and the CPU sum
+# in other orders, so the forward (the loss, the moving statistics) agrees
+# to about 1e-5; a grad does not agree elementwise, because a ReLU whose
+# input lies within rounding of 0 keeps its grad on one side and drops it
+# on the other, and BN's backward spreads each flip over its channel
+# (each device's float32 grads stand about as far from its own float64
+# ones, which the phase prints): grads are held in norm, ||card - CPU||
+# within 0.1 of ||CPU|| (0.042 at worst on an H100, 700 W). Float64:
+# rounding sits near 1e-13 and no mask flips, so every grad and statistic
+# must agree within 1e-8 of its largest value, the loss within 1e-10: any
+# difference between the card's and the CPU's computation that is not
+# rounding breaks it. And the card's float32 grads may stray from its
+# float64 ones (in norm over all grads) at most twice as far as the CPU's
+# do: TF32 convolutions, or any other loss of float32 accuracy on the
+# card, would stray further.
+RESNET_F32_TOLS = (1e-4, 1e-4, 1e-1)
+RESNET_F64_TOLS = (1e-10, 1e-8, 1e-8)
+RESNET_F32_ACCURACY = 2.0
 
 
 def log(*a):
@@ -3095,6 +3162,380 @@ def phase_dgc():
     return r0["launches"]
 
 
+# -- phase 9 ----------------------------------------------------------------
+def _fit_a_line(fluid):
+    """examples/fit_a_line.py's program, built with the port's layers."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.data("x", shape=[-1, 13], dtype="float32")
+        y = fluid.data("y", shape=[-1, 1], dtype="float32")
+        y_predict = fluid.layers.fc(x, size=1, act=None)
+        avg_cost = fluid.layers.mean(
+            fluid.layers.square_error_cost(y_predict, y))
+        fluid.optimizer.SGD(learning_rate=0.01).minimize(avg_cost)
+    return main, startup, avg_cost
+
+
+def _recognize_digits(fluid):
+    """examples/recognize_digits.py's program, built with the port's
+    layers."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        img = fluid.data("img", shape=[-1, 1, 28, 28], dtype="float32")
+        label = fluid.data("label", shape=[-1, 1], dtype="int64")
+        c1 = fluid.layers.conv2d(img, num_filters=8, filter_size=5, act="relu")
+        p1 = fluid.layers.pool2d(c1, pool_size=2, pool_stride=2)
+        c2 = fluid.layers.conv2d(p1, num_filters=16, filter_size=5,
+                                 act="relu")
+        p2 = fluid.layers.pool2d(c2, pool_size=2, pool_stride=2)
+        flat = fluid.layers.reshape(p2, [0, 16 * 4 * 4])
+        prediction = fluid.layers.fc(flat, size=10, act="softmax")
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(prediction, label))
+        acc = fluid.layers.accuracy(prediction, label)
+        fluid.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return main, startup, loss, acc
+
+
+def synthetic_digits(rng, n):
+    """examples/recognize_digits.py's blob-per-class images."""
+    labels = rng.randint(0, 10, n).astype("int64")
+    imgs = rng.randn(n, 1, 28, 28).astype("float32") * 0.1
+    for i, c in enumerate(labels):
+        r, col = divmod(int(c), 4)
+        imgs[i, 0, 4 + r * 7:10 + r * 7, 2 + col * 6:8 + col * 6] += 1.5
+    return imgs, labels.reshape(-1, 1)
+
+
+def phase_book():
+    """9a: the two book programs through ``Executor()`` on the card, from
+    startups drawn through K8; fit_a_line's loss falls, recognize_digits
+    reaches the example's accuracy."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.utils import unique_name
+
+    rng = np.random.RandomState(SEED)
+    w_true = rng.randn(13, 1).astype("float32")
+    xs = rng.randn(LINE_BATCH * LINE_STEPS, 13).astype("float32")
+    ys = xs @ w_true + 0.1 * rng.randn(len(xs), 1).astype("float32")
+    digits, labels = synthetic_digits(rng, DIGITS)
+    t_phase = time.perf_counter()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with unique_name.guard():
+        main, startup, avg_cost = _fit_a_line(fluid)
+    startup.random_seed = main.random_seed = SEED
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    losses = [float(exe.run(main, feed={"x": xs[i:i + LINE_BATCH],
+                                        "y": ys[i:i + LINE_BATCH]},
+                            fetch_list=[avg_cost], scope=scope)[0][0])
+              for i in range(0, len(xs), LINE_BATCH)]
+    line_s = time.perf_counter() - t0
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not (np.isfinite(losses).all() and last < 0.5 * first):
+        raise AssertionError(f"fit_a_line did not learn: losses {losses}")
+    log(f"[book] fit_a_line: {LINE_STEPS} SGD steps of {LINE_BATCH} rows, "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of the first five "
+        f"{first:.4f}, of the last five {last:.4f}), {line_s:.2f}s")
+
+    t0 = time.perf_counter()
+    with unique_name.guard():
+        main, startup, loss, acc = _recognize_digits(fluid)
+    startup.random_seed = main.random_seed = SEED
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    epochs = []
+    for _ in range(DIGITS_EPOCHS):
+        accs, ls = [], []
+        for i in range(0, DIGITS, DIGITS_BATCH):
+            l, a = exe.run(main, feed={"img": digits[i:i + DIGITS_BATCH],
+                                       "label": labels[i:i + DIGITS_BATCH]},
+                           fetch_list=[loss, acc], scope=scope)
+            ls.append(float(l[0]))
+            accs.append(float(a[0]))
+        epochs.append((float(np.mean(ls)), float(np.mean(accs))))
+    torch.cuda.synchronize()
+    digits_s = time.perf_counter() - t0
+    launches = kernels.launches()
+    log(f"[book] phase 9a {time.perf_counter() - t_phase:.1f}s")
+    if not epochs[-1][1] > DIGITS_ACC:
+        raise AssertionError(f"recognize_digits did not learn the digit "
+                             f"blobs: (loss, accuracy) by epoch {epochs}")
+    if not launches["threefry_random_bits"]:
+        raise AssertionError(f"the startups drew nothing through K8: "
+                             f"{launches}")
+    log(f"[book] recognize_digits: {DIGITS_EPOCHS} epochs of {DIGITS} digits "
+        f"at batch {DIGITS_BATCH}, (loss, accuracy) by epoch "
+        f"{[(round(l, 4), round(a, 4)) for l, a in epochs]}, {digits_s:.2f}s; "
+        f"launches {launches}")
+    return launches
+
+
+def _conv_flops(program, batch):
+    """Forward multiply-adds x 2 of the program's conv2d and mul ops at
+    ``batch`` (from the shapes the layers inferred)."""
+    block = program.global_block()
+    total = 0
+    for op in block.ops:
+        if op.type == "conv2d":
+            w = block.vars[op.input("Filter")[0]].shape
+            out = block.vars[op.output("Output")[0]].shape
+            total += 2 * batch * int(np.prod(out[1:])) * int(np.prod(w[1:]))
+        elif op.type == "mul":
+            w = block.vars[op.input("Y")[0]].shape
+            total += 2 * batch * int(np.prod(w))
+    return total
+
+
+def _resnet_batch(rng, n):
+    """bench.py:363-367's batch: standard normal images, uniform labels."""
+    return {"img": rng.randn(n, *RESNET_IMAGE).astype("float32"),
+            "label": rng.randint(0, 1000, (n, 1)).astype("int64")}
+
+
+def _rel_errors(got, want):
+    """{name: max |got - want| / max |want|} over two {name: array}."""
+    return {n: float(np.abs(np.asarray(got[n]) - w).max()
+                     / max(float(np.abs(w).max()), 1e-30))
+            for n, w in want.items()}
+
+
+def _resnet_step(fluid, main, state, batch, dtype, place, fetch, stats):
+    """One step of ``main`` from ``state`` on ``batch``, every float cast
+    to ``dtype``, through a fresh ``Executor(place)`` (the card for
+    None): the fetches and the moving statistics after the step, as
+    numpy. Tensors go in as they are, so float64 stays float64."""
+    import torch
+
+    def tensor(a):
+        a = np.asarray(a)
+        return torch.from_numpy(a.astype(dtype) if a.dtype.kind == "f"
+                                else a.copy())
+
+    exe, scope = fluid.Executor(place=place), fluid.Scope()
+    for name, a in state.items():
+        scope.set(name, tensor(a))
+    out = exe.run(main, feed={k: tensor(v) for k, v in batch.items()},
+                  fetch_list=fetch, scope=scope)
+    return out, {n: scope.find_var(n).cpu().numpy() for n in stats}
+
+
+def _check_resnet_step(gpu, cpu, grads, stats, dtype, seconds):
+    """9b's comparison of one step on the card and on the CPU: logs the
+    largest error by layer, returns what broke a bar."""
+    (g_loss, *g_grads), g_stats = gpu
+    (c_loss, *c_grads), c_stats = cpu
+    f32 = dtype == np.float32
+    loss_tol, stat_tol, grad_tol = RESNET_F32_TOLS if f32 else RESNET_F64_TOLS
+    loss_err = abs(float(g_loss[0]) - float(c_loss[0])) / abs(float(c_loss[0]))
+    stat_err = _rel_errors(g_stats, c_stats)
+    grad_max = _rel_errors(dict(zip(grads, g_grads)), dict(zip(grads, c_grads)))
+    grad_norm = {n: float(np.linalg.norm(g - c) / max(np.linalg.norm(c), 1e-300))
+                 for n, g, c in zip(grads, g_grads, c_grads)}
+    # float32 grads are held in norm (a ReLU whose input lies within
+    # rounding of 0 on one side flips its mask), float64 ones elementwise
+    grad_err = grad_norm if f32 else grad_max
+
+    def by_layer(errs):
+        layers = {}
+        for name, e in errs.items():
+            layer = name.split("@")[0]
+            for suffix in ("_weights", "_bn_scale", "_bn_offset", "_bn_mean",
+                           "_bn_variance"):
+                layer = layer.removesuffix(suffix)
+            layers[layer] = max(layers.get(layer, 0.0), e)
+        return {k: float(f"{v:.2e}") for k, v in layers.items()}
+
+    kind = "float32" if f32 else "float64"
+    log(f"[resnet] 9b {kind}: one step at batch {RESNET_CHECK_BATCH}, card "
+        f"against the host's CPU ({seconds:.2f}s for both): loss "
+        f"{float(g_loss[0]):.9g} against {float(c_loss[0]):.9g} (rel "
+        f"{loss_err:.3e}, bar {loss_tol}); moving statistics, largest error "
+        f"{max(stat_err.values()):.3e} of the largest value (bar {stat_tol}); "
+        f"grads, largest error {max(grad_err.values()):.3e} "
+        + ("in norm" if f32 else "of the largest value") + f" (bar {grad_tol})")
+    log(f"[resnet] 9b {kind} grads by layer "
+        + ("(norm): " if f32 else "(elementwise): ") + str(by_layer(grad_err)))
+    if f32:
+        log(f"[resnet] 9b float32 grads by layer, elementwise (not held): "
+            f"{by_layer(grad_max)}")
+    log(f"[resnet] 9b {kind} moving statistics by layer: {by_layer(stat_err)}")
+    bad = [f"{kind} loss rel {loss_err:.3e}"] if not loss_err <= loss_tol else []
+    bad += [f"{kind} {n} {e:.3e}" for n, e in stat_err.items()
+            if not e <= stat_tol]
+    bad += [f"{kind} {n} {e:.3e}" for n, e in grad_err.items()
+            if not e <= grad_tol]
+    return bad
+
+
+def phase_resnet():
+    """9b and 9c: ResNet-50 through ``Executor()`` on the card. 9b: one
+    step at batch 8 against the same step on the host's CPU from the card
+    startup's weights. 9c: the bench's batch of 128, warm-up and timed
+    steps, a profiled window, and the inference clone on the trained
+    scope."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.convert import load_params, persistables_to_numpy
+    from paddle_tpu_torch.models import resnet
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    from torch_decode_profile import _busy_us
+    from paddle_tpu_torch.utils import unique_name
+
+    with unique_name.guard():
+        main, startup, _, (loss, _acc) = resnet.build_resnet_train(
+            depth=50, class_dim=1000, image_shape=RESNET_IMAGE, lr=0.1)
+    startup.random_seed = main.random_seed = SEED
+    params = [p.name for p in main.all_parameters() if p.trainable]
+    grads = [p + "@GRAD" for p in params]
+    stats = [p.name for p in main.all_parameters() if not p.trainable]
+    n_ops = len(main.global_block().ops)
+    fwd_flops = _conv_flops(main, RESNET_BATCH)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    kernels.reset_launches()
+    t0 = t_phase = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    startup_launches = kernels.launches()
+    state0 = persistables_to_numpy(scope, main)
+    log(f"[resnet] ResNet-50 float32: {n_ops} ops a step, {len(params)} "
+        f"trainable parameters "
+        f"({sum(state0[p].size for p in params)} values), {len(stats)} "
+        f"moving statistics; startup {time.perf_counter() - t0:.2f}s, K8 "
+        f"random_bits launches {startup_launches['threefry_random_bits']}")
+    if not startup_launches["threefry_random_bits"]:
+        raise AssertionError("the ResNet-50 startup drew nothing through K8")
+
+    # 9b: the card against the host's CPU, one step at batch 8, in
+    # float32 and in float64
+    check = _resnet_batch(np.random.RandomState(SEED + 1), RESNET_CHECK_BATCH)
+    failures, runs = [], {}
+    for dtype in (np.float32, np.float64):
+        t0 = time.perf_counter()
+        runs[dtype] = [_resnet_step(fluid, main, state0, check, dtype, place,
+                                    [loss.name] + grads, stats)
+                       for place in (None, fluid.CPUPlace())]
+        seconds = time.perf_counter() - t0
+        failures += _check_resnet_step(*runs[dtype], grads, stats, dtype,
+                                       seconds)
+    # float32's own error, against the float64 step on the same device:
+    # the card's may not exceed RESNET_F32_ACCURACY times the CPU's
+    f32_err = []
+    for device in (0, 1):
+        lo = runs[np.float32][device][0][1:]
+        hi = runs[np.float64][device][0][1:]
+        f32_err.append(float(np.sqrt(sum(np.sum((a - b) ** 2)
+                                         for a, b in zip(lo, hi))
+                                     / sum(np.sum(b ** 2) for b in hi))))
+    log(f"[resnet] 9b float32 grads against float64 on the same device, in "
+        f"norm over all grads: card {f32_err[0]:.3e}, CPU {f32_err[1]:.3e} "
+        f"(bar: the card's at most {RESNET_F32_ACCURACY}x the CPU's)")
+    if not f32_err[0] <= RESNET_F32_ACCURACY * f32_err[1]:
+        failures.append(f"float32 grads on the card {f32_err[0]:.3e} from "
+                        f"float64, the CPU's {f32_err[1]:.3e}")
+    del runs
+
+    # 9c: throughput at batch 128 from the startup's weights
+    load_params(scope, state0)
+    batch = _resnet_batch(np.random.RandomState(SEED), RESNET_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    losses, seconds = [], []
+    for _ in range(RESNET_WARMUP + RESNET_STEPS):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=batch, fetch_list=[loss], scope=scope)
+        losses.append(float(out[0][0]))
+        seconds.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    timed = np.asarray(seconds[RESNET_WARMUP:]) * 1e3
+    p50, p90 = float(np.median(timed)), float(np.percentile(timed, 90))
+    # forward, the grads' rerun forward, dX and dW: about 4x the forward
+    flops = 4 * fwd_flops
+    log(f"[resnet] 9c: batch {RESNET_BATCH}, step p50 "
+        f"{p50:.2f} ms, p90 {p90:.2f} (timed {np.round(timed, 2).tolist()}, "
+        f"warm-up {[round(t * 1e3, 2) for t in seconds[:RESNET_WARMUP]]}), "
+        f"{RESNET_BATCH / p50 * 1e3:.1f} images/s; device memory peak "
+        f"{peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB held before the "
+        f"steps); conv and fc work {flops / 1e12:.3f} TFLOP a step "
+        f"(forward {fwd_flops / 1e12:.3f}, about x4 with the grads' rerun), "
+        f"{flops / p50 / 1e9:.1f} TFLOP/s over the step")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(RESNET_PROFILED):
+            out = exe.run(main, feed=batch, fetch_list=[loss], scope=scope)
+            losses.append(float(out[0][0]))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # lr 0.1 with momentum 0.9 and no warm-up overshoots on one fixed batch
+    # (the loss climbs for a few steps, then falls): the loss must stay
+    # finite and end below its peak, which a diverging run never does
+    if not (np.isfinite(losses).all() and losses[-1] < max(losses)):
+        raise AssertionError(f"ResNet-50 loss did not fall on its fixed "
+                             f"batch: {losses}")
+    busy_us = _busy_us(prof.events(), DeviceType.CUDA)
+    if not busy_us:
+        raise AssertionError("the profiler saw no device activity")
+    per = RESNET_PROFILED
+    log(f"[resnet] 9c losses over the {len(losses)} steps {losses}")
+    log(f"[resnet] 9c profile of {per} steps: wall {wall_us / per / 1e3:.2f} "
+        f"ms a step (the profiler's own host cost in), device busy "
+        f"{busy_us / per / 1e3:.2f} ms a step, idle share "
+        f"{1 - busy_us / wall_us:.4f}")
+
+    def device_us(evt):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(evt, attr):
+                return getattr(evt, attr)
+        return 0.0
+
+    ops = sorted(((e.key, device_us(e), e.count) for e in prof.key_averages()
+                  if e.key.startswith("aten::") and device_us(e) > 0),
+                 key=lambda r: -r[1])
+    for key, us, count in ops[:12]:
+        log(f"[resnet]   op {key[:48]:48s} {us / per / 1e3:9.3f} ms a step "
+            f"({count / per:.0f} calls)")
+    kernel_us = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernel_us[e.name] = (kernel_us.get(e.name, 0.0)
+                                 + e.time_range.end - e.time_range.start)
+    for name, us in sorted(kernel_us.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[resnet]   kernel {us / per / 1e3:9.3f} ms a step  {name[:90]}")
+
+    with unique_name.guard():
+        infer, _, _, (prob,) = resnet.build_resnet_infer(
+            depth=50, class_dim=1000, image_shape=RESNET_IMAGE)
+    rows = min(16, RESNET_BATCH)
+    (probs,) = exe.run(infer, feed={"img": batch["img"][:rows]},
+                       fetch_list=[prob], scope=scope)
+    sums = probs.sum(axis=1)
+    if probs.shape != (rows, 1000) or not np.isfinite(probs).all() or \
+            not np.allclose(sums, 1.0, atol=1e-5):
+        raise AssertionError(f"the inference clone's softmax rows: shape "
+                             f"{probs.shape}, sums {sums}")
+    launches = kernels.launches()
+    log(f"[resnet] phases 9b and 9c {time.perf_counter() - t_phase:.1f}s")
+    if failures:
+        raise AssertionError("ResNet-50 step, card against the host's CPU: "
+                             + "; ".join(failures))
+    log(f"[resnet] inference clone (for_test: BN on the moving statistics) "
+        f"on the trained scope: {rows} rows of 1000 summing to 1 within "
+        f"{float(np.abs(sums - 1).max()):.2e}; launches over the phase "
+        f"{launches}")
+    return launches
+
+
 def main():
     check_environment()
     import torch
@@ -3120,6 +3561,8 @@ def main():
     wide_deep_launches = phase_wide_deep()
     ctr_launches = phase_dense_ctr()
     dgc_launches = phase_dgc()
+    book_launches = phase_book()
+    resnet_launches = phase_resnet()
     log(f"[done] paged_attention launches: phase 3 "
         f"{engine_launches['paged_attention']}, phase 3b {modes_launches}, "
         f"phase 3c {beam_launches}")
@@ -3133,14 +3576,17 @@ def main():
     path_launches.update({n: train_launches[n] for n in KERNELS
                           if n.startswith("flash_attention")})
     # K8: phase 5's startup (random_bits) and dropout sites, phase 5b's
-    # and rank 0's of phase 8
+    # and rank 0's of phase 8, phase 9's startups
     path_launches.update({n: train_launches[n] + unfused_launches[n]
-                          + dgc_launches[n] for n in KERNELS
+                          + dgc_launches[n] + book_launches[n]
+                          + resnet_launches[n] for n in KERNELS
                           if n.startswith("threefry")})
     log(f"[done] K8 launches: phase 5 "
         f"{ {n: train_launches[n] for n in path_launches if n.startswith('threefry')} }, "
         f"phase 5b {unfused_launches['threefry_dropout']}, phase 8 rank 0 "
-        f"{dgc_launches['threefry_dropout']}")
+        f"{dgc_launches['threefry_dropout']}, phase 9 random_bits "
+        f"{book_launches['threefry_random_bits']} (9a) + "
+        f"{resnet_launches['threefry_random_bits']} (ResNet-50's startup)")
     rows = []
     for name, info in KERNELS.items():
         r = parity[name]

@@ -34,6 +34,7 @@ import paddle_tpu_torch.ops  # noqa: F401  (registers the op library)
 from paddle_tpu_torch import layers
 from paddle_tpu_torch import initializer
 from paddle_tpu_torch import optimizer
+from paddle_tpu_torch import regularizer
 from paddle_tpu_torch.param_attr import ParamAttr
 from paddle_tpu_torch.layers.tensor import data_v2 as data
 from paddle_tpu_torch.utils.enforce import EnforceError

@@ -1,16 +1,16 @@
 """Neural-net layer functions (reference: python/paddle/fluid/layers/nn.py).
 
-The builders the decode engine's, BERT's and the CTR models' programs
-use, copied from
-the JAX package's ``layers/nn.py`` so both packages emit the same op
+The builders the decode engine's, BERT's, the CTR models', the book
+programs' and ResNet's programs use, copied from the JAX package's ``layers/nn.py`` so both packages emit the same op
 types, attributes and variable names. Every function appends OpDescs to
 the current block via LayerHelper; no computation happens at build time.
 """
 
 import math
 
-from paddle_tpu_torch.initializer import ConstantInitializer
+from paddle_tpu_torch.initializer import ConstantInitializer, NormalInitializer
 from paddle_tpu_torch.layer_helper import LayerHelper
+from paddle_tpu_torch.param_attr import ParamAttr
 from paddle_tpu_torch.utils.enforce import enforce
 
 __all__ = [
@@ -46,6 +46,13 @@ __all__ = [
     "unsqueeze",
     "squeeze",
     "dropout",
+    "conv2d",
+    "pool2d",
+    "batch_norm",
+    "cross_entropy",
+    "square_error_cost",
+    "topk",
+    "accuracy",
 ]
 
 
@@ -217,6 +224,183 @@ def sharded_embedding(
         "min_bucket": cfg.min_bucket,
     }
     return out
+
+
+def conv2d(
+    input,
+    num_filters,
+    filter_size,
+    stride=1,
+    padding=0,
+    dilation=1,
+    groups=1,
+    param_attr=None,
+    bias_attr=None,
+    act=None,
+    name=None,
+    data_format="NCHW",
+):
+    """reference: python/paddle/fluid/layers/nn.py conv2d. The filter
+    defaults to ``Normal(0, sqrt(2 / fan_in))``."""
+    helper = LayerHelper(
+        "conv2d", param_attr=param_attr, bias_attr=bias_attr, act=act, name=name
+    )
+    dtype = input.dtype
+    if isinstance(filter_size, int):
+        filter_size = [filter_size, filter_size]
+    if isinstance(stride, int):
+        stride = [stride, stride]
+    if isinstance(padding, int):
+        padding = [padding, padding]
+    if isinstance(dilation, int):
+        dilation = [dilation, dilation]
+    channels = input.shape[1] if data_format == "NCHW" else input.shape[-1]
+    enforce(channels % groups == 0, "channels must divide groups")
+    filter_shape = [num_filters, channels // groups] + list(filter_size)
+    fan_in = (channels // groups) * filter_size[0] * filter_size[1]
+    w = helper.create_parameter(
+        helper.param_attr,
+        shape=filter_shape,
+        dtype=dtype,
+        default_initializer=NormalInitializer(0.0, math.sqrt(2.0 / fan_in)),
+    )
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "conv2d",
+        {"Input": [input.name], "Filter": [w.name]},
+        {"Output": [out.name]},
+        {
+            "strides": stride,
+            "paddings": padding,
+            "dilations": dilation,
+            "groups": groups,
+            "data_format": data_format,
+        },
+    )
+    if helper.bias_attr is not False:
+        b = helper.create_parameter(
+            helper.bias_attr, shape=[num_filters], dtype=dtype, is_bias=True
+        )
+        out = helper.append_bias_op(out, b, axis=1 if data_format == "NCHW" else 3)
+    return helper.append_activation(out)
+
+
+def pool2d(
+    input,
+    pool_size=-1,
+    pool_type="max",
+    pool_stride=1,
+    pool_padding=0,
+    global_pooling=False,
+    exclusive=True,
+    adaptive=False,
+    name=None,
+):
+    helper = LayerHelper("pool2d", name=name)
+    if isinstance(pool_size, int):
+        pool_size = [pool_size, pool_size]
+    if isinstance(pool_stride, int):
+        pool_stride = [pool_stride, pool_stride]
+    if isinstance(pool_padding, int):
+        pool_padding = [pool_padding, pool_padding]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "pool2d",
+        {"X": [input.name]},
+        {"Out": [out.name]},
+        {
+            "pooling_type": pool_type,
+            "ksize": pool_size,
+            "strides": pool_stride,
+            "paddings": pool_padding,
+            "global_pooling": global_pooling,
+            "exclusive": exclusive,
+            "adaptive": adaptive,
+        },
+    )
+    return out
+
+
+def batch_norm(
+    input,
+    act=None,
+    is_test=False,
+    momentum=0.9,
+    epsilon=1e-5,
+    param_attr=None,
+    bias_attr=None,
+    data_layout="NCHW",
+    name=None,
+    moving_mean_name=None,
+    moving_variance_name=None,
+    use_global_stats=False,
+):
+    """reference: python/paddle/fluid/layers/nn.py batch_norm. Scale
+    ``Constant(1)``, bias 0; the moving mean ``Constant(0)`` and variance
+    ``Constant(1)`` are persistable, non-trainable parameters that the op
+    updates through ``MeanOut``/``VarianceOut`` (the scope write-back)."""
+    helper = LayerHelper(
+        "batch_norm", param_attr=param_attr, bias_attr=bias_attr, act=act, name=name
+    )
+    dtype = input.dtype if input.dtype != "float16" else "float32"
+    channels = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale = helper.create_parameter(
+        helper.param_attr,
+        shape=[channels],
+        dtype=dtype,
+        default_initializer=ConstantInitializer(1.0),
+    )
+    bias = helper.create_parameter(
+        helper.bias_attr, shape=[channels], dtype=dtype, is_bias=True
+    )
+    mean = helper.create_parameter(
+        ParamAttr(
+            name=moving_mean_name,
+            initializer=ConstantInitializer(0.0),
+            trainable=False,
+        ),
+        shape=[channels],
+        dtype=dtype,
+    )
+    variance = helper.create_parameter(
+        ParamAttr(
+            name=moving_variance_name,
+            initializer=ConstantInitializer(1.0),
+            trainable=False,
+        ),
+        shape=[channels],
+        dtype=dtype,
+    )
+    mean.stop_gradient = True
+    variance.stop_gradient = True
+    out = helper.create_variable_for_type_inference(input.dtype)
+    saved_mean = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    helper.append_op(
+        "batch_norm",
+        {
+            "X": [input.name],
+            "Scale": [scale.name],
+            "Bias": [bias.name],
+            "Mean": [mean.name],
+            "Variance": [variance.name],
+        },
+        {
+            "Y": [out.name],
+            "MeanOut": [mean.name],
+            "VarianceOut": [variance.name],
+            "SavedMean": [saved_mean.name],
+            "SavedVariance": [saved_var.name],
+        },
+        {
+            "momentum": momentum,
+            "epsilon": epsilon,
+            "is_test": is_test,
+            "data_layout": data_layout,
+            "use_global_stats": use_global_stats,
+        },
+    )
+    return helper.append_activation(out)
 
 
 def layer_norm(
@@ -502,6 +686,57 @@ def softmax_with_cross_entropy(
     if return_softmax:
         return loss, softmax_out
     return loss
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100, name=None):
+    helper = LayerHelper("cross_entropy", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "cross_entropy",
+        {"X": [input.name], "Label": [label.name]},
+        {"Y": [out.name]},
+        {"soft_label": soft_label, "ignore_index": ignore_index},
+    )
+    return out
+
+
+def square_error_cost(input, label, name=None):
+    helper = LayerHelper("square_error_cost", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "square_error_cost",
+        {"X": [input.name], "Y": [label.name]},
+        {"Out": [out.name]},
+    )
+    return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference("int64", stop_gradient=True)
+    helper.append_op(
+        "top_k",
+        {"X": [input.name]},
+        {"Out": [values.name], "Indices": [indices.name]},
+        {"k": k},
+    )
+    return values, indices
+
+
+def accuracy(input, label, k=1, name=None):
+    """reference: python/paddle/fluid/layers/metric_op.py accuracy."""
+    helper = LayerHelper("accuracy", name=name)
+    values, indices = topk(input, k)
+    acc = helper.create_variable_for_type_inference("float32", stop_gradient=True)
+    correct = helper.create_variable_for_type_inference("int32", stop_gradient=True)
+    total = helper.create_variable_for_type_inference("int32", stop_gradient=True)
+    helper.append_op(
+        "accuracy",
+        {"Out": [values.name], "Indices": [indices.name], "Label": [label.name]},
+        {"Accuracy": [acc.name], "Correct": [correct.name], "Total": [total.name]},
+    )
+    return acc
 
 
 def sigmoid(x, name=None, **attrs):

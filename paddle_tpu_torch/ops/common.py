@@ -59,6 +59,28 @@ def reduce_axes(attrs, ndim):
     return tuple(d % ndim for d in dims)
 
 
+def normalize_padding(attrs, spatial_dims, ksize, strides, in_shape):
+    """Resolve the reference's padding attrs (explicit list / SAME / VALID)
+    into ``((lo, hi), ...)`` pairs, one a spatial dim (the JAX package's
+    ``paddle_tpu/ops/common.py`` ``normalize_padding``). SAME pads
+    ``total // 2`` before and the rest after, so an odd total is
+    asymmetric; a 4-element ``paddings`` is ``[lo0, hi0, lo1, hi1]``."""
+    algo = attrs.get("padding_algorithm", "EXPLICIT")
+    pads = attrs.get("paddings", [0] * spatial_dims)
+    if algo == "VALID":
+        return ((0, 0),) * spatial_dims
+    if algo == "SAME":
+        out = []
+        for i in range(spatial_dims):
+            out_size = -(-in_shape[i] // strides[i])
+            total = max(0, (out_size - 1) * strides[i] + ksize[i] - in_shape[i])
+            out.append((total // 2, total - total // 2))
+        return tuple(out)
+    if len(pads) == spatial_dims:
+        return tuple((p, p) for p in pads)
+    return tuple((pads[2 * i], pads[2 * i + 1]) for i in range(spatial_dims))
+
+
 def xshape(x):
     """The ``XShape`` output of the ``*2`` reshape ops: an empty tensor
     whose shape records ``x``'s, as the JAX package emits it."""

@@ -32,6 +32,22 @@ def _square(ins, attrs):
     return {"Out": [torch.square(first(ins, "X"))]}
 
 
+@register_op("sign")
+def _sign(ins, attrs):
+    return {"Out": [torch.sign(first(ins, "X"))]}
+
+
+@register_op("top_k")
+def _top_k(ins, attrs):
+    """The k largest values along the last axis, largest first, and their
+    int64 indices (``jax.lax.top_k``; tied values may come in another
+    order)."""
+    x = first(ins, "X")
+    k = int(maybe(ins, "K", attrs.get("k", 1)))
+    vals, idx = torch.topk(x, k, dim=-1)
+    return {"Out": [vals], "Indices": [idx]}
+
+
 @register_op("pow")
 def _pow(ins, attrs):
     factor = maybe(ins, "FactorTensor", attrs.get("factor", 1.0))

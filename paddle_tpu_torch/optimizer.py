@@ -7,8 +7,11 @@ with grad ops, then appends one update op per parameter, with
 accumulators as persistable vars initialized in the startup program. Var
 names and op attributes follow the JAX package's, so both packages build
 the same training program. The port carries ``SGDOptimizer``,
-``MomentumOptimizer``, ``AdamOptimizer`` and ``DGCMomentumOptimizer``;
-gradient clipping and regularization are not ported yet (ROADMAP M1b).
+``MomentumOptimizer``, ``AdamOptimizer`` and ``DGCMomentumOptimizer``,
+with weight decay (``regularizer.py``: ``regularization=`` for every
+parameter, a parameter's own ``ParamAttr(regularizer=)`` first); gradient
+clipping and per-parameter learning rates are not ported yet (ROADMAP
+M1b).
 """
 
 from paddle_tpu_torch.core.backward import append_backward
@@ -28,10 +31,11 @@ _OP_ROLE_OPTIMIZE = 2
 class Optimizer:
     def __init__(self, learning_rate, regularization=None, grad_clip=None,
                  name=None):
-        if regularization is not None or grad_clip is not None:
+        if grad_clip is not None:
             raise NotImplementedError(
-                "regularization and grad_clip are not ported yet (ROADMAP M1b)")
+                "grad_clip is not ported yet (ROADMAP M1b)")
         self._learning_rate = learning_rate
+        self.regularization = regularization
         self._name = name
         self._accumulators = {}
         self._lr_var = None
@@ -93,9 +97,20 @@ class Optimizer:
                  no_grad_set=None):
         return append_backward(loss, parameter_list, no_grad_set)
 
+    def _append_regularization(self, params_grads):
+        out = []
+        for p, g in params_grads:
+            reg = p.regularizer or self.regularization
+            if reg is None or g is None:
+                out.append((p, g))
+                continue
+            out.append((p, reg._append_regularization_op(p, g)))
+        return out
+
     def apply_gradients(self, params_grads):
         block = default_main_program().global_block()
         start = len(block.ops)
+        params_grads = self._append_regularization(params_grads)
         self._create_accumulators(block, [p for p, _ in params_grads])
         ops = []
         for p, g in params_grads:
@@ -103,7 +118,8 @@ class Optimizer:
                 continue
             ops.append(self._append_optimize_op(block, (p, g)))
         self._finish_update(block, params_grads)
-        # everything appended here is the optimize region
+        # everything appended here (regularization included) is the
+        # optimize region
         for op in block.ops[start:]:
             op.attrs["op_role"] = _OP_ROLE_OPTIMIZE
         return ops

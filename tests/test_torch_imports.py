@@ -35,6 +35,8 @@ import paddle_tpu_torch.kernels.sparse_update
 import paddle_tpu_torch.kernels.topk
 import paddle_tpu_torch.models.bert
 import paddle_tpu_torch.models.ctr
+import paddle_tpu_torch.models.mnist
+import paddle_tpu_torch.models.resnet
 import paddle_tpu_torch.models.transformer
 import paddle_tpu_torch.models.wide_deep
 import paddle_tpu_torch.ops.misc_extra
@@ -44,6 +46,7 @@ import paddle_tpu_torch.parallel
 import paddle_tpu_torch.parallel.dgc
 import paddle_tpu_torch.parallel.env
 import paddle_tpu_torch.passes
+import paddle_tpu_torch.regularizer
 import paddle_tpu_torch.serving.decode.engine
 import paddle_tpu_torch.serving.decode.generate.beam
 import paddle_tpu_torch.serving.decode.generate.grammar

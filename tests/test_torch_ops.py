@@ -96,13 +96,15 @@ def _run_torch(op_type, ins, attrs):
 
 
 def test_cases_cover_every_ported_op_type():
+    from test_torch_conv import CASES as CONV_CASES
     from test_torch_ctr import CASES as CTR_CASES
     from test_torch_random import CASES as RANDOM_CASES
     from test_torch_train_ops import CASES as TRAIN_CASES
     from test_torch_transformer import CASES as DGC_CASES
 
     assert sorted(set(CASES) | set(TRAIN_CASES) | set(CTR_CASES)
-                  | set(DGC_CASES) | set(RANDOM_CASES)) == TorchOps.all_types()
+                  | set(DGC_CASES) | set(RANDOM_CASES)
+                  | set(CONV_CASES)) == TorchOps.all_types()
 
 
 @pytest.mark.parametrize("op_type", sorted(CASES))
