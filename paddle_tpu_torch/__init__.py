@@ -32,6 +32,7 @@ from paddle_tpu_torch.compiler import (
 )
 import paddle_tpu_torch.ops  # noqa: F401  (registers the op library)
 from paddle_tpu_torch import layers
+from paddle_tpu_torch import amp
 from paddle_tpu_torch import initializer
 from paddle_tpu_torch import optimizer
 from paddle_tpu_torch import regularizer

@@ -1,0 +1,292 @@
+"""Automatic mixed precision as a program rewrite, copied from the JAX
+package's ``amp/decorator.py`` so both packages build the same program:
+the same casts (``<var>.cast_<dtype>``), at the same places, with the same
+var dtypes (reference: python/paddle/fluid/contrib/mixed_precision/
+decorator.py:27 OptimizerWithMixedPrecision, fp16_lists.py, fp16_utils.py).
+
+The default compute dtype is bfloat16 (``flags.amp_dtype``), which shares
+float32's exponent range, so loss scaling is off by default and only
+activates for float16. Parameters stay float32 master weights; white-list
+ops (matrix products, convolutions, fused attention) get their float
+inputs cast down, black-list ops (softmax, norms, reductions, losses) get
+them cast back up. On the card a white-list op runs in the low type:
+cuBLAS products with float32 reduction (``ops/math.py``), cuDNN
+convolutions, and the bf16 or float16 builds of the flash kernels.
+"""
+
+from paddle_tpu_torch.core.dtypes import is_float_dtype
+from paddle_tpu_torch.core.ir import default_main_program
+from paddle_tpu_torch.utils.flags import flags
+
+__all__ = ["WHITE_LIST", "WHITE_LIST_SKIP_SLOTS", "BLACK_LIST",
+           "AutoMixedPrecisionLists", "rewrite_program_amp",
+           "OptimizerWithMixedPrecision", "decorate"]
+
+# reference: python/paddle/fluid/contrib/mixed_precision/fp16_lists.py
+WHITE_LIST = {
+    "matmul",
+    "mul",
+    "fc",
+    "conv2d",
+    "depthwise_conv2d",
+    "conv2d_transpose",
+    # fused attention: the flash kernels' products run in the operand type
+    # with f32 accumulation (the softmax inside stays f32)
+    "scaled_dot_product_attention",
+    "multihead_matmul",
+}
+
+# input slots of white-list ops that never feed a product: casting them
+# only quantizes the value (attention biases are added to f32 scores
+# inside the kernel)
+WHITE_LIST_SKIP_SLOTS = {
+    "scaled_dot_product_attention": {"Bias"},
+    "multihead_matmul": {"Bias", "BiasQK"},
+}
+BLACK_LIST = {
+    "softmax",
+    "log_softmax",
+    "softmax_with_cross_entropy",
+    "cross_entropy",
+    "layer_norm",
+    "batch_norm",
+    "instance_norm",
+    "group_norm",
+    "mean",
+    "sum",
+    "reduce_sum",
+    "reduce_mean",
+    "exp",
+    "log",
+    "squared_l2_norm",
+    "auc",
+    "accuracy",
+}
+
+
+class AutoMixedPrecisionLists:
+    def __init__(self, custom_white_list=None, custom_black_list=None):
+        self.white_list = set(WHITE_LIST)
+        self.black_list = set(BLACK_LIST)
+        if custom_white_list:
+            self.white_list |= set(custom_white_list)
+        if custom_black_list:
+            self.black_list |= set(custom_black_list)
+        overlap = self.white_list & self.black_list
+        if overlap:
+            raise ValueError(f"ops in both white and black lists: {overlap}")
+
+
+def _insert_cast(block, index, src_name, dst_dtype, cache):
+    key = (src_name, dst_dtype)
+    if key in cache:
+        return cache[key], index
+    cast_name = f"{src_name}.cast_{dst_dtype}"
+    src = block._find_var_recursive(src_name)
+    if cast_name not in block.vars:
+        block.create_var(
+            name=cast_name,
+            shape=src.shape if src is not None else None,
+            dtype=dst_dtype,
+            stop_gradient=src.stop_gradient if src is not None else False,
+        )
+    block._insert_op(
+        index,
+        "cast",
+        {"X": [src_name]},
+        {"Out": [cast_name]},
+        {"out_dtype": dst_dtype, "op_role": 0},
+    )
+    cache[key] = cast_name
+    return cast_name, index + 1
+
+
+def rewrite_program_amp(program=None, amp_lists=None, dest_dtype=None):
+    """Insert casts so white-list ops compute in the low-precision dtype and
+    black-list ops compute in float32. Must run on the forward-only program
+    (before append_backward) so grad ops inherit the casts through the
+    cast op's grad."""
+    program = program or default_main_program()
+    amp_lists = amp_lists or AutoMixedPrecisionLists()
+    dest_dtype = dest_dtype or flags.amp_dtype
+    block = program.global_block()
+    i = 0
+    cache = {}
+    while i < len(block.ops):
+        op = block.ops[i]
+        target = None
+        if op.type in amp_lists.white_list:
+            target = dest_dtype
+        elif op.type in amp_lists.black_list:
+            target = "float32"
+        if target is None:
+            i += 1
+            continue
+        skip_slots = (
+            WHITE_LIST_SKIP_SLOTS.get(op.type, ()) if target != "float32" else ()
+        )
+        for slot, names in list(op.inputs.items()):
+            if slot in skip_slots:
+                continue
+            new_names = []
+            for n in names:
+                v = block._find_var_recursive(n)
+                if v is not None and v.dtype is not None and is_float_dtype(v.dtype):
+                    cast_name, i = _insert_cast(block, i, n, target, cache)
+                    new_names.append(cast_name)
+                else:
+                    new_names.append(n)
+            op.inputs[slot] = new_names
+        i += 1
+    program._bump_version()
+    return program
+
+
+class OptimizerWithMixedPrecision:
+    """reference: python/paddle/fluid/contrib/mixed_precision/decorator.py:27.
+    Wraps an optimizer: rewrites the forward program, optionally scales the
+    loss (float16 only), unscales gradients before the update."""
+
+    def __init__(
+        self,
+        optimizer,
+        amp_lists=None,
+        init_loss_scaling=1.0,
+        use_dynamic_loss_scaling=False,
+        incr_every_n_steps=1000,
+        decr_ratio=0.5,
+        incr_ratio=2.0,
+        dest_dtype=None,
+    ):
+        self._optimizer = optimizer
+        self._amp_lists = amp_lists or AutoMixedPrecisionLists()
+        self._dest_dtype = dest_dtype or flags.amp_dtype
+        self._loss_scaling = init_loss_scaling
+        self._use_dynamic = use_dynamic_loss_scaling
+        self._incr_every_n_steps = incr_every_n_steps
+        self._decr_ratio = decr_ratio
+        self._incr_ratio = incr_ratio
+        self._scale_var = None
+
+    def __getattr__(self, name):
+        return getattr(self._optimizer, name)
+
+    def _needs_scaling(self):
+        return self._dest_dtype == "float16" and (
+            self._use_dynamic or self._loss_scaling != 1.0
+        )
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        from paddle_tpu_torch import layers
+        from paddle_tpu_torch.core.backward import append_backward
+
+        rewrite_program_amp(loss.block.program, self._amp_lists, self._dest_dtype)
+        if not self._needs_scaling():
+            return append_backward(loss, parameter_list, no_grad_set)
+        if not self._use_dynamic:
+            scaled = layers.scale(loss, scale=self._loss_scaling)
+            pg = append_backward(scaled, parameter_list, no_grad_set)
+            inv = 1.0 / self._loss_scaling
+            return [(p, layers.scale(g, scale=inv)) for p, g in pg if g is not None]
+        return self._dynamic_backward(loss, parameter_list, no_grad_set)
+
+    def _dynamic_backward(self, loss, parameter_list, no_grad_set):
+        """Dynamic loss scaling (reference: contrib/mixed_precision/
+        decorator.py + fp16_utils.py update_loss_scaling): scale the loss by a
+        persistable scale var, unscale grads, zero them on overflow, and adapt
+        the scale, all as ops of the training step that stay on the device."""
+        from paddle_tpu_torch import layers
+        from paddle_tpu_torch.core.backward import append_backward
+        from paddle_tpu_torch.layers import tensor as tensor_layers
+        from paddle_tpu_torch.utils import unique_name
+
+        block = loss.block
+        self._scale_var = tensor_layers.create_global_var(
+            shape=[1],
+            value=float(self._loss_scaling),
+            dtype="float32",
+            persistable=True,
+            name=unique_name.generate("loss_scaling"),
+        )
+        good = tensor_layers.create_global_var(
+            shape=[1], value=0, dtype="int32", persistable=True,
+            name=unique_name.generate("loss_scaling_good_steps"),
+        )
+        bad = tensor_layers.create_global_var(
+            shape=[1], value=0, dtype="int32", persistable=True,
+            name=unique_name.generate("loss_scaling_bad_steps"),
+        )
+        scaled = layers.elementwise_mul(loss, self._scale_var)
+        pg = [(p, g) for p, g in append_backward(scaled, parameter_list, no_grad_set)
+              if g is not None]
+        grad_names = [g.name for _, g in pg]
+        found_inf = block.create_var(
+            name=unique_name.generate("found_infinite"), shape=[1], dtype="bool"
+        )
+        block.append_op(
+            "check_finite_and_unscale",
+            {"X": grad_names, "Scale": [self._scale_var.name]},
+            {"Out": grad_names, "FoundInfinite": [found_inf.name]},
+            {"op_role": 1},
+        )
+        block.append_op(
+            "update_loss_scaling",
+            {
+                "X": grad_names,
+                "FoundInfinite": [found_inf.name],
+                "PrevLossScaling": [self._scale_var.name],
+                "InGoodSteps": [good.name],
+                "InBadSteps": [bad.name],
+            },
+            {
+                "Out": grad_names,
+                "LossScaling": [self._scale_var.name],
+                "OutGoodSteps": [good.name],
+                "OutBadSteps": [bad.name],
+            },
+            {
+                "incr_every_n_steps": self._incr_every_n_steps,
+                "decr_every_n_nan_or_inf": 2,
+                "incr_ratio": self._incr_ratio,
+                "decr_ratio": self._decr_ratio,
+                "op_role": 1,
+            },
+        )
+        return pg
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        self._optimizer.helper = None
+        self._optimizer._create_global_learning_rate()
+        params_grads = self.backward(
+            loss, startup_program, parameter_list, no_grad_set
+        )
+        optimize_ops = self._optimizer.apply_gradients(params_grads)
+        return optimize_ops, params_grads
+
+
+def decorate(
+    optimizer,
+    amp_lists=None,
+    init_loss_scaling=1.0,
+    use_dynamic_loss_scaling=False,
+    incr_every_n_steps=1000,
+    decr_every_n_nan_or_inf=2,
+    incr_ratio=2.0,
+    decr_ratio=0.5,
+    dest_dtype=None,
+):
+    """reference: python/paddle/fluid/contrib/mixed_precision/decorator.py:218.
+    ``decr_every_n_nan_or_inf`` is taken and not used: the update op halves
+    the scale after 2 overflows, as the JAX package's does."""
+    return OptimizerWithMixedPrecision(
+        optimizer,
+        amp_lists=amp_lists,
+        init_loss_scaling=init_loss_scaling,
+        use_dynamic_loss_scaling=use_dynamic_loss_scaling,
+        incr_every_n_steps=incr_every_n_steps,
+        decr_ratio=decr_ratio,
+        incr_ratio=incr_ratio,
+        dest_dtype=dest_dtype,
+    )

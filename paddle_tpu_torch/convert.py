@@ -6,7 +6,10 @@ optimizer accumulator the same way (``{name}_v{version}.l{i}.q.w``,
 ``word_embedding_moment1_0``, ``@LR_DECAY_COUNTER@``, ...). Arrays read
 off the JAX package's scope by those names load into the port's scope as
 they are, and the two packages then compute the same function;
-``persistables_to_numpy`` reads a program's whole state back out.
+``persistables_to_numpy`` reads a program's whole state back out. Under
+AMP (``amp.decorate``) the parameters stay float32 master weights and the
+dynamic loss-scaling state (``loss_scaling_*``, its good and bad step
+counts) is persistables like any other, so both carry over the same way.
 
 Data-parallel DGC state differs in layout: the JAX scope holds each
 ``dgc_momentum`` accumulator as one ``[n, ...]`` array over the mesh's n

@@ -74,5 +74,12 @@ def convert_dtype(dtype):
     return _ALIASES.get(name, name)
 
 
+_FLOAT_TYPES = {"float16", "bfloat16", "float32", "float64"}
+
+
+def is_float_dtype(dtype):
+    return convert_dtype(dtype) in _FLOAT_TYPES
+
+
 def to_torch_dtype(dtype):
     return _TORCH[convert_dtype(dtype)]

@@ -127,6 +127,16 @@ def block_plan(block):
     return plan
 
 
+def _to_numpy(t):
+    """A fetch as a numpy array. numpy has no bfloat16, so a bfloat16
+    fetch comes back as float32, an exact widening (the JAX package
+    returns ``ml_dtypes.bfloat16`` arrays)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
 class Executor:
     """Feeds a Program, runs it and returns its fetches (reference:
     python/paddle/fluid/executor.py:432).
@@ -262,7 +272,7 @@ class Executor:
                     "fed, or present in scope"
                 )
         if return_numpy:
-            fetches = [f.detach().cpu().numpy() for f in fetches]
+            fetches = [_to_numpy(f) for f in fetches]
         if kernel_registry.late_launches() != late:
             self._raise_late(steps, synced=return_numpy and bool(fetches))
         return fetches

@@ -1,15 +1,16 @@
-// Flash attention for Hopper (sm_90a), float32: forward, dK/dV backward and
-// dQ backward.
+// Flash attention for Hopper (sm_90a): forward, dK/dV backward and dQ
+// backward, in float32 and, for AMP's operand types, in bf16 and float16
+// (the 16-bit builds, their own section below).
 //
 // Replaces the three Pallas TPU kernels of
 // paddle_tpu/ops/pallas/flash_attention.py:
 //
-//   flash_attention_fwd_f32       <- `_fwd_impl`,  pallas_call at :167
-//                                    (body `_attention_kernel`, :42)
-//   flash_attention_bwd_dkdv_f32  <- `_flash_bwd`, pallas_call at :378
-//                                    (body `_bwd_dkdv_kernel`, :197)
-//   flash_attention_bwd_dq_f32    <- `_flash_bwd`, pallas_call at :419
-//                                    (body `_bwd_dq_kernel`, :265)
+//   flash_attention_fwd_{f32,bf16,f16}       <- `_fwd_impl`,  pallas_call at :167
+//                                               (body `_attention_kernel`, :42)
+//   flash_attention_bwd_dkdv_{f32,bf16,f16}  <- `_flash_bwd`, pallas_call at :378
+//                                               (body `_bwd_dkdv_kernel`, :197)
+//   flash_attention_bwd_dq_{f32,bf16,f16}    <- `_flash_bwd`, pallas_call at :419
+//                                               (body `_bwd_dq_kernel`, :265)
 //
 // q, k, v, o, do, dq, dk, dv are [BH, S, D] (BH = B * H heads, contiguous);
 // bias is an optional additive key bias [B, S] shared by the H heads of a
@@ -30,12 +31,13 @@
 // and skips the key (or query) tiles that the mask removes whole (:84-86,
 // :253-256, :307-310). Any S works: rows and keys at or past S are
 // zero-filled in shared memory and masked, and nothing is written for them.
-// D is a multiple of 4 up to 128.
+// D is a multiple of 4 up to 128 in float32, of 8 in the 16-bit builds.
 //
-// Bound. At BERT-base's shapes (B=32, H=12, S=128, D=64) K1 does 2, K2a
-// 4 and K2b 3 * B*H*S^2*D multiply-adds: 0.024, 0.048 and 0.036 ms at the
-// f32 FFMA rate (67 TFLOP/s), which first designs in FFMA (paced by their
-// shared-memory loads) reached a quarter (K1) to a fifth (K2a, K2b) of. So
+// The float32 builds. Bound: at BERT-base's shapes (B=32, H=12, S=128,
+// D=64) K1 does 2, K2a 4 and K2b 3 * B*H*S^2*D multiply-adds: 0.024, 0.048
+// and 0.036 ms at the f32 FFMA rate (67 TFLOP/s), which first designs in
+// FFMA (paced by their shared-memory loads) reached a quarter (K1) to a
+// fifth (K2a, K2b) of. So
 // every product of all three runs on the tensor cores, as mma.sync m16n8k8
 // TF32 in the 3xTF32 split (each f32 operand as big = tf32(x) plus small =
 // tf32(x - big), three MMAs a product, f32 accumulators): f32-accurate,
@@ -80,6 +82,8 @@
 //   load is free of bank conflicts; D is zero-padded to a class of 32, 64,
 //   96 or 128 columns, so the loops have fixed trip counts.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -174,7 +178,7 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 }
 
 // 16 bytes from src to dst, or 16 zero bytes (nothing read) when !valid.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0)
                : "memory");
@@ -195,13 +199,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// dst[r * LD + c] = src[(row0 + r) * D + c] for r < n, c < 4 * CHUNKS, as
-// 16-byte copies; zeros for rows at or past S and columns at or past D.
-template <int LD, int CHUNKS>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src, int row0, int n,
-                                           int S, int D) {
+// dst[r * LD + c] = src[(row0 + r) * D + c] for r < n, c < CHUNKS 16-byte
+// chunks (4 floats or 8 16-bit values each), as 16-byte copies; zeros for
+// rows at or past S and columns at or past D.
+template <int LD, int CHUNKS, typename T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, int row0, int n, int S,
+                                           int D) {
+  constexpr int kPer = 16 / sizeof(T);
   for (int i = threadIdx.x; i < n * CHUNKS; i += kThreads) {
-    const int r = i / CHUNKS, c = (i - r * CHUNKS) * 4;
+    const int r = i / CHUNKS, c = (i - r * CHUNKS) * kPer;
     const bool valid = row0 + r < S && c < D;
     cp_async16(dst + r * LD + c, valid ? src + static_cast<size_t>(row0 + r) * D + c : src,
                valid);
@@ -276,7 +282,7 @@ __device__ __forceinline__ void mma3_pair(float (&c)[4], const FragA& a0, const 
 // Four 8 x 4 blocks of 32-bit words in one instruction (ldmatrix's 8 x 8
 // b16 matrices): lane l gives the address of row l % 8 of block l / 8 and
 // gets word l % 4 of row l / 4 of each block.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
@@ -782,6 +788,514 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---- The 16-bit builds: K1, K2b and K2a in bf16 and float16 ----------------
+// Under AMP the JAX package feeds the Pallas kernels bf16 q, k, v (and dO),
+// and their dots run in that type with f32 accumulation
+// (preferred_element_type, flash_attention.py:43-45, :72-75): s = q k^T is
+// exact products summed in f32; p is rounded to the operand type only for
+// the p v product (:74), while l sums the unrounded f32 p (:70); in the
+// backward p and dS are rounded before their products (:234, :243, :301).
+// O, dQ, dK and dV come out in the operand type, LSE and dbias in f32. These
+// kernels round at the same points. Each product is one mma.sync m16n8k16
+// (bf16 or f16 operands, f32 accumulators) in place of the float32 build's
+// three TF32 ones; the softmax, p, dS and every sum stay f32 in registers.
+//
+// Fragments of m16n8k16 (lane = 4 g + t), two 16-bit values a register:
+//   A 16x16: a0 (g, 2t..2t+1), a1 (g + 8, 2t..), a2 (g, 2t + 8..), a3 (g + 8, 2t + 8..)
+//   B 16x8:  b0 (k = 2t..2t+1, n = g), b1 (k = 2t + 8.., n = g)
+//   C 16x8:  c0 c1 (g, 2t..2t+1), c2 c3 (g + 8, 2t..2t+1)
+// The C fragments of two adjacent 8-column tiles are, packed in pairs, the A
+// fragment of a product over their 16 columns, so P and dS stay in registers
+// with no reordering. Every operand loads with ldmatrix: A and the B of
+// S = Q K^T (K's rows are B's columns) as stored, the B of P V, dS K, P^T dO
+// and dS^T Q (rows are B's k) through ldmatrix.trans. Tiles sit row-major in
+// shared memory with a leading dim of D's class + 8 values, so a row is 16
+// (mod 128) bytes after the one before it and the 8 rows an ldmatrix reads
+// hit 8 distinct 16-byte bank groups. A block is 4 warps owning 64 rows, 16
+// a warp, as in the float32 build, and streams tiles of 32 rows through the
+// same 2-stage cp.async ring; operands are read from shared memory at each
+// use (no fragment is held across tiles), which keeps registers for the
+// accumulators at D = 128 (234 registers, no spill, in K2a). D must be a
+// multiple of 8 (a 16-byte copy is 8 values).
+//
+// Bound: at BERT-base's shapes the products take 1.6-3.3 us at the bf16
+// tensor-core rate, so all three are bound by bytes (16-bit q, k, v, O, dO
+// and grads, float32 LSE, delta, bias): 0.0076 (K1), 0.0114 (K2a) and
+// 0.0095 ms (K2b) at 3.35 TB/s. On an H100 they run 2.3-2.7x that
+// (chip_smoke.py phase 2f), on mma.sync; wgmma is a later design.
+
+constexpr int kTile16 = 32;  // rows of a streamed tile (keys, or K2a's queries)
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+template <typename T>
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                      uint32_t b1) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// The leading dim, in values, of a 16-bit tile in head-width class NT.
+template <int NT>
+__host__ __device__ constexpr int row_ld16() {
+  return 8 * NT + 8;
+}
+
+// A lane's ldmatrix row address from a tile's corner, in values:
+// - lane_a: the A fragment of rows 0-15, columns 0-15;
+// - lane_b: two B fragments (8 columns n each) of one k16 step, B[k][n] =
+//   tile[n][k], rows 0-15 (n) and columns 0-15 (k): regs 0, 1 for rows 0-7,
+//   regs 2, 3 for rows 8-15;
+// - lane_bt (with .trans): two B fragments of one k16 step, B[k][n] =
+//   tile[k][n], rows 0-15 (k) and columns 0-15 (n): regs 0, 1 for columns
+//   0-7, regs 2, 3 for columns 8-15.
+template <int LD>
+__device__ __forceinline__ int lane_a(int lane) {
+  return (lane & 15) * LD + (lane >> 4) * 8;
+}
+
+template <int LD>
+__device__ __forceinline__ int lane_b(int lane) {
+  return ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8;
+}
+
+template <int LD>
+__device__ __forceinline__ int lane_bt(int lane) {
+  return ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + (lane >> 4) * 8;
+}
+
+// c[j] += A B_j over the k16 steps of a D-wide row product, j over the
+// TILE / 8 column tiles: A = 16 rows of `a` (this warp's, `a_at` =
+// lane_a), B_j[k][n] = b[8 j + n][k] (`b_at` = lane_b).
+template <typename T, int NT, int TILE>
+__device__ __forceinline__ void rows_product(float (&c)[TILE / 8][4], const T* a, int a_at,
+                                             const T* b, int b_at) {
+  constexpr int LD = row_ld16<NT>();
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    uint32_t af[4];
+    ldsm_x4(af, a + a_at + 16 * kk);
+#pragma unroll
+    for (int jj = 0; jj < TILE / 16; ++jj) {
+      uint32_t bf[4];
+      ldsm_x4(bf, b + 16 * jj * LD + b_at + 16 * kk);
+      mma16<T>(c[2 * jj], af, bf[0], bf[1]);
+      mma16<T>(c[2 * jj + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc[nt] += P B over the tile's TILE rows: P in C fragments (f32, rounded
+// to T here), B[k][n] = b[k][8 nt + n] (`bt_at` = lane_bt).
+template <typename T, int NT, int TILE>
+__device__ __forceinline__ void cols_product(float (&acc)[NT][4],
+                                             const float (&p)[TILE / 8][4], const T* b,
+                                             int bt_at) {
+  constexpr int LD = row_ld16<NT>();
+#pragma unroll
+  for (int jj = 0; jj < TILE / 16; ++jj) {
+    const uint32_t pa[4] = {pack2<T>(p[2 * jj][0], p[2 * jj][1]),
+                            pack2<T>(p[2 * jj][2], p[2 * jj][3]),
+                            pack2<T>(p[2 * jj + 1][0], p[2 * jj + 1][1]),
+                            pack2<T>(p[2 * jj + 1][2], p[2 * jj + 1][3])};
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t bf[4];
+      ldsm_x4_trans(bf, b + 16 * jj * LD + bt_at + 16 * np);
+      mma16<T>(acc[2 * np], pa, bf[0], bf[1]);
+      mma16<T>(acc[2 * np + 1], pa, bf[2], bf[3]);
+    }
+  }
+}
+
+// Writes acc (this thread's rows row0 and row0 + 8 of 16, columns 2t, 2t + 1
+// of each 8) times `mul[i]` as T to out's rows below S and columns below D.
+template <typename T, int NT>
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[NT][4], int row0,
+                                           const float (&mul)[2], int S, int D, int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= S) continue;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = 8 * nt + 2 * t;
+      if (col < D)
+        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row) * D + col) =
+            pack2<T>(acc[nt][2 * i] * mul[i], acc[nt][2 * i + 1] * mul[i]);
+    }
+  }
+}
+
+// Shared bytes of a 16-bit block: `own` matrices of its 64 rows and the
+// ring of streamed tiles (two matrices and `extra` f32 vectors of a row).
+template <typename T, int NT>
+__host__ __device__ constexpr size_t smem16(int own, int extra) {
+  return own * kRows * row_ld16<NT>() * sizeof(T) +
+         kStages * (2 * kTile16 * row_ld16<NT>() * sizeof(T) +
+                    extra * kTile16 * sizeof(float));
+}
+
+// ---- K1 (16-bit): O and LSE -------------------------------------------------
+template <typename T, int NT>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd16_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const float* __restrict__ bias,
+                   T* __restrict__ o, float* __restrict__ lse, int H, int S, int D,
+                   float scale, int causal) {
+  constexpr int LD = row_ld16<NT>(), TILE = kTile16, CHUNKS = NT;
+  constexpr size_t kStage = 2 * TILE * LD * sizeof(T) + TILE * sizeof(float);
+  extern __shared__ float4 smem4[];
+  T* Qs = reinterpret_cast<T*>(smem4);
+  char* ring = reinterpret_cast<char*>(Qs + kRows * LD);
+
+  const int n_qt = (S + kRows - 1) / kRows;
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (blockIdx.x % n_qt) * kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane % 4;
+  const size_t base = static_cast<size_t>(bh) * S * D;
+  const float* brow = bias ? bias + static_cast<size_t>(bh / H) * S : nullptr;
+
+  int n_kt = (S + TILE - 1) / TILE;
+  if (causal) n_kt = min(n_kt, (q0 + kRows + TILE - 1) / TILE);  // later keys masked
+  auto stage = [&](int tile) {
+    T* Ks = reinterpret_cast<T*>(ring + (tile % kStages) * kStage);
+    stage_rows<LD, CHUNKS>(Ks, k + base, tile * TILE, TILE, S, D);
+    stage_rows<LD, CHUNKS>(Ks + TILE * LD, v + base, tile * TILE, TILE, S, D);
+    if (brow)
+      stage_vec(reinterpret_cast<float*>(Ks + 2 * TILE * LD), brow, tile * TILE, TILE, S);
+  };
+  stage_rows<LD, CHUNKS>(Qs, q + base, q0, kRows, S, D);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_kt) stage(i);
+    cp_async_commit();
+  }
+  const T* Qw = Qs + 16 * warp * LD;
+  const int a_at = lane_a<LD>(lane), b_at = lane_b<LD>(lane), bt_at = lane_bt<LD>(lane);
+
+  const int row0 = q0 + 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f}, acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+
+  for (int it = 0; it < n_kt; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile `it` has landed; every warp is done with it - 1
+    if (it + kStages - 1 < n_kt) stage(it + kStages - 1);
+    cp_async_commit();
+    const T* Ks = reinterpret_cast<const T*>(ring + (it % kStages) * kStage);
+    const T* Vs = Ks + TILE * LD;
+    const float* Bs = reinterpret_cast<const float*>(Vs + TILE * LD);
+    const int k0 = it * TILE;
+
+    float s[TILE / 8][4];
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    rows_product<T, NT, TILE>(s, Qw, a_at, Ks, b_at);
+    // the masked scores, and the rows' maxima over the tile
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j) {
+      const float2 b2 = brow ? *reinterpret_cast<const float2*>(Bs + 8 * j + 2 * t)
+                             : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 8 * (e / 2);
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
+        float x = s[j][e] * scale;
+        if (col >= S) {
+          x = -INFINITY;  // exp() gives 0 exactly: the key does not exist
+        } else {
+          x += (e & 1) ? b2.y : b2.x;
+          if (causal && col > row) x = kNeg;
+        }
+        s[j][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - m[e / 2]);
+        s[j][e] = p;
+        sum[e / 2] += p;  // l sums the unrounded p
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      l[i] = l[i] * alpha[i] + sum[i];
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      acc[nt][0] *= alpha[0];
+      acc[nt][1] *= alpha[0];
+      acc[nt][2] *= alpha[1];
+      acc[nt][3] *= alpha[1];
+    }
+    cols_product<T, NT, TILE>(acc, s, Vs, bt_at);  // O += round(P) V
+  }
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    const float l_safe = l[i] == 0.f ? 1.f : l[i];
+    inv[i] = 1.f / l_safe;
+    if (row < S && t == 0) lse[static_cast<size_t>(bh) * S + row] = m[i] + logf(l_safe);
+  }
+  store_rows<T, NT>(o + base, acc, row0, inv, S, D, t);
+}
+
+// ---- K2b (16-bit): dQ -------------------------------------------------------
+template <typename T, int NT>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq16_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const float* __restrict__ bias,
+                      const T* __restrict__ dout, const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dq, int H,
+                      int S, int D, float scale, int causal) {
+  constexpr int LD = row_ld16<NT>(), TILE = kTile16, CHUNKS = NT;
+  constexpr size_t kStage = 2 * TILE * LD * sizeof(T) + TILE * sizeof(float);
+  extern __shared__ float4 smem4[];
+  T* Qs = reinterpret_cast<T*>(smem4);
+  T* dOs = Qs + kRows * LD;
+  char* ring = reinterpret_cast<char*>(dOs + kRows * LD);
+
+  const int n_qt = (S + kRows - 1) / kRows;
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (blockIdx.x % n_qt) * kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane % 4;
+  const size_t base = static_cast<size_t>(bh) * S * D;
+  const float* brow = bias ? bias + static_cast<size_t>(bh / H) * S : nullptr;
+
+  int n_kt = (S + TILE - 1) / TILE;
+  if (causal) n_kt = min(n_kt, (q0 + kRows + TILE - 1) / TILE);  // later keys masked
+  auto stage = [&](int tile) {
+    T* Ks = reinterpret_cast<T*>(ring + (tile % kStages) * kStage);
+    stage_rows<LD, CHUNKS>(Ks, k + base, tile * TILE, TILE, S, D);
+    stage_rows<LD, CHUNKS>(Ks + TILE * LD, v + base, tile * TILE, TILE, S, D);
+    if (brow)
+      stage_vec(reinterpret_cast<float*>(Ks + 2 * TILE * LD), brow, tile * TILE, TILE, S);
+  };
+  stage_rows<LD, CHUNKS>(Qs, q + base, q0, kRows, S, D);
+  stage_rows<LD, CHUNKS>(dOs, dout + base, q0, kRows, S, D);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_kt) stage(i);
+    cp_async_commit();
+  }
+
+  const int row0 = q0 + 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
+  float row_lse[2], row_delta[2], acc[NT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    row_lse[i] = row < S ? lse[static_cast<size_t>(bh) * S + row] : kNeg;
+    row_delta[i] = row < S ? delta[static_cast<size_t>(bh) * S + row] : 0.f;
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  const T* Qw = Qs + 16 * warp * LD;
+  const T* dOw = dOs + 16 * warp * LD;
+  const int a_at = lane_a<LD>(lane), b_at = lane_b<LD>(lane), bt_at = lane_bt<LD>(lane);
+
+  for (int it = 0; it < n_kt; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile `it` has landed; every warp is done with it - 1
+    if (it + kStages - 1 < n_kt) stage(it + kStages - 1);
+    cp_async_commit();
+    const T* Ks = reinterpret_cast<const T*>(ring + (it % kStages) * kStage);
+    const T* Vs = Ks + TILE * LD;
+    const float* Bs = reinterpret_cast<const float*>(Vs + TILE * LD);
+    const int k0 = it * TILE;
+
+    float s[TILE / 8][4], dp[TILE / 8][4];
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    rows_product<T, NT, TILE>(s, Qw, a_at, Ks, b_at);    // S = Q K^T
+    rows_product<T, NT, TILE>(dp, dOw, a_at, Vs, b_at);  // dP = dO V^T
+    // dS = P (dP - delta) with P = exp(s - lse), in place of s
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j) {
+      const float2 b2 = brow ? *reinterpret_cast<const float2*>(Bs + 8 * j + 2 * t)
+                             : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 8 * (e / 2);
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
+        float p = 0.f;
+        if (col < S && row_lse[e / 2] > kDeadLse) {
+          float x = s[j][e] * scale + ((e & 1) ? b2.y : b2.x);
+          if (causal && col > row) x = kNeg;
+          p = expf(x - row_lse[e / 2]);
+        }
+        s[j][e] = p * (dp[j][e] - row_delta[e / 2]);
+      }
+    }
+    cols_product<T, NT, TILE>(acc, s, Ks, bt_at);  // dQ += round(dS) K
+  }
+  const float mul[2] = {scale, scale};
+  store_rows<T, NT>(dq + base, acc, row0, mul, S, D, t);
+}
+
+// ---- K2a (16-bit): dK, dV, dbias --------------------------------------------
+// Key-major, as the float32 build: S^T = K Q^T and dP^T = V dO^T, so P^T and
+// dS^T are A fragments of dV += P^T dO and dK += dS^T Q, and dbias is a row
+// sum of the unrounded f32 dS^T.
+template <typename T, int NT>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv16_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const float* __restrict__ bias,
+                        const T* __restrict__ dout, const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dk,
+                        T* __restrict__ dv, float* __restrict__ dbias, int H, int S, int D,
+                        float scale, int causal) {
+  constexpr int LD = row_ld16<NT>(), TILE = kTile16, CHUNKS = NT;
+  constexpr size_t kStage = 2 * TILE * LD * sizeof(T) + 2 * TILE * sizeof(float);
+  extern __shared__ float4 smem4[];
+  T* Ks = reinterpret_cast<T*>(smem4);
+  T* Vs = Ks + kRows * LD;
+  char* ring = reinterpret_cast<char*>(Vs + kRows * LD);
+
+  const int n_kt = (S + kRows - 1) / kRows;
+  const int bh = blockIdx.x / n_kt;
+  const int k0 = (blockIdx.x % n_kt) * kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane % 4;
+  const size_t base = static_cast<size_t>(bh) * S * D;
+  const float* brow = bias ? bias + static_cast<size_t>(bh / H) * S : nullptr;
+
+  const int n_qt = (S + TILE - 1) / TILE;
+  const int t0 = causal ? k0 / TILE : 0;  // earlier query tiles see no key here
+  auto stage = [&](int tile) {
+    T* Qs = reinterpret_cast<T*>(ring + (tile % kStages) * kStage);
+    float* Ls = reinterpret_cast<float*>(Qs + 2 * TILE * LD);
+    stage_rows<LD, CHUNKS>(Qs, q + base, tile * TILE, TILE, S, D);
+    stage_rows<LD, CHUNKS>(Qs + TILE * LD, dout + base, tile * TILE, TILE, S, D);
+    stage_vec(Ls, lse + static_cast<size_t>(bh) * S, tile * TILE, TILE, S);
+    stage_vec(Ls + TILE, delta + static_cast<size_t>(bh) * S, tile * TILE, TILE, S);
+  };
+  stage_rows<LD, CHUNKS>(Ks, k + base, k0, kRows, S, D);
+  stage_rows<LD, CHUNKS>(Vs, v + base, k0, kRows, S, D);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (t0 + i < n_qt) stage(t0 + i);
+    cp_async_commit();
+  }
+
+  const int key0 = k0 + 16 * warp + lane / 4;  // this thread's keys: key0, key0 + 8
+  float key_bias[2], db[2] = {0.f, 0.f}, dk_acc[NT][4], dv_acc[NT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + 8 * i;
+    key_bias[i] = (brow && key < S) ? brow[key] : 0.f;
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[nt][e] = dv_acc[nt][e] = 0.f;
+  const T* Kw = Ks + 16 * warp * LD;
+  const T* Vw = Vs + 16 * warp * LD;
+  const int a_at = lane_a<LD>(lane), b_at = lane_b<LD>(lane), bt_at = lane_bt<LD>(lane);
+
+  for (int it = t0; it < n_qt; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile `it` has landed; every warp is done with it - 1
+    if (it + kStages - 1 < n_qt) stage(it + kStages - 1);
+    cp_async_commit();
+    const T* Qs = reinterpret_cast<const T*>(ring + (it % kStages) * kStage);
+    const T* dOs = Qs + TILE * LD;
+    const float* Ls = reinterpret_cast<const float*>(dOs + TILE * LD);
+    const float* Ds = Ls + TILE;
+    const int qt0 = it * TILE;
+
+    float s[TILE / 8][4], dp[TILE / 8][4];
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    rows_product<T, NT, TILE>(s, Kw, a_at, Qs, b_at);    // S^T = K Q^T
+    rows_product<T, NT, TILE>(dp, Vw, a_at, dOs, b_at);  // dP^T = V dO^T
+    // P^T in s, dS^T = P^T (dP^T - delta) in dp
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(Ls + 8 * j + 2 * t);
+      const float2 d2 = *reinterpret_cast<const float2*>(Ds + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + 8 * (e / 2);
+        const int row = qt0 + 8 * j + 2 * t + (e & 1);
+        const float r_lse = (e & 1) ? l2.y : l2.x;
+        const float r_delta = (e & 1) ? d2.y : d2.x;
+        float p = 0.f;
+        if (key < S && row < S && r_lse > kDeadLse) {
+          float x = s[j][e] * scale + key_bias[e / 2];
+          if (causal && key > row) x = kNeg;
+          p = expf(x - r_lse);
+        }
+        const float ds = p * (dp[j][e] - r_delta);
+        db[e / 2] += ds;
+        s[j][e] = p;
+        dp[j][e] = ds;
+      }
+    }
+    cols_product<T, NT, TILE>(dv_acc, s, dOs, bt_at);  // dV += round(P^T) dO
+    cols_product<T, NT, TILE>(dk_acc, dp, Qs, bt_at);  // dK += round(dS^T) Q
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    // the row's sum over the 4 lanes that share it, in a fixed order
+    float total = db[i];
+    total += __shfl_xor_sync(0xffffffffu, total, 1);
+    total += __shfl_xor_sync(0xffffffffu, total, 2);
+    const int key = key0 + 8 * i;
+    if (dbias && t == 0 && key < S) dbias[static_cast<size_t>(bh) * S + key] = total;
+  }
+  const float one[2] = {1.f, 1.f}, mul[2] = {scale, scale};
+  store_rows<T, NT>(dv + base, dv_acc, key0, one, S, D, t);
+  store_rows<T, NT>(dk + base, dk_acc, key0, mul, S, D, t);
+}
+
 // Dynamic shared memory past 48 KB must be allowed per kernel first.
 template <typename Kernel>
 int allow_smem(Kernel kernel, size_t smem) {
@@ -828,14 +1342,64 @@ int launch_blocks(void (*kernel)(Params...), size_t smem, int BH, int S, cudaStr
   return static_cast<int>(cudaGetLastError());
 }
 
+bool bad_shape16(int BH, int H, int S, int D) {
+  return bad_shape(BH, H, S, D) || D % 8 != 0;
+}
+
+template <typename T>
+int fwd16(const void* q, const void* k, const void* v, const float* bias, void* o,
+          float* lse, int BH, int H, int S, int D, float scale, int causal, void* stream) {
+  if (bad_shape16(BH, H, S, D)) return static_cast<int>(cudaErrorInvalidValue);
+  return by_class(D, [&](auto nt) {
+    constexpr int NT = decltype(nt)::value;
+    return launch_blocks(flash_fwd16_kernel<T, NT>, smem16<T, NT>(1, 1), BH, S,
+                         static_cast<cudaStream_t>(stream), static_cast<const T*>(q),
+                         static_cast<const T*>(k), static_cast<const T*>(v), bias,
+                         static_cast<T*>(o), lse, H, S, D, scale, causal);
+  });
+}
+
+template <typename T>
+int bwd_dq16(const void* q, const void* k, const void* v, const float* bias,
+             const void* dout, const float* lse, const float* delta, void* dq, int BH,
+             int H, int S, int D, float scale, int causal, void* stream) {
+  if (bad_shape16(BH, H, S, D)) return static_cast<int>(cudaErrorInvalidValue);
+  return by_class(D, [&](auto nt) {
+    constexpr int NT = decltype(nt)::value;
+    return launch_blocks(flash_bwd_dq16_kernel<T, NT>, smem16<T, NT>(2, 1), BH, S,
+                         static_cast<cudaStream_t>(stream), static_cast<const T*>(q),
+                         static_cast<const T*>(k), static_cast<const T*>(v), bias,
+                         static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), H, S,
+                         D, scale, causal);
+  });
+}
+
+template <typename T>
+int bwd_dkdv16(const void* q, const void* k, const void* v, const float* bias,
+               const void* dout, const float* lse, const float* delta, void* dk, void* dv,
+               float* dbias, int BH, int H, int S, int D, float scale, int causal,
+               void* stream) {
+  if (bad_shape16(BH, H, S, D)) return static_cast<int>(cudaErrorInvalidValue);
+  float* db = bias ? dbias : nullptr;
+  return by_class(D, [&](auto nt) {
+    constexpr int NT = decltype(nt)::value;
+    return launch_blocks(flash_bwd_dkdv16_kernel<T, NT>, smem16<T, NT>(2, 2), BH, S,
+                         static_cast<cudaStream_t>(stream), static_cast<const T*>(q),
+                         static_cast<const T*>(k), static_cast<const T*>(v), bias,
+                         static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
+                         static_cast<T*>(dv), db, H, S, D, scale, causal);
+  });
+}
+
 }  // namespace
 
 extern "C" {
 
 // Each entry point launches one kernel on `stream` (a cudaStream_t) and
 // returns cudaGetLastError() as an int (0 = launched). Pointers are device
-// pointers to contiguous float32 arrays, 16-byte aligned; bias (and with it
-// dbias) may be null. D must be a multiple of 4 up to 128.
+// pointers to contiguous arrays, 16-byte aligned; bias (and with it dbias)
+// may be null. The _f32 builds take float32 arrays with D a multiple of 4
+// up to 128.
 
 int flash_attention_fwd_f32(const float* q, const float* k, const float* v,
                             const float* bias, float* o, float* lse, int BH,
@@ -879,6 +1443,36 @@ int flash_attention_bwd_dkdv_f32(const float* q, const float* k, const float* v,
                       delta, dk, dv, db, H, S, D, scale, causal);
   });
 }
+
+// The 16-bit builds take the same arguments, with q, k, v, o, dout, dq, dk
+// and dv pointers to bf16 (_bf16) or float16 (_f16) values; bias, lse,
+// delta and dbias stay float32. D must be a multiple of 8 up to 128.
+#define FLASH16_ENTRY_POINTS(SUFFIX, T)                                                     \
+  int flash_attention_fwd_##SUFFIX(const void* q, const void* k, const void* v,             \
+                                   const float* bias, void* o, float* lse, int BH, int H,   \
+                                   int S, int D, float scale, int causal, void* stream) {   \
+    return fwd16<T>(q, k, v, bias, o, lse, BH, H, S, D, scale, causal, stream);             \
+  }                                                                                         \
+  int flash_attention_bwd_dq_##SUFFIX(const void* q, const void* k, const void* v,          \
+                                      const float* bias, const void* dout,                  \
+                                      const float* lse, const float* delta, void* dq,       \
+                                      int BH, int H, int S, int D, float scale,             \
+                                      int causal, void* stream) {                           \
+    return bwd_dq16<T>(q, k, v, bias, dout, lse, delta, dq, BH, H, S, D, scale, causal,     \
+                       stream);                                                             \
+  }                                                                                         \
+  int flash_attention_bwd_dkdv_##SUFFIX(const void* q, const void* k, const void* v,        \
+                                        const float* bias, const void* dout,                \
+                                        const float* lse, const float* delta, void* dk,     \
+                                        void* dv, float* dbias, int BH, int H, int S,       \
+                                        int D, float scale, int causal, void* stream) {     \
+    return bwd_dkdv16<T>(q, k, v, bias, dout, lse, delta, dk, dv, dbias, BH, H, S, D,       \
+                         scale, causal, stream);                                            \
+  }
+
+FLASH16_ENTRY_POINTS(bf16, __nv_bfloat16)
+FLASH16_ENTRY_POINTS(f16, __half)
+#undef FLASH16_ENTRY_POINTS
 
 const char* flash_attention_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -69,6 +69,14 @@ KERNELS = {
         "paddle_tpu_torch/kernels/csrc/threefry.cu",
         "XLA's threefry2x32 under jax.random (no Pallas kernel)"),
 }
+# the bf16 and float16 builds of K1, K2a and K2b (AMP's operand types)
+# count their launches under their own names
+KERNELS.update({
+    f"{name}_{suffix}": KERNELS[name]
+    for suffix in ("bf16", "f16")
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dkdv",
+                 "flash_attention_bwd_dq")
+})
 
 _lock = threading.Lock()
 _mode_stack = []

@@ -212,6 +212,24 @@ def build_bert_pretrain(cfg=None, seq_len=128, lr=1e-4, use_amp=False,
     masked_positions [B, P] + mlm_labels [B, P], -1 padded).
     Returns (main, startup, feeds, fetches)."""
     cfg = cfg or BertConfig.base()
+    main = fluid.Program()
+    startup = fluid.Program()
+    with fluid.program_guard(main, startup):
+        feeds, fetches = bert_pretrain_net(cfg, seq_len, max_predictions_per_seq)
+        scheduler = fluid.layers.learning_rate_scheduler.linear_lr_warmup(
+            lr, warmup_steps=10000, start_lr=0.0, end_lr=lr
+        )
+        opt = fluid.optimizer.Adam(learning_rate=scheduler)
+        if use_amp:
+            opt = fluid.amp.decorate(opt)
+        opt.minimize(fetches[0])
+    return main, startup, feeds, fetches
+
+
+def bert_pretrain_net(cfg, seq_len=128, max_predictions_per_seq=None):
+    """The pretraining network of ``build_bert_pretrain`` without its
+    optimizer, in the current program: (feeds, [loss, mlm_loss,
+    nsp_loss])."""
     if cfg.use_flash_attention and cfg.attention_probs_dropout_prob:
         raise EnforceError(
             "use_flash_attention=True cannot honor "
@@ -220,72 +238,61 @@ def build_bert_pretrain(cfg=None, seq_len=128, lr=1e-4, use_amp=False,
             "applies no attention-prob dropout. Set it to 0 (the "
             "common large-model recipe) or disable the flash path."
         )
-    if use_amp:
-        raise NotImplementedError("bf16 AMP is not ported yet (ROADMAP M1b)")
-    main = fluid.Program()
-    startup = fluid.Program()
     P = max_predictions_per_seq
-    with fluid.program_guard(main, startup):
-        input_ids = fluid.data("input_ids", shape=[-1, seq_len], dtype="int64")
-        token_type_ids = fluid.data("token_type_ids", shape=[-1, seq_len], dtype="int64")
-        input_mask = fluid.data("input_mask", shape=[-1, seq_len], dtype="int64")
-        if P:
-            masked_positions = fluid.data(
-                "masked_positions", shape=[-1, P], dtype="int64"
-            )
-            mlm_labels = fluid.data("mlm_labels", shape=[-1, P], dtype="int64")
-        else:
-            mlm_labels = fluid.data(
-                "mlm_labels", shape=[-1, seq_len], dtype="int64"
-            )
-        nsp_labels = fluid.data("nsp_labels", shape=[-1, 1], dtype="int64")
+    input_ids = fluid.data("input_ids", shape=[-1, seq_len], dtype="int64")
+    token_type_ids = fluid.data("token_type_ids", shape=[-1, seq_len], dtype="int64")
+    input_mask = fluid.data("input_mask", shape=[-1, seq_len], dtype="int64")
+    if P:
+        masked_positions = fluid.data(
+            "masked_positions", shape=[-1, P], dtype="int64"
+        )
+        mlm_labels = fluid.data("mlm_labels", shape=[-1, P], dtype="int64")
+    else:
+        mlm_labels = fluid.data(
+            "mlm_labels", shape=[-1, seq_len], dtype="int64"
+        )
+    nsp_labels = fluid.data("nsp_labels", shape=[-1, 1], dtype="int64")
 
-        seq_out, pooled = bert_encoder(input_ids, token_type_ids, input_mask, cfg, seq_len)
+    seq_out, pooled = bert_encoder(input_ids, token_type_ids, input_mask, cfg, seq_len)
 
-        # MLM head: transform + output projection (gathered positions only
-        # when P is set)
-        mlm_in = (
-            fluid.layers.batched_gather(seq_out, masked_positions)
-            if P
-            else seq_out
-        )
-        n_pred = P or seq_len
-        mlm_t = _dense(mlm_in, cfg.hidden_size, cfg, act="gelu", name="mlm_transform")
-        mlm_t = fluid.layers.layer_norm(mlm_t, begin_norm_axis=2, name="mlm_ln")
-        mlm_logits = _dense(mlm_t, cfg.vocab_size, cfg, name="mlm_out")
-        mlm_loss_tok = fluid.layers.softmax_with_cross_entropy(
-            mlm_logits, fluid.layers.reshape(mlm_labels, [0, n_pred, 1]),
-            ignore_index=-1, axis=-1,
-        )  # [B, n_pred, 1], zeros at ignored
-        is_masked = fluid.layers.cast(
-            fluid.layers.tensor.not_equal(
-                mlm_labels, fluid.layers.tensor.fill_constant([1], "int64", -1)
-            ),
-            "float32",
-        )
-        denom = fluid.layers.elementwise_max(
-            fluid.layers.reduce_sum(is_masked),
-            fluid.layers.tensor.fill_constant([1], "float32", 1.0),
-        )
-        mlm_loss = fluid.layers.elementwise_div(
-            fluid.layers.reduce_sum(mlm_loss_tok), denom
-        )
+    # MLM head: transform + output projection (gathered positions only
+    # when P is set)
+    mlm_in = (
+        fluid.layers.batched_gather(seq_out, masked_positions)
+        if P
+        else seq_out
+    )
+    n_pred = P or seq_len
+    mlm_t = _dense(mlm_in, cfg.hidden_size, cfg, act="gelu", name="mlm_transform")
+    mlm_t = fluid.layers.layer_norm(mlm_t, begin_norm_axis=2, name="mlm_ln")
+    mlm_logits = _dense(mlm_t, cfg.vocab_size, cfg, name="mlm_out")
+    mlm_loss_tok = fluid.layers.softmax_with_cross_entropy(
+        mlm_logits, fluid.layers.reshape(mlm_labels, [0, n_pred, 1]),
+        ignore_index=-1, axis=-1,
+    )  # [B, n_pred, 1], zeros at ignored
+    is_masked = fluid.layers.cast(
+        fluid.layers.tensor.not_equal(
+            mlm_labels, fluid.layers.tensor.fill_constant([1], "int64", -1)
+        ),
+        "float32",
+    )
+    denom = fluid.layers.elementwise_max(
+        fluid.layers.reduce_sum(is_masked),
+        fluid.layers.tensor.fill_constant([1], "float32", 1.0),
+    )
+    mlm_loss = fluid.layers.elementwise_div(
+        fluid.layers.reduce_sum(mlm_loss_tok), denom
+    )
 
-        nsp_logits = _dense(pooled, 2, cfg, name="nsp_out", num_flatten_dims=1)
-        nsp_loss = fluid.layers.mean(
-            fluid.layers.softmax_with_cross_entropy(nsp_logits, nsp_labels)
-        )
-        loss = fluid.layers.elementwise_add(mlm_loss, nsp_loss)
-
-        scheduler = fluid.layers.learning_rate_scheduler.linear_lr_warmup(
-            lr, warmup_steps=10000, start_lr=0.0, end_lr=lr
-        )
-        opt = fluid.optimizer.Adam(learning_rate=scheduler)
-        opt.minimize(loss)
+    nsp_logits = _dense(pooled, 2, cfg, name="nsp_out", num_flatten_dims=1)
+    nsp_loss = fluid.layers.mean(
+        fluid.layers.softmax_with_cross_entropy(nsp_logits, nsp_labels)
+    )
+    loss = fluid.layers.elementwise_add(mlm_loss, nsp_loss)
     feeds = [input_ids, token_type_ids, input_mask, mlm_labels, nsp_labels]
     if P:
         feeds.insert(3, masked_positions)
-    return main, startup, feeds, [loss, mlm_loss, nsp_loss]
+    return feeds, [loss, mlm_loss, nsp_loss]
 
 
 def synthetic_batch(rng, batch, seq_len, cfg, max_predictions_per_seq=None):

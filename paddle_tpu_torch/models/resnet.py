@@ -7,7 +7,10 @@ trained with momentum 0.9 and ``L2Decay(1e-4)`` (the reference recipe).
 The port runs every op eagerly, one at a time (``core/executor.py``):
 the convolutions on cuDNN in full float32, the batch-norm statistics as
 plain torch ops, and each ``*_grad`` op reruns its forward (ROADMAP M1b).
-bf16 AMP is not ported yet: ``use_amp=True`` raises.
+``use_amp=True`` wraps the optimizer in ``amp.decorate`` as the JAX
+package does: the convolutions and the fc product run in bf16 (cuDNN and
+cuBLAS, float32 accumulation), batch norm and the loss on float32 casts,
+and the parameters stay float32.
 """
 
 import math
@@ -95,9 +98,8 @@ def resnet(input, class_dim=1000, depth=50):
 def build_resnet_train(depth=50, class_dim=1000, image_shape=(3, 224, 224),
                        lr=0.1, use_amp=False):
     """Returns (main, startup, feeds, fetches) for ResNet training with
-    momentum + L2 decay (the reference recipe), in float32."""
-    if use_amp:
-        raise NotImplementedError("bf16 AMP is not ported yet (ROADMAP M1b)")
+    momentum + L2 decay (the reference recipe); use_amp runs convs/matmuls
+    in bf16 (amp white list)."""
     main = fluid.Program()
     startup = fluid.Program()
     with fluid.program_guard(main, startup):
@@ -113,6 +115,8 @@ def build_resnet_train(depth=50, class_dim=1000, image_shape=(3, 224, 224),
             momentum=0.9,
             regularization=fluid.regularizer.L2Decay(1e-4),
         )
+        if use_amp:
+            opt = fluid.amp.decorate(opt)
         opt.minimize(loss)
     return main, startup, [img, label], [loss, acc]
 

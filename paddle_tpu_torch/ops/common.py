@@ -1,5 +1,8 @@
 """Shared helpers for op lowering rules."""
 
+import contextlib
+import threading
+
 import torch
 
 from paddle_tpu_torch.core import prng
@@ -101,3 +104,32 @@ def segment_sum(rows, index, n):
     out = torch.zeros((n,) + tuple(rows.shape[1:]), dtype=rows.dtype,
                       device=rows.device)
     return out.index_put_((index.to(torch.int64),), rows, accumulate=True)
+
+
+class SettingGuard:
+    """A process-wide PyTorch setting held inside ``with guard.on(x):``
+    for the tensors ``applies(x)`` accepts, and put back after. The
+    setting is process-wide, so nested and concurrent users share one save
+    and restore: the first in saves and sets it (``_set``, which returns
+    what to restore), the last out puts it back (``_restore``)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._depth = 0
+        self._saved = None
+
+    def __enter__(self):
+        with self._lock:
+            if self._depth == 0:
+                self._saved = self._set()
+            self._depth += 1
+
+    def __exit__(self, *exc):
+        with self._lock:
+            self._depth -= 1
+            if self._depth == 0:
+                self._restore(self._saved)
+
+    def on(self, x):
+        """This guard where ``applies(x)``, else nothing to set."""
+        return self if self.applies(x) else contextlib.nullcontext()

@@ -1,14 +1,57 @@
 """Elementwise / matmul / reduction op lowerings, with the semantics of
 the JAX package's ``ops/math.py`` (Paddle's ``axis`` broadcasting for the
 elementwise ops). Matrix products go to ``torch.matmul``: the JAX package
-leaves them to XLA, outside any Pallas kernel."""
+leaves them to XLA, outside any Pallas kernel. A bf16 or float16 product
+(AMP's white list) sums in float32 on the card, as XLA's does
+(``FLOAT32_REDUCTIONS``)."""
 
 import math
 
 import torch
 
-from paddle_tpu_torch.core.registry import register_op
-from paddle_tpu_torch.ops.common import broadcast_y, first, maybe, reduce_axes
+from paddle_tpu_torch.core.backward import make_generic_grad_lowering
+from paddle_tpu_torch.core.registry import OpRegistry, register_grad, register_op
+from paddle_tpu_torch.ops.common import (
+    SettingGuard, broadcast_y, first, maybe, reduce_axes)
+
+_LOW = (torch.bfloat16, torch.float16)
+
+
+class _Float32Reductions(SettingGuard):
+    """bf16 and float16 cuBLAS products that sum in float32 inside ``with
+    FLOAT32_REDUCTIONS.on(x):`` for a CUDA ``x`` of a 16-bit type. PyTorch
+    lets cuBLAS reduce such products in the low type by default
+    (``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+    and ``allow_fp16_reduced_precision_reduction`` are True), where XLA,
+    on a TPU and on a GPU, accumulates a bf16 dot in float32. The guard
+    turns both off, and float16 accumulation (``allow_fp16_accumulation``,
+    where torch has it) too, as ``ops/nn.py``'s ``FLOAT32_CONVS`` holds
+    convolutions in float32."""
+
+    _FLAGS = ("allow_bf16_reduced_precision_reduction",
+              "allow_fp16_reduced_precision_reduction",
+              "allow_fp16_accumulation")
+
+    def _set(self):
+        matmul, saved = torch.backends.cuda.matmul, {}
+        for name in self._FLAGS:
+            try:
+                saved[name] = getattr(matmul, name)
+            except AttributeError:   # a torch without the flag
+                continue
+            setattr(matmul, name, False)
+        return saved
+
+    def _restore(self, saved):
+        for name, value in saved.items():
+            setattr(torch.backends.cuda.matmul, name, value)
+
+    @staticmethod
+    def applies(x):
+        return x.is_cuda and x.dtype in _LOW
+
+
+FLOAT32_REDUCTIONS = _Float32Reductions()
 
 
 def _elementwise(name, fn):
@@ -61,7 +104,8 @@ def _matmul(ins, attrs):
         x = x.transpose(-1, -2)
     if attrs.get("transpose_Y", False) and y.dim() > 1:
         y = y.transpose(-1, -2)
-    out = torch.matmul(x, y)
+    with FLOAT32_REDUCTIONS.on(x):
+        out = torch.matmul(x, y)
     alpha = attrs.get("alpha", 1.0)
     if alpha != 1.0:
         out = out * alpha
@@ -78,8 +122,28 @@ def _mul(ins, attrs):
     xs, ys = tuple(x.shape), tuple(y.shape)
     x2 = x.reshape(math.prod(xs[:xnc]), -1)
     y2 = y.reshape(math.prod(ys[:ync]), -1)
-    out = x2 @ y2
+    with FLOAT32_REDUCTIONS.on(x):
+        out = x2 @ y2
     return {"Out": [out.reshape(xs[:xnc] + ys[ync:])]}
+
+
+def _float32_reduction_grad(op_type):
+    """The generic grad of ``op_type`` (its forward rerun under
+    ``torch.autograd``) with the backward products under
+    ``FLOAT32_REDUCTIONS`` too: autograd runs them when
+    ``torch.autograd.grad`` is called, after the forward's scope ends."""
+    generic = make_generic_grad_lowering(OpRegistry.get(op_type))
+
+    @register_grad(op_type)
+    def grad(ins, attrs):
+        with FLOAT32_REDUCTIONS.on(first(ins, "X")):
+            return generic(ins, attrs)
+
+    return grad
+
+
+_float32_reduction_grad("matmul")
+_float32_reduction_grad("mul")
 
 
 @register_op("scale")

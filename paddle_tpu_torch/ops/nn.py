@@ -13,9 +13,7 @@ on the card) and plain torch ops.
 lowering that goes through the CUDA kernel wrappers in ``kernels/``.
 """
 
-import contextlib
 import math
-import threading
 
 import torch
 import torch.nn.functional as F
@@ -29,7 +27,7 @@ from paddle_tpu_torch.kernels import flash_attention as flash
 from paddle_tpu_torch.kernels import random as random_kernels
 from paddle_tpu_torch.kernels import registry as kernel_registry
 from paddle_tpu_torch.ops.common import (
-    first, maybe, normalize_padding, seeded_rng_key)
+    SettingGuard, first, maybe, normalize_padding, seeded_rng_key)
 
 
 @register_op("relu")
@@ -68,51 +66,38 @@ def _log_softmax(ins, attrs):
 # -- conv / pool ------------------------------------------------------------
 
 
-class _Float32Convolutions:
+class _Float32Convolutions(SettingGuard):
     """Full float32 cuDNN convolutions inside ``with FLOAT32_CONVS.on(x):``
     for a CUDA ``x``, whatever the process's TF32 setting: PyTorch's
     default (``torch.backends.cudnn.allow_tf32``, or
     ``torch.backends.cudnn.conv.fp32_precision`` where torch has it) runs
     float32 convolutions in TF32, with a 10-bit mantissa, where the JAX
-    package computes them in float32. The setting is process-wide, so
-    nested and concurrent users share one save and restore: the first in
-    saves and sets it, the last out puts it back."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._depth = 0
-        self._saved = None
+    package computes them in float32."""
 
     @staticmethod
     def _conv_api():
         conv = getattr(torch.backends.cudnn, "conv", None)
         return conv if hasattr(conv, "fp32_precision") else None
 
-    def __enter__(self):
-        with self._lock:
-            if self._depth == 0:
-                conv = self._conv_api()
-                if conv is not None:
-                    self._saved = conv.fp32_precision
-                    conv.fp32_precision = "ieee"
-                else:
-                    self._saved = torch.backends.cudnn.allow_tf32
-                    torch.backends.cudnn.allow_tf32 = False
-            self._depth += 1
+    def _set(self):
+        conv = self._conv_api()
+        if conv is not None:
+            saved, conv.fp32_precision = conv.fp32_precision, "ieee"
+        else:
+            saved = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+        return saved
 
-    def __exit__(self, *exc):
-        with self._lock:
-            self._depth -= 1
-            if self._depth == 0:
-                conv = self._conv_api()
-                if conv is not None:
-                    conv.fp32_precision = self._saved
-                else:
-                    torch.backends.cudnn.allow_tf32 = self._saved
+    def _restore(self, saved):
+        conv = self._conv_api()
+        if conv is not None:
+            conv.fp32_precision = saved
+        else:
+            torch.backends.cudnn.allow_tf32 = saved
 
-    def on(self, x):
-        """This guard for a CUDA ``x``; nothing to set on the CPU."""
-        return self if x.is_cuda else contextlib.nullcontext()
+    @staticmethod
+    def applies(x):
+        return x.is_cuda
 
 
 FLOAT32_CONVS = _Float32Convolutions()

@@ -168,6 +168,61 @@ def _dgc_topk_idx(v_acc, k):
     return topk.topk_abs_exact(v_acc, k)[1]
 
 
+@register_op("check_finite_and_unscale", nondiff_inputs=("Scale",))
+def _check_finite_and_unscale(ins, attrs):
+    """reference: paddle/fluid/operators/amp/check_finite_and_unscale_op.cc
+    (the JAX package's op): every gradient times 1/Scale, and whether any
+    is non-finite, as a device tensor (no sync with the host)."""
+    xs = ins.get("X", [])
+    scale = _f32(first(ins, "Scale")).reshape(())
+    inv = 1.0 / scale
+    found = torch.zeros((), dtype=torch.bool, device=scale.device)
+    outs = []
+    for x in xs:
+        found = torch.logical_or(found, torch.logical_not(torch.isfinite(x).all()))
+        outs.append((_f32(x) * inv).to(x.dtype))
+    return {"Out": outs, "FoundInfinite": [found.reshape(1)]}
+
+
+@register_op("update_loss_scaling", nondiff_inputs=(
+    "FoundInfinite", "PrevLossScaling", "InGoodSteps", "InBadSteps"))
+def _update_loss_scaling(ins, attrs):
+    """reference: paddle/fluid/operators/amp/update_loss_scaling_op.cc, as
+    the JAX package computes it. On overflow the gradients become zeros
+    (the optimizer ops still run on them, so Adam's moments still decay,
+    as in the JAX package), and after ``decr_every_n_nan_or_inf``
+    overflows in a row the scale shrinks; after ``incr_every_n_steps``
+    clean steps it grows. Scale and counters stay on the device: no
+    branch on their values."""
+    xs = ins.get("X", [])
+    found = first(ins, "FoundInfinite").reshape(()).to(torch.bool)
+    prev = first(ins, "PrevLossScaling")
+    scale = _f32(prev).reshape(())
+    good = first(ins, "InGoodSteps").reshape(()).to(torch.int32)
+    bad = first(ins, "InBadSteps").reshape(()).to(torch.int32)
+    incr_every = attrs.get("incr_every_n_steps", 1000)
+    decr_every = attrs.get("decr_every_n_nan_or_inf", 2)
+    incr_ratio = attrs.get("incr_ratio", 2.0)
+    decr_ratio = attrs.get("decr_ratio", 0.5)
+    zero = torch.zeros_like(bad)
+    new_bad = torch.where(found, bad + 1, zero)
+    new_good = torch.where(found, zero, good + 1)
+    should_decr = new_bad >= decr_every
+    should_incr = new_good >= incr_every
+    new_scale = torch.where(should_decr, scale * decr_ratio, scale)
+    new_scale = torch.where(should_incr, scale * incr_ratio, new_scale)
+    new_scale = torch.clamp_min(new_scale, 1e-8)
+    new_bad = torch.where(should_decr, zero, new_bad)
+    new_good = torch.where(should_incr, zero, new_good)
+    outs = [torch.where(found, torch.zeros_like(x), x) for x in xs]
+    return {
+        "Out": outs,
+        "LossScaling": [new_scale.reshape(1).to(prev.dtype)],
+        "OutGoodSteps": [new_good.reshape(1)],
+        "OutBadSteps": [new_bad.reshape(1)],
+    }
+
+
 @register_op("dgc_momentum")
 def _dgc_momentum(ins, attrs):
     """DGC update (reference: paddle/fluid/operators/dgc_op.cc semantics):

@@ -90,3 +90,5 @@ flags.define(
     "cannot give, and raise NotImplementedError when set",
     check=_threefry_only,
 )
+flags.define("amp_dtype", "bfloat16",
+             "low-precision dtype of the AMP rewrite (amp.decorate)")

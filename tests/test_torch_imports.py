@@ -16,6 +16,8 @@ PKG = ROOT / "paddle_tpu_torch"
 _PROBE = """
 import sys
 import paddle_tpu_torch
+import paddle_tpu_torch.amp
+import paddle_tpu_torch.amp.decorator
 import paddle_tpu_torch.compiler
 import paddle_tpu_torch.convert
 import paddle_tpu_torch.core.prng
