@@ -44,7 +44,8 @@ Phases:
 3b. decode modes — the engine's other modes on one ``GenerationEngine()``
    at the same width: a target built with a chunk budget of 128 tokens,
    a draft "same" holding the target's weights (``convert.load_params``,
-   checked equal) and a draft "small" of 2 layers. Leg A hand-steps the
+   checked equal) and a draft "small" of 2 layers; the target's brownout
+   ladder is pinned at L0 here and in 3c (3d drives it). Leg A hand-steps the
    scheduler (the loop thread's body, one iteration at a time): 4 short
    prompts decode while 8 long ones (129-960 tokens, two sharing a
    256-token prefix) stream through the chunk program; every request
@@ -87,6 +88,35 @@ Phases:
    step's p50, the selection rule's host time, the mask builds' host
    time a state and their count, tokens/s beside phase 3's, and the K3
    launches, which the kernels line adds to phase 3's.
+3d. overload — one ``GenerationEngine(host_tier_mb=1024)`` at the same
+   width hosting "cut" (a chunk budget of 128 and a pool of 96 blocks,
+   1536 rows, a 113 MB arena), "uncut" (the same with 512 blocks) and the
+   draft "same", all three with cut's weights (``convert.load_params``).
+   A burst of 16 requests (96-384 prompt tokens, 4 sharing a 128-token
+   prefix, 64 new tokens each: a beam of width 4, a speculative one on
+   "same" with draft-KV, a sampled one and 13 greedy ones; every prompt
+   over 128 tokens streams through the chunk program) is submitted at
+   once and hand-stepped to the end, first on "uncut", then on "cut",
+   whose 8 live slots need about twice its blocks, so sessions park to
+   the host tier and resume. Launch counters are zeroed before the cut
+   burst and read after (the kernels line adds them). Checks: parked ==
+   resumed >= 1, nothing failed, no walk-back, the pool conserved and
+   empty; the beam against ``offline_beam`` and the 15 other streams
+   against ``offline_decode`` by phase 3's rule; the sampled stream
+   bit-equal to the uncut pool's (the log counts the streams that are).
+   Prints the spill's ms a park and the resume's a row run (p50, max) with
+   bytes and GB/s, the 16 requests' latency p50/p99 on both pools,
+   tokens/s on both, the brownout transitions with their triggers and the
+   host tier's counters. Legs: corruption (5 prompts of 300 tokens; the
+   first parked session's tier entry gets a byte flipped: quarantined,
+   one walk-back, its tokens held by phase 3's rule, the rows that differ
+   from the spilled ones counted, every other resume bit-exact, and K3
+   held against its plain version over every resumed slot's rows),
+   tenants (weights 3:1, 16 queued on "uncut": 6 of the first 8
+   dispatches go to the heavier one), breaker (``decode.step`` fails 3
+   times through ``resilience.faults``: the breaker opens, half-opens
+   after its cooldown, relaunches once, and the next request gives the
+   tokens it gave before the fault).
 2b. flash parity — the flash-attention forward (K1), dK/dV (K2a) and dQ
    (K2b) kernels against their plain versions on the same inputs, and two
    launches of each giving the same bits: at BERT-base's training shape
@@ -326,6 +356,14 @@ GRAMMAR_REGEX = "[A-Z][a-z]+( [A-Z][a-z]+)*"
 # tokens differ by about 1e-5. 1e-3 leaves two orders of margin and still
 # fails any hypothesis that a real selection error would change.
 BEAM_TOL = 1e-3
+# Phase 3d, the engine under overload: a pool of 96 blocks (1536 rows)
+# for a burst of 16 requests of 96-384 prompt tokens (4 share a 128-token
+# prefix) and 64 new tokens each, beside the same burst on an uncut pool
+# of 512; a 1 GiB host tier; the breaker opens after 3 failed steps and
+# half-opens after 0.5 s; the corruption leg's 5 prompts of 300 tokens
+OV_REQUESTS, OV_SHARED, OV_PROMPT_LEN, OV_MAX_NEW = 16, 128, (96, 384), 64
+OV_BLOCKS, OV_UNCUT_BLOCKS, OV_TIER_MB = 96, 512, 1024
+OV_BREAKER, OV_COOLDOWN_S, OV_CORRUPT_LEN = 3, 0.5, 300
 NEG_INF = -1e9
 # The kernel and its plain version both produce convex combinations of
 # N(0, 1) value rows, summed in float32 over 1024 positions in different
@@ -1450,6 +1488,17 @@ def _spec_wave(engine, target, label, requests, greedy_tps=None):
     return d, launches
 
 
+def _steady_ladder(entry):
+    """Pin ``entry``'s brownout ladder at L0. Its queue signal (queued
+    rows over the drain rate the previous leg measured) takes the next
+    burst to L2-L4, which serves speculative requests as plain decode and
+    halves the chunk budget: output-invisible, but phases 3b and 3c check
+    those routes. Phase 3d drives the ladder."""
+    from paddle_tpu_torch.serving.brownout import BrownoutController
+
+    entry._brownout = BrownoutController(enter=(1.1,) * 4, exit=(1.0,) * 4)
+
+
 def _draft_entries(engine, target):
     """Draft "same": the target's geometry and weights (loaded through
     ``convert.load_params`` and checked equal); draft "small": the same
@@ -1492,6 +1541,7 @@ def phase_decode_modes(greedy_tps):
     engine = GenerationEngine(seed=SEED)          # CUDAPlace(0) by default
     target = engine.register_model(build_decoder_model(
         **MODEL, chunk_tokens=CHUNK_TOKENS, name="target"))
+    _steady_ladder(target)
     same, small = _draft_entries(engine, target)
     torch.cuda.synchronize()
     log(f"[modes] place={engine.place} startup {time.perf_counter() - t0:.2f}s")
@@ -1829,6 +1879,7 @@ def phase_beam_grammar(greedy_tps, greedy_step):
     target = engine.register_model(build_decoder_model(
         **MODEL, eos_id=EOS, logits_mask=True, chunk_tokens=CHUNK_TOKENS,
         name="gen"))
+    _steady_ladder(target)
     small = engine.register_model(build_decoder_model(
         **dict(MODEL, num_layers=SMALL_LAYERS), name="small"))
     torch.cuda.synchronize()
@@ -1851,6 +1902,433 @@ def phase_beam_grammar(greedy_tps, greedy_step):
         entry.block_pool.check_conservation()
     log(f"[beam] paged_attention launches by leg {launches}")
     return sum(launches.values())
+
+
+# -- phase 3d ---------------------------------------------------------------
+def overload_prompts(vocab):
+    """Phase 3d's burst: 16 prompts of 96-384 tokens (4 share a 128-token
+    prefix), from the seed."""
+    rng = np.random.RandomState(SEED + 3)
+    prefix = rng.randint(0, vocab, OV_SHARED).tolist()
+    prompts = []
+    for i in range(OV_REQUESTS):
+        n = int(rng.randint(OV_PROMPT_LEN[0], OV_PROMPT_LEN[1] + 1))
+        if i % 4 == 3:
+            prompts.append(prefix + rng.randint(
+                0, vocab, max(n - OV_SHARED, 1)).tolist())
+        else:
+            prompts.append(rng.randint(0, vocab, n).tolist())
+    return prompts
+
+
+def _ov_submit(engine, model, prompts):
+    """The burst's 16 requests, in this order: a beam of width 4, a
+    speculative one on the draft "same" (draft-KV), a sampled one, then
+    plain greedy ones (every prompt over 128 tokens streams through the
+    chunk program)."""
+    from paddle_tpu_torch.serving.decode import SamplingParams
+
+    kinds = ["beam", "spec", "sampled"] + ["greedy"] * (len(prompts) - 3)
+    resps = []
+    for p, kind in zip(prompts, kinds):
+        kw = dict(model=model, max_new_tokens=OV_MAX_NEW)
+        if kind == "beam":
+            kw["beam_width"] = BEAM_WIDTH
+        elif kind == "spec":
+            kw.update(draft_model="same", spec_k=SPEC_K)
+        elif kind == "sampled":
+            kw["sampling"] = SamplingParams(seed=SEED, **SAMPLING)
+        resps.append(engine.submit(p, **kw))
+    return kinds, resps
+
+
+def _hand_step(entry, resps, hook=None, limit=20000):
+    """Run the entry's scheduler loop body until every response is done
+    (the loop thread's work, on this thread)."""
+    for _ in range(limit):
+        if all(r.done() for r in resps):
+            return
+        if hook is not None:
+            hook()
+        entry._iterate()
+    raise AssertionError(f"{entry.model.label} did not drain")
+
+
+def _ov_burst(engine, entry, prompts, timed_resume=False):
+    """One burst through ``entry``: submit all 16 at once, hand-step to
+    the end. Returns (kinds, outputs, per-request latency s, wall s,
+    resume ms by session)."""
+    import torch
+
+    resume_ms = []
+    if timed_resume:
+        orig = entry._inject_rows
+
+        def inject(st, key):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ok = orig(st, key)
+            torch.cuda.synchronize()
+            resume_ms.append((time.perf_counter() - t) * 1e3)
+            return ok
+
+        entry._inject_rows = inject
+    t0 = time.perf_counter()
+    kinds, resps = _ov_submit(engine, entry.model.name, prompts)
+    _hand_step(entry, resps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if timed_resume:
+        del entry._inject_rows
+    outs = [r.result(timeout=60) for r in resps]
+    lat = np.asarray([r.finish_time - t0 for r in resps])
+    return kinds, outs, lat, wall, resume_ms
+
+
+def _ov_corruption(engine, entry, prompts):
+    """Corruption leg: hand-stepped requests on the cut pool; the first
+    parked session's tier entry gets a byte flipped. The CRC quarantines
+    it, its rows are recomputed from the committed tokens by the prefill
+    program, and the other resumes come back bit-exact. After every
+    resume K3 is held against its plain version over the rows that came
+    back, in every layer. Returns (the corrupted request's prompt,
+    tokens), rows that differ and their largest difference, the intact
+    resumes checked, and K3's largest error."""
+    import torch
+
+    from paddle_tpu_torch.kernels import attention as A
+
+    m = entry.model
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    state = {"key": None, "spilled": None, "diff": None, "intact": 0,
+             "k3": 0.0}
+
+    def k3_check(st):
+        rows = torch.from_numpy(np.tile(st.row_map, m.slots)).cuda()
+        bias = torch.full((m.slots, 1, m.max_len), NEG_INF, device="cuda")
+        bias[:, 0, :st.cursor] = 0.0
+        q = torch.randn(m.slots, m.hidden, generator=gen, device="cuda")
+        for kn, vn in m.state_names:
+            k, v = entry.scope.find_var(kn), entry.scope.find_var(vn)
+            args = (q, k, v, rows, bias, m.slots, m.max_len,
+                    m.hidden ** -0.5)
+            err = float((A.paged_attention(*args)
+                         - A.paged_attention_composite(*args)).abs().max())
+            state["k3"] = max(state["k3"], err)
+        if not state["k3"] <= PARITY_ATOL:
+            raise AssertionError(f"K3 over resumed rows: {state['k3']}")
+
+    orig = entry._inject_rows
+
+    def inject(st, key):
+        ent = entry._tier._entries.get(key)
+        spilled = (None if ent is None or key == state["key"]
+                   else [(k.copy(), v.copy()) for k, v in ent.kv_rows])
+        ok = orig(st, key)
+        k3_check(st)
+        back = entry._read_rows(st.row_map, st.cursor)
+        if key == state["key"]:
+            ref = state["spilled"]
+            diff = [np.abs(a - b) for (k, v), (k2, v2) in zip(ref, back)
+                    for a, b in ((k, k2), (v, v2))]
+            state["diff"] = (sum(int((d.max(axis=1) > 0).sum())
+                                 for d in diff),
+                             max(float(d.max()) for d in diff))
+        elif spilled is not None:
+            for (k, v), (k2, v2) in zip(spilled, back):
+                if not (np.array_equal(k.view(np.uint32), k2.view(np.uint32))
+                        and np.array_equal(v.view(np.uint32),
+                                           v2.view(np.uint32))):
+                    raise AssertionError(
+                        f"corruption leg: intact entry {key} came back "
+                        "with other bits")
+            state["intact"] += 1
+        return ok
+
+    def corrupt():
+        if state["key"] is None and entry._parked:
+            ps = entry._parked[0]
+            if ps.mode == "decode":
+                key = ps.keys[0]
+                state["spilled"] = [(k.copy(), v.copy()) for k, v in
+                                    entry._tier._entries[key].kv_rows]
+                state["key"] = key
+                state["req"] = ps.request
+                entry._tier.corrupt_entry(key)
+
+    entry._inject_rows = inject
+    before = entry.stats()
+    resps = [engine.submit(p, model=entry.model.name,
+                           max_new_tokens=OV_MAX_NEW) for p in prompts]
+    try:
+        _hand_step(entry, resps, hook=corrupt)
+    finally:
+        del entry._inject_rows
+    torch.cuda.synchronize()
+    after = entry.stats()
+    replays = after["resume_replays"] - before["resume_replays"]
+    dropped = (after["host_tier"]["corrupt_dropped"]
+               - before["host_tier"]["corrupt_dropped"])
+    if state["key"] is None or replays != 1 or dropped != 1:
+        raise AssertionError(f"corruption leg: key {state['key']}, "
+                             f"{replays} replays, {dropped} quarantined")
+    req = state["req"]
+    out = [int(t) for t in req.response.result(timeout=60)["tokens"]]
+    return (req.prompt, out), state["diff"], state["intact"], state["k3"]
+
+
+def _ov_tenants(engine, entry):
+    """Tenant leg: tenants "gold" (weight 3) and "free" (weight 1), 8
+    requests each queued behind a full engine; the dispatch order."""
+    engine.set_tenant("gold", weight=3.0)
+    engine.set_tenant("free", weight=1.0)
+    rng = np.random.RandomState(SEED + 4)
+    order = []
+    orig = engine._pick
+
+    def spy(queue, **kw):
+        req = orig(queue, **kw)
+        if req is not None:
+            order.append(req.tenant)
+        return req
+
+    engine._pick = spy
+    try:
+        resps = [engine.submit(rng.randint(0, MODEL["vocab_size"],
+                                           32).tolist(),
+                               model=entry.model.name, max_new_tokens=8,
+                               tenant="gold" if i % 2 == 0 else "free")
+                 for i in range(16)]
+        _hand_step(entry, resps)
+    finally:
+        del engine._pick
+    for r in resps:
+        r.result(timeout=60)
+    return order
+
+
+def _ov_breaker(engine, entry):
+    """Breaker leg: a request's tokens; then ``decode.step`` fails
+    ``breaker_threshold`` times (each failing its request loudly), the
+    breaker opens, and after its cooldown it half-opens, relaunches once
+    and the same request gives the same tokens."""
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.serving.request import ReplicaLostError
+
+    prompt = list(range(100, 100 + 64))
+    first = engine.submit(prompt, model=entry.model.name, max_new_tokens=16)
+    _hand_step(entry, [first])
+    want = [int(t) for t in first.result(timeout=60)["tokens"]]
+    before = entry.stats()
+    faults.configure([{"site": "decode.step", "action": "raise",
+                       "times": OV_BREAKER}])
+    try:
+        for i in range(OV_BREAKER):
+            r = engine.submit([7 + i] * 40, model=entry.model.name,
+                              max_new_tokens=4)
+            _hand_step(entry, [r])
+            if not isinstance(r.error(), ReplicaLostError):
+                raise AssertionError(f"breaker leg: fault {i} gave "
+                                     f"{r.error()!r}")
+    finally:
+        faults.reset()
+    if entry.stats()["breaker_state"] != "open":
+        raise AssertionError("breaker leg: the breaker did not open")
+    t0 = time.perf_counter()
+    again = engine.submit(prompt, model=entry.model.name, max_new_tokens=16)
+    _hand_step(entry, [again])
+    got = [int(t) for t in again.result(timeout=60)["tokens"]]
+    after = entry.stats()
+    d = {k: after[k] - before[k] for k in (
+        "breaker_opened", "breaker_probes", "breaker_closed", "relaunches",
+        "step_failures")}
+    if d != {"breaker_opened": 1, "breaker_probes": 1, "breaker_closed": 1,
+             "relaunches": 1, "step_failures": OV_BREAKER}:
+        raise AssertionError(f"breaker leg: {d}")
+    if got != want or after["breaker_state"] != "closed":
+        raise AssertionError(f"breaker leg: after the relaunch {got[:8]}, "
+                             f"before the fault {want[:8]}")
+    return d, time.perf_counter() - t0
+
+
+def _pcts(ms):
+    ms = np.asarray(ms, dtype=np.float64)
+    if not ms.size:
+        return "none"
+    return (f"p50 {np.median(ms):.3f} ms, max {ms.max():.3f} ms over "
+            f"{ms.size}")
+
+
+def phase_overload(greedy_tps):
+    """Phase 3d: the engine under overload at the decoder's full width.
+    Returns the paged_attention launches of the burst on the cut pool."""
+    import torch
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.convert import load_params, persistables_to_numpy
+    from paddle_tpu_torch.serving import GenerationEngine, build_decoder_model
+    from paddle_tpu_torch.serving.decode import BeamParams, SamplingParams
+
+    t_phase = time.perf_counter()
+    engine = GenerationEngine(seed=SEED, host_tier_mb=OV_TIER_MB,
+                              breaker_threshold=OV_BREAKER,
+                              breaker_cooldown_s=OV_COOLDOWN_S)
+    geom = dict(MODEL, chunk_tokens=CHUNK_TOKENS)
+    cut = engine.register_model(build_decoder_model(
+        **geom, num_blocks=OV_BLOCKS, name="cut"))
+    uncut = engine.register_model(build_decoder_model(
+        **geom, num_blocks=OV_UNCUT_BLOCKS, name="uncut"))
+    same = engine.register_model(build_decoder_model(**MODEL, name="same"))
+    arenas = {n for kv in cut.model.state_names for n in kv}
+    weights = {n: a for n, a in persistables_to_numpy(
+        cut.scope, cut.model.startup_program).items() if n not in arenas}
+    for entry in (uncut, same):
+        dst = entry.model.name + "_v1."
+        load_params(entry.scope, {dst + n[len("cut_v1."):]: a
+                                  for n, a in weights.items()})
+    torch.cuda.synchronize()
+    prompts = overload_prompts(MODEL["vocab_size"])
+    per_token = MODEL["num_layers"] * 2 * MODEL["hidden"] * 4
+
+    def blocks(p):
+        return (len(p) + OV_MAX_NEW + BLOCK - 1) // BLOCK
+
+    # the first 8 slots: the beam's 4 hypotheses, the speculative request
+    # (no target blocks) and the next three
+    demand = BEAM_WIDTH * blocks(prompts[0]) + sum(
+        blocks(p) for p in prompts[2:5])
+    log(f"[overload] pool {OV_BLOCKS} blocks ({OV_BLOCKS * BLOCK} rows, "
+        f"arena {cut.model.arena_bytes() / 1e6:.1f} MB), uncut "
+        f"{OV_UNCUT_BLOCKS}; {per_token} KV bytes a token; the first 8 "
+        f"slots need up to {demand} blocks, the 16 requests "
+        f"{sum(blocks(p) for p in prompts) + 3 * blocks(prompts[0])}; "
+        f"prompts {min(map(len, prompts))}-{max(map(len, prompts))} "
+        f"tokens; startup {time.perf_counter() - t_phase:.2f}s")
+
+    # the same burst on the uncut pool, then on the cut one (counted)
+    _k, uouts, ulat, uwall, _r = _ov_burst(engine, uncut, prompts)
+    ust = uncut.stats()
+    before = cut.stats()
+    kernels.reset_launches()
+    kinds, outs, lat, wall, resume_ms = _ov_burst(engine, cut, prompts,
+                                                  timed_resume=True)
+    launches = kernels.launches()
+    st = cut.stats()
+    d = {k: st[k] - before[k] for k in (
+        "sessions_parked", "sessions_resumed", "resume_replays",
+        "tier_hits", "failed", "completed", "decode_steps",
+        "admissions_deferred", "blocks_parked_total", "spec_emitted_tokens",
+        "beam_requests", "chunk_runs", "sampled_tokens")}
+    d["tier_writebacks"] = (st["block_pool"]["tier_writebacks"]
+                            - before["block_pool"]["tier_writebacks"])
+    log(f"[overload] cut pool: {d}; uncut pool: parked "
+        f"{ust['sessions_parked']}, failed {ust['failed']}")
+    if not (d["sessions_parked"] == d["sessions_resumed"] >= 1
+            and d["failed"] == 0 and d["completed"] == OV_REQUESTS
+            and d["resume_replays"] == 0 and ust["failed"] == 0
+            and d["spec_emitted_tokens"] and d["beam_requests"] == 1
+            and d["chunk_runs"] and d["sampled_tokens"]):
+        raise AssertionError(f"overload: {d}")
+    cut.block_pool.check_conservation()
+    pool = cut.block_pool.stats()
+    if pool["blocks_live"] or st["active_slots"] or st["parked_sessions"]:
+        raise AssertionError(f"overload: the pool ends with {pool}")
+    k3 = launches["paged_attention"]
+    if k3 < MODEL["num_layers"] * d["decode_steps"] or not d["decode_steps"]:
+        raise AssertionError(f"overload: paged_attention launched {k3} "
+                             f"times over {d['decode_steps']} steps")
+    log(f"[overload] paged_attention launches {k3} ({MODEL['num_layers']} a "
+        f"step over {d['decode_steps']} target steps, and the draft's "
+        f"draft-KV steps)")
+
+    # every stream: bit-equal to the uncut pool's where the rows came back
+    # byte for byte, and held against the offline reference
+    def same(a, b):
+        hyps = [(h["tokens"].tolist(), h["score"])
+                for o in (a, b) for h in o.get("beams", ())]
+        return (a["tokens"].tolist() == b["tokens"].tolist()
+                and hyps[:len(hyps) // 2] == hyps[len(hyps) // 2:])
+
+    equal = [same(a, b) for a, b in zip(outs, uouts)]
+    log(f"[overload] streams bit-equal to the uncut pool's: "
+        f"{sum(equal)}/{len(equal)}")
+    verdicts = {}
+    t_off = time.perf_counter()
+    for i, (p, kind, out) in enumerate(zip(prompts, kinds, outs)):
+        toks = [int(t) for t in out["tokens"]]
+        if kind == "beam":
+            want = cut.offline_beam(p, OV_MAX_NEW, BeamParams(BEAM_WIDTH))
+            verdicts[i] = check_beams(cut, p, out, want)
+            continue
+        sp = SamplingParams(seed=SEED, **SAMPLING) if kind == "sampled" \
+            else None
+        want = cut.offline_decode(p, OV_MAX_NEW, sampling=sp)
+        verdicts[i] = check_against_offline(cut, p, toks, want, sampling=sp,
+                                            tag=f"overload {kind} {i}")
+    if not equal[kinds.index("sampled")]:
+        raise AssertionError("overload: the sampled stream differs from "
+                             "the uncut pool's")
+    log(f"[overload] offline checks ({time.perf_counter() - t_off:.1f}s): "
+        f"{verdicts}")
+
+    # times
+    sp_ms = np.asarray(st["spill_seconds"][len(before["spill_seconds"]):]) \
+        * 1e3
+    sp_b = np.asarray(st["spill_bytes"][len(before["spill_bytes"]):])
+    rs_b = np.asarray(st["resume_bytes"][len(before["resume_bytes"]):])
+    gen = sum(len(o["tokens"]) for o in outs)
+    ugen = sum(len(o["tokens"]) for o in uouts)
+    log(f"[overload] spill a park (a session, or a beam group's "
+        f"hypotheses: gather, one copy to pinned memory, CRC): "
+        f"{_pcts(sp_ms)}, {sp_b.sum() / sp_ms.size / 1e6:.2f} MB a park on "
+        f"average (largest row run {sp_b.max() / 1e6:.2f} MB), "
+        f"{sp_b.sum() / sp_ms.sum() / 1e6:.3f} GB/s")
+    log(f"[overload] resume a row run (a session, or one beam hypothesis: "
+        f"CRC, one upload, the inject program, synchronised): "
+        f"{_pcts(resume_ms)}, {rs_b.mean() / 1e6:.2f} MB a run on average, "
+        f"{rs_b.sum() / sum(resume_ms) / 1e6:.3f} GB/s")
+    log(f"[overload] latency of the 16: cut pool p50 "
+        f"{np.median(lat):.3f} s p99 {np.percentile(lat, 99):.3f} s; uncut "
+        f"p50 {np.median(ulat):.3f} s p99 {np.percentile(ulat, 99):.3f} s "
+        f"(engine histogram, cut: p50 {st['latency_p50_s']:.3f} p99 "
+        f"{st['latency_p99_s']:.3f})")
+    log(f"[overload] tokens/s cut {gen / wall:.1f} ({wall:.2f}s), uncut "
+        f"{ugen / uwall:.1f} ({uwall:.2f}s), phase 3 {greedy_tps:.1f}; "
+        f"decode step p50 "
+        f"{np.median(st['step_seconds'][len(before['step_seconds']):]) * 1e3:.3f}"
+        f" ms")
+    log(f"[overload] brownout transitions "
+        f"{[(t['from'], t['to'], t['trigger'], t['value']) for t in st['brownout']['transitions']]}"
+        f"; host tier {st['host_tier']}")
+
+    # the legs
+    rng = np.random.RandomState(SEED + 5)
+    cprompts = [rng.randint(0, MODEL["vocab_size"], OV_CORRUPT_LEN).tolist()
+                for _ in range(5)]
+    t_leg = time.perf_counter()
+    (cp, ctoks), diff, intact, k3_err = _ov_corruption(engine, cut, cprompts)
+    verdict = check_against_offline(cut, cp, ctoks,
+                                    cut.offline_decode(cp, OV_MAX_NEW),
+                                    tag="overload corruption")
+    log(f"[overload] corruption: quarantined, recomputed rows differ from "
+        f"the spilled ones in {diff[0]} of {len(cp) + OV_MAX_NEW} x "
+        f"{2 * MODEL['num_layers']} rows by at most {diff[1]:.3e}; "
+        f"{intact} intact resumes bit-exact; tokens {verdict}; K3 over "
+        f"every resumed slot's rows within {k3_err:.3e} of its plain "
+        f"version (atol {PARITY_ATOL}); {time.perf_counter() - t_leg:.1f}s")
+    order = _ov_tenants(engine, uncut)
+    first = order[:8]
+    log(f"[overload] tenants 3:1: first 8 dispatches gold "
+        f"{first.count('gold')} free {first.count('free')}; all 16 "
+        f"{''.join(t[0] for t in order)}")
+    if first.count("gold") != 6:
+        raise AssertionError(f"tenant leg: {order}")
+    bd, bsec = _ov_breaker(engine, cut)
+    log(f"[overload] breaker: {bd}, the relaunch and the request after it "
+        f"{bsec:.2f}s")
+    engine.shutdown()
+    log(f"[overload] phase {time.perf_counter() - t_phase:.1f}s")
+    return k3
 
 
 # -- phase 4 ----------------------------------------------------------------
@@ -4085,6 +4563,7 @@ def main():
     engine_launches, greedy_tps, greedy_step = phase_engine()
     modes_launches = phase_decode_modes(greedy_tps)
     beam_launches = phase_beam_grammar(greedy_tps, greedy_step)
+    overload_launches = phase_overload(greedy_tps)
     dense_launches = phase_dense()
     train_launches = phase_train()
     unfused_launches = phase_bert_unfused()
@@ -4097,9 +4576,10 @@ def main():
     resnet_amp_launches = phase_resnet_amp()
     log(f"[done] paged_attention launches: phase 3 "
         f"{engine_launches['paged_attention']}, phase 3b {modes_launches}, "
-        f"phase 3c {beam_launches}")
+        f"phase 3c {beam_launches}, phase 3d {overload_launches}")
     path_launches = {"paged_attention": engine_launches["paged_attention"]
-                                        + modes_launches + beam_launches,
+                                        + modes_launches + beam_launches
+                                        + overload_launches,
                      "decode_attention": dense_launches["decode_attention"],
                      "embedding_admission":
                          wide_deep_launches["embedding_admission"],

@@ -1,0 +1,129 @@
+"""Adaptive brownout controller: a severity ladder between "full
+service" and "turn traffic away".
+
+Pressure is the max of three normalized signals the serving stack
+already measures — KV pool occupancy, queue depth against its drain
+rate (how many seconds of work are queued), and deadline headroom (how
+close the most urgent queued request is to missing its SLO). The
+controller maps pressure onto severity levels L0..L4, each degrading
+something OUTPUT-INVISIBLE before the next one sheds:
+
+========  ==========================================================
+severity  effect (all byte-exactness-preserving for admitted requests)
+========  ==========================================================
+L0        full service
+L1        new speculative requests lose their draft-KV slot (the
+          draft replays instead — same committed tokens, more steps)
+L2        speculation disabled for new requests; chunked-prefill
+          budget shrinks to one advancing prompt per iteration
+L3        new beam admissions capped at width ``beam_cap``; LOW-lane
+          dispatch quota tightened to zero (queued LOW waits)
+L4        non-HIGH admissions shed with a measured retry-after
+========  ==========================================================
+
+Escalation is immediate (pressure >= ``enter[i]`` jumps straight to the
+highest qualifying level); de-escalation is hysteretic — one level at a
+time, and only after ``hold`` consecutive evaluations below that
+level's ``exit`` threshold — so the ladder never flaps around a
+threshold. Every transition is recorded with the trigger signal and its
+value (read back through the engine's ``stats()["brownout"]``).
+
+The port's copy of the JAX package's ``serving/brownout.py``. The
+controller is a pure hand-steppable object: no threads, no clocks —
+callers feed signals, it returns a level.
+"""
+
+__all__ = ["BrownoutController", "SEVERITY_NAMES"]
+
+SEVERITY_NAMES = ("l0_full", "l1_no_draft_kv", "l2_no_spec",
+                  "l3_caps", "l4_shed")
+
+
+class BrownoutController:
+    """Severity ladder with asymmetric hysteresis.
+
+    ``enter[i]`` / ``exit[i]`` govern level ``i + 1``: pressure >=
+    ``enter[i]`` escalates to (at least) ``i + 1`` immediately;
+    de-escalating FROM ``i + 1`` needs ``hold`` consecutive steps with
+    pressure < ``exit[i]``. ``exit[i] < enter[i]`` is the hysteresis
+    band."""
+
+    LEVELS = 4
+    SIGNALS = ("occupancy", "queue_seconds", "deadline")
+
+    def __init__(self, enter=(0.60, 0.75, 0.85, 0.95),
+                 exit=(0.45, 0.60, 0.70, 0.80), hold=3, beam_cap=2):
+        if len(enter) != self.LEVELS or len(exit) != self.LEVELS:
+            raise ValueError(f"need {self.LEVELS} enter/exit thresholds")
+        for en, ex in zip(enter, exit):
+            if not ex < en:
+                raise ValueError(
+                    f"hysteresis requires exit < enter, got {ex} >= {en}")
+        self.enter = tuple(float(x) for x in enter)
+        self.exit = tuple(float(x) for x in exit)
+        self.hold = int(hold)
+        self.beam_cap = int(beam_cap)
+        self.level = 0
+        self.steps = 0
+        self.transitions = []    # {"step", "from", "to", "trigger", "value"}
+        self._clear_streak = 0
+
+    def _pressure(self, occupancy, queue_seconds, deadline):
+        """Normalize the three signals onto [0, 1] and take the max —
+        the binding constraint names the trigger. ``queue_seconds`` is
+        queued work over drain rate, saturating at ``1.0`` when a full
+        second of work is backed up; ``deadline`` is ``1 - headroom /
+        budget`` for the most urgent queued request."""
+        sig = {
+            "occupancy": min(max(float(occupancy), 0.0), 1.0),
+            "queue_seconds": min(max(float(queue_seconds), 0.0), 1.0),
+            "deadline": min(max(float(deadline), 0.0), 1.0),
+        }
+        trigger = max(sig, key=lambda k: sig[k])
+        return sig[trigger], trigger, sig
+
+    def step(self, occupancy=0.0, queue_seconds=0.0, deadline=0.0):
+        """One evaluation. Returns the (possibly new) severity level."""
+        self.steps += 1
+        pressure, trigger, sig = self._pressure(
+            occupancy, queue_seconds, deadline)
+        target = 0
+        for i in range(self.LEVELS):
+            if pressure >= self.enter[i]:
+                target = i + 1
+        if target > self.level:
+            self.transitions.append({
+                "step": self.steps, "from": self.level, "to": target,
+                "trigger": trigger, "value": round(pressure, 4),
+            })
+            self.level = target
+            self._clear_streak = 0
+        elif self.level > 0 and pressure < self.exit[self.level - 1]:
+            self._clear_streak += 1
+            if self._clear_streak >= self.hold:
+                self.transitions.append({
+                    "step": self.steps, "from": self.level,
+                    "to": self.level - 1, "trigger": trigger,
+                    "value": round(pressure, 4),
+                })
+                self.level -= 1
+                self._clear_streak = 0
+        else:
+            self._clear_streak = 0
+        return self.level
+
+    @property
+    def name(self):
+        return SEVERITY_NAMES[self.level]
+
+    def snapshot(self):
+        return {
+            "level": self.level,
+            "name": self.name,
+            "steps": self.steps,
+            "transitions": [dict(t) for t in self.transitions],
+            "enter": list(self.enter),
+            "exit": list(self.exit),
+            "hold": self.hold,
+            "beam_cap": self.beam_cap,
+        }

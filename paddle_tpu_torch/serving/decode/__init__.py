@@ -1,7 +1,13 @@
 """Continuous-batching paged decode: the port of the JAX package's
 ``serving/decode`` (decode, chunked prefill, speculative decoding,
-committed-stream sampling, beam search and grammar-constrained
-decode)."""
+committed-stream sampling, beam search and grammar-constrained decode;
+under overload, parking to the host-RAM KV tier, the brownout ladder,
+the circuit breaker and weighted-fair tenants)."""
+
+from paddle_tpu_torch.serving.brownout import (
+    SEVERITY_NAMES,
+    BrownoutController,
+)
 
 from paddle_tpu_torch.serving.decode.engine import (
     GenerationEngine,
@@ -13,6 +19,7 @@ from paddle_tpu_torch.serving.decode.generate import (
     GrammarConstraint,
     SamplingParams,
 )
+from paddle_tpu_torch.serving.decode.metrics import DecodeMetrics
 from paddle_tpu_torch.serving.decode.model import DecodeModel, build_decoder_model
 from paddle_tpu_torch.serving.decode.pool import (
     BlockPool,
@@ -21,16 +28,21 @@ from paddle_tpu_torch.serving.decode.pool import (
     block_hashes,
     prompt_key,
 )
+from paddle_tpu_torch.serving.decode.tier import HostKVTier
 
 __all__ = [
     "BeamParams",
     "BlockPool",
+    "BrownoutController",
     "CompiledGrammar",
+    "DecodeMetrics",
     "DecodeModel",
     "GenerationEngine",
     "GenerationRequest",
     "GrammarConstraint",
+    "HostKVTier",
     "PrefixCache",
+    "SEVERITY_NAMES",
     "SamplingParams",
     "SlotPool",
     "block_hashes",

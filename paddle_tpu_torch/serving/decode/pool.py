@@ -221,7 +221,10 @@ class _RadixTree:
             for i in range(n_full):
                 chunk = tuple(toks[i * bs:(i + 1) * bs])
                 child = node.children.get(chunk)
-                if child is None:
+                # a node whose block was evicted while a descendant stays
+                # registered keeps its place in the tree but names no
+                # block: the chain breaks there
+                if child is None or child.block_id is None:
                     break
                 node = child
                 ids.append(node.block_id)
@@ -236,8 +239,11 @@ class _RadixTree:
             if child is None:
                 child = _RadixNode(chain_hash, parent=parent_node,
                                    tokens=chunk)
-                child.block_id = block_id
                 parent_node.children[chunk] = child
+            if child.block_id is None:
+                # a new node, or one whose block was evicted: this block
+                # names it now
+                child.block_id = block_id
                 self._by_block[block_id] = child
             return child
 
@@ -310,10 +316,23 @@ class BlockPool:
         self._cached = OrderedDict()   # block id -> None (LRU of refcount-0)
         self._radix = _RadixTree()
         self._lock = threading.Lock()
+        self._tier = None              # HostKVTier (attach_tier)
+        self._tier_read = None         # block -> per-layer [(k, v)] rows
         self.cow_copies = 0
         self.evictions = 0
         self.radix_hits = 0            # shared-block references served
         self.forks = 0                 # beam forks served (refcount++ paths)
+        self.tier_writebacks = 0       # evicted blocks spilled to host
+
+    def attach_tier(self, tier, read_rows=None):
+        """Adopt a host-RAM tier (tier.py): LRU eviction writes a
+        registered full block's rows back to ``tier`` under
+        ``blk:<chain>`` before recycling it. ``read_rows(block)`` reads
+        the block's arena rows (the pool is host bookkeeping only — the
+        engine owns the arena scope); called, like the ``tier.put``,
+        while holding the allocator lock."""
+        self._tier = tier
+        self._tier_read = read_rows
 
     @property
     def rows(self):
@@ -326,6 +345,7 @@ class BlockPool:
             if not self._cached:
                 return None
             bid, _ = self._cached.popitem(last=False)
+            self._writeback_locked(self._blocks[bid])
             self._radix.remove(bid)
             self._blocks[bid].reset()
             self._free.append(bid)
@@ -335,6 +355,47 @@ class BlockPool:
         b.reset()
         b.refcount = 1
         return b
+
+    def _writeback_locked(self, b):
+        """Spill an about-to-be-evicted FULL registered block's rows to
+        the host tier (registered blocks are immutable, so this is the
+        one moment their bytes leave the arena). Partial tails already
+        retain ``host_rows`` on the host and are cheap to recompute;
+        only chain-hashed full blocks spill."""
+        if self._tier is None or b.chain_hash is None:
+            return
+        rows = b.host_rows
+        if rows is None and self._tier_read is not None:
+            rows = self._tier_read(b)
+        if rows is None:
+            return
+        if self._tier.put("blk:" + b.chain_hash, rows, b.size_used,
+                          tokens=b.tokens):
+            self.tier_writebacks += 1
+
+    def available(self):
+        """Blocks an allocation can take now: the free ones and the
+        evictable (cached, refcount-0) ones."""
+        with self._lock:
+            return len(self._free) + len(self._cached)
+
+    def acquire_rows(self, n_rows):
+        """Fresh PRIVATE blocks covering ``n_rows`` positions with
+        ``size_used`` preset (the preemption-resume path: the caller
+        re-injects spilled rows, so these blocks hold real content the
+        moment they are handed out). Returns None when the pool cannot
+        cover the run."""
+        bs = self.block_size
+        n = (int(n_rows) + bs - 1) // bs
+        with self._lock:
+            if n > len(self._free) + len(self._cached):
+                return None
+            out = []
+            for i in range(n):
+                b = self._alloc_locked()
+                b.size_used = min(bs, int(n_rows) - i * bs)
+                out.append(b)
+            return out
 
     def acquire_for_prompt(self, tokens):
         """Map a prompt onto blocks: longest shared full-block chain
@@ -574,4 +635,5 @@ class BlockPool:
                 "evictions": self.evictions,
                 "radix_hits": self.radix_hits,
                 "radix_entries": len(self._radix),
+                "tier_writebacks": self.tier_writebacks,
             }

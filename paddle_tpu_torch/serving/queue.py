@@ -15,7 +15,10 @@ THIS request. Callers may still pass an explicit hint (the engine's
 batch-rate model) — the queue reports whichever is larger, so backoff
 never undershoots either signal. Deadline expiries are counted apart
 from admission rejections (`stats()`): "we were too full" and "the
-caller's SLO died waiting" are different capacity problems.
+caller's SLO died waiting" are different capacity problems. Requests
+pulled back out for re-dispatch (``reroute()``, the drain-before-retire
+path) are a third outcome, counted separately again, because a rerouted
+request is still served, just elsewhere.
 
 Locking: the queue owns a ``threading.RLock`` (`queue.lock`); single
 calls take it internally, and the engine's scheduler takes it around
@@ -52,6 +55,7 @@ class RequestQueue:
         self._deferred_rows = 0
         self._rejected_full = 0
         self._expired_in_queue = 0
+        self._rerouted = 0
 
     # -- admission ---------------------------------------------------------
     def put(self, request, retry_after_s=None):
@@ -147,6 +151,23 @@ class RequestQueue:
         decode engine's picker scans this under ``lock``)."""
         return tuple(self._lanes[priority])
 
+    def head(self):
+        """Oldest request in the highest non-empty lane (dispatch order),
+        or None."""
+        with self.lock:
+            for p in Priority.LANES:
+                if self._lanes[p]:
+                    return self._lanes[p][0]
+        return None
+
+    def iter_requests(self):
+        """Snapshot in dispatch order (priority lanes, FIFO within)."""
+        with self.lock:
+            out = []
+            for p in Priority.LANES:
+                out.extend(self._lanes[p])
+            return out
+
     def remove(self, requests, batch=False):
         """Remove specific admitted requests (they were taken for a
         batch). ``batch=True`` defers the drain-rate sample: a caller
@@ -178,6 +199,16 @@ class RequestQueue:
             rows, self._deferred_rows = self._deferred_rows, 0
             self._note_drained(rows, time.perf_counter())
 
+    def reroute(self, requests):
+        """Remove admitted requests for RE-DISPATCH elsewhere (drain
+        before retire): the rows leave this queue like any dispatch, but
+        the outcome is counted apart from both rejections and expiries —
+        a rerouted request is still going to be SERVED. The request
+        objects keep their absolute deadline."""
+        self.remove(requests)
+        with self.lock:
+            self._rerouted += len(requests)
+
     # -- introspection -----------------------------------------------------
     def depth(self):
         """Queued rows (admission unit: a 4-row request costs 4)."""
@@ -190,6 +221,43 @@ class RequestQueue:
             return {p: sum(r.rows for r in lane)
                     for p, lane in self._lanes.items()}
 
+    def pressure(self, now=None, horizon_s=1.0):
+        """Normalized pressure signals for the brownout controller
+        (serving/brownout.py), sampled once per scheduler iteration:
+
+        * ``queue_seconds`` — queued rows over the measured drain rate,
+          normalized against ``horizon_s`` (1.0 == a full horizon of
+          work is backed up). Zero before the first drain sample: an
+          idle queue must not brown out on its cold-start hint.
+        * ``deadline`` — ``1 - headroom / budget`` for the most urgent
+          queued request (0 fresh, 1 at expiry); 0 when nothing queued
+          carries a deadline.
+        * ``depth_frac`` — queued rows over ``max_depth``.
+        """
+        now = now if now is not None else time.perf_counter()
+        with self.lock:
+            depth = self._depth
+            rate = self._drain_rate
+            worst = 0.0
+            for lane in self._lanes.values():
+                for r in lane:
+                    if r.deadline is None:
+                        continue
+                    budget = r.deadline - r.submit_time
+                    if budget <= 0.0:
+                        worst = 1.0
+                        continue
+                    frac = 1.0 - (r.deadline - now) / budget
+                    worst = max(worst, min(max(frac, 0.0), 1.0))
+        qs = 0.0
+        if depth > 0 and rate > 0.0:
+            qs = min((depth / rate) / float(horizon_s), 1.0)
+        return {
+            "queue_seconds": qs,
+            "deadline": worst,
+            "depth_frac": depth / float(max(self.max_depth, 1)),
+        }
+
     def stats(self):
         """Queue-side counters: depth, per-lane depths, the measured
         drain rate, and the rejected-at-admission vs expired-in-queue
@@ -201,6 +269,7 @@ class RequestQueue:
                 "drain_rate_rows_per_s": self._drain_rate,
                 "rejected_at_admission": self._rejected_full,
                 "expired_in_queue": self._expired_in_queue,
+                "rerouted": self._rerouted,
             }
 
     def empty(self):

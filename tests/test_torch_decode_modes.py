@@ -24,6 +24,7 @@ from paddle_tpu.serving.decode import GenerationEngine as JaxEngine
 from paddle_tpu.serving.decode import build_decoder_model as jax_build
 from paddle_tpu.serving.request import RejectedError as JaxRejected
 from paddle_tpu_torch.convert import load_params
+from paddle_tpu_torch.serving.brownout import BrownoutController
 from paddle_tpu_torch.serving.decode import GenerationEngine as TorchEngine
 from paddle_tpu_torch.serving.decode import build_decoder_model as torch_build
 from paddle_tpu_torch.serving.decode.model import DecodeModel
@@ -69,6 +70,12 @@ def served():
     load_params(tt.scope, target)
     load_params(ts.scope, _renamed(target, "t_v1.", "same_v1."))
     load_params(td.scope, _param_arrays(jd))
+    # the brownout ladder sheds draft-KV (L1) and speculation (L2) under
+    # queue or pool pressure, which these bursts may or may not reach
+    # depending on the measured drain rate; the route a request takes is
+    # what these tests check, so the target's ladder never escalates here
+    # (tests/test_torch_overload.py drives the ladder)
+    tt._brownout = BrownoutController(enter=(1.1,) * 4, exit=(1.0,) * 4)
     yield jeng, jt, teng, tt
     teng.shutdown()
     jeng.shutdown()

@@ -34,6 +34,7 @@ from paddle_tpu.serving.decode import SamplingParams as JaxSampling
 from paddle_tpu.serving.decode import build_decoder_model as jax_build
 from paddle_tpu.serving.request import RejectedError as JaxRejected
 from paddle_tpu_torch.convert import load_params
+from paddle_tpu_torch.serving.brownout import BrownoutController
 from paddle_tpu_torch.serving.decode import (
     BeamParams,
     CompiledGrammar,
@@ -95,6 +96,13 @@ def served():
     load_params(tt.scope, target)
     load_params(tp.scope, _renamed(target, "t_v1.", "plain_v1."))
     load_params(td.scope, _param_arrays(jd))
+    # the brownout ladder closes the LOW lane (L3) and sheds non-HIGH
+    # submits (L4) under queue pressure, which these hand-stepped bursts
+    # may or may not reach depending on the measured drain rate; the
+    # admission order and the refusals are what these tests check, so
+    # the target's ladder never escalates here (tests/test_torch_overload.py
+    # drives the ladder)
+    tt._brownout = BrownoutController(enter=(1.1,) * 4, exit=(1.0,) * 4)
     jeng.start()
     grammars = {"regex": (CompiledGrammar.from_regex(REGEX, VOCAB, 0),
                           JaxGrammar.from_regex(REGEX, VOCAB, 0)),
@@ -443,8 +451,12 @@ def test_refused_compositions_raise_the_jax_engines_messages(served, case):
 
 def test_only_tenants_and_absolute_deadlines_stay_unported(served):
     jeng, jt, teng, tt, grammars = served
-    for opt, value in (("tenant", "a"), ("deadline_at", 1.0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            teng.submit([1, 2], model="t", **{opt: value})
+    # tenants are served since the overload slice
+    # (tests/test_torch_tenants.py); absolute deadlines stay with M6
+    resp = teng.submit([1, 2], model="t", max_new_tokens=2, tenant="a")
+    _drain(tt, [resp])
+    assert len(_tokens(resp)) == 2
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, M6"):
+        teng.submit([1, 2], model="t", deadline_at=1.0)
     with pytest.raises(TypeError, match="unexpected keyword"):
         teng.submit([1, 2], model="t", beam=3)

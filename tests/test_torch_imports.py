@@ -41,6 +41,7 @@ import paddle_tpu_torch.models.mnist
 import paddle_tpu_torch.models.resnet
 import paddle_tpu_torch.models.transformer
 import paddle_tpu_torch.models.wide_deep
+import paddle_tpu_torch.observability.metrics
 import paddle_tpu_torch.ops.misc_extra
 import paddle_tpu_torch.ops.sharded_embedding
 import paddle_tpu_torch.optimizer
@@ -49,10 +50,16 @@ import paddle_tpu_torch.parallel.dgc
 import paddle_tpu_torch.parallel.env
 import paddle_tpu_torch.passes
 import paddle_tpu_torch.regularizer
+import paddle_tpu_torch.resilience.faults
+import paddle_tpu_torch.serving.breaker
+import paddle_tpu_torch.serving.brownout
 import paddle_tpu_torch.serving.decode.engine
 import paddle_tpu_torch.serving.decode.generate.beam
 import paddle_tpu_torch.serving.decode.generate.grammar
 import paddle_tpu_torch.serving.decode.generate.sampling
+import paddle_tpu_torch.serving.decode.metrics
+import paddle_tpu_torch.serving.decode.tier
+import paddle_tpu_torch.serving.metrics
 import paddle_tpu_torch.utils.flags
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
