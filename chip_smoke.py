@@ -16,7 +16,9 @@ CTR configurations (Wide&Deep over the two-tier embedding engine, and CTR
 with on-device tables and sparse SGD) against the same steps with the
 kernels off, and trains the conv nets (the two book programs, and
 ResNet-50 at full width and depth against the same step on the host's
-CPU, in float32 and under bf16 AMP). Any failure exits non-zero. It
+CPU, in float32 and under bf16 AMP), and saves, restores and exports
+those models through ``io`` and ``incubate.checkpoint``, bit for bit.
+Any failure exits non-zero. It
 imports nothing of JAX or of the JAX package, and it refuses to run
 without a CUDA device (or outside a checkout of the repository).
 
@@ -306,6 +308,35 @@ Phases:
    memory peak), 2 under ``torch.profiler`` (device busy, idle share, top
    ops and kernels); the loss finite and ending below its peak.
 
+10. checkpoints and model io — through ``Executor()`` on the default
+   place. 10a: BERT-base as phase 5 runs it (flash, hidden dropout 0.1,
+   seq 128, Adam, batch 32, float32): 2 steps, a blocking
+   ``AutoCheckpoint.save``; a fresh scope with no startup run restored by
+   ``resume()`` onto the card, every persistable ``torch.equal`` to the
+   saved scope's; then one step by a fresh executor (its run counter, and
+   so its dropout masks, start where every fresh executor's do) on the
+   saved scope, on a copy of it on the card (run to run) and on the
+   restored scope, under torch's deterministic algorithms: the restored
+   continuation's loss and persistables bit-equal to the in-memory one's
+   when the two in-memory ones agree (else within twice their gap, the
+   ops without a deterministic path named); an async save while 2 steps
+   run. Prints the save split (snapshot to pinned memory, serialize, CRC,
+   write, fsync) and the restore split (read, file CRC, parse, array CRC,
+   upload) with bytes and GB/s, the training-thread stall and the writer's
+   time. 10b: Wide&Deep as phase 6 runs it with the engine as extra state,
+   saving at steps 11 and 23 of 24 (format 2: each store array in 2 CRC'd
+   shards); a fresh engine and scope ``resume()``, a probe batch's
+   predictions bit-equal to the trained engine's, K5 launched once per
+   table re-admitting the restored rows. 10c: 9a's trained programs
+   through ``io.save_inference_model`` / ``load_inference_model`` into a
+   fresh scope on the card, predicting bit-equal to ``clone(for_test=
+   True)``; ``save_persistables`` and ``save`` round trips bit-equal. 10d:
+   fit_a_line checkpointed three times with ``max_to_keep=2``: a corrupt
+   newest ``state.npz`` walked past and quarantined, ``checkpoint.io``
+   raising twice retried to a commit, a pinned corrupt step refused.
+   Counters are zeroed before 10a and 10b and read after; the kernels line
+   adds their launches.
+
 The last lines are the card's name and power limit, one JSON line of
 per-kernel results, and ``{"ok": true, "device": {...}}``.
 """
@@ -449,6 +480,12 @@ TRAIN_STATE_TOL = 1e-2
 # over 2^20-row tables
 WD_BATCH, WD_STEPS, WD_CAPACITY, WD_BIG_CAPACITY = 4096, 24, 4096, 65536
 CTR_VOCAB, CTR_BATCH, CTR_STEPS = 2 ** 20, 4096, 8
+# Phase 10, checkpoints: BERT-base (phase 5's config) trains CKPT_STEPS
+# steps before the blocking save and CKPT_ASYNC_STEPS while the async one
+# writes; Wide&Deep (phase 6's) saves every WD_CKPT_INTERVAL steps of its
+# WD_STEPS (at steps 11 and 23) and restores the newest; the recovery leg
+# keeps CKPT_KEEP entries.
+CKPT_STEPS, CKPT_ASYNC_STEPS, WD_CKPT_INTERVAL, CKPT_KEEP = 2, 2, 12, 2
 # host syncs of one dense CTR step with K6: 16 torch.unique calls (one an
 # sgd_sparse) and 10 more (the feed uploads, the loss's copy)
 CTR_STEP_SYNCS = 26
@@ -4006,7 +4043,7 @@ def _fit_a_line(fluid):
         avg_cost = fluid.layers.mean(
             fluid.layers.square_error_cost(y_predict, y))
         fluid.optimizer.SGD(learning_rate=0.01).minimize(avg_cost)
-    return main, startup, avg_cost
+    return main, startup, avg_cost, y_predict
 
 
 def _recognize_digits(fluid):
@@ -4026,7 +4063,7 @@ def _recognize_digits(fluid):
         loss = fluid.layers.mean(fluid.layers.cross_entropy(prediction, label))
         acc = fluid.layers.accuracy(prediction, label)
         fluid.optimizer.Adam(learning_rate=1e-3).minimize(loss)
-    return main, startup, loss, acc
+    return main, startup, loss, acc, prediction
 
 
 def synthetic_digits(rng, n):
@@ -4042,7 +4079,9 @@ def synthetic_digits(rng, n):
 def phase_book():
     """9a: the two book programs through ``Executor()`` on the card, from
     startups drawn through K8; fit_a_line's loss falls, recognize_digits
-    reaches the example's accuracy."""
+    reaches the example's accuracy. Returns the launches and, for phase
+    10c/10d, each trained program with its scope, loss, prediction, feed
+    names and one batch."""
     import torch
 
     import paddle_tpu_torch as fluid
@@ -4058,7 +4097,7 @@ def phase_book():
     kernels.reset_launches()
     t0 = time.perf_counter()
     with unique_name.guard():
-        main, startup, avg_cost = _fit_a_line(fluid)
+        main, startup, avg_cost, y_predict = _fit_a_line(fluid)
     startup.random_seed = main.random_seed = SEED
     exe, scope = fluid.Executor(), fluid.Scope()
     exe.run(startup, scope=scope)
@@ -4070,13 +4109,16 @@ def phase_book():
     first, last = np.mean(losses[:5]), np.mean(losses[-5:])
     if not (np.isfinite(losses).all() and last < 0.5 * first):
         raise AssertionError(f"fit_a_line did not learn: losses {losses}")
+    trained = {"fit_a_line": dict(
+        main=main, scope=scope, loss=avg_cost, target=y_predict, feeds=["x"],
+        feed={"x": xs[:LINE_BATCH], "y": ys[:LINE_BATCH]})}
     log(f"[book] fit_a_line: {LINE_STEPS} SGD steps of {LINE_BATCH} rows, "
         f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of the first five "
         f"{first:.4f}, of the last five {last:.4f}), {line_s:.2f}s")
 
     t0 = time.perf_counter()
     with unique_name.guard():
-        main, startup, loss, acc = _recognize_digits(fluid)
+        main, startup, loss, acc, prediction = _recognize_digits(fluid)
     startup.random_seed = main.random_seed = SEED
     exe, scope = fluid.Executor(), fluid.Scope()
     exe.run(startup, scope=scope)
@@ -4104,7 +4146,10 @@ def phase_book():
         f"at batch {DIGITS_BATCH}, (loss, accuracy) by epoch "
         f"{[(round(l, 4), round(a, 4)) for l, a in epochs]}, {digits_s:.2f}s; "
         f"launches {launches}")
-    return launches
+    trained["recognize_digits"] = dict(
+        main=main, scope=scope, loss=loss, target=prediction, feeds=["img"],
+        feed={"img": digits[:DIGITS_BATCH], "label": labels[:DIGITS_BATCH]})
+    return launches, trained
 
 
 def _conv_flops(program, batch):
@@ -4543,6 +4588,404 @@ def phase_resnet_amp():
     return launches
 
 
+# -- phase 10 ---------------------------------------------------------------
+def _gbps(n_bytes, seconds):
+    return n_bytes / seconds / 1e9 if seconds > 0 else float("inf")
+
+
+def _split(timings, keys):
+    return ", ".join(f"{k[:-2]} {timings.get(k, 0.0):.3f}" for k in keys)
+
+
+SAVE_KEYS = ("serialize_s", "crc_s", "write_s", "fsync_s")
+RESTORE_KEYS = ("read_s", "file_crc_s", "parse_s", "array_crc_s", "upload_s")
+
+
+def _continue_bert(fluid, main, batch, loss, scope, names):
+    """One step of ``main`` on ``scope`` by a fresh executor (its run
+    counter, and so its dropout keys, start where every other fresh
+    executor's do): the loss and every persistable after it."""
+    exe = fluid.Executor()
+    out = exe.run(main, feed=batch, fetch_list=[loss], scope=scope)
+    return float(out[0].reshape(-1)[0]), {n: scope.find_var(n) for n in names}
+
+
+def _max_abs(a, b):
+    import torch
+
+    if a.dtype.is_floating_point:
+        return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+    return 0.0 if torch.equal(a, b) else float("inf")
+
+
+def _ckpt_bert(ckdir):
+    """10a: BERT-base saved after CKPT_STEPS steps, restored into a fresh
+    scope with no startup run, continued by fresh executors: the restored
+    state bit-equal to the saved one, the continued step to the
+    in-memory continuation; then an async save while training goes on."""
+    import warnings
+
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.convert import load_params
+    from paddle_tpu_torch.incubate.checkpoint import AutoCheckpoint
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.base()
+    cfg.use_flash_attention = True
+    cfg.hidden_dropout_prob = TRAIN_DROPOUT
+    cfg.attention_probs_dropout_prob = 0.0
+    main, startup, _, fetches = bert.build_bert_pretrain(
+        cfg, seq_len=TRAIN_SEQ, lr=TRAIN_LR, max_predictions_per_seq=TRAIN_P)
+    startup.random_seed = main.random_seed = SEED
+    loss = fetches[0]
+    batch = bert.synthetic_batch(np.random.RandomState(SEED), TRAIN_BATCH,
+                                 TRAIN_SEQ, cfg, TRAIN_P)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    load_params(scope, {COUNTER: np.full([1], WARMED_UP, np.float32)})
+    losses = [float(exe.run(main, feed=batch, fetch_list=[loss],
+                            scope=scope)[0][0]) for _ in range(CKPT_STEPS)]
+    names = [v.name for v in main.global_block().vars.values()
+             if v.persistable and scope.find_var(v.name) is not None]
+    n_bytes = sum(scope.find_var(n).numel() * scope.find_var(n).element_size()
+                  for n in names)
+
+    ck = AutoCheckpoint(exe, main, ckdir, scope=scope)
+    ck.save(CKPT_STEPS - 1, blocking=True)
+    st = dict(ck.save_timings)
+    writer = sum(st[k] for k in SAVE_KEYS)
+    log(f"[ckpt] 10a BERT-base: {len(names)} persistables, {n_bytes} bytes on "
+        f"the card, losses {losses}; blocking save {st['snapshot_s'] + writer:.3f}s "
+        f"for {st['bytes']} bytes in state.npz "
+        f"({_gbps(st['bytes'], st['snapshot_s'] + writer):.3f} GB/s): snapshot "
+        f"{st['snapshot_s']:.3f} ({_gbps(n_bytes, st['snapshot_s']):.3f} GB/s "
+        f"card to pinned host), {_split(st, SAVE_KEYS)}")
+
+    # a second copy of the in-memory state, on the card
+    mem = fluid.Scope()
+    for n in names:
+        mem.set(n, scope.find_var(n).clone())
+    back = fluid.Scope()
+    ck_back = AutoCheckpoint(fluid.Executor(), main, ckdir, scope=back)
+    at = ck_back.resume()
+    rt = dict(ck_back.restore_timings)
+    restore = sum(rt[k] for k in RESTORE_KEYS)
+    if at != CKPT_STEPS:
+        raise AssertionError(f"resume() returned {at}, want {CKPT_STEPS}")
+    wrong = [n for n in names
+             if back.find_var(n) is None
+             or back.find_var(n).device != exe.device
+             or back.find_var(n).dtype != scope.find_var(n).dtype
+             or not torch.equal(back.find_var(n), scope.find_var(n))]
+    if wrong:
+        raise AssertionError(f"restored persistables differ from the saved "
+                             f"scope's: {wrong[:8]} ({len(wrong)})")
+    log(f"[ckpt] 10a restore into a fresh scope (no startup run) on the card: "
+        f"all {len(names)} persistables bit-equal (torch.equal); "
+        f"{restore:.3f}s for {rt['bytes']} bytes "
+        f"({_gbps(rt['bytes'], restore):.3f} GB/s): {_split(rt, RESTORE_KEYS)}")
+
+    # three continuations, each by a fresh executor: the saved scope, its
+    # in-memory copy (run to run) and the restored scope. Deterministic
+    # algorithms where torch has them, so the atomics-summed grads (the
+    # embedding's index_select and the masked positions' gather) sum in a
+    # fixed order; the warnings name the ops that still have none
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            l_mem, s_mem = _continue_bert(fluid, main, batch, loss, scope, names)
+            l_twin, s_twin = _continue_bert(fluid, main, batch, loss, mem, names)
+            l_back, s_back = _continue_bert(fluid, main, batch, loss, back, names)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    nondet = sorted({str(w.message).split(" does not have")[0][:80]
+                     for w in caught if "deterministic" in str(w.message)})
+    run_to_run = {n: _max_abs(s_mem[n], s_twin[n]) for n in names}
+    moved = {n: d for n, d in run_to_run.items() if d}
+    if not moved and l_mem == l_twin:
+        bad = [n for n in names if not torch.equal(s_back[n], s_mem[n])]
+        if bad or l_back != l_mem:
+            raise AssertionError(
+                f"the restored continuation differs from the in-memory one: "
+                f"loss {l_back!r} vs {l_mem!r}, persistables {bad[:8]} "
+                f"({len(bad)})")
+        log(f"[ckpt] 10a continued step: two in-memory continuations agree "
+            f"bit for bit, and the restored one equals them: loss {l_back!r}, "
+            f"all {len(names)} persistables bit-equal")
+    else:
+        # the run-to-run gap is the bar: twice it, tensor by tensor in
+        # relative terms
+        rel = max(d / max(float(s_mem[n].abs().max()), 1e-30)
+                  for n, d in moved.items()) if moved else 0.0
+        bad = {n: _max_abs(s_back[n], s_mem[n]) for n in names}
+        bad = {n: d for n, d in bad.items()
+               if d > 2 * rel * float(s_mem[n].abs().max())}
+        loss_bar = 2 * max(abs(l_twin - l_mem), rel * abs(l_mem))
+        log(f"[ckpt] 10a two in-memory continuations differ run to run in "
+            f"{len(moved)} persistables (largest relative gap {rel:.3e}; "
+            f"{sorted(moved)[:6]}), loss {l_mem!r} vs {l_twin!r}; ops with no "
+            f"deterministic path: {nondet}")
+        if bad or abs(l_back - l_mem) > loss_bar:
+            raise AssertionError(
+                f"the restored continuation is further from the in-memory one "
+                f"than twice the run-to-run gap: loss {l_back!r} vs {l_mem!r} "
+                f"(bar {loss_bar:.3e}), persistables {sorted(bad)[:8]}")
+        log(f"[ckpt] 10a restored continuation within twice the run-to-run "
+            f"gap: loss {l_back!r}")
+    del mem, back, s_twin, s_back
+
+    # an async save while training goes on
+    ck_async = AutoCheckpoint(exe, main, ckdir, scope=scope,
+                              max_to_keep=CKPT_KEEP)
+    t0 = time.perf_counter()
+    ck_async.save(CKPT_STEPS)
+    stall = time.perf_counter() - t0
+    step_s = []
+    for _ in range(CKPT_ASYNC_STEPS):
+        t0 = time.perf_counter()
+        exe.run(main, feed=batch, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ck_async.close()
+    waited = time.perf_counter() - t0
+    at = ck_async.save_timings
+    log(f"[ckpt] 10a async save: training-thread stall {stall:.3f}s (snapshot "
+        f"{at['snapshot_s']:.3f}), writer {sum(at[k] for k in SAVE_KEYS):.3f}s "
+        f"({_split(at, SAVE_KEYS)}); {CKPT_ASYNC_STEPS} steps during the write "
+        f"{[round(x, 4) for x in step_s]} s, then close() waited {waited:.3f}s")
+
+
+def _ckpt_wide_deep(ckdir):
+    """10b: Wide&Deep (phase 6's config) checkpointed with the engine as
+    extra state every WD_CKPT_INTERVAL steps (format 2, per-shard CRCs);
+    a fresh engine and scope resume, and a probe batch's predictions are
+    bit-equal to the trained engine's, K5 re-admitting the rows."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.embedding import EmbeddingEngine
+    from paddle_tpu_torch.incubate.checkpoint import AutoCheckpoint
+    from paddle_tpu_torch.models import wide_deep as wd
+    from paddle_tpu_torch.utils import unique_name
+
+    records = list(wd.click_log(WD_BATCH * WD_STEPS, seed=0))
+    with unique_name.guard():
+        main, startup, feeds, (loss, pred) = wd.build_programs(
+            capacity=WD_CAPACITY)
+    startup.random_seed = SEED
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    engine = EmbeddingEngine(scope=scope)
+    ck = AutoCheckpoint(exe, main, ckdir, save_interval_steps=WD_CKPT_INTERVAL,
+                        scope=scope, extra_state=engine)
+    saves = []
+    for i in range(WD_STEPS):
+        feed = engine.prepare_feed(main, wd.make_batch(
+            records[i * WD_BATCH:(i + 1) * WD_BATCH], feeds))
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        t0 = time.perf_counter()
+        if ck.maybe_save(i):
+            saves.append((i, time.perf_counter() - t0))
+    ck.close()
+    tables = sorted(engine.tables)
+    for i, _ in saves:
+        with open(os.path.join(ckdir, f"ckpt_{i}", "manifest.json")) as f:
+            man = json.load(f)
+        sharded = man.get("sharded", {})
+        want = {f"__embedding_store__::{t}::{k}" for t in tables
+                for k in ("ids", "rows")}
+        if (man["format"] != 2 or set(sharded) != want or not all(
+                len(e["shards"]) == wd.EP and all("crc32" in sh
+                                                  for sh in e["shards"])
+                for e in sharded.values())):
+            raise AssertionError(f"ckpt_{i}: not a format-2 manifest with "
+                                 f"{wd.EP} CRC'd shards per store array")
+    probe = wd.make_batch(list(wd.click_log(WD_BATCH, seed=9)), feeds)
+    feed = engine.prepare_feed(main, dict(probe), train=False)
+    before = exe.run(main, feed=feed, fetch_list=[pred], scope=scope,
+                     return_numpy=False)[0]
+    engine.close()
+
+    scope2 = fluid.Scope()
+    engine2 = EmbeddingEngine(scope=scope2)
+    exe2 = fluid.Executor()
+    ck2 = AutoCheckpoint(exe2, main, ckdir, scope=scope2, extra_state=engine2)
+    at = ck2.resume()
+    k5 = kernels.launches("embedding_admission")
+    feed = engine2.prepare_feed(main, dict(probe), train=False)
+    readmit = kernels.launches("embedding_admission") - k5
+    after = exe2.run(main, feed=feed, fetch_list=[pred], scope=scope2,
+                     return_numpy=False)[0]
+    engine2.close()
+    import torch
+
+    if at != WD_STEPS or not torch.equal(before, after):
+        raise AssertionError(f"Wide&Deep resume: step {at}, predictions "
+                             f"bit-equal {torch.equal(before, after)}")
+    if readmit != len(tables):
+        raise AssertionError(f"K5 launched {readmit} times re-admitting "
+                             f"{len(tables)} tables")
+    rt = ck2.restore_timings
+    log(f"[ckpt] 10b Wide&Deep: saves at steps {[i for i, _ in saves]} "
+        f"(format 2, {wd.EP} CRC'd shards per store array; training-thread "
+        f"stall {[round(s, 4) for _, s in saves]} s, last write "
+        f"{_split(ck.save_timings, SAVE_KEYS)}, {ck.save_timings['bytes']} "
+        f"bytes); resume() -> {at} in {sum(rt[k] for k in RESTORE_KEYS):.3f}s; "
+        f"the probe's {before.numel()} predictions bit-equal; K5 re-admitted "
+        f"{len(tables)} tables in {readmit} launches")
+
+
+def _ckpt_export(book, root):
+    """10c: each book program exported with ``save_inference_model`` and
+    loaded into a fresh scope on the card predicts bit-equal to the
+    trained program's ``clone(for_test=True)``; one ``save_persistables``
+    (separate files) and one ``save`` round trip, each bit-equal."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io
+
+    for name, t in book.items():
+        d = os.path.join(root, name)
+        exe = fluid.Executor()
+        persist = [v.name for v in t["main"].global_block().vars.values()
+                   if v.persistable and not v.is_data]
+        with fluid.scope_guard(t["scope"]):
+            want = exe.run(t["main"].clone(for_test=True), feed=t["feed"],
+                           fetch_list=[t["target"]], return_numpy=False)[0]
+            io.save_inference_model(os.path.join(d, "infer"), t["feeds"],
+                                    [t["target"]], exe, main_program=t["main"])
+            io.save_persistables(exe, os.path.join(d, "persist"), t["main"])
+            io.save(t["main"], os.path.join(d, "model"))
+        fresh = fluid.Scope()
+        with fluid.scope_guard(fresh):
+            program, feed_names, fetch_vars = io.load_inference_model(
+                os.path.join(d, "infer"), exe)
+            got = exe.run(program, feed={n: t["feed"][n] for n in feed_names},
+                          fetch_list=fetch_vars, return_numpy=False)[0]
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: the exported model predicts "
+                                 f"{float((got - want).abs().max()):.3e} away")
+        checks = {}
+        for how in ("persist", "model"):
+            s = fluid.Scope()
+            with fluid.scope_guard(s):
+                if how == "persist":
+                    io.load_persistables(exe, os.path.join(d, how), t["main"])
+                else:
+                    io.load(t["main"], os.path.join(d, how), exe)
+            checks[how] = [n for n in persist if not (
+                s.find_var(n).device == exe.device
+                and torch.equal(s.find_var(n), t["scope"].find_var(n)))]
+        if any(checks.values()):
+            raise AssertionError(f"{name}: round trips differ: {checks}")
+        log(f"[ckpt] 10c {name}: {len(program.global_block().ops)} ops "
+            f"exported, {got.numel()} predictions bit-equal on the card; "
+            f"save_persistables and save/load round trips of {len(persist)} "
+            f"persistables bit-equal")
+
+
+def _ckpt_recovery(book, ckdir):
+    """10d: fit_a_line checkpointed three times with max_to_keep=2; a
+    corrupt newest state.npz is walked past and quarantined; checkpoint.io
+    raising twice still commits; a pinned step on a corrupt entry raises."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.incubate.checkpoint import (AutoCheckpoint,
+                                                      CheckpointCorruptError)
+    from paddle_tpu_torch.resilience import faults
+
+    t = book["fit_a_line"]
+    main, scope = t["main"], t["scope"]
+    exe = fluid.Executor()
+    persist = [v.name for v in main.global_block().vars.values()
+               if v.persistable]
+    ck = AutoCheckpoint(exe, main, ckdir, max_to_keep=CKPT_KEEP, scope=scope)
+    states = []
+    for step in range(3):
+        exe.run(main, feed=t["feed"], fetch_list=[t["loss"]], scope=scope)
+        ck.save(step, blocking=True)
+        states.append({n: scope.find_var(n).clone() for n in persist})
+    kept = sorted(d for d in os.listdir(ckdir) if d.startswith("ckpt_"))
+    if kept != ["ckpt_1", "ckpt_2"]:
+        raise AssertionError(f"max_to_keep=2 kept {kept}")
+    faults.corrupt_file(os.path.join(ckdir, "ckpt_2", "state.npz"))
+    back = fluid.Scope()
+    at = AutoCheckpoint(exe, main, ckdir, scope=back).resume()
+    if (at != 2 or not os.path.isdir(os.path.join(ckdir, "ckpt_2.corrupt"))
+            or not all(torch.equal(back.find_var(n), states[1][n])
+                       for n in persist)):
+        raise AssertionError(f"walk-back: resume() -> {at}, "
+                             f"{sorted(os.listdir(ckdir))}")
+    try:
+        faults.configure([{"site": "checkpoint.io", "action": "raise",
+                           "times": 2}])
+        ck.save(3, blocking=True)
+        fired = sum(r["fired"] for r in
+                    faults.get_injector().rule_stats().values())
+    finally:
+        faults.reset()
+    with open(os.path.join(ckdir, "latest")) as f:
+        latest = f.read()
+    if fired != 2 or latest != "ckpt_3":
+        raise AssertionError(f"checkpoint.io fired {fired}, latest {latest}")
+    faults.corrupt_file(os.path.join(ckdir, "ckpt_3", "state.npz"))
+    try:
+        AutoCheckpoint(exe, main, ckdir, scope=fluid.Scope()).resume(step=3)
+    except CheckpointCorruptError as e:
+        pinned = str(e)
+    else:
+        raise AssertionError("a pinned corrupt step was restored")
+    log(f"[ckpt] 10d recovery: kept {kept}; the corrupt ckpt_2 quarantined, "
+        f"resume() walked back to step {at - 1} bit-equal; checkpoint.io "
+        f"raised {fired} times and ckpt_3 committed; pinned step 3: "
+        f"{pinned[:120]}")
+
+
+def phase_checkpoint(book):
+    """10: checkpoints and model io on the card (10a-10d). Returns the
+    launches of 10a and 10b (counters zeroed before each, read after)."""
+    import torch
+
+    from paddle_tpu_torch import kernels
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        _ckpt_bert(os.path.join(root, "bert"))
+        bert = kernels.launches()
+        log(f"[ckpt] 10a {time.perf_counter() - t0:.1f}s, launches {bert}")
+        if not all(bert[n] for n in ("flash_attention_fwd",
+                                     "flash_attention_bwd_dkdv",
+                                     "flash_attention_bwd_dq",
+                                     "threefry_dropout",
+                                     "threefry_random_bits")):
+            raise AssertionError(f"10a: a kernel of the path never launched: "
+                                 f"{bert}")
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        _ckpt_wide_deep(os.path.join(root, "wide_deep"))
+        wide = kernels.launches()
+        log(f"[ckpt] 10b {time.perf_counter() - t0:.1f}s, launches {wide}")
+        t0 = time.perf_counter()
+        _ckpt_export(book, os.path.join(root, "export"))
+        _ckpt_recovery(book, os.path.join(root, "recovery"))
+        log(f"[ckpt] 10c-10d {time.perf_counter() - t0:.1f}s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[ckpt] phase 10 {time.perf_counter() - t_phase:.1f}s")
+    return {n: bert[n] + wide[n] for n in bert}
+
+
 def main():
     check_environment()
     import torch
@@ -4571,9 +5014,10 @@ def main():
     wide_deep_launches = phase_wide_deep()
     ctr_launches = phase_dense_ctr()
     dgc_launches = phase_dgc()
-    book_launches = phase_book()
+    book_launches, book = phase_book()
     resnet_launches = phase_resnet()
     resnet_amp_launches = phase_resnet_amp()
+    ckpt_launches = phase_checkpoint(book)
     log(f"[done] paged_attention launches: phase 3 "
         f"{engine_launches['paged_attention']}, phase 3b {modes_launches}, "
         f"phase 3c {beam_launches}, phase 3d {overload_launches}")
@@ -4582,21 +5026,23 @@ def main():
                                         + overload_launches,
                      "decode_attention": dense_launches["decode_attention"],
                      "embedding_admission":
-                         wide_deep_launches["embedding_admission"],
+                         wide_deep_launches["embedding_admission"]
+                         + ckpt_launches["embedding_admission"],
                      "sparse_row_update": ctr_launches["sparse_row_update"],
                      "blocked_topk_abs": dgc_launches["blocked_topk_abs"]}
-    # the float32 flash builds on phase 5's path, the bf16 ones on 5c's,
-    # the float16 ones on 5c's float16 leg
-    path_launches.update({n: (amp_launches if n.endswith(("_bf16", "_f16"))
-                              else train_launches)[n] for n in KERNELS
-                          if n.startswith("flash_attention")})
+    # the float32 flash builds on phase 5's and 10a's paths, the bf16 ones
+    # on 5c's, the float16 ones on 5c's float16 leg
+    path_launches.update({n: (amp_launches[n] if n.endswith(("_bf16", "_f16"))
+                              else train_launches[n] + ckpt_launches[n])
+                          for n in KERNELS if n.startswith("flash_attention")})
     # K8: phase 5's startup (random_bits) and dropout sites, phase 5b's,
-    # 5c's (its bf16 run) and rank 0's of phase 8, phase 9's startups
+    # 5c's (its bf16 run) and rank 0's of phase 8, phase 9's startups,
+    # phase 10a's startup and steps
     path_launches.update({n: train_launches[n] + unfused_launches[n]
                           + amp_launches[n] + dgc_launches[n]
                           + book_launches[n] + resnet_launches[n]
-                          + resnet_amp_launches[n] for n in KERNELS
-                          if n.startswith("threefry")})
+                          + resnet_amp_launches[n] + ckpt_launches[n]
+                          for n in KERNELS if n.startswith("threefry")})
     log(f"[done] K8 launches: phase 5 "
         f"{ {n: train_launches[n] for n in path_launches if n.startswith('threefry')} }, "
         f"phase 5b {unfused_launches['threefry_dropout']}, phase 5c "
@@ -4605,7 +5051,10 @@ def main():
         f"{dgc_launches['threefry_dropout']}, phase 9 random_bits "
         f"{book_launches['threefry_random_bits']} (9a) + "
         f"{resnet_launches['threefry_random_bits']} (ResNet-50's startup) + "
-        f"{resnet_amp_launches['threefry_random_bits']} (9d's)")
+        f"{resnet_amp_launches['threefry_random_bits']} (9d's), phase 10 "
+        f"{ {n: ckpt_launches[n] for n in path_launches if n.startswith('threefry')} }")
+    log(f"[done] phase 10 launches: "
+        f"{ {n: c for n, c in ckpt_launches.items() if c} }")
     rows = []
     for name, info in KERNELS.items():
         r = parity[name]

@@ -9,7 +9,10 @@ counterpart is easy to find.
 
 Entry points (``Executor``, ``CompiledProgram``,
 ``serving.GenerationEngine``) run on the first CUDA card unless given
-``place=CPUPlace()``, and raise when there is no card.
+``place=CPUPlace()``, and raise when there is no card. ``io`` saves and
+loads parameters, persistables and inference models, and
+``incubate.checkpoint`` checkpoints and resumes training, in the JAX
+package's files: either package reads what the other wrote.
 """
 
 from paddle_tpu_torch.core import (
@@ -33,6 +36,7 @@ from paddle_tpu_torch.compiler import (
 import paddle_tpu_torch.ops  # noqa: F401  (registers the op library)
 from paddle_tpu_torch import layers
 from paddle_tpu_torch import amp
+from paddle_tpu_torch import io
 from paddle_tpu_torch import initializer
 from paddle_tpu_torch import optimizer
 from paddle_tpu_torch import regularizer

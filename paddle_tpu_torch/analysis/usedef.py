@@ -1,5 +1,6 @@
 """Producer/consumer maps of a block, the part of the JAX package's
-``analysis/usedef.py`` (``build_usedef``) that the passes use.
+``analysis/usedef.py`` (``build_usedef``, ``reads_of`` / ``writes_of``)
+that the passes and ``Program._prune`` use.
 
 The port's programs have no control-flow sub-blocks, so an op reads
 exactly its input names and writes exactly its output names. A var read
@@ -21,6 +22,14 @@ class UseDefMap:
                 self.producers.setdefault(n, []).append(op)
             for n in op.input_names():
                 self.consumers.setdefault(n, []).append(op)
+
+    def reads_of(self, op):
+        """The names ``op`` reads."""
+        return set(op.input_names())
+
+    def writes_of(self, op):
+        """The names ``op`` writes."""
+        return set(op.output_names())
 
 
 def build_usedef(block):

@@ -420,6 +420,26 @@ class Program:
             ]
         self._bump_version()
 
+    def _prune(self, targets):
+        """Prune the global block to the ops that ``targets`` need
+        (reference: paddle/fluid/framework/prune.cc), walking backward
+        from the targets over each op's reads and writes (the JAX
+        package's ``Program._prune``)."""
+        from paddle_tpu_torch.analysis.usedef import build_usedef
+
+        target_names = {t.name if isinstance(t, Variable) else t for t in targets}
+        block = self.global_block()
+        usedef = build_usedef(block)
+        needed = set(target_names)
+        kept = []
+        for op in reversed(block.ops):
+            if usedef.writes_of(op) & needed:
+                kept.append(op)
+                needed.update(usedef.reads_of(op))
+        block.ops = list(reversed(kept))
+        self._bump_version()
+        return self
+
     # -- serialization ----------------------------------------------------
     def desc(self):
         return {

@@ -22,10 +22,15 @@ or bounced through the host tier, so training is bit-identical across
 cache capacities. Pushes run on a small pool (``flush`` is the barrier); a
 pull of an id with an in-flight push waits for that push first.
 
-Not ported yet: the ``lookup.pull``/``lookup.push`` fault sites and their
-retry policy, the checkpoint protocol (``checkpoint_arrays`` /
-``restore_arrays``), and a mesh-sharded slab (ROADMAP M9's remainder).
-Metrics are plain counters behind the same ``stats()`` keys.
+Pulls and pushes fire the ``lookup.pull`` / ``lookup.push`` fault sites
+(``resilience/faults.py``) under the JAX package's lookup retry policy,
+as the JAX engine's do through its ``distributed/lookup.py``. Checkpoints (``incubate/checkpoint.py``,
+``AutoCheckpoint(extra_state=engine)``) flush the hot cache and save the
+host tier per ep shard in the format-2 manifest; a restore re-hashes the
+ids under the current ep and cold-resets the slab, so the first batch
+re-admits its rows through the admission kernel. Not ported yet: a
+mesh-sharded slab (ROADMAP M9's remainder). Metrics are plain counters
+behind the same ``stats()`` keys.
 """
 
 import threading
@@ -38,14 +43,26 @@ import torch
 from paddle_tpu_torch.embedding.gather import dedup_ids
 from paddle_tpu_torch.embedding.table import TableConfig
 from paddle_tpu_torch.kernels import embedding as kemb
+from paddle_tpu_torch.resilience import faults
+from paddle_tpu_torch.resilience.retry import RetryPolicy
 from paddle_tpu_torch.utils.enforce import EnforceError, enforce
 
-__all__ = ["HostStore", "EmbeddingEngine"]
+__all__ = ["HostStore", "EmbeddingEngine", "STORE_PREFIX"]
 
 # Lock order (the JAX package declares it to its lock witness): a table's
 # HostStore lock comes before the engine's pending-push lock — a push
 # worker finishes store.push() before touching the markers, and nothing
 # pulls from the table while holding the marker map.
+
+#: checkpoint array-name prefix — names carrying it are engine state, not
+#: scope variables (incubate/checkpoint.py routes them to the engine)
+STORE_PREFIX = "__embedding_store__::"
+
+# Transient host-tier failures (injected TransientFault) retry under the
+# JAX package's lookup policy; pulls are idempotent and a push overwrites
+# rows, so a retry repeats nothing.
+_RETRY = RetryPolicy(max_attempts=3, base_delay_s=0.05, max_delay_s=1.0,
+                     deadline_s=30.0)
 
 
 class HostStore:
@@ -64,33 +81,77 @@ class HostStore:
             return sum(len(s) for s in self._shards)
 
     def pull(self, ids):
-        """[len(ids), dim] rows and the number materialized by this
-        pull."""
+        """[len(ids), dim] rows and the number materialized by this pull;
+        fires the ``lookup.pull`` fault site and retries under the shared
+        policy."""
         ids = np.asarray(ids, dtype=np.uint64).reshape(-1)
         owners = self.cfg.shard_of(ids)
-        rows = np.empty((len(ids), self.cfg.dim), dtype=np.float32)
-        with self._lock:
-            absent = [
-                i for i, (idv, k) in enumerate(zip(ids.tolist(),
-                                                   owners.tolist()))
-                if idv not in self._shards[k]
-            ]
-            if absent:
-                # one vectorized init for every absent id (per-id init is
-                # a pure function, so batching is byte-identical)
-                init = self.cfg.init_for(ids[absent])
-                for j, i in enumerate(absent):
-                    self._shards[owners[i]][int(ids[i])] = init[j]
-            for i, (idv, k) in enumerate(zip(ids.tolist(), owners.tolist())):
-                rows[i] = self._shards[k][idv]
-        return rows, len(absent)
+
+        def do_pull():
+            faults.fire("lookup.pull")
+            rows = np.empty((len(ids), self.cfg.dim), dtype=np.float32)
+            with self._lock:
+                absent = [
+                    i for i, (idv, k) in enumerate(zip(ids.tolist(),
+                                                       owners.tolist()))
+                    if idv not in self._shards[k]
+                ]
+                if absent:
+                    # one vectorized init for every absent id (per-id init
+                    # is a pure function, so batching is byte-identical)
+                    init = self.cfg.init_for(ids[absent])
+                    for j, i in enumerate(absent):
+                        self._shards[owners[i]][int(ids[i])] = init[j]
+                for i, (idv, k) in enumerate(zip(ids.tolist(),
+                                                 owners.tolist())):
+                    rows[i] = self._shards[k][idv]
+            return rows, len(absent)
+
+        return _RETRY.call(do_pull)
 
     def push(self, ids, rows):
-        """Overwrite rows (write-back from the device tier)."""
+        """Overwrite rows (write-back from the device tier); fires the
+        ``lookup.push`` fault site under the shared retry policy."""
+        ids = np.asarray(ids, dtype=np.uint64).reshape(-1)
+        rows = np.asarray(rows, dtype=np.float32).reshape(len(ids), -1)
+        owners = self.cfg.shard_of(ids)
+
+        def do_push():
+            faults.fire("lookup.push")
+            with self._lock:
+                for idv, k, row in zip(ids.tolist(), owners.tolist(), rows):
+                    self._shards[k][idv] = row.copy()
+
+        _RETRY.call(do_push)
+
+    def snapshot_blocks(self):
+        """Per-shard (ids u64 [n_k], rows f32 [n_k, dim]) with ids sorted
+        inside each shard — the deterministic block layout the format-2
+        checkpoint path records."""
+        with self._lock:
+            blocks = []
+            for shard in self._shards:
+                ids = np.fromiter(shard.keys(), dtype=np.uint64,
+                                  count=len(shard))
+                order = np.argsort(ids, kind="stable")
+                ids = ids[order]
+                rows = (
+                    np.stack([shard[i] for i in ids.tolist()])
+                    if len(ids) else
+                    np.zeros((0, self.cfg.dim), dtype=np.float32)
+                )
+                blocks.append((ids, rows))
+            return blocks
+
+    def restore(self, ids, rows):
+        """Rebuild from flat (ids, rows) — re-partitioned by the CURRENT
+        hash config, so an N-shard save restores onto M shards with
+        bit-identical row values."""
         ids = np.asarray(ids, dtype=np.uint64).reshape(-1)
         rows = np.asarray(rows, dtype=np.float32).reshape(len(ids), -1)
         owners = self.cfg.shard_of(ids)
         with self._lock:
+            self._shards = [dict() for _ in range(self.cfg.ep)]
             for idv, k, row in zip(ids.tolist(), owners.tolist(), rows):
                 self._shards[k][idv] = row.copy()
 
@@ -313,9 +374,14 @@ class EmbeddingEngine:
             exe.run(main, feed=feed, ...)
         engine.flush()                            # before external reads
 
-    The slab of each table lives where the startup program put it (the
-    executor's device); the raw ids stay on the host, only the int32
-    ``<t>__slots`` / ``<t>__inv`` feeds reach the device.
+    The slab of each table lives where the startup program (or a
+    checkpoint's restore) put it; the raw ids stay on the host, only the
+    int32 ``<t>__slots`` / ``<t>__inv`` feeds reach the device.
+
+    Checkpointing: ``AutoCheckpoint(..., extra_state=engine)`` flushes
+    the hot cache and saves the host tier through the format-2 per-shard
+    manifest path; resume restores it bit-identically (N -> M re-hash
+    included) and cold-resets the device cache.
     """
 
     def __init__(self, scope=None, push_workers=2):
@@ -325,6 +391,9 @@ class EmbeddingEngine:
         self._tables = {}
         self._pool = ThreadPoolExecutor(
             max_workers=push_workers, thread_name_prefix="embedding-push")
+        self._pending_restore = {}   # checkpoint arrays for tables not
+        #                              registered yet (resume() often runs
+        #                              before the first prepare_feed)
         self._push_lock = threading.Lock()
 
     @property
@@ -337,6 +406,8 @@ class EmbeddingEngine:
         rt = _TableRuntime(cfg, self._scope, self)
         rt.reset_slab()
         self._tables[cfg.name] = rt
+        if self._pending_restore:
+            self._apply_restore(cfg.name, rt)
         return rt
 
     def _runtime_for(self, entry):
@@ -387,6 +458,63 @@ class EmbeddingEngine:
         whole trained table state."""
         self.flush()
         return {name: rt.store.rows() for name, rt in self._tables.items()}
+
+    # -- checkpoint protocol (incubate/checkpoint.py extra_state) ----------
+    def owns(self, name):
+        return name.startswith(STORE_PREFIX)
+
+    def checkpoint_arrays(self):
+        """Hot cache flushed first, then the host tier per table as TWO
+        logical arrays (ids u64, rows f32) blocked per ep shard — the
+        format-2 per-shard manifest entries (``_ShardSnap``), so each shard
+        carries its own CRC and bounds and N -> M restores stitch."""
+        from paddle_tpu_torch.incubate.checkpoint import _ShardSnap
+
+        self.flush()
+        out = {}
+        for name, rt in self._tables.items():
+            blocks = rt.store.snapshot_blocks()
+            total = sum(len(ids) for ids, _rows in blocks)
+            dim = rt.cfg.dim
+            if total == 0:
+                out[STORE_PREFIX + name + "::ids"] = np.zeros(
+                    (0,), dtype=np.uint64)
+                out[STORE_PREFIX + name + "::rows"] = np.zeros(
+                    (0, dim), dtype=np.float32)
+                continue
+            id_blocks, row_blocks, off = [], [], 0
+            for ids, rows in blocks:
+                if not len(ids):
+                    continue
+                id_blocks.append(((off,), (off + len(ids),), ids))
+                row_blocks.append(((off, 0), (off + len(ids), dim), rows))
+                off += len(ids)
+            out[STORE_PREFIX + name + "::ids"] = _ShardSnap(
+                (total,), "uint64", f"ep({rt.cfg.ep})", id_blocks)
+            out[STORE_PREFIX + name + "::rows"] = _ShardSnap(
+                (total, dim), "float32", f"ep({rt.cfg.ep})", row_blocks)
+        return out
+
+    def restore_arrays(self, arrays):
+        """Rebuild each table's host tier from checkpoint arrays (ids
+        re-hashed under the CURRENT ep config — N -> M restores are
+        bit-identical in value) and cold-reset the device cache: the first
+        batch re-admits its working set from the restored tier. Arrays for
+        tables not registered yet are stashed and applied at
+        registration."""
+        self._pending_restore = dict(arrays)
+        for name, rt in self._tables.items():
+            self._apply_restore(name, rt)
+
+    def _apply_restore(self, name, rt):
+        ids = self._pending_restore.pop(STORE_PREFIX + name + "::ids", None)
+        rows = self._pending_restore.pop(STORE_PREFIX + name + "::rows", None)
+        rt.reset_slab()
+        if ids is None or rows is None:
+            rt.store.restore(np.zeros((0,), np.uint64),
+                             np.zeros((0, rt.cfg.dim), np.float32))
+        else:
+            rt.store.restore(ids, rows)
 
     def close(self):
         self._pool.shutdown(wait=True)

@@ -39,6 +39,20 @@ engine fires them:
   use ``stall``).
 * ``decode.spill`` / ``decode.resume`` — when the scheduler parks a
   session to the host tier and when it resumes one.
+
+The checkpoint writer's sites (``incubate/checkpoint.py``):
+
+* ``checkpoint.io`` — after ``state.npz`` is written, before the
+  manifest (``raise`` is retried under the writer's retry policy; a kill
+  leaves torn debris in the ``.tmp`` directory);
+* ``checkpoint.before_rename`` — before the ``.tmp`` directory takes its
+  name;
+* ``checkpoint.before_latest`` — before the ``latest`` pointer, the
+  commit point, moves.
+
+The embedding engine's host tier (``embedding/store.py``) fires
+``lookup.pull`` and ``lookup.push`` on every pull and push, under the
+engine's retry policy.
 """
 
 import json

@@ -418,3 +418,34 @@ def test_prefetch_materializes_ahead():
     assert len(rt.store) == B * S and rt.stats()["misses"] == B * S
     eng.close()
 
+
+
+def test_transient_push_fault_retries_and_fatal_surfaces():
+    """The host tier fires ``lookup.push`` (and ``lookup.pull``) under the
+    engine's retry policy, as the JAX engine does: a transient injected
+    fault is retried away; a fatal one surfaces from flush()."""
+    from paddle_tpu_torch.resilience import faults
+
+    main, exe, scope, loss, eng = _started(16, 2)
+    try:
+        feed = eng.prepare_feed(main, _feed(1))
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        faults.configure([{"site": "lookup.push", "times": 1,
+                           "exc": "transient"}])
+        eng.flush()
+        assert sum(r["fired"] for r in
+                   faults.get_injector().rule_stats().values()) == 1
+        faults.configure([{"site": "lookup.push", "times": 1,
+                           "exc": "fatal"}])
+        feed = eng.prepare_feed(main, _feed(2))
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        with pytest.raises(faults.InjectedFault):
+            eng.flush()
+        faults.configure([{"site": "lookup.pull", "times": 2,
+                           "exc": "transient"}])
+        eng.prepare_feed(main, _feed(3, vocab=16))
+        assert sum(r["fired"] for r in
+                   faults.get_injector().rule_stats().values()) == 2
+    finally:
+        faults.reset()
+        eng.close()

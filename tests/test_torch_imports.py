@@ -21,13 +21,19 @@ import paddle_tpu_torch.amp.decorator
 import paddle_tpu_torch.compiler
 import paddle_tpu_torch.convert
 import paddle_tpu_torch.core.prng
+import paddle_tpu_torch.analysis.signatures
 import paddle_tpu_torch.analysis.usedef
+import paddle_tpu_torch.analysis.verify
 import paddle_tpu_torch.core.backward
 import paddle_tpu_torch.dataio.sparse
+import paddle_tpu_torch.dataio.state
 import paddle_tpu_torch.distributed
 import paddle_tpu_torch.distributed.launch
 import paddle_tpu_torch.embedding
 import paddle_tpu_torch.embedding.store
+import paddle_tpu_torch.incubate
+import paddle_tpu_torch.incubate.checkpoint
+import paddle_tpu_torch.io
 import paddle_tpu_torch.kernels.attention
 import paddle_tpu_torch.kernels.build
 import paddle_tpu_torch.kernels.embedding
@@ -51,6 +57,7 @@ import paddle_tpu_torch.parallel.env
 import paddle_tpu_torch.passes
 import paddle_tpu_torch.regularizer
 import paddle_tpu_torch.resilience.faults
+import paddle_tpu_torch.resilience.retry
 import paddle_tpu_torch.serving.breaker
 import paddle_tpu_torch.serving.brownout
 import paddle_tpu_torch.serving.decode.engine
