@@ -3,7 +3,14 @@
 
 Run from the root of a checkout, on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --phases 1,11    # the build and phase 11 only
+
+``--phases`` takes the phases' top-level numbers (2 runs 2-2f, 3 runs
+3-3d, 5 runs 5-5c, 9 runs 9a-9d; 10 runs 9a first, whose programs it
+exports); the build (1) always runs. The ``kernels`` line then carries
+the launches of the selected phases and null for the numbers of a
+kernel whose parity phase (2) was not selected.
 
 It builds every CUDA kernel from the sources in the checkout, holds each
 kernel against its plain PyTorch version at the shapes its path gives
@@ -17,8 +24,9 @@ with on-device tables and sparse SGD) against the same steps with the
 kernels off, and trains the conv nets (the two book programs, and
 ResNet-50 at full width and depth against the same step on the host's
 CPU, in float32 and under bf16 AMP), and saves, restores and exports
-those models through ``io`` and ``incubate.checkpoint``, bit for bit.
-Any failure exits non-zero. It
+those models through ``io`` and ``incubate.checkpoint``, bit for bit,
+and serves an exported BERT-base and ResNet-50 through the predictor
+and the batching ServingEngine. Any failure exits non-zero. It
 imports nothing of JAX or of the JAX package, and it refuses to run
 without a CUDA device (or outside a checkout of the repository).
 
@@ -337,6 +345,38 @@ Phases:
    Counters are zeroed before 10a and 10b and read after; the kernels line
    adds their launches.
 
+11. inference and serving — through ``inference.create_predictor`` and
+   ``serving.ServingEngine`` on the default place. 11a: BERT-base's
+   encoder (``BertConfig.base()``, the JAX default: unfused attention,
+   dropouts 0.1) at seq 128, its startup on the card, exported with
+   ``io.save_inference_model`` as [sequence_output, pooled] and loaded
+   with ``Config(dir)`` and the default passes: ``fc_fuse`` 73 and
+   ``multihead_matmul_fuse`` 12, K1 launched 12 times a call and nothing
+   else of the flash family; at batch 32 (real lengths 16-128, two rows
+   all padding) the outputs against the exported program run by
+   ``Executor()`` with the kernels off (``INFER_TOL``), every row finite;
+   warmup seconds a bucket; p50 / p90 a call at batches 1, 8 and 32 (host
+   clock from the inputs' copy in to ``copy_to_cpu``), sequences/s, the
+   memory peak, device busy and idle share of a batch-32 call (5 calls
+   under ``torch.profiler``). 11b: the same export with ``enable_bf16()``:
+   146 weights folded to bf16, ``flash_attention_fwd_bf16`` 12 times a
+   call, outputs within the bf16 bars of 11a's; p50 at batch 32 and its
+   device busy. 11c: ``ServingEngine`` over 11a's config (lattice 1-32, 2
+   replicas, queue 256, 5 ms max wait), 4 client threads x 32 requests of
+   1-4 rows (real lengths 16-128), one a poison that its replica's
+   ``run_batch`` refuses: every other request within ``SERVED_TOL`` of a
+   separate single-request predictor (the bit-equal count printed), no
+   bucket missed after ``start()``, the poison alone failed, a submit
+   after the drain refused; req/s, rows/s, latency p50/p99, rows and
+   occupancy a batch, K1 launches; then the burst without the poison on
+   one replica. 11d: ResNet-50 (``depth=50, class_dim=1000``, its batch
+   norms given seeded statistics) exported as [logits, softmax] and
+   served at batch 32: ``conv_bn_fuse`` 53 (the JAX pass's count on the
+   same builder call, ``tests/test_torch_passes.py``), no batch_norm
+   left, logits within ``RESNET_FOLD_TOL`` of the unfused clone's;
+   images/s. The ``kernels`` line adds the phase's K1 and K1-bf16
+   launches.
+
 The last lines are the card's name and power limit, one JSON line of
 per-kernel results, and ``{"ok": true, "device": {...}}``.
 """
@@ -616,6 +656,38 @@ RESNET_AMP_GRAD_TOLS = {"fc_0.w": 0.25, "fc_0.b_0": 0.1,
                         "res5c_branch2c_bn_offset": 0.1}
 RESNET_AMP_NEAR_LOSS = ("fc_0.w", "fc_0.b_0", "res5c_branch2c_bn_scale",
                         "res5c_branch2c_bn_offset")
+# Phase 11, inference and serving: BERT-base (the JAX default: unfused
+# attention, dropouts 0.1) exported at seq 128 and served through the
+# predictor (latency at batches 1, 8 and 32, INFER_REPS calls each) and
+# the ServingEngine (lattice INFER_LATTICE, 2 replicas, queue 256, 5 ms
+# max wait; 4 client threads x 32 requests of 1-4 rows, real lengths
+# 16-128 inside the mask; request POISON_AT of client 0 is the poison);
+# ResNet-50 (depth 50, 1000 classes) exported and served at batch 32.
+INFER_SEQ, INFER_BATCHES, INFER_REPS = 128, (1, 8, 32), 20
+INFER_LATTICE = (1, 2, 4, 8, 16, 32)
+ENGINE_CLIENTS, ENGINE_PER_CLIENT, ENGINE_ROWS = 4, 32, (1, 4)
+ENGINE_LENS, POISON_AT, POISON_ID = (16, 128), 5, 4242
+INFER_RESNET_BATCH = 32
+# BERT-base's encoder: 6 fc a layer (q, k, v, out, ffn1, ffn2) + the
+# pooler; one attention core a layer. ResNet-50's 53 conv + batch_norm
+# pairs (the stem, 3 a bottleneck block x 16, 4 projection shortcuts):
+# the JAX pass folds as many on the same builder call
+# (tests/test_torch_passes.py counts both on the CPU).
+BERT_FC_FUSED, RESNET50_BN_FOLDS = 73, 53
+# Bars. 11a: the predictor (fc ops, K1) against the exported program
+# through the executor with the kernels off (mul + add, the composite
+# attention): float32 sums in another order through 12 layer norms, near
+# 1e-6 of outputs of magnitude 1-4 at each layer; 1e-3 leaves margin and
+# still catches a wrong head, mask or weight. 11b: bf16 products (8-bit
+# mantissa) against 11a: the RMS of the difference within 3e-2 of the
+# float32 outputs' RMS and no element more than 0.5 away (the same bf16
+# rounding on a single layer moves an output by about 1e-2 of its scale).
+# 11c: served (padded, batched) against single-request float32: cuBLAS
+# picks its GEMM by the row count, so the bits may differ (a fault the
+# reference shares, ROADMAP C); 11a's bar. 11d: folded conv-bn against the
+# unfused clone, 1e-4 of the largest logit.
+INFER_TOL, INFER_BF16_RMS, INFER_BF16_MAX = 1e-3, 3e-2, 0.5
+SERVED_TOL, RESNET_FOLD_TOL = 1e-3, 1e-4
 
 
 def log(*a):
@@ -3140,19 +3212,25 @@ def log_ctr_costs(costs):
 def cuda_launches(fn, calls=4, kernels_only=False):
     """CUDA kernels (and copies or sets, unless ``kernels_only``) that one
     call of ``fn`` puts on the card, from a ``torch.profiler`` trace of
-    ``calls`` calls; None when the trace shows no device activity."""
+    ``calls`` calls; None when the trace shows no device activity. The
+    first trace of a process can come back without device events (CUPTI
+    still starting); such a trace is taken once more."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            break
     if not events:
         return None
     if kernels_only:
@@ -4986,7 +5064,495 @@ def phase_checkpoint(book):
     return {n: bert[n] + wide[n] for n in bert}
 
 
-def main():
+# -- phase 11 ---------------------------------------------------------------
+class _Launches:
+    """Kernel launches summed over a phase's legs: ``take()`` returns the
+    launches since the last take and adds them to ``total``."""
+
+    def __init__(self):
+        from paddle_tpu_torch import kernels
+
+        self._kernels = kernels
+        self.total = {}
+        kernels.reset_launches()
+
+    def take(self):
+        now = self._kernels.launches()
+        self._kernels.reset_launches()
+        for n, c in now.items():
+            self.total[n] = self.total.get(n, 0) + c
+        return now
+
+
+def _bert_feeds(rng, rows, vocab, lens):
+    """``rows`` BERT requests: random ids and segments, the mask covering
+    each row's real length (``lens[i]``; 0 is a padded row, every key
+    masked). Ids keep clear of the poison marker's pair."""
+    ids = rng.randint(0, vocab, (rows, INFER_SEQ)).astype("int64")
+    ids[:, 0] = np.where(ids[:, 0] == POISON_ID, POISON_ID + 1, ids[:, 0])
+    return {"input_ids": ids,
+            "token_type_ids": rng.randint(0, 2, (rows, INFER_SEQ)).astype(
+                "int64"),
+            "input_mask": (np.arange(INFER_SEQ)[None, :]
+                           < np.asarray(lens)[:, None]).astype("int64")}
+
+
+def _pcts_ms(seconds):
+    ms = np.asarray(seconds) * 1e3
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 90))
+
+
+def _timed_calls(pred, feed, reps):
+    """``reps`` calls through the zero-copy handles, each timed on the
+    host clock from the inputs' copy in to the outputs' ``copy_to_cpu``."""
+    seconds = []
+    outs = [pred.get_output_handle(n) for n in pred.get_output_names()]
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for n in pred.get_input_names():
+            pred.get_input_handle(n).copy_from_cpu(feed[n])
+        pred.zero_copy_run()
+        for h in outs:
+            h.copy_to_cpu()
+        seconds.append(time.perf_counter() - t0)
+    return seconds
+
+
+def _max_abs_np(a, b):
+    return float(np.abs(np.asarray(a, np.float64)
+                        - np.asarray(b, np.float64)).max())
+
+
+def _infer_export_bert(root):
+    """BERT-base's encoder (the JAX default: unfused attention, dropouts
+    0.1) at seq 128, its startup on the card, exported with
+    ``save_inference_model`` as [sequence_output, pooled]."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.utils import unique_name
+
+    cfg = bert.BertConfig.base()
+    main, startup = fluid.Program(), fluid.Program()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        ids = fluid.data("input_ids", [-1, INFER_SEQ], dtype="int64")
+        tt = fluid.data("token_type_ids", [-1, INFER_SEQ], dtype="int64")
+        mask = fluid.data("input_mask", [-1, INFER_SEQ], dtype="int64")
+        seq_out, pooled = bert.bert_encoder(ids, tt, mask, cfg, INFER_SEQ)
+    startup.random_seed = main.random_seed = SEED
+    exe, scope = fluid.Executor(), fluid.Scope()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    d = os.path.join(root, "bert")
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(
+            d, ["input_ids", "token_type_ids", "input_mask"],
+            [seq_out, pooled], exe, main_program=main)
+    size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    log(f"[infer] 11a BERT-base encoder exported: "
+        f"{len(main.global_block().ops)} ops, {size / 2**20:.1f} MiB, "
+        f"startup and save {time.perf_counter() - t0:.2f}s")
+    return d, cfg
+
+
+def _infer_bert(d, cfg, counts):
+    """11a: the default passes on the exported BERT-base, K1 launched once
+    a layer a call, outputs against the exported program with the kernels
+    off, padded rows finite; latency, throughput, device busy, memory,
+    warmup. Returns batch 32's feed and outputs."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import inference, io, kernels
+
+    layers = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    pred = inference.create_predictor(inference.Config(d))
+    load_s = time.perf_counter() - t0
+    stats = pred.analysis_stats()
+    fused = {k: stats[k]["fused"] for k in
+             ("fc_fuse", "multihead_matmul_fuse", "conv_bn_fuse")}
+    types = [op.type for op in pred._program.global_block().ops]
+    if (fused["fc_fuse"] != BERT_FC_FUSED
+            or fused["multihead_matmul_fuse"] != layers
+            or types.count("scaled_dot_product_attention") != layers
+            or "softmax" in types or "mul" in types):
+        raise AssertionError(f"11a analysis: {fused}, ops {sorted(set(types))}")
+    log(f"[infer] 11a load + analysis {load_s:.2f}s: {fused}, "
+        f"{len(types)} ops, dropouts left at is_test "
+        f"{types.count('dropout')}")
+    counts.take()
+    warm = pred.warmup({"batch_sizes": INFER_BATCHES, "seq_lens": None})
+    log(f"[infer] 11a warmup a bucket: "
+        f"{[(sig[0][0][0], round(s, 3)) for sig, s in warm]} (batch, s)")
+
+    rng = np.random.RandomState(SEED)
+    B = max(INFER_BATCHES)
+    lens = rng.randint(ENGINE_LENS[0], ENGINE_LENS[1] + 1, B)
+    lens[-2:] = 0                        # two padded rows: every key masked
+    feed = _bert_feeds(rng, B, cfg.vocab_size, lens)
+    names = pred.get_input_names()
+    counts.take()
+    got = pred.run([feed[n] for n in names])
+    per_call = counts.take()
+    flash = {n: c for n, c in per_call.items() if n.startswith("flash") and c}
+    if flash != {"flash_attention_fwd": layers}:
+        raise AssertionError(f"11a: a call launched {flash}, want "
+                             f"{layers} flash_attention_fwd")
+    exe, scope = fluid.Executor(), fluid.Scope()
+    with fluid.scope_guard(scope):
+        program, _, fetch_vars = io.load_inference_model(d, exe)
+    with kernels.scoped_mode("off"):
+        want = exe.run(program, feed=feed, fetch_list=fetch_vars,
+                       scope=scope)
+    if any(counts.take().values()):
+        raise AssertionError("11a: a kernel launched with the kernels off")
+    del scope, program
+    errs = [_max_abs_np(g, w) for g, w in zip(got, want)]
+    finite = all(np.isfinite(g).all() for g in got)
+    log(f"[infer] 11a batch {B} against the exported program with the "
+        f"kernels off (mul + add, composite attention): max abs "
+        f"{errs} (bar {INFER_TOL}); padded rows finite {finite}, their "
+        f"pooled |max| {float(np.abs(got[1][-2:]).max()):.4f}")
+    if not finite or max(errs) > INFER_TOL:
+        raise AssertionError(f"11a outputs: max abs {errs}, finite {finite}")
+
+    times = {}
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    for b in INFER_BATCHES:
+        fb = {n: v[:b] for n, v in feed.items()}
+        _timed_calls(pred, fb, 2)
+        times[b] = _pcts_ms(_timed_calls(pred, fb, INFER_REPS))
+    peak = torch.cuda.max_memory_allocated()
+    for b, (p50, p90) in times.items():
+        log(f"[infer] 11a batch {b}: p50 {p50:.3f} ms, p90 {p90:.3f} ms a "
+            f"call (host clock to copy_to_cpu), {b / p50 * 1e3:.1f} "
+            f"sequences/s")
+    _profiled_steps("[infer] 11a batch 32", 5,
+                    lambda: (pred.run([feed[n] for n in names]), 0.0)[1])
+    log(f"[infer] 11a device memory peak {peak / 2**30:.3f} GiB "
+        f"({held / 2**30:.3f} GiB held before the timed calls)")
+    counts.take()
+    return feed, got
+
+
+def _infer_bert_bf16(d, cfg, feed, f32_out, counts):
+    """11b: ``enable_bf16()`` on the same export: the fc weights folded to
+    bf16, K1's bf16 build once a layer a call, outputs within the bf16
+    bars of 11a's; p50 at batch 32."""
+    import torch
+
+    from paddle_tpu_torch import inference
+
+    layers = cfg.num_hidden_layers
+    config = inference.Config(d)
+    config.enable_bf16()
+    pred = inference.create_predictor(config)
+    scope = pred._scope
+    folded = sorted(n for n in scope.var_names()
+                    if scope.find_var(n).dtype == torch.bfloat16)
+    if len(folded) != 2 * BERT_FC_FUSED:
+        raise AssertionError(f"11b: {len(folded)} weights folded to bf16, "
+                             f"want {2 * BERT_FC_FUSED} (each fc's W, Bias)")
+    names = pred.get_input_names()
+    pred.run([feed[n] for n in names])          # the bucket's first run
+    counts.take()
+    got = pred.run([feed[n] for n in names])
+    flash = {n: c for n, c in counts.take().items()
+             if n.startswith("flash") and c}
+    if flash != {"flash_attention_fwd_bf16": layers}:
+        raise AssertionError(f"11b: a call launched {flash}, want {layers} "
+                             "flash_attention_fwd_bf16")
+    report = []
+    for g, w in zip(got, f32_out):
+        diff = np.asarray(g, np.float64) - np.asarray(w, np.float64)
+        rms = float(np.sqrt((diff ** 2).mean())
+                    / np.sqrt((np.asarray(w, np.float64) ** 2).mean()))
+        report.append((rms, float(np.abs(diff).max())))
+    log(f"[infer] 11b bf16: {len(folded)} weights folded, launches a call "
+        f"{flash}; against 11a (RMS of the difference over the RMS, max "
+        f"abs) {report} (bars {INFER_BF16_RMS}, {INFER_BF16_MAX})")
+    if any(r > INFER_BF16_RMS or m > INFER_BF16_MAX for r, m in report):
+        raise AssertionError(f"11b outputs: {report}")
+    fb = {n: v for n, v in feed.items()}
+    _timed_calls(pred, fb, 2)
+    p50, p90 = _pcts_ms(_timed_calls(pred, fb, INFER_REPS))
+    B = len(feed["input_ids"])
+    log(f"[infer] 11b batch {B}: p50 {p50:.3f} ms, p90 {p90:.3f} ms, "
+        f"{B / p50 * 1e3:.1f} sequences/s")
+    _profiled_steps(f"[infer] 11b batch {B}", 5,
+                    lambda: (pred.run([feed[n] for n in names]), 0.0)[1])
+    counts.take()
+    return p50
+
+
+def _engine_burst(eng, reqs):
+    """One client thread a list of ``reqs``, each submitting its requests
+    back to back (a queue-full refusal waits its retry_after and
+    resubmits), then every answer collected. Returns the results (None
+    for a failed request), the failed request's (client, index, code),
+    the wall seconds from the first submit to the last answer and the
+    retries by client."""
+    import threading
+
+    from paddle_tpu_torch.serving import RejectedError, RequestError
+
+    resps = [[None] * len(mine) for mine in reqs]
+    retries = [0] * len(reqs)
+
+    def client(c):
+        for i, r in enumerate(reqs[c]):
+            while True:
+                try:
+                    resps[c][i] = eng.submit(r)
+                    break
+                except RejectedError as e:   # queue full: back off
+                    retries[c] += 1
+                    time.sleep(max(e.retry_after_s, 0.001))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    results = [[None] * len(mine) for mine in reqs]
+    failed = None
+    for c, mine in enumerate(resps):
+        for i, resp in enumerate(mine):
+            try:
+                results[c][i] = resp.result(timeout=300)
+            except RequestError as e:
+                failed = (c, i, e.code)
+    return results, failed, time.perf_counter() - t0, retries
+
+
+def _infer_engine(d, cfg, counts):
+    """11c: the ServingEngine over 11a's config: every request served
+    within SERVED_TOL of single-request, no bucket missed after start, the
+    poison request isolated, late submits refused by the drain."""
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.serving import RejectedError, ServingEngine
+
+    config = inference.Config(d)
+    config.set_serving_buckets(INFER_LATTICE)
+    eng = ServingEngine(config, num_replicas=2, queue_depth=256,
+                        max_wait_ms=5.0)
+    t0 = time.perf_counter()
+    eng.start()
+    warm_s = time.perf_counter() - t0
+    warm_launches = counts.take()["flash_attention_fwd"]
+    rng = np.random.RandomState(SEED + 1)
+    reqs = []
+    for c in range(ENGINE_CLIENTS):
+        mine = []
+        for i in range(ENGINE_PER_CLIENT):
+            rows = int(rng.randint(ENGINE_ROWS[0], ENGINE_ROWS[1] + 1))
+            lens = rng.randint(ENGINE_LENS[0], ENGINE_LENS[1] + 1, rows)
+            mine.append(_bert_feeds(rng, rows, cfg.vocab_size, lens))
+        reqs.append(mine)
+    poison = reqs[0][POISON_AT]
+    poison["input_ids"][:, :2] = POISON_ID
+
+    def is_poison(feeds):
+        ids = feeds["input_ids"]
+        return bool(((ids[:, 0] == POISON_ID) & (ids[:, 1] == POISON_ID)).any())
+
+    ref = inference.create_predictor(inference.Config(d))
+    refs = [[None if r is poison else ref.run_batch(r) for r in mine]
+            for mine in reqs]
+    del ref
+    for rep in eng._replicas:
+        def run_batch(feeds, _real=rep.run_batch):
+            if is_poison(feeds):
+                raise RuntimeError("poison request in the batch")
+            return _real(feeds)
+        rep.run_batch = run_batch
+    counts.take()
+    results, poisoned, wall, retries = _engine_burst(eng, reqs)
+    traffic = counts.take()
+    eng.shutdown()
+    try:
+        eng.submit(reqs[0][0])
+        late = None
+    except RejectedError as e:
+        late = e.retry_after_s
+    st = eng.stats()
+    gaps, bit_equal, total = [], 0, 0
+    for c, mine in enumerate(results):
+        for i, got in enumerate(mine):
+            if reqs[c][i] is poison:
+                continue
+            for n, want in refs[c][i].items():
+                gaps.append(_max_abs_np(got[n], want))
+                bit_equal += int(np.array_equal(got[n], want))
+                total += 1
+    served = sum(r is not None for mine in results for r in mine)
+    rows = sum(len(r["input_ids"]) for mine in reqs for r in mine)
+    n_req = len(reqs) * ENGINE_PER_CLIENT
+    log(f"[infer] 11c engine: warmup of {len(INFER_LATTICE)} buckets "
+        f"{warm_s:.2f}s ({warm_launches} K1 launches); {served} of {n_req} "
+        f"requests served in {wall:.3f}s: {n_req / wall:.1f} req/s, "
+        f"{rows / wall:.1f} rows/s; latency p50 "
+        f"{st['latency_p50_s'] * 1e3:.2f} ms, p99 "
+        f"{st['latency_p99_s'] * 1e3:.2f} ms; queue wait p50 "
+        f"{st['queue_wait_p50_s'] * 1e3:.2f} ms; {st['batches']} batches, "
+        f"avg rows {st['avg_batch_rows']:.3f}, occupancy "
+        f"{st['avg_batch_occupancy']:.4f}; queue-full retries {retries}; "
+        f"K1 launches {traffic['flash_attention_fwd']}; cache misses after "
+        f"start {st['cache_misses']}, hit rate {st['cache_hit_rate']}")
+    log(f"[infer] 11c served against single-request: max abs "
+        f"{max(gaps):.3e} (bar {SERVED_TOL}), {bit_equal} of {total} "
+        f"outputs bit-equal; poison {poisoned}, failed {st['failed']}, "
+        f"batch failures {st['batch_failures']}; a submit after the drain "
+        f"refused with retry_after {late}")
+    # the same burst, the poison left out, on one replica
+    eng1 = ServingEngine(config, num_replicas=1, queue_depth=256,
+                         max_wait_ms=5.0).start()
+    clean = [[r for r in mine if r is not poison] for mine in reqs]
+    _, _, wall1, _ = _engine_burst(eng1, clean)
+    eng1.shutdown()
+    st1 = eng1.stats()
+    log(f"[infer] 11c the same burst but the poison on 1 replica: "
+        f"{n_req - 1} requests in {wall1:.3f}s: {(n_req - 1) / wall1:.1f} "
+        f"req/s, {(rows - len(poison['input_ids'])) / wall1:.1f} rows/s; "
+        f"latency p50 {st1['latency_p50_s'] * 1e3:.2f} ms, p99 "
+        f"{st1['latency_p99_s'] * 1e3:.2f} ms; {st1['batches']} batches, "
+        f"avg rows {st1['avg_batch_rows']:.3f}")
+    counts.take()
+    if (served != n_req - 1 or poisoned is None or poisoned[:2] != (0, POISON_AT)
+            or st["failed"] != 1 or st["cache_misses"] != 0
+            or st["completed"] != n_req - 1 or late != 0.0
+            or not traffic["flash_attention_fwd"]
+            or max(gaps) > SERVED_TOL):
+        raise AssertionError(f"11c engine: served {served}, poison "
+                             f"{poisoned}, stats {st}, late {late}, gap "
+                             f"{max(gaps)}")
+    return {"req_s": n_req / wall, "rows_s": rows / wall}
+
+
+def _infer_resnet(root, counts):
+    """11d: ResNet-50 exported and served at batch 32: conv_bn_fuse folds
+    every conv's batch_norm, outputs against the unfused test clone."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import inference, io
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.utils import unique_name
+
+    main, startup = fluid.Program(), fluid.Program()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        img = fluid.data("img", shape=[-1] + list(RESNET_IMAGE))
+        logits = resnet.resnet(img, 1000, 50)
+        prob = fluid.layers.softmax(logits)
+    startup.random_seed = main.random_seed = SEED
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    # batch_norm's statistics and affine terms off their initial values,
+    # so the fold has real numbers to absorb
+    rng = np.random.RandomState(SEED)
+    for op in main.global_block().ops:
+        if op.type != "batch_norm":
+            continue
+        mean = scope.find_var(op.input("Mean")[0])
+        c = mean.shape[0]
+        for slot, val in (("Mean", rng.randn(c) * 0.1),
+                          ("Variance", rng.uniform(0.5, 1.5, c)),
+                          ("Scale", rng.uniform(0.5, 1.5, c)),
+                          ("Bias", rng.randn(c) * 0.1)):
+            scope.set(op.input(slot)[0], torch.tensor(
+                val, dtype=torch.float32, device=mean.device))
+    d = os.path.join(root, "resnet")
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(d, ["img"], [logits, prob], exe,
+                                      main_program=main)
+    del scope
+    pred = inference.create_predictor(inference.Config(d))
+    stats = pred.analysis_stats()
+    folds = stats["conv_bn_fuse"]["fused"]
+    types = [op.type for op in pred._program.global_block().ops]
+    batch = rng.rand(INFER_RESNET_BATCH, *RESNET_IMAGE).astype("float32")
+    got = pred.run([batch])
+    ref_scope = fluid.Scope()
+    with fluid.scope_guard(ref_scope):
+        program, _, fetch_vars = io.load_inference_model(d, exe)
+        want = exe.run(program, feed={"img": batch}, fetch_list=fetch_vars)
+    del ref_scope, program
+    scale = float(np.abs(want[0]).max())
+    err = _max_abs_np(got[0], want[0])
+    sums = got[1].sum(axis=1)
+    fb = {"img": batch}
+    _timed_calls(pred, fb, 2)
+    p50, p90 = _pcts_ms(_timed_calls(pred, fb, INFER_REPS // 2))
+    log(f"[infer] 11d ResNet-50: conv_bn_fuse {folds} (the JAX pass's "
+        f"count {RESNET50_BN_FOLDS}), fc_fuse {stats['fc_fuse']['fused']}, "
+        f"batch_norm ops left {types.count('batch_norm')}; logits against "
+        f"the unfused clone max abs {err:.3e} of |max| {scale:.3e} (bar "
+        f"{RESNET_FOLD_TOL} relative); batch {INFER_RESNET_BATCH}: p50 "
+        f"{p50:.3f} ms, p90 {p90:.3f} ms, "
+        f"{INFER_RESNET_BATCH / p50 * 1e3:.1f} images/s")
+    if (folds != RESNET50_BN_FOLDS or "batch_norm" in types
+            or not np.isfinite(got[0]).all() or err > RESNET_FOLD_TOL * scale
+            or not np.allclose(sums, 1.0, atol=1e-4)):
+        raise AssertionError(f"11d: folds {folds}, err {err} of {scale}, "
+                             f"prob sums {sums[:4]}")
+    counts.take()
+    return INFER_RESNET_BATCH / p50 * 1e3
+
+
+def phase_inference():
+    """11: the predictor and the ServingEngine on the card (11a-11d).
+    Returns the phase's kernel launches (K1 and its bf16 build)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    counts = _Launches()
+    root = tempfile.mkdtemp(prefix="chip_smoke_infer_")
+    try:
+        d, cfg = _infer_export_bert(root)
+        t0 = time.perf_counter()
+        feed, f32_out = _infer_bert(d, cfg, counts)
+        log(f"[infer] 11a {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        _infer_bert_bf16(d, cfg, feed, f32_out, counts)
+        log(f"[infer] 11b {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        _infer_engine(d, cfg, counts)
+        log(f"[infer] 11c {time.perf_counter() - t0:.1f}s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        _infer_resnet(root, counts)
+        log(f"[infer] 11d {time.perf_counter() - t0:.1f}s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    counts.take()
+    log(f"[infer] phase 11 {time.perf_counter() - t_phase:.1f}s, launches "
+        f"{ {n: c for n, c in counts.total.items() if c} }")
+    return counts.total
+
+
+PHASES = tuple(str(n) for n in range(1, 12))
+
+
+def parse_phases(argv):
+    """``--phases 1,11`` -> {"1", "11"}; no argument -> every phase. The
+    build (1) always runs: every later phase needs the kernels."""
+    if not argv:
+        return set(PHASES)
+    if len(argv) != 2 or argv[0] != "--phases":
+        raise SystemExit(f"usage: chip_smoke.py [--phases 1,2,...] (got {argv})")
+    chosen = {p.strip() for p in argv[1].split(",") if p.strip()}
+    unknown = chosen - set(PHASES)
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phases {sorted(unknown)}; "
+                         f"have {', '.join(PHASES)}")
+    return chosen | {"1"}
+
+
+def main(phases=frozenset(PHASES)):
     check_environment()
     import torch
 
@@ -4995,29 +5561,43 @@ def main():
     t_all = time.perf_counter()
     card = card_line()
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)}")
+        f"device {torch.cuda.get_device_name(0)}; phases "
+        f"{sorted(phases, key=int)}")
+    zero = {n: 0 for n in KERNELS}
     phase_build()
-    parity = phase_parity()
-    parity.update(phase_flash())
-    parity.update(phase_flash16())
-    parity.update(phase_ctr_kernels())
-    parity.update(phase_topk())
-    parity.update(phase_random())
-    engine_launches, greedy_tps, greedy_step = phase_engine()
-    modes_launches = phase_decode_modes(greedy_tps)
-    beam_launches = phase_beam_grammar(greedy_tps, greedy_step)
-    overload_launches = phase_overload(greedy_tps)
-    dense_launches = phase_dense()
-    train_launches = phase_train()
-    unfused_launches = phase_bert_unfused()
-    amp_launches = phase_train_amp()
-    wide_deep_launches = phase_wide_deep()
-    ctr_launches = phase_dense_ctr()
-    dgc_launches = phase_dgc()
-    book_launches, book = phase_book()
-    resnet_launches = phase_resnet()
-    resnet_amp_launches = phase_resnet_amp()
-    ckpt_launches = phase_checkpoint(book)
+    parity = {}
+    if "2" in phases:
+        parity = phase_parity()
+        parity.update(phase_flash())
+        parity.update(phase_flash16())
+        parity.update(phase_ctr_kernels())
+        parity.update(phase_topk())
+        parity.update(phase_random())
+    engine_launches, modes_launches = zero, 0
+    beam_launches = overload_launches = 0
+    if "3" in phases:
+        engine_launches, greedy_tps, greedy_step = phase_engine()
+        modes_launches = phase_decode_modes(greedy_tps)
+        beam_launches = phase_beam_grammar(greedy_tps, greedy_step)
+        overload_launches = phase_overload(greedy_tps)
+    dense_launches = phase_dense() if "4" in phases else zero
+    train_launches = unfused_launches = amp_launches = zero
+    if "5" in phases:
+        train_launches = phase_train()
+        unfused_launches = phase_bert_unfused()
+        amp_launches = phase_train_amp()
+    wide_deep_launches = phase_wide_deep() if "6" in phases else zero
+    ctr_launches = phase_dense_ctr() if "7" in phases else zero
+    dgc_launches = phase_dgc() if "8" in phases else zero
+    book_launches = resnet_launches = resnet_amp_launches = zero
+    if "9" in phases or "10" in phases:
+        # phase 10 exports 9a's trained book programs
+        book_launches, book = phase_book()
+    if "9" in phases:
+        resnet_launches = phase_resnet()
+        resnet_amp_launches = phase_resnet_amp()
+    ckpt_launches = phase_checkpoint(book) if "10" in phases else zero
+    infer_launches = phase_inference() if "11" in phases else zero
     log(f"[done] paged_attention launches: phase 3 "
         f"{engine_launches['paged_attention']}, phase 3b {modes_launches}, "
         f"phase 3c {beam_launches}, phase 3d {overload_launches}")
@@ -5030,18 +5610,20 @@ def main():
                          + ckpt_launches["embedding_admission"],
                      "sparse_row_update": ctr_launches["sparse_row_update"],
                      "blocked_topk_abs": dgc_launches["blocked_topk_abs"]}
-    # the float32 flash builds on phase 5's and 10a's paths, the bf16 ones
-    # on 5c's, the float16 ones on 5c's float16 leg
+    # the float32 flash builds on phase 5's, 10a's and 11's paths, the bf16
+    # ones on 5c's and 11b's, the float16 ones on 5c's float16 leg
     path_launches.update({n: (amp_launches[n] if n.endswith(("_bf16", "_f16"))
                               else train_launches[n] + ckpt_launches[n])
+                          + infer_launches.get(n, 0)
                           for n in KERNELS if n.startswith("flash_attention")})
     # K8: phase 5's startup (random_bits) and dropout sites, phase 5b's,
     # 5c's (its bf16 run) and rank 0's of phase 8, phase 9's startups,
-    # phase 10a's startup and steps
+    # phase 10a's startup and steps, phase 11's startups
     path_launches.update({n: train_launches[n] + unfused_launches[n]
                           + amp_launches[n] + dgc_launches[n]
                           + book_launches[n] + resnet_launches[n]
                           + resnet_amp_launches[n] + ckpt_launches[n]
+                          + infer_launches.get(n, 0)
                           for n in KERNELS if n.startswith("threefry")})
     log(f"[done] K8 launches: phase 5 "
         f"{ {n: train_launches[n] for n in path_launches if n.startswith('threefry')} }, "
@@ -5052,19 +5634,21 @@ def main():
         f"{book_launches['threefry_random_bits']} (9a) + "
         f"{resnet_launches['threefry_random_bits']} (ResNet-50's startup) + "
         f"{resnet_amp_launches['threefry_random_bits']} (9d's), phase 10 "
-        f"{ {n: ckpt_launches[n] for n in path_launches if n.startswith('threefry')} }")
+        f"{ {n: ckpt_launches[n] for n in path_launches if n.startswith('threefry')} }, "
+        f"phase 11 {infer_launches.get('threefry_random_bits', 0)}")
     log(f"[done] phase 10 launches: "
-        f"{ {n: c for n, c in ckpt_launches.items() if c} }")
+        f"{ {n: c for n, c in ckpt_launches.items() if c} }; phase 11: "
+        f"{ {n: c for n, c in infer_launches.items() if c} }")
     rows = []
     for name, info in KERNELS.items():
-        r = parity[name]
+        # a kernel whose parity phase (2) was not selected has no numbers
+        r = parity.get(name, {})
         rows.append({"name": name, "route": "cuda", "source": info.source,
                      "replaces": info.replaces,
                      "launches": path_launches[name],
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"],
+                     **{k: r.get(k) for k in (
+                         "max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms")},
                      # host costs and whole-step sums, where measured
                      **{k: v for k, v in r.items() if k not in (
                          "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -5081,4 +5665,4 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--dgc-rank"]:
         dgc_rank_main(sys.argv[2])
     else:
-        main()
+        main(parse_phases(sys.argv[1:]))

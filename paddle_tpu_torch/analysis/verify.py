@@ -72,6 +72,15 @@ class Diagnostic:
         self.var = var
         self.callstack = callstack
 
+    def key(self):
+        """Identity for de-duplicating diagnostics across verifier runs
+        (``PassManager(verify_each_pass=True)`` compares post-pass findings
+        against the pre-pass set). Content-based: an op_index would make
+        every earlier finding look new whenever a pass removes ops above
+        it."""
+        return (self.severity, self.code, self.block_idx, self.op_type,
+                self.var, self.message)
+
     def __repr__(self):
         return f"Diagnostic({self.severity}, {self.code}, {self.message!r})"
 

@@ -59,6 +59,13 @@ def _reshape2(ins, attrs):
             "XShape": [xshape(x)]}
 
 
+@register_op("reshape")
+def _reshape(ins, attrs):
+    """``reshape2`` without its ``XShape`` (``multihead_matmul_fuse``
+    flattens a ``[B, 1, 1, S]`` key bias with it)."""
+    return {"Out": _reshape2(ins, attrs)["Out"]}
+
+
 @register_op("squeeze2")
 def _squeeze2(ins, attrs):
     x = first(ins, "X")

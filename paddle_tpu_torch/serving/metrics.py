@@ -1,10 +1,11 @@
 """Serving metrics: always-on registry-backed counters + latency histograms.
 
 The port's copy of the JAX package's ``serving/metrics.py``, without its
-profiler mirror (``torch.profiler`` takes that place: ROADMAP.md, M12)
-and without the batching engine's ``observe_batch`` (M6); the batch
-counters and the ``run`` histogram stay, so ``stats()`` carries the JAX
-keys. The engine records into the process-global registry
+profiler mirror (``torch.profiler`` takes that place: ROADMAP.md, M12).
+The batching ServingEngine records each dispatched batch through
+``observe_batch``; the decode engine keeps the same batch counters and
+``run`` histogram, so both engines' ``stats()`` carry the JAX keys.
+The engines record into the process-global registry
 (``paddle_tpu_torch.observability.metrics``); each ServingMetrics
 instance is one ``engine=<label>`` label set, so two engines in a process
 scrape as two series while each engine's ``stats()`` stays exact.
@@ -78,6 +79,9 @@ class ServingMetrics:
         }
         self._tenant_counts = {}  # (counter_name, tenant) -> Counter
         self._tenant_lock = threading.Lock()
+        # batches/batched_rows/occupancy move together, so the averages
+        # in snapshot() stay consistent
+        self._batch_lock = threading.Lock()
         # a ServingMetrics instance is one engine LIFETIME: re-creating an
         # engine under a reused label must start from zero (the registry
         # series are get-or-create)
@@ -141,6 +145,17 @@ class ServingMetrics:
             "queue_rerouted": qs["rerouted"],
         }
 
+    def observe_batch(self, plan, run_seconds):
+        """One dispatched padded batch (``serving/batcher.py``'s
+        ``BatchPlan``): its real and padded rows, its occupancy and its
+        run time."""
+        with self._batch_lock:
+            self._counts["batches"].inc()
+            self._counts["batched_rows"].inc(plan.real_rows)
+            self._counts["padded_rows"].inc(plan.bucket_rows - plan.real_rows)
+            self._occupancy_sum.inc(plan.occupancy)
+        self._run.observe(run_seconds)
+
     def observe_request(self, request):
         """Called at completion: queue-wait + end-to-end latency."""
         finish = request.response.finish_time
@@ -154,10 +169,17 @@ class ServingMetrics:
     def count(self, name):
         return self._counts[name].value
 
+    def run_avg_s(self):
+        """O(1) mean batch-run latency (no percentile math — safe on the
+        admission hot path)."""
+        return self._run.avg
+
     def snapshot(self, extra=None):
-        out = {name: c.value for name, c in self._counts.items()}
+        with self._batch_lock:
+            out = {name: c.value for name, c in self._counts.items()}
+            occupancy_sum = self._occupancy_sum.value
         batches = max(out["batches"], 1)
-        out["avg_batch_occupancy"] = self._occupancy_sum.value / batches
+        out["avg_batch_occupancy"] = occupancy_sum / batches
         out["avg_batch_rows"] = out["batched_rows"] / batches
         out.update(self._queue_wait.snapshot("queue_wait"))
         out.update(self._run.snapshot("run"))

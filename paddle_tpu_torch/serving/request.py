@@ -19,6 +19,7 @@ __all__ = [
     "RequestError",
     "ReplicaLostError",
     "Response",
+    "Request",
 ]
 
 
@@ -126,3 +127,35 @@ class Response:
         if self._error is not None:
             raise self._error
         return self._outputs
+
+
+class Request:
+    """One admitted inference request of the batching ServingEngine.
+
+    `inputs` maps feed name -> np.ndarray whose axis 0 is this request's
+    row count (all inputs agree on it). `group_key` identifies the set of
+    requests that may share a padded batch: same feed names, dtypes, and
+    trailing dims outside the padded axis. `deadline` is an absolute
+    perf_counter() time or None."""
+
+    __slots__ = ("id", "inputs", "rows", "priority", "deadline",
+                 "submit_time", "dispatch_time", "group_key", "var_len",
+                 "response")
+
+    def __init__(self, rid, inputs, rows, priority, deadline, group_key,
+                 var_len):
+        self.id = rid
+        self.inputs = inputs
+        self.rows = rows
+        self.priority = priority
+        self.deadline = deadline
+        self.submit_time = time.perf_counter()
+        self.dispatch_time = None
+        self.group_key = group_key
+        self.var_len = var_len  # padded-axis length (0 when nothing pads)
+        self.response = Response()
+
+    def expired(self, now=None):
+        if self.deadline is None:
+            return False
+        return (now if now is not None else time.perf_counter()) > self.deadline

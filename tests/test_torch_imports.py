@@ -33,6 +33,8 @@ import paddle_tpu_torch.embedding
 import paddle_tpu_torch.embedding.store
 import paddle_tpu_torch.incubate
 import paddle_tpu_torch.incubate.checkpoint
+import paddle_tpu_torch.inference
+import paddle_tpu_torch.inference.predictor
 import paddle_tpu_torch.io
 import paddle_tpu_torch.kernels.attention
 import paddle_tpu_torch.kernels.build
@@ -48,6 +50,7 @@ import paddle_tpu_torch.models.resnet
 import paddle_tpu_torch.models.transformer
 import paddle_tpu_torch.models.wide_deep
 import paddle_tpu_torch.observability.metrics
+import paddle_tpu_torch.ops.fused
 import paddle_tpu_torch.ops.misc_extra
 import paddle_tpu_torch.ops.sharded_embedding
 import paddle_tpu_torch.optimizer
@@ -58,6 +61,7 @@ import paddle_tpu_torch.passes
 import paddle_tpu_torch.regularizer
 import paddle_tpu_torch.resilience.faults
 import paddle_tpu_torch.resilience.retry
+import paddle_tpu_torch.serving.batcher
 import paddle_tpu_torch.serving.breaker
 import paddle_tpu_torch.serving.brownout
 import paddle_tpu_torch.serving.decode.engine
@@ -66,7 +70,9 @@ import paddle_tpu_torch.serving.decode.generate.grammar
 import paddle_tpu_torch.serving.decode.generate.sampling
 import paddle_tpu_torch.serving.decode.metrics
 import paddle_tpu_torch.serving.decode.tier
+import paddle_tpu_torch.serving.engine
 import paddle_tpu_torch.serving.metrics
+import paddle_tpu_torch.serving.request
 import paddle_tpu_torch.utils.flags
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")

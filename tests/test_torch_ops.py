@@ -72,6 +72,14 @@ CASES = {
                           "VCache": [f32(3, 4, 8)],
                           "Bias": [_bias(3, 4, [0, 2, None])]},
                          {"sm_scale": 0.35}),
+    # the inference fusions' targets (fc_fuse, multihead_matmul_fuse's
+    # reshape of a [B, 1, 1, S] bias)
+    "fc": ({"Input": [f32(2, 3, 4)], "W": [f32(4, 5)], "Bias": [f32(5)]},
+           {"in_num_col_dims": 2, "activation_type": "gelu"}),
+    "reshape": ({"X": [f32(2, 1, 1, 6)]}, {"shape": [0, 6]}),
+    # packed q|k|v of 2 heads of width 4, no BiasQK: the flash path
+    "multihead_matmul": ({"Input": [f32(2, 5, 24)], "Bias": [f32(24)]},
+                         {"head_number": 2, "alpha": 0.5}),
 }
 
 
@@ -127,6 +135,22 @@ def test_op_matches_jax_lowering(op_type):
                 np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6)
             else:
                 np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("form", ["bias_qk", "kernel_lowering"])
+def test_multihead_matmul_forms_match_jax(form):
+    """The full ``[B, H, S, S]`` BiasQK form (the composite, in both
+    packages), and the op's kernel lowering, which on CPU tensors runs
+    K1's plain version."""
+    ins, attrs = CASES["multihead_matmul"]
+    if form == "bias_qk":
+        ins = dict(ins, BiasQK=[f32(2, 2, 5, 5)])
+    want = _run_jax("multihead_matmul", ins, attrs)["Out"][0]
+    op_def = TorchOps.get("multihead_matmul")
+    lower = op_def.lower if form == "bias_qk" else op_def.kernel
+    tins = {k: [torch.from_numpy(a.copy()) for a in v] for k, v in ins.items()}
+    got = lower(tins, dict(attrs))["Out"][0].numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
 def test_scatter_in_place_writes_into_x():
