@@ -5,6 +5,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --phases 1,11    # the build and phase 11 only
+    python3 chip_smoke.py --phases 12      # the build and the fleet
 
 ``--phases`` takes the phases' top-level numbers (2 runs 2-2f, 3 runs
 3-3d, 5 runs 5-5c, 9 runs 9a-9d; 10 runs 9a first, whose programs it
@@ -26,7 +27,9 @@ ResNet-50 at full width and depth against the same step on the host's
 CPU, in float32 and under bf16 AMP), and saves, restores and exports
 those models through ``io`` and ``incubate.checkpoint``, bit for bit,
 and serves an exported BERT-base and ResNet-50 through the predictor
-and the batching ServingEngine. Any failure exits non-zero. It
+and the batching ServingEngine, and serves the decoder through a fleet
+router over worker processes, one of them killed mid-flight. Any failure
+exits non-zero. It
 imports nothing of JAX or of the JAX package, and it refuses to run
 without a CUDA device (or outside a checkout of the repository).
 
@@ -376,6 +379,31 @@ Phases:
    left, logits within ``RESNET_FOLD_TOL`` of the unfused clone's;
    images/s. The ``kernels`` line adds the phase's K1 and K1-bf16
    launches.
+
+12. fleet — ``serving.fleet.FleetRouter`` over ``SubprocessReplica``
+   workers (``python -m paddle_tpu_torch.serving.fleet.worker --device
+   cuda``), each a process of its own on the card hosting the decoder at
+   phase 3's width (affinity keyed on the first 16-token block); first
+   the µs of a named lock's acquire and release with the witness off
+   beside a plain lock's, then ``offline_decode`` of phase 3's burst by
+   an in-process entry built from the same spec. 12a: 2
+   workers (each one's spawn-to-ready seconds printed), phase 3's burst
+   of 16 submitted at once: every stream against the offline reference
+   by phase 3's near-tie rule, the 4 shared-prefix requests routed to
+   one worker; tokens/s and latency p50/p99; then the burst again on the
+   warm workers, the same checks and numbers; each worker's ``stats`` RPC
+   counting K3 launches (12 a decode step, more than 0) and K8
+   ``random_bits`` from its startup. 12b: a fresh router (autoscale, 2 to
+   3 workers) over 2 new workers, worker 1 spawned with a
+   ``replica.kill`` schedule that exits it at its 6th RPC while it holds
+   accepted work: the victim exits with 43 and is latched dead, 1 death
+   and at least 1 re-dispatch, accepted == completed == 16 (the
+   zero-loss identity), every stream by the same rule, and the autoscale
+   replacement serves a request routed to it by the same rule; prints
+   the replacement's spawn-to-ready seconds, the victim's exit to the
+   DEAD latch, and p99 beside 12a's. Every worker is closed in a
+   ``finally``; the ``kernels`` line adds the live workers' K3 and K8
+   launches (the killed worker's die with it).
 
 The last lines are the card's name and power limit, one JSON line of
 per-kernel results, and ``{"ok": true, "device": {...}}``.
@@ -5534,7 +5562,311 @@ def phase_inference():
     return counts.total
 
 
-PHASES = tuple(str(n) for n in range(1, 12))
+# -- phase 12 ---------------------------------------------------------------
+FLEET_SPEC = dict(MODEL, name="fleet", version="1")
+# the victim's worker dies at its 6th RPC (pings, submits and polls all
+# count): the fleet test's schedule (tests/test_fleet_serving.py), by
+# which time it holds accepted work
+FLEET_KILL = [{"site": "replica.kill", "action": "kill", "at_call": 6,
+               "rank": 1, "id": "fleet-kill"}]
+FLEET_SPAWN_TIMEOUT = 600.0
+
+
+def _fleet_spawn(index, extra_env=None):
+    from paddle_tpu_torch.serving.fleet import SubprocessReplica
+
+    return SubprocessReplica.spawn(
+        f"r{index}", index, FLEET_SPEC, extra_env=extra_env, device="cuda",
+        startup_timeout=FLEET_SPAWN_TIMEOUT)
+
+
+def _fleet_spawn_all(jobs, handles):
+    """Spawn workers side by side (``jobs``: (index, extra_env)); every
+    worker that came up joins ``handles``, which the caller closes."""
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futs = [pool.submit(_fleet_spawn, *job) for job in jobs]
+    out, errors = [], []
+    for f in futs:
+        try:
+            out.append(f.result())
+        except Exception as e:      # noqa: BLE001 - re-raised below
+            errors.append(e)
+    handles.extend(out)
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _fleet_close(handles):
+    for h in handles:
+        try:
+            h.close(60)
+        except Exception:           # noqa: BLE001 - best effort, then kill
+            pass
+        if h.proc.poll() is None:
+            h.proc.kill()
+            h.proc.wait()
+
+
+def _fleet_burst(router, prompts):
+    """Submit the burst at once; returns (tokens, latencies s, wall s, the
+    replica each request was first dispatched to)."""
+    t0 = time.perf_counter()
+    resps, sent, first = [], [], []
+    for p in prompts:
+        resps.append(router.submit(p, max_new_tokens=MAX_NEW))
+        sent.append(time.perf_counter())
+        with router._lock:
+            rr = next((r for r in router._inflight.values()
+                       if r.response is resps[-1]), None)
+            first.append(rr.attempts[0] if rr is not None else None)
+    outs = [[int(t) for t in r.result(timeout=FLEET_SPAWN_TIMEOUT)["tokens"]]
+            for r in resps]
+    wall = time.perf_counter() - t0
+    return outs, [r.finish_time - s for r, s in zip(resps, sent)], wall, first
+
+
+def _fleet_worker_launches(handles, tag):
+    """Each live worker's ``stats`` RPC: its K3 launches must be 12 a
+    decode step; returns the K3 and K8 (startup) launches summed."""
+    total = {"paged_attention": 0, "threefry_random_bits": 0}
+    for h in handles:
+        ws = h.worker_stats()
+        steps = sum(m["steps"] for m in ws["models"].values())
+        k3 = ws["kernel_launches"]["paged_attention"]
+        k8 = ws["kernel_launches"]["threefry_random_bits"]
+        step_ms = [s * 1e3 for m in ws["models"].values()
+                   for s in m["step_seconds"]]
+        log(f"[fleet] {tag} {h.rid} (pid {ws['pid']}): {steps} decode "
+            f"steps, step {_pcts(step_ms)}, K3 {k3}, K8 random_bits {k8}")
+        if k3 == 0 or k3 != MODEL["num_layers"] * steps:
+            raise AssertionError(
+                f"{tag} {h.rid}: paged_attention launched {k3} times over "
+                f"{steps} decode steps of {MODEL['num_layers']} layers")
+        if k8 == 0:
+            raise AssertionError(f"{tag} {h.rid}: no threefry_random_bits "
+                                 "launch in the worker's startup")
+        total["paged_attention"] += k3
+        total["threefry_random_bits"] += k8
+    return total
+
+
+def _fleet_latencies(tag, lat, wall, outs):
+    ms = np.asarray(lat) * 1e3
+    tokens = sum(len(o) for o in outs)
+    log(f"[fleet] {tag}: {len(outs)} requests in {wall:.2f}s, "
+        f"{tokens / wall:.1f} tokens/s, latency p50 {np.median(ms):.1f} ms "
+        f"p99 {np.percentile(ms, 99):.1f} ms")
+    return float(np.percentile(ms, 99))
+
+
+def _lock_cost():
+    """Host µs of one acquire + release of a named lock with the witness
+    disabled (the serving hot path's default), beside a plain
+    ``threading.Lock``'s."""
+    import threading
+
+    from paddle_tpu_torch.observability import lockdep
+
+    was = lockdep.enabled()
+    lockdep.enable(False)
+    try:
+        named, plain = lockdep.named_lock("chip.smoke"), threading.Lock()
+
+        def take(lk):
+            def fn():
+                for _ in range(100):
+                    with lk:
+                        pass
+            return fn
+
+        named_us = host_us(take(named), reps=100) / 100
+        plain_us = host_us(take(plain), reps=100) / 100
+    finally:
+        lockdep.enable(was)
+    log(f"[fleet] lockdep off: a named lock's acquire + release "
+        f"{named_us:.3f} µs, a plain lock's {plain_us:.3f} µs")
+
+
+def _fleet_chaos(entry, prompts, refs, handles, p99_steady):
+    """12b: a fresh router (autoscale, 2-3 workers); worker 1 dies at its
+    6th RPC while it holds work."""
+    import threading
+
+    from paddle_tpu_torch.serving.fleet import FleetRouter
+    from paddle_tpu_torch.serving.fleet.router import RoutedRequest
+    from paddle_tpu_torch.serving.request import Priority
+
+    r0, r1 = _fleet_spawn_all(
+        [(0, None), (1, {"PADDLE_TPU_FAULTS": json.dumps(FLEET_KILL)})],
+        handles)
+    log(f"[fleet] 12b spawn-to-ready: r0 {r0.ready_s:.2f}s, r1 (armed) "
+        f"{r1.ready_s:.2f}s")
+
+    def factory(index):
+        h = _fleet_spawn(index)
+        handles.append(h)
+        return h
+
+    router = FleetRouter(replica_factory=factory, autoscale=True,
+                         min_replicas=2, max_replicas=3,
+                         affinity_prefix=MODEL["block_size"],
+                         health_interval_s=0.05, label="chip-fleet-chaos")
+    router.add_replica(r0)
+    router.add_replica(r1)
+    seen = {}
+    stop = threading.Event()
+
+    def watch():            # when the victim exits, and when it is latched
+        while not stop.is_set() and len(seen) < 2:
+            if "exit" not in seen and r1.proc.poll() is not None:
+                seen["exit"] = time.perf_counter()
+            if "dead" not in seen and router.replicas()["r1"] == "dead":
+                seen["dead"] = time.perf_counter()
+            time.sleep(0.0005)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    router.start()
+    watcher.start()
+    try:
+        outs, lat, wall, _ = _fleet_burst(router, prompts)
+        code = r1.proc.wait(timeout=60)
+        deadline = time.monotonic() + FLEET_SPAWN_TIMEOUT
+        while (router.metrics.count("scale_ups") < 1
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        stop.set()
+        watcher.join(5)
+        st = router.stats()
+        p99 = _fleet_latencies("12b", lat, wall, outs)
+        log(f"[fleet] 12b: victim exit {code}, state "
+            f"{st['replicas']['r1']['state']}, deaths "
+            f"{st['replica_deaths']}, rerouted {st['rerouted']}, accepted "
+            f"{st['accepted']}, completed {st['completed']}, scale-ups "
+            f"{st['scale_ups']}; the victim's exit seen -> DEAD latch "
+            f"{(seen.get('dead', np.nan) - seen.get('exit', np.nan)) * 1e3:.2f}"
+            f" ms (a 0.5 ms poll of each; negative: the router latched at "
+            f"the failed RPC first); replacement "
+            f"spawn-to-ready {st['last_scaleup_s']:.2f}s; p99 "
+            f"{p99:.1f} ms against 12a's {p99_steady:.1f} ms")
+        if code != 43 or st["replicas"]["r1"]["state"] != "dead":
+            raise AssertionError(f"12b: the victim exited {code}, state "
+                                 f"{st['replicas']['r1']['state']}")
+        if st["replica_deaths"] != 1 or st["rerouted"] < 1:
+            raise AssertionError(f"12b: deaths {st['replica_deaths']}, "
+                                 f"rerouted {st['rerouted']}")
+        ended = (st["completed"] + st["deadline_missed"] + st["failed"]
+                 + st["drained_unserved"])
+        if st["accepted"] != ended or st["completed"] != N_REQUESTS:
+            raise AssertionError(f"12b: zero-loss identity broken: {st}")
+        verdicts = [check_against_offline(entry, p, o, w, tag="fleet 12b")
+                    for p, o, w in zip(prompts, outs, refs)]
+        log(f"[fleet] 12b streams: {verdicts.count('equal')} equal, "
+            f"{verdicts.count('near-tie')} parted at a near-tie")
+        if st["scale_ups"] < 1:
+            raise AssertionError("12b: autoscale spawned no replacement")
+        new = next(rid for rid in st["replicas"] if rid not in ("r0", "r1"))
+        with router._lock:
+            i = next(i for i, p in enumerate(prompts) if router._route(
+                RoutedRequest(0, p, MAX_NEW, "t", Priority.NORMAL, None,
+                              None, None), set()) == new)
+        got = [int(t) for t in router.submit(
+            prompts[i], max_new_tokens=MAX_NEW).result(
+                timeout=FLEET_SPAWN_TIMEOUT)["tokens"]]
+        verdict = check_against_offline(entry, prompts[i], got, refs[i],
+                                        tag="fleet 12b replacement")
+        replacement = router._replicas[new]
+        log(f"[fleet] 12b replacement {new} served request {i}: {verdict}")
+        live = [router._replicas["r0"], replacement]
+        launches = _fleet_worker_launches(live, "12b")
+        if not any(m["completed"] for m in
+                   replacement.worker_stats()["models"].values()):
+            raise AssertionError("12b: the replacement served nothing")
+        return launches
+    finally:
+        stop.set()
+        router.shutdown()
+
+
+def phase_fleet():
+    """12: the fleet on the card — a FleetRouter over GPT-base worker
+    processes (12a), then the same burst with one worker killed (12b).
+    Returns the workers' K3 and K8 launches."""
+    import torch
+
+    from paddle_tpu_torch.serving import GenerationEngine, build_decoder_model
+    from paddle_tpu_torch.serving.fleet import FleetRouter
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    _lock_cost()
+    # the in-process reference, from the same spec as the workers (the
+    # startup program's own seed draws the same weights in every process)
+    engine = GenerationEngine()
+    entry = engine.register_model(build_decoder_model(**FLEET_SPEC))
+    prompts = make_prompts(MODEL["vocab_size"])
+    t0 = time.perf_counter()
+    refs = [entry.offline_decode(p, MAX_NEW) for p in prompts]
+    log(f"[fleet] offline references {time.perf_counter() - t0:.1f}s")
+    handles = []
+    total = {"paged_attention": 0, "threefry_random_bits": 0}
+    try:
+        # -- 12a: no chaos --------------------------------------------------
+        r0, r1 = _fleet_spawn_all([(0, None), (1, None)], handles)
+        log(f"[fleet] 12a spawn-to-ready: r0 {r0.ready_s:.2f}s, r1 "
+            f"{r1.ready_s:.2f}s ({r0._meta['device']}, pids "
+            f"{r0._meta['pid']} {r1._meta['pid']})")
+        router = FleetRouter(affinity_prefix=MODEL["block_size"],
+                             health_interval_s=0.05, label="chip-fleet")
+        router.add_replica(r0)
+        router.add_replica(r1)
+        router.start()
+        try:
+            outs, lat, wall, first = _fleet_burst(router, prompts)
+            st = router.stats()
+            p99 = _fleet_latencies("12a", lat, wall, outs)
+            if st["accepted"] != N_REQUESTS or st["completed"] != N_REQUESTS:
+                raise AssertionError(f"12a: not every request completed: "
+                                     f"{st}")
+            verdicts = [check_against_offline(entry, p, o, w,
+                                              tag="fleet 12a")
+                        for p, o, w in zip(prompts, outs, refs)]
+            shared = [first[i] for i in range(0, N_REQUESTS, 4)]
+            log(f"[fleet] 12a streams: {verdicts.count('equal')} equal, "
+                f"{verdicts.count('near-tie')} parted at a near-tie; the "
+                f"shared-prefix requests went to {shared}, the rest "
+                f"{[first[i] for i in range(N_REQUESTS) if i % 4]}")
+            if len(set(shared)) != 1 or shared[0] is None:
+                raise AssertionError(f"12a: the 4 shared-prefix requests "
+                                     f"were not routed together: {shared}")
+            # the same burst again on the warm workers (their first burst
+            # pays each process's first cuBLAS calls and kernel loads)
+            outs, lat, wall, _ = _fleet_burst(router, prompts)
+            _fleet_latencies("12a warm", lat, wall, outs)
+            verdicts = [check_against_offline(entry, p, o, w,
+                                              tag="fleet 12a warm")
+                        for p, o, w in zip(prompts, outs, refs)]
+            log(f"[fleet] 12a warm streams: {verdicts.count('equal')} "
+                f"equal, {verdicts.count('near-tie')} at a near-tie")
+            for n, c in _fleet_worker_launches([r0, r1], "12a").items():
+                total[n] += c
+        finally:
+            router.shutdown()
+        # -- 12b: a worker killed mid-flight --------------------------------
+        for n, c in _fleet_chaos(entry, prompts, refs, handles, p99).items():
+            total[n] += c
+    finally:
+        _fleet_close(handles)
+        engine.shutdown()
+    orphans = [h.rid for h in handles if h.proc.poll() is None]
+    if orphans:
+        raise AssertionError(f"workers still running: {orphans}")
+    log(f"[fleet] phase 12 {time.perf_counter() - t_phase:.1f}s, worker "
+        f"launches {total}")
+    return total
+
+
+PHASES = tuple(str(n) for n in range(1, 13))
 
 
 def parse_phases(argv):
@@ -5598,12 +5930,16 @@ def main(phases=frozenset(PHASES)):
         resnet_amp_launches = phase_resnet_amp()
     ckpt_launches = phase_checkpoint(book) if "10" in phases else zero
     infer_launches = phase_inference() if "11" in phases else zero
+    fleet_launches = phase_fleet() if "12" in phases else zero
     log(f"[done] paged_attention launches: phase 3 "
         f"{engine_launches['paged_attention']}, phase 3b {modes_launches}, "
         f"phase 3c {beam_launches}, phase 3d {overload_launches}")
+    log(f"[done] phase 12's workers: "
+        f"{ {n: fleet_launches[n] for n in ('paged_attention', 'threefry_random_bits')} }")
     path_launches = {"paged_attention": engine_launches["paged_attention"]
                                         + modes_launches + beam_launches
-                                        + overload_launches,
+                                        + overload_launches
+                                        + fleet_launches["paged_attention"],
                      "decode_attention": dense_launches["decode_attention"],
                      "embedding_admission":
                          wide_deep_launches["embedding_admission"]
@@ -5618,12 +5954,15 @@ def main(phases=frozenset(PHASES)):
                           for n in KERNELS if n.startswith("flash_attention")})
     # K8: phase 5's startup (random_bits) and dropout sites, phase 5b's,
     # 5c's (its bf16 run) and rank 0's of phase 8, phase 9's startups,
-    # phase 10a's startup and steps, phase 11's startups
+    # phase 10a's startup and steps, phase 11's startups, the startups of
+    # phase 12's workers (read over their stats RPC; the killed one's are
+    # lost with it)
     path_launches.update({n: train_launches[n] + unfused_launches[n]
                           + amp_launches[n] + dgc_launches[n]
                           + book_launches[n] + resnet_launches[n]
                           + resnet_amp_launches[n] + ckpt_launches[n]
                           + infer_launches.get(n, 0)
+                          + fleet_launches.get(n, 0)
                           for n in KERNELS if n.startswith("threefry")})
     log(f"[done] K8 launches: phase 5 "
         f"{ {n: train_launches[n] for n in path_launches if n.startswith('threefry')} }, "

@@ -43,16 +43,18 @@ import torch
 from paddle_tpu_torch.embedding.gather import dedup_ids
 from paddle_tpu_torch.embedding.table import TableConfig
 from paddle_tpu_torch.kernels import embedding as kemb
+from paddle_tpu_torch.observability import lockdep
 from paddle_tpu_torch.resilience import faults
 from paddle_tpu_torch.resilience.retry import RetryPolicy
 from paddle_tpu_torch.utils.enforce import EnforceError, enforce
 
 __all__ = ["HostStore", "EmbeddingEngine", "STORE_PREFIX"]
 
-# Lock order (the JAX package declares it to its lock witness): a table's
-# HostStore lock comes before the engine's pending-push lock — a push
-# worker finishes store.push() before touching the markers, and nothing
-# pulls from the table while holding the marker map.
+# The write-back discipline: a table's HostStore lock comes before the
+# engine's pending-push lock — a push worker finishes store.push() before
+# touching the markers, and nothing pulls from the table while holding
+# the marker map.
+lockdep.declare_order("embedding.table", "embedding.pending")
 
 #: checkpoint array-name prefix — names carrying it are engine state, not
 #: scope variables (incubate/checkpoint.py routes them to the engine)
@@ -74,7 +76,7 @@ class HostStore:
     def __init__(self, cfg):
         self.cfg = cfg
         self._shards = [dict() for _ in range(cfg.ep)]
-        self._lock = threading.Lock()
+        self._lock = lockdep.named_lock("embedding.table")
 
     def __len__(self):
         with self._lock:
@@ -394,7 +396,7 @@ class EmbeddingEngine:
         self._pending_restore = {}   # checkpoint arrays for tables not
         #                              registered yet (resume() often runs
         #                              before the first prepare_feed)
-        self._push_lock = threading.Lock()
+        self._push_lock = lockdep.named_lock("embedding.pending")
 
     @property
     def tables(self):

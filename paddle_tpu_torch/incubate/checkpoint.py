@@ -44,7 +44,7 @@ Restored values are torch tensors of the manifest's dtype: on the CPU
 from ``load_checkpoint`` (the executor moves them on first read), on the
 executor's device from ``AutoCheckpoint.resume``.
 
-Lock order (the JAX package declares it to its lock witness): the
+Lock order (declared to the lockdep witness, as in the JAX package): the
 checkpoint writer-state lock comes before the embedding engine's host
 tier and pending-marker locks it snapshots through
 ``extra_state.checkpoint_arrays()`` ("checkpoint.manifest" ->
@@ -68,8 +68,15 @@ import torch
 from paddle_tpu_torch.core.scope import global_scope
 from paddle_tpu_torch.dataio.state import STATE_KEY, decode_state, encode_state
 from paddle_tpu_torch.io import BF16_HOST, array_crc32, dtype_name, to_host, to_tensor
+from paddle_tpu_torch.observability import lockdep
 from paddle_tpu_torch.resilience import faults
 from paddle_tpu_torch.resilience.retry import RetryPolicy
+
+# the writer-state lock is ABOVE the sharded stores it snapshots through
+# extra_state.checkpoint_arrays() (the embedding host tier and its
+# pending-marker map); it is never held across the flush itself
+lockdep.declare_order("checkpoint.manifest", "embedding.table",
+                      "embedding.pending")
 
 __all__ = [
     "AutoCheckpoint",
@@ -749,7 +756,7 @@ class AutoCheckpoint:
         self._thread = None
         # guards _last_error/_pending: the async writer thread sets them
         # while save()/close() on the training thread read-and-clear
-        self._lock = threading.Lock()
+        self._lock = lockdep.named_lock("checkpoint.manifest")
         self._last_error = None
         self._pending = None  # (step, snap) of an in-flight/failed write
         self._retry = retry if retry is not None else _DEFAULT_IO_RETRY

@@ -46,6 +46,7 @@ import torch
 
 from paddle_tpu_torch.kernels import build
 from paddle_tpu_torch.kernels import registry
+from paddle_tpu_torch.observability import lockdep
 
 __all__ = ["admit_bucket", "pad_slots", "read_rows", "admit_rows",
            "scatter_rows", "scatter_rows_plain", "launch", "roundtrips",
@@ -257,7 +258,9 @@ class Staging:
 
 
 _card_staging = {}
-_card_staging_lock = threading.Lock()
+# a get-or-create cache, as the JAX module's compiled-kernel cache:
+# the same lockdep class
+_card_staging_lock = lockdep.named_lock("kernels.cache")
 
 
 def _staging_of(index):

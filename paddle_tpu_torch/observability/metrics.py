@@ -1,7 +1,8 @@
 """Metrics registry: typed counters, gauges, and bucketed histograms.
 
-The port's copy of the JAX package's ``observability/metrics.py``, with
-plain ``threading`` locks where that one takes lockdep-named ones.
+The port's copy of the JAX package's ``observability/metrics.py``. The
+registry's lock is the lockdep class ``metrics.registry``; each series
+keeps a raw leaf lock, as there.
 
 One always-on registry for the whole process (a serving replica must
 answer a scrape whether or not anyone is profiling). Histograms are
@@ -18,6 +19,7 @@ import bisect
 import re
 import threading
 
+from paddle_tpu_torch.observability.lockdep import named_lock
 
 __all__ = [
     "Counter",
@@ -64,7 +66,10 @@ class _Metric:
         self.name = name
         self.help = help
         self.labels = labels  # sorted (k, v) tuple
-        # a leaf: no acquisition ever nests inside a series lock
+        # deliberately a RAW lock, not a lockdep named one: series locks
+        # sit on per-op hot paths (every counter inc), and they are a
+        # LEAF — no acquisition ever nests inside one — so they cannot
+        # take part in a cycle
         self._lock = threading.Lock()
 
 
@@ -256,7 +261,7 @@ class MetricsRegistry:
     Prometheus exposition invariant)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = named_lock("metrics.registry")
         self._series = {}   # (name, label_key) -> metric
         self._families = {}  # name -> (kind, help)
 

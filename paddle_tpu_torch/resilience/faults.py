@@ -62,6 +62,8 @@ import random
 import threading
 import time
 
+from paddle_tpu_torch.observability import lockdep
+
 __all__ = [
     "InjectedFault",
     "TransientFault",
@@ -166,9 +168,11 @@ class FaultInjector:
         self._state_dir = state_dir
         if state_dir:
             os.makedirs(state_dir, exist_ok=True)
-        # rule-matching happens under the lock; _act (sleep / kill /
-        # corrupt) runs OUTSIDE it, keeping this a leaf
-        self._lock = threading.Lock()
+        # named lockdep class: fire() runs inside arbitrary hardened
+        # paths, so any nesting against subsystem locks must be
+        # witnessed. Rule-matching happens under the lock; _act (sleep /
+        # kill / corrupt) runs OUTSIDE it, keeping this a leaf.
+        self._lock = lockdep.named_lock("resilience.faults")
 
     # -- cross-process one-shot state (times=1 rules only: a multi-fire
     # rule is meant to keep firing after a restart) ----------------------

@@ -3,8 +3,9 @@
 engine's batch-level outcomes (a decode step, a chunk or an inject that
 fails loses the arena; a successful step closes a half-open breaker)."""
 
-import threading
 import time
+
+from paddle_tpu_torch.observability import lockdep
 
 __all__ = ["ReplicaBreaker"]
 
@@ -22,7 +23,7 @@ class ReplicaBreaker:
         self.state = "closed"
         self.consecutive = 0
         self.opened_at = None
-        self._lock = threading.Lock()
+        self._lock = lockdep.named_lock("serving.breaker")
 
     def gate(self):
         """Dispatch decision: ('dispatch' | 'probe' | 'wait', wait_s)."""

@@ -67,16 +67,18 @@ them in one transfer and scatters them through the inject program. The
 scheduler (slots, blocks, radix, tier, queue, tenants) and token
 selection are host Python on one thread per hosted model.
 
-Locks, taken in the JAX engine's declared order (plain locks here: the
-JAX package's lock-order witness is not ported, ROADMAP.md, M12): the
-queue's lock before the tenant table's; a draft entry's draft lock
-before its block pool's; the block pool's before the host tier's.
+Locks are lockdep-named (``observability/lockdep.py``) and taken in the
+JAX engine's declared order: the queue's lock (``serving.queue``) before
+the tenant table's (``decode.tenant``); a draft entry's draft lock
+(``decode.draft``) before its block pool's (``decode.blocks``); the block
+pool's before the radix index's and the host tier's. The fleet router's
+``fleet.router`` heads the chain (``serving/fleet/router.py``).
 
-Still refused: ``submit(deadline_at=)`` (``NotImplementedError``, ROADMAP.md,
-M6) and ``GenerationEngine(hbm_budget_mb=)`` (M12: the JAX engine sizes
-the arena with ``analysis/memory.py``, which the port lacks). Not ported,
-with no option to ask for them: the profiler's spans and the fleet
-router.
+``submit(deadline_at=)`` takes an absolute ``time.perf_counter()``
+deadline, which the fleet router passes on a re-dispatch. Still refused:
+``GenerationEngine(hbm_budget_mb=)`` (M12: the JAX engine sizes the arena
+with ``analysis/memory.py``, which the port lacks). Not ported, with no
+option to ask for it: the profiler's spans.
 """
 
 import threading
@@ -89,6 +91,7 @@ import torch
 from paddle_tpu_torch.core.executor import Executor
 from paddle_tpu_torch.core.places import default_place
 from paddle_tpu_torch.core.scope import Scope
+from paddle_tpu_torch.observability import lockdep
 from paddle_tpu_torch.resilience import faults
 from paddle_tpu_torch.serving.breaker import ReplicaBreaker
 from paddle_tpu_torch.serving.brownout import BrownoutController
@@ -126,11 +129,15 @@ from paddle_tpu_torch.serving.request import (
 
 __all__ = ["GenerationEngine", "GenerationRequest"]
 
-# submit() options of the JAX engine that this port does not serve yet,
-# with the ROADMAP item that brings each
-_NOT_PORTED = {
-    "deadline_at": "M6 (fleet re-dispatch)",
-}
+# The scheduler takes the queue lock, then the tenant table inside it
+# (_admit_free_slots -> _pick); quota rejects estimate retry-after
+# OUTSIDE _tenant_lock to keep it so. Declared so a future inversion
+# names the RULE, not just the cycle.
+lockdep.declare_order("serving.queue", "decode.tenant")
+# Draft-KV speculation: a TARGET entry's scheduler thread takes the draft
+# entry's decode.draft lock, then allocates from the draft's block pool
+# inside it — the draft lock is strictly OUTSIDE the pool lock.
+lockdep.declare_order("decode.draft", "decode.blocks")
 
 
 class GenerationRequest:
@@ -298,7 +305,8 @@ class _ModelEntry:
         self._engine = engine
         self._model = model
         self._queue = RequestQueue(queue_depth)
-        self._cond = threading.Condition(self._queue.lock)
+        self._cond = lockdep.named_condition("serving.queue",
+                                             self._queue.lock)
         self._pool = SlotPool(model.slots)
         self._slots = [None] * model.slots
         self._blocks = BlockPool(model.num_blocks, model.block_size)
@@ -336,7 +344,7 @@ class _ModelEntry:
         # _draft_ok poisons the entry after a failed draft arena call —
         # its users go back to replay proposals instead of reading an
         # undefined arena
-        self._draft_lock = threading.Lock()
+        self._draft_lock = lockdep.named_lock("decode.draft")
         self._draft_pinned = False
         self._draft_ok = True
         # the DEC_MASK feed on the device: one all-zero [S, 1, V] tensor
@@ -434,6 +442,10 @@ class _ModelEntry:
                     f"decode loop of {self._model.label} did not drain "
                     f"within {timeout}s")
             self._thread = None
+
+    def notify(self):
+        with self._cond:
+            self._cond.notify()
 
     # -- scheduler loop ---------------------------------------------------
     def _loop(self):
@@ -544,6 +556,7 @@ class _ModelEntry:
         for req in picked:
             self._engine._tenant_unqueue(req.tenant)
             if self._admit_one(req) == "deferred":
+                # lockdep: ok(single writer: the scheduler thread; submit-side readers only probe emptiness (GIL-atomic) and tolerate staleness)
                 self._pending.append(req)
         return len(picked)
 
@@ -744,6 +757,7 @@ class _ModelEntry:
             self._release_draft_locked(st)
             self._slots[s] = None
             self._pool.release(s)
+            # lockdep: ok(single writer: the scheduler thread; submit-side readers only probe emptiness (GIL-atomic) and tolerate staleness)
             self._parked.append(_ParkedSession(req, "spec", [st], []))
             self._metrics.incr("sessions_parked")
             return True
@@ -761,6 +775,7 @@ class _ModelEntry:
         self._blocks.release(st.blocks)
         st.blocks = []
         self._release_draft_locked(st)
+        # lockdep: ok(single writer: the scheduler thread; submit-side readers only probe emptiness (GIL-atomic) and tolerate staleness)
         self._parked.append(_ParkedSession(req, "decode", [st], [key]))
         self._metrics.incr("sessions_parked")
         return True
@@ -793,6 +808,7 @@ class _ModelEntry:
                 read[id(src)] = self._read_rows(src.row_map, src.cursor)
             if not self._spill(key, read[id(src)], st):
                 for k in keys:
+                    # lockdep: ok(HostKVTier is internally locked — decode.tier, a leaf under decode.blocks)
                     self._tier.discard(k)
                 return False
             keys.append(key)
@@ -807,6 +823,7 @@ class _ModelEntry:
             self._pool.release(sid)
         group.spare = []
         group.order = []
+        # lockdep: ok(single writer: the scheduler thread; submit-side readers only probe emptiness (GIL-atomic) and tolerate staleness)
         self._parked.append(_ParkedSession(
             req, "beam", [st for st, _src in hyps], keys, group=group))
         self._metrics.incr("sessions_parked")
@@ -822,12 +839,14 @@ class _ModelEntry:
         while self._parked:
             ps = self._parked[0]
             if ps.request.expired():
+                # lockdep: ok(single writer: the scheduler thread; submit-side readers only probe emptiness (GIL-atomic) and tolerate staleness)
                 self._parked.pop(0)
                 self._drop_parked(ps, DeadlineExceededError(
                     "deadline expired while parked under arena pressure"))
                 continue
             if not self._resume_session(ps):
                 break
+            # lockdep: ok(single writer: the scheduler thread; submit-side readers only probe emptiness (GIL-atomic) and tolerate staleness)
             self._parked.pop(0)
             progressed += 1
         if not self._parked and self._pending:
@@ -835,6 +854,7 @@ class _ModelEntry:
             for req in pend:
                 if (req.rows > self._pool.free_count
                         or self._admit_one(req) == "deferred"):
+                    # lockdep: ok(single writer: the scheduler thread; submit-side readers only probe emptiness (GIL-atomic) and tolerate staleness)
                     self._pending.append(req)
                 else:
                     progressed += 1
@@ -842,6 +862,7 @@ class _ModelEntry:
 
     def _drop_parked(self, ps, error):
         for key in ps.keys:
+            # lockdep: ok(HostKVTier is internally locked — decode.tier, a leaf under decode.blocks)
             self._tier.discard(key)
         self._reject(ps.request, error)
 
@@ -909,6 +930,7 @@ class _ModelEntry:
         for rank, (s, st, blocks) in enumerate(got):
             if not self._inject_rows(st, ps.keys[rank]):
                 for key in ps.keys:
+                    # lockdep: ok(HostKVTier is internally locked — decode.tier, a leaf under decode.blocks)
                     self._tier.discard(key)
                 return True     # arena lost; group rejected with the rest
         self._metrics.incr("sessions_resumed")
@@ -926,6 +948,7 @@ class _ModelEntry:
         m = self._model
         n = st.cursor
         t0 = time.perf_counter()
+        # lockdep: ok(HostKVTier is internally locked — decode.tier, a leaf under decode.blocks)
         ent = self._tier.pop(key)
         try:
             if ent is not None and ent.size_used == n:
@@ -2175,6 +2198,10 @@ class _ModelEntry:
         return self._scope
 
     @property
+    def prefix_cache(self):
+        return self._prefix
+
+    @property
     def block_pool(self):
         return self._blocks
 
@@ -2217,11 +2244,11 @@ class GenerationEngine:
         self._latest = {}         # name -> version (last registered)
         self._reg_order = []      # keys in registration order (latest wins)
         self._tenants = {}        # tenant -> _TenantState
-        self._tenant_lock = threading.Lock()
+        self._tenant_lock = lockdep.named_lock("decode.tenant")
         self._vclock = 0.0        # engine-wide virtual time (last dispatch)
         self._started = False
         self._next_id = 0
-        self._id_lock = threading.Lock()
+        self._id_lock = lockdep.named_lock("decode.ids")
 
     # -- model registry ---------------------------------------------------
     def register_model(self, model):
@@ -2417,17 +2444,20 @@ class GenerationEngine:
     # -- admission --------------------------------------------------------
     def submit(self, prompt_ids, model=None, version=None, tenant="default",
                priority=Priority.NORMAL, max_new_tokens=16,
-               deadline_ms=None, draft_model=None, draft_version=None,
-               spec_k=4, sampling=None, beam_width=None, grammar=None,
-               draft_kv=True, **options):
+               deadline_ms=None, deadline_at=None, draft_model=None,
+               draft_version=None, spec_k=4, sampling=None, beam_width=None,
+               grammar=None, draft_kv=True):
         """Admit one generation request; returns its Response future
         (``result()`` -> ``{"tokens": int64 array}``, plus ``"beams"``
         for beam search). Raises RejectedError on invalid requests, an
         over-quota tenant, a full queue or a brownout shed (the last
-        three with a measured retry-after), and NotImplementedError for
-        ``deadline_at``, not ported yet. ``tenant`` names the
+        three with a measured retry-after). ``tenant`` names the
         weighted-fair share (``set_tenant``) the request is dispatched
-        under.
+        under. ``deadline_at`` is an ABSOLUTE ``time.perf_counter()``
+        deadline (it wins over ``deadline_ms``): a re-dispatched request
+        carries its ORIGINAL deadline through the retry instead of being
+        granted a fresh budget — the fleet router's failover depends on
+        this.
 
         ``sampling`` — a SamplingParams (or its kwargs as a dict):
         temperature/top-k/top-p on the request's committed threefry
@@ -2446,13 +2476,6 @@ class GenerationEngine:
         per-state masks constrain the output (the model needs an
         ``eos_id`` and, except on the speculative path, which masks on
         the host, ``logits_mask=True``)."""
-        for opt in options:
-            if opt not in _NOT_PORTED:
-                raise TypeError(f"submit() got an unexpected keyword "
-                                f"argument {opt!r}")
-            raise NotImplementedError(
-                f"submit({opt}=...) is not ported yet: ROADMAP.md, "
-                f"{_NOT_PORTED[opt]}")
         entry = self._resolve(model, version)
         m = entry.model
         tenant = str(tenant)
@@ -2574,8 +2597,11 @@ class GenerationEngine:
                 f"tenant '{tenant}' is at its admission quota "
                 f"({quota[0]}/{quota[1]} queued)",
                 retry_after_s=entry._queue.retry_after_estimate(1))
-        deadline = (time.perf_counter() + deadline_ms / 1e3
-                    if deadline_ms is not None else None)
+        if deadline_at is not None:
+            deadline = float(deadline_at)
+        else:
+            deadline = (time.perf_counter() + deadline_ms / 1e3
+                        if deadline_ms is not None else None)
         with self._id_lock:
             self._next_id += 1
             rid = self._next_id

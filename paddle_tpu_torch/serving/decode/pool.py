@@ -30,22 +30,27 @@ A retired request's refcount-0 REGISTERED blocks stay cached (LRU) so
 the next prompt with the same prefix still shares storage; eviction
 returns the LRU cached block to the free list when allocation needs it.
 
-Locks: one ``threading.Lock`` guards the allocator, another the tree;
-the pool calls into the tree while holding its own lock, never the
-reverse.
+Locks: one lock guards the allocator (``decode.blocks``), another the
+tree (``decode.radix``); the pool calls into the tree while holding its
+own lock, never the reverse: the declared order
+``decode.blocks -> decode.radix`` for the lockdep witness.
 
 The device arenas here are torch tensors; the prefill cache keeps the
 prefill's K/V rows as the device tensors the prefill produced.
 """
 
 import hashlib
-import threading
 from collections import OrderedDict
 
 import numpy as np
 
+from paddle_tpu_torch.observability import lockdep
+
 __all__ = ["SlotPool", "PrefixCache", "BlockPool", "Block", "prompt_key",
            "block_hashes"]
+
+# the pool calls into the radix tree under its own lock, never the reverse
+lockdep.declare_order("decode.blocks", "decode.radix")
 
 
 def prompt_key(prompt_ids):
@@ -129,7 +134,7 @@ class PrefixCache:
     def __init__(self, capacity=64):
         self.capacity = int(capacity)
         self._map = OrderedDict()
-        self._lock = threading.Lock()
+        self._lock = lockdep.named_lock("decode.prefix")
         self.hits = 0
         self.misses = 0
 
@@ -205,7 +210,7 @@ class _RadixTree:
 
     def __init__(self):
         self._root = _RadixNode(chain_hash="root")
-        self._lock = threading.Lock()
+        self._lock = lockdep.named_lock("decode.radix")
         self._by_block = {}      # block id -> node (or (node, tail-key))
 
     def lookup_chain(self, tokens, block_size):
@@ -315,7 +320,7 @@ class BlockPool:
         self._free = list(range(self.num_blocks - 1, -1, -1))
         self._cached = OrderedDict()   # block id -> None (LRU of refcount-0)
         self._radix = _RadixTree()
-        self._lock = threading.Lock()
+        self._lock = lockdep.named_lock("decode.blocks")
         self._tier = None              # HostKVTier (attach_tier)
         self._tier_read = None         # block -> per-layer [(k, v)] rows
         self.cow_copies = 0

@@ -31,13 +31,18 @@ an entry larger than the WHOLE budget — "host tier exhausted", the one
 condition that makes arena exhaustion loud again.
 """
 
-import threading
 import zlib
 from collections import OrderedDict
 
 import numpy as np
 
+from paddle_tpu_torch.observability import lockdep
+
 __all__ = ["HostKVTier", "TierEntry"]
+
+# the block pool writes evicted registered blocks back to the tier under
+# its own lock: the tier lock is a leaf below decode.blocks
+lockdep.declare_order("decode.blocks", "decode.tier")
 
 
 def _rows_crc(kv_rows):
@@ -79,7 +84,7 @@ class HostKVTier:
 
     def __init__(self, capacity_bytes=64 << 20):
         self.capacity_bytes = int(capacity_bytes)
-        self._lock = threading.Lock()
+        self._lock = lockdep.named_lock("decode.tier")
         self._entries = OrderedDict()    # key -> TierEntry, LRU order
         self._bytes = 0
         self.spills = 0          # park-keyed puts

@@ -44,6 +44,7 @@ import time
 
 import numpy as np
 
+from paddle_tpu_torch.observability import lockdep
 from paddle_tpu_torch.resilience import faults
 from paddle_tpu_torch.serving.batcher import (BatchPlan, BucketLattice,
                                               DynamicBatcher)
@@ -115,12 +116,12 @@ class ServingEngine:
             for _ in self._replicas
         ]
         self._metrics = ServingMetrics()
-        self._cond = threading.Condition(self._queue.lock)
+        self._cond = lockdep.named_condition("serving.queue", self._queue.lock)
         self._workers = []
         self._stop = False
         self._started = False
         self._next_id = 0
-        self._id_lock = threading.Lock()
+        self._id_lock = lockdep.named_lock("serving.ids")
         self._warm_base = {"hits": 0, "misses": 0}
 
     # -- lifecycle ---------------------------------------------------------

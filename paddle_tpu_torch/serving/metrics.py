@@ -18,8 +18,8 @@ label set.
 """
 
 import itertools
-import threading
 
+from paddle_tpu_torch.observability import lockdep
 from paddle_tpu_torch.observability import metrics as obs_metrics
 from paddle_tpu_torch.serving.request import Priority
 
@@ -78,10 +78,10 @@ class ServingMetrics:
             for lane, name in LANE_NAMES.items()
         }
         self._tenant_counts = {}  # (counter_name, tenant) -> Counter
-        self._tenant_lock = threading.Lock()
+        self._tenant_lock = lockdep.named_lock("serving.metrics.tenant")
         # batches/batched_rows/occupancy move together, so the averages
         # in snapshot() stay consistent
-        self._batch_lock = threading.Lock()
+        self._batch_lock = lockdep.named_lock("serving.metrics.batch")
         # a ServingMetrics instance is one engine LIFETIME: re-creating an
         # engine under a reused label must start from zero (the registry
         # series are get-or-create)

@@ -20,18 +20,19 @@ pulled back out for re-dispatch (``reroute()``, the drain-before-retire
 path) are a third outcome, counted separately again, because a rerouted
 request is still served, just elsewhere.
 
-Locking: the queue owns a ``threading.RLock`` (`queue.lock`); single
-calls take it internally, and the engine's scheduler takes it around
-compound scan-and-remove operations (and builds its dispatch Condition
-on it). It is re-entrant because those compound sections call the
-queue's own locking methods.
+Locking: the queue owns an RLock (`queue.lock`); single calls take it
+internally, and the engine's scheduler takes it around compound
+scan-and-remove operations (and builds its dispatch Condition on it).
+It is re-entrant because those compound sections call the queue's own
+locking methods. The lock is lockdep-named ``serving.queue``: under
+``PADDLE_TPU_LOCKDEP=1`` every acquisition order against other named
+classes (``decode.tenant`` and the rest) is witnessed.
 """
 
 import time
 from collections import deque
 
-import threading
-
+from paddle_tpu_torch.observability import lockdep
 from paddle_tpu_torch.serving.request import Priority, RejectedError
 
 __all__ = ["RequestQueue"]
@@ -45,7 +46,7 @@ _EWMA_ALPHA = 0.3
 class RequestQueue:
     def __init__(self, max_depth=256):
         self.max_depth = int(max_depth)
-        self.lock = threading.RLock()
+        self.lock = lockdep.named_lock("serving.queue", rlock=True)
         self._lanes = {p: deque() for p in Priority.LANES}
         self._depth = 0
         self._closed = False

@@ -24,7 +24,8 @@ from paddle_tpu.serving.decode import GenerationEngine as JaxEngine
 from paddle_tpu.serving.decode import build_decoder_model as jax_build
 from paddle_tpu.serving.request import RejectedError as JaxRejected
 from paddle_tpu_torch.convert import load_params, params_from_numpy
-from paddle_tpu_torch.serving.request import RejectedError, ReplicaLostError
+from paddle_tpu_torch.serving.request import (DeadlineExceededError,
+                                              RejectedError, ReplicaLostError)
 from paddle_tpu_torch.serving.decode import GenerationEngine as TorchEngine
 from paddle_tpu_torch.serving.decode import build_decoder_model as torch_build
 from paddle_tpu_torch.serving.decode.model import DecodeModel
@@ -217,12 +218,15 @@ def test_unported_generation_modes_raise(pair):
         with pytest.raises(JaxRejected) as want:
             jeng.submit([1, 2, 3], max_new_tokens=2, **kw)
         assert str(got.value) == str(want.value)
-    # weighted-fair tenants are served now (tests/test_torch_tenants.py);
-    # the HBM gate still raises, naming its ROADMAP item
+    # weighted-fair tenants are served now (tests/test_torch_tenants.py),
+    # and absolute deadlines since the fleet slice (a deadline already
+    # past expires in the queue, tests/test_torch_fleet.py); the HBM gate
+    # still raises, naming its ROADMAP item
     teng.start()
     out = teng.submit([1, 2, 3], max_new_tokens=2, tenant="a")
     assert len(out.result(timeout=60)["tokens"]) == 2
     with pytest.raises(NotImplementedError, match="ROADMAP.md, M12"):
         TorchEngine(place=pt.CPUPlace(), hbm_budget_mb=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, M6"):
-        teng.submit([1, 2, 3], max_new_tokens=2, deadline_at=1.0)
+    late = teng.submit([1, 2, 3], max_new_tokens=2, deadline_at=1.0)
+    with pytest.raises(DeadlineExceededError):
+        late.result(timeout=60)

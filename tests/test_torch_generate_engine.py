@@ -21,6 +21,7 @@ the CPU (vocab 64, hidden 16, 2 layers, 4 slots, max_len 32, blocks of
 """
 
 import re
+import time
 
 import numpy as np
 import pytest
@@ -452,11 +453,15 @@ def test_refused_compositions_raise_the_jax_engines_messages(served, case):
 def test_only_tenants_and_absolute_deadlines_stay_unported(served):
     jeng, jt, teng, tt, grammars = served
     # tenants are served since the overload slice
-    # (tests/test_torch_tenants.py); absolute deadlines stay with M6
+    # (tests/test_torch_tenants.py), absolute deadlines since the fleet
+    # slice: the request keeps the deadline it was given
     resp = teng.submit([1, 2], model="t", max_new_tokens=2, tenant="a")
     _drain(tt, [resp])
     assert len(_tokens(resp)) == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, M6"):
-        teng.submit([1, 2], model="t", deadline_at=1.0)
+    at = time.perf_counter() + 60.0
+    resp = teng.submit([1, 2], model="t", max_new_tokens=2, deadline_at=at)
+    assert tt._queue.iter_requests()[-1].deadline == at
+    _drain(tt, [resp])
+    assert len(_tokens(resp)) == 2
     with pytest.raises(TypeError, match="unexpected keyword"):
         teng.submit([1, 2], model="t", beam=3)

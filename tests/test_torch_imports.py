@@ -29,6 +29,7 @@ import paddle_tpu_torch.dataio.sparse
 import paddle_tpu_torch.dataio.state
 import paddle_tpu_torch.distributed
 import paddle_tpu_torch.distributed.launch
+import paddle_tpu_torch.distributed.ps
 import paddle_tpu_torch.embedding
 import paddle_tpu_torch.embedding.store
 import paddle_tpu_torch.incubate
@@ -49,6 +50,7 @@ import paddle_tpu_torch.models.mnist
 import paddle_tpu_torch.models.resnet
 import paddle_tpu_torch.models.transformer
 import paddle_tpu_torch.models.wide_deep
+import paddle_tpu_torch.observability.lockdep
 import paddle_tpu_torch.observability.metrics
 import paddle_tpu_torch.ops.fused
 import paddle_tpu_torch.ops.misc_extra
@@ -61,6 +63,7 @@ import paddle_tpu_torch.passes
 import paddle_tpu_torch.regularizer
 import paddle_tpu_torch.resilience.faults
 import paddle_tpu_torch.resilience.retry
+import paddle_tpu_torch.resilience.supervisor
 import paddle_tpu_torch.serving.batcher
 import paddle_tpu_torch.serving.breaker
 import paddle_tpu_torch.serving.brownout
@@ -71,6 +74,12 @@ import paddle_tpu_torch.serving.decode.generate.sampling
 import paddle_tpu_torch.serving.decode.metrics
 import paddle_tpu_torch.serving.decode.tier
 import paddle_tpu_torch.serving.engine
+import paddle_tpu_torch.serving.fleet
+import paddle_tpu_torch.serving.fleet.health
+import paddle_tpu_torch.serving.fleet.metrics
+import paddle_tpu_torch.serving.fleet.replica
+import paddle_tpu_torch.serving.fleet.router
+import paddle_tpu_torch.serving.fleet.worker
 import paddle_tpu_torch.serving.metrics
 import paddle_tpu_torch.serving.request
 import paddle_tpu_torch.utils.flags
@@ -96,7 +105,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module():
 
 @pytest.mark.parametrize(
     "path", sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
-    + ["chip_smoke.py"])
+    + ["chip_smoke.py", "tools/torch_chaos_serve.py"])
 def test_source_has_no_jax_or_reference_import(path):
     text = (ROOT / path).read_text()
     assert not _IMPORT.findall(text), path
