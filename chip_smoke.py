@@ -6,6 +6,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --phases 1,11    # the build and phase 11 only
     python3 chip_smoke.py --phases 12      # the build and the fleet
+    python3 chip_smoke.py --phases 13      # the build and data parallelism
 
 ``--phases`` takes the phases' top-level numbers (2 runs 2-2f, 3 runs
 3-3d, 5 runs 5-5c, 9 runs 9a-9d; 10 runs 9a first, whose programs it
@@ -28,7 +29,9 @@ CPU, in float32 and under bf16 AMP), and saves, restores and exports
 those models through ``io`` and ``incubate.checkpoint``, bit for bit,
 and serves an exported BERT-base and ResNet-50 through the predictor
 and the batching ServingEngine, and serves the decoder through a fleet
-router over worker processes, one of them killed mid-flight. Any failure
+router over worker processes, one of them killed mid-flight, and trains
+BERT-base data-parallel on 2 ranks of the card through the collective
+fleet against one rank on the whole batch. Any failure
 exits non-zero. It
 imports nothing of JAX or of the JAX package, and it refuses to run
 without a CUDA device (or outside a checkout of the repository).
@@ -202,7 +205,12 @@ Phases:
    site and the word_embedding draw beside the plain version, the bound
    (bytes, or 73 integer operations a draw at the SM's dispatch rate) and
    ``torch.nn.functional.dropout`` (Philox: another stream, a yardstick
-   only); prints the compiled SASS's instructions by opcode.
+   only); prints the compiled SASS's instructions by opcode. Both entry
+   points at the counter bases a data-parallel rank draws at (rank 1's
+   block of a [16, 128, 768] site, and two that carry into the counter's
+   high word, one a multiple of 4 and one not) against the plain version
+   and the host copy,
+   and a rank's half site timed at base 0 and at rank 1's base.
 
 2c. ctr kernels — the embedding admission kernel (K5) and the sparse row
    update kernel (K6) against their plain versions, bit for bit, rows the
@@ -404,6 +412,31 @@ Phases:
    DEAD latch, and p99 beside 12a's. Every worker is closed in a
    ``finally``; the ``kernels`` line adds the live workers' K3 and K8
    launches (the killed worker's die with it).
+
+13. data parallelism — BERT-base in phase 5's recipe (flash, hidden
+   dropout 0.1, seq 128, P 20, Adam past its warm-up, float32), first
+   on one rank here on the whole batch of 32, then on 2 ranks of
+   ``paddle_tpu_torch.distributed.launch`` sharing the card over gloo
+   (each runs this script with ``--dp-rank``; 16 rows a rank), through
+   ``fleet.distributed_optimizer(...).minimize`` and
+   ``exe.run(fleet.main_program)``, 4 steps on one seeded batch whose
+   rank-1 rows keep 9 of their 18 masked tokens. Checks: gloo; the
+   ranks' parameters bit-equal after every step (a digest a rank a
+   step) and their losses equal; the losses within ``DP_LOSS_TOL`` of
+   the one-rank run's; the first dropout site's Mask, fetched (gathered)
+   at the first step, bit-equal to the one-rank run's; K1/K2a/K2b/K8
+   launches a rank equal to the prediction from the program (K1 twice a
+   flash op a step, K2a and K2b once, K8 once a dropout site); one fused
+   grad all-reduce of 4 bytes a parameter value a step, 3 scalar
+   all-reduces (the loss's batch sums; their grads' reruns send none),
+   rank 0's broadcast at the first run only; the MLM loss the
+   global ratio and each token's loss weighed 1 / (all masked tokens)
+   (the per-rank average, in the log beside it, would not). Prints step
+   p50 a rank against the one-rank run's, the fused all-reduce's D2H,
+   gloo and H2D ms and share of the step, device busy and idle share a
+   rank (one more step under ``torch.profiler``), the memory peaks and
+   the card's name and power limit. The ``kernels`` line adds both
+   ranks' launches and the one-rank run's.
 
 The last lines are the card's name and power limit, one JSON line of
 per-kernel results, and ``{"ok": true, "device": {...}}``.
@@ -624,6 +657,10 @@ K8_DROPOUT_CASES = (((32, 128, 768), 0.1, True, True),
                     ((1_000_003,), 0.5, True, False))
 K8_OPS_PER_DRAW = 73
 PEAK_INT32_OPS = 128 * 132 * 1.98e9
+# counter bases a dense data-parallel rank draws at: rank 1's block of a
+# [16, 128, 768] dropout site (phase 13's), and two whose draws carry into
+# the counter's high word, on the vector path (a multiple of 4) and off it
+K8_BASES = (16 * 128 * 768, 2 ** 32 - 8, 2 ** 32 - 5)
 
 # Phase 9, the conv-net training path. 9a: fit_a_line (examples/
 # fit_a_line.py's program: fc, square_error_cost, mean, SGD 0.01) for 50
@@ -3870,6 +3907,35 @@ def phase_random():
             "(torch.nn.functional.dropout, Philox: another stream) bound "
             f"{b_ms:.4f} ({b_by}; bytes {n * 12 / PEAK_BYTES_S * 1e3:.4f}, "
             f"integer work {n * K8_OPS_PER_DRAW / PEAK_INT32_OPS * 1e3:.4f})")
+    # a dense data-parallel rank's draws: its block of the global
+    # counters, both entry points, against the plain version and the host
+    # copy of jax.random's bytes
+    for base in K8_BASES:
+        n = 1_000_003
+        got = KR.random_bits(key, n, dev, base)
+        plain = KR.random_bits_plain(key, n, dev, base)
+        host = prng.random_bits(key, (n,), base)
+        x = torch.randn((16, 128, 768), generator=gen, device=dev)
+        out, mask = KR.dropout_fwd(x, key, 0.1, True, base)
+        pout, pmask = KR.dropout_fwd_plain(x, key, 0.1, True, base)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, plain) and np.array_equal(
+                got.cpu().numpy().view(np.uint32), host)):
+            raise AssertionError(f"K8 random_bits at counter base {base}: "
+                                 "not the plain version's or the host's")
+        if not (torch.equal(out, pout) and torch.equal(mask, pmask)):
+            raise AssertionError(f"K8 dropout at counter base {base}: "
+                                 "kernel and plain version differ")
+        log(f"[random] counter base {base}: random_bits n={n} bit-equal to "
+            "the plain version and the host copy; dropout [16, 128, 768] "
+            "Out and Mask bit-equal to the plain version")
+    x = torch.randn((16, 128, 768), generator=gen, device=dev)
+    at_base = [device_ms(lambda b=b: KR.dropout_fwd(x, key, 0.1, True, b))
+               for b in (0, K8_BASES[0])]
+    results["threefry_dropout"]["rank_block_ms"] = at_base
+    log(f"[random] K8 dropout [16, 128, 768] (a rank's half of the site): "
+        f"device ms {at_base[0]:.4f} at base 0, {at_base[1]:.4f} at rank "
+        f"1's base {K8_BASES[0]}")
     n = K8_TIMED_BITS
     ms = device_ms(lambda: KR.random_bits(key, n, dev))
     plain_ms = device_ms(lambda: KR.random_bits_plain(key, n, dev), 5)
@@ -3892,11 +3958,12 @@ def phase_random():
     key_us = (time.perf_counter() - t0) / 20000 * 1e6
     results["threefry_dropout"]["key_host_us"] = key_us
     log(f"[random] one executor key (fold_in on the host): {key_us:.3f} us")
-    sass = _sass_counts("random_bits_kernel")
+    # the counter-0 build (the template's other build adds a base)
+    sass = _sass_counts("random_bits_kernelILb0E")
     if sass is not None:
-        log(f"[random] random_bits_kernel SASS, instructions by opcode (a "
-            f"vector path of 4 draws and a scalar path of 1 a loop trip): "
-            f"{dict(sorted(sass.items(), key=lambda kv: -kv[1]))}")
+        log(f"[random] random_bits_kernel<false> SASS, instructions by "
+            f"opcode (a vector path of 4 draws and a scalar path of 1 a loop "
+            f"trip): {dict(sorted(sass.items(), key=lambda kv: -kv[1]))}")
     return results
 
 
@@ -4355,13 +4422,11 @@ def _check_resnet_step(gpu, cpu, grads, stats, dtype, seconds):
     return bad
 
 
-def _profiled_steps(tag, steps, step):
-    """Runs ``step()`` (one training step, returning its loss as a float)
-    ``steps`` times under ``torch.profiler`` and logs, a step: the wall
-    time (the profiler's own host cost in), device busy (the union of the
-    card's kernel and copy intervals) and the idle share, the top aten ops
-    by device time and the top kernels. Returns the losses; raises when
-    the profiler saw no device activity."""
+def _profile(tag, run):
+    """Runs ``run()`` under ``torch.profiler``: (the profile, device busy
+    us (the union of the card's kernel and copy intervals), wall us (the
+    profiler's own host cost in), ``run()``'s result). Raises when the
+    profiler saw no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4370,17 +4435,27 @@ def _profiled_steps(tag, steps, step):
         os.path.abspath(__file__)), "tools"))
     from torch_decode_profile import _busy_us
 
-    losses = []
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            losses.append(step())
+        result = run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     busy_us = _busy_us(prof.events(), DeviceType.CUDA)
     if not busy_us:
         raise AssertionError(f"{tag}: the profiler saw no device activity")
+    return prof, busy_us, wall_us, result
+
+
+def _profiled_steps(tag, steps, step):
+    """Runs ``step()`` (one training step, returning its loss as a float)
+    ``steps`` times under ``torch.profiler`` and logs, a step: the wall
+    time, device busy and the idle share (``_profile``), the top aten ops
+    by device time and the top kernels. Returns the losses."""
+    from torch.autograd import DeviceType
+
+    prof, busy_us, wall_us, losses = _profile(
+        tag, lambda: [step() for _ in range(steps)])
     log(f"{tag} profile of {steps} steps: wall {wall_us / steps / 1e3:.2f} "
         f"ms a step (the profiler's own host cost in), device busy "
         f"{busy_us / steps / 1e3:.2f} ms a step, idle share "
@@ -5866,7 +5941,313 @@ def phase_fleet():
     return total
 
 
-PHASES = tuple(str(n) for n in range(1, 13))
+# -- phase 13 ---------------------------------------------------------------
+# Dense data parallelism: BERT-base in phase 5's recipe on DP_RANKS ranks
+# of one card (gloo), global batch DP_BATCH, through the collective fleet.
+# Rank 1's 16 rows keep DP_KEEP of their 18 masked tokens, so the MLM
+# ratio's sums differ by rank. The bar against the one-rank run of the same
+# steps, stated before the first run: every step sums float32 in another
+# order (a GEMM of 16 rows may pick another cuBLAS algorithm than one of
+# 32, and the grads are two partial sums added), as phase 5's kernels on
+# against off do, so TRAIN_LOSS_TOL.
+DP_RANKS, DP_BATCH, DP_STEPS, DP_KEEP = 2, 32, 4, 9
+DP_LOSS_TOL = TRAIN_LOSS_TOL
+DP_TIMEOUT = 600.0
+
+
+def _dp_program(fleet_path):
+    """Phase 13's BERT-base (phase 5's recipe, built as
+    ``build_bert_pretrain`` builds it): ``(cfg, main, startup, program to
+    run, fetches)``; with ``fleet_path`` the optimizer goes through
+    ``fleet.distributed_optimizer(...).minimize`` and the program to run is
+    ``fleet.main_program``."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.utils import unique_name
+
+    cfg = bert.BertConfig.base()
+    cfg.use_flash_attention = True
+    cfg.hidden_dropout_prob = TRAIN_DROPOUT
+    cfg.attention_probs_dropout_prob = 0.0
+    main, startup = fluid.Program(), fluid.Program()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        _, fetches = bert.bert_pretrain_net(cfg, TRAIN_SEQ, TRAIN_P)
+        sched = fluid.layers.learning_rate_scheduler.linear_lr_warmup(
+            TRAIN_LR, warmup_steps=10000, start_lr=0.0, end_lr=TRAIN_LR)
+        opt = fluid.optimizer.Adam(learning_rate=sched)
+        if fleet_path:
+            from paddle_tpu_torch.fleet import (
+                DistributedStrategy, PaddleCloudRoleMaker, fleet)
+
+            fleet.init(PaddleCloudRoleMaker())
+            fleet.distributed_optimizer(opt, DistributedStrategy()).minimize(
+                fetches[0])
+            prog = fleet.main_program
+        else:
+            opt.minimize(fetches[0])
+            prog = main
+    startup.random_seed = main.random_seed = SEED
+    return cfg, main, startup, prog, fetches
+
+
+def _dp_feed(cfg):
+    """One seeded batch of DP_BATCH; rank 1's rows keep DP_KEEP masked
+    tokens of their 18."""
+    from paddle_tpu_torch.models import bert
+
+    batch = bert.synthetic_batch(np.random.RandomState(SEED + 13), DP_BATCH,
+                                 TRAIN_SEQ, cfg, TRAIN_P)
+    batch["mlm_labels"][DP_BATCH // DP_RANKS:, DP_KEEP:] = -1
+    return batch
+
+
+def _dp_names(main):
+    """The first dropout site's Mask and the MLM token losses."""
+    ops = main.global_block().ops
+    mask = [op.output("Mask")[0] for op in ops if op.type == "dropout"][0]
+    tok = [op.output("Loss")[0] for op in ops
+           if op.type == "softmax_with_cross_entropy"][0]
+    return mask, tok
+
+
+def _dp_steps(exe, prog, scope, feed, fetches, main):
+    """DP_STEPS steps: losses, host seconds (the run, ending in the loss's
+    copy, and a synchronize), the parameters' digest after every step, the
+    collectives and the fused all-reduce's time split of every step; at the
+    first step also the MLM loss, the first dropout site's Mask (its
+    digest), the token losses and their grads."""
+    import torch
+
+    from paddle_tpu_torch.parallel import env as penv
+
+    mask, tok = _dp_names(main)
+    params = [p.name for p in main.all_parameters()]
+    out = dict(losses=[], seconds=[], digests=[], stats=[], times=[])
+    for step in range(DP_STEPS):
+        fetch = [fetches[0]] + ([fetches[1], mask, tok, tok + "@GRAD"]
+                                if step == 0 else [])
+        penv.reset_collective_stats()
+        t0 = time.perf_counter()
+        vals = exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)
+        torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+        out["losses"].append(float(vals[0].reshape(-1)[0]))
+        out["stats"].append(penv.collective_stats())
+        out["times"].append(penv.collective_times())
+        if step == 0:
+            out.update(mlm=float(vals[1].reshape(-1)[0]),
+                       mask=hashlib.blake2b(vals[2].tobytes(),
+                                            digest_size=16).hexdigest(),
+                       mask_shape=list(vals[2].shape),
+                       tok=vals[3].reshape(-1).tolist(),
+                       tok_grad=vals[4].reshape(-1).tolist())
+        out["digests"].append(_digest(scope.find_var(n) for n in params))
+    return out
+
+
+def _dp_idle(exe, prog, scope, feed, loss):
+    """(device busy ms, wall ms) of one more step under torch.profiler
+    (``_profile``): this process's kernels and copies."""
+    _, busy_us, wall_us, _ = _profile("[dp] 13", lambda: exe.run(
+        prog, feed=feed, fetch_list=[loss], scope=scope))
+    return busy_us / 1e3, wall_us / 1e3
+
+
+def _dp_run(fleet_path):
+    """One process's part of phase 13: startup, the step counter past the
+    warmup, DP_STEPS steps, one profiled step. Returns what it saw."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.convert import load_params
+
+    t0 = time.perf_counter()
+    cfg, main, startup, prog, fetches = _dp_program(fleet_path)
+    ops = main.global_block().ops
+    exe, scope = fluid.Executor(), fluid.Scope()
+    kernels.reset_launches()
+    exe.run(startup, scope=scope)
+    load_params(scope, {COUNTER: np.full([1], WARMED_UP, np.float32)})
+    startup_launches = kernels.launches()
+    feed = _dp_feed(cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with _MaskTap() as tap:
+        run = _dp_steps(exe, prog, scope, feed, fetches, main)
+    launches = kernels.launches()
+    busy, wall = _dp_idle(exe, prog, scope, feed, fetches[0])
+    sizes = [int(np.prod(p.shape)) for p in main.all_parameters()]
+    return dict(
+        run, launches=launches, startup_launches=startup_launches,
+        masks=tap.digests, build_s=build_s, busy_ms=busy, wall_ms=wall,
+        peak=torch.cuda.max_memory_allocated(), n_values=sum(sizes),
+        n_sdpa=sum(op.type == "scaled_dot_product_attention" for op in ops),
+        n_sites=sum(op.type == "dropout" for op in ops), ops=len(ops),
+        device=torch.cuda.get_device_name(0),
+        masked=int((feed["mlm_labels"] != -1).sum()),
+        masked_by_rank=[int((r != -1).sum()) for r in np.split(
+            feed["mlm_labels"], DP_RANKS)])
+
+
+def dp_rank_main(out_dir):
+    """One rank of phase 13 (``chip_smoke.py --dp-rank DIR``): without its
+    card it exits nonzero before any step; it writes what it saw to
+    ``DIR/rank<r>.json``."""
+    check_environment()
+    from paddle_tpu_torch.parallel import env as penv
+
+    result = _dp_run(fleet_path=True)
+    axis = penv.make_mesh().axis("data")
+    result.update(rank=axis.rank, size=axis.size, backend=axis.backend)
+    with open(os.path.join(out_dir, f"rank{axis.rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def _dp_launch():
+    from paddle_tpu_torch.distributed import launch
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        procs = launch.spawn_gang(
+            [os.path.abspath(__file__), "--dp-rank", out_dir],
+            nproc=DP_RANKS, init_method="file://" + os.path.join(
+                out_dir, "store"))
+        try:
+            codes = launch.wait_gang(procs, timeout_s=DP_TIMEOUT)
+        finally:
+            launch.terminate_gang(procs)
+        if codes != [0] * DP_RANKS:
+            raise AssertionError(f"dp ranks exited {codes}")
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        return ranks
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _p50_ms(seconds):
+    return float(np.median(seconds[1:])) * 1e3
+
+
+def phase_dp():
+    """Phase 13: the one-rank run here, then the 2 ranks; hold them
+    against each other and against the prediction from the program."""
+    import torch
+
+    ref = _dp_run(fleet_path=False)
+    torch.cuda.empty_cache()
+    ranks = _dp_launch()
+    r0 = ranks[0]
+    steps = DP_STEPS
+    want = {"flash_attention_fwd": 2 * r0["n_sdpa"] * steps,
+            "flash_attention_bwd_dkdv": r0["n_sdpa"] * steps,
+            "flash_attention_bwd_dq": r0["n_sdpa"] * steps,
+            "threefry_dropout": r0["n_sites"] * steps}
+    grad_bytes = 4 * r0["n_values"]
+    rtol, atol = DP_LOSS_TOL
+    gap = max(abs(a - b) for a, b in zip(r0["losses"], ref["losses"]))
+    total = r0["masked"]
+    tok = np.asarray(r0["tok"], np.float64).reshape(DP_RANKS, -1)
+    global_ratio = tok.sum() / total
+    per_rank = float(np.mean(tok.sum(axis=1) / r0["masked_by_rank"]))
+    weights = np.asarray(r0["tok_grad"]).reshape(DP_RANKS, -1)
+    checks = {
+        "backend gloo": all(r["backend"] == "gloo" and r["size"] == DP_RANKS
+                            for r in ranks),
+        "ranks bit-equal every step": all(r["digests"] == r0["digests"]
+                                          for r in ranks),
+        "ranks' losses equal": all(r["losses"] == r0["losses"]
+                                   for r in ranks),
+        f"losses within {DP_LOSS_TOL} of one rank": all(
+            abs(a - b) <= atol + rtol * abs(b)
+            for a, b in zip(r0["losses"], ref["losses"])),
+        "mask bit-equal to one rank's": all(
+            r["mask"] == ref["mask"] and r["mask_shape"] == ref["mask_shape"]
+            for r in ranks),
+        "launches as predicted": all(
+            r["launches"].get(k, 0) == v for r in ranks
+            for k, v in want.items()),
+        "one fused grad all-reduce a step": all(
+            s.get("all_reduce_fused") == [1, grad_bytes]
+            for r in ranks for s in r["stats"]),
+        "3 scalar all-reduces a step": all(
+            s.get("all_reduce") == [3, 12] for r in ranks
+            for s in r["stats"]),
+        "rank 0 broadcast once": "broadcast" in r0["stats"][0] and all(
+            "broadcast" not in s for r in ranks for s in r["stats"][1:]),
+        "MLM loss is the global ratio": bool(abs(
+            r0["mlm"] - global_ratio) <= 1e-5 * global_ratio),
+        "token weights 1/(all masked)": bool(np.allclose(
+            weights, 1.0 / total, rtol=1e-6, atol=0)),
+        "losses finite": bool(np.isfinite(r0["losses"]).all()),
+        "K8 launched on each rank": all(
+            r["launches"].get("threefry_dropout", 0) == len(r["masks"]) > 0
+            for r in ranks),
+    }
+    log(f"[dp] BERT-base ({r0['ops']} ops, {r0['n_values']} parameter "
+        f"values) on {DP_RANKS} ranks over {r0['backend']}, each on "
+        f"{[r['device'] for r in ranks]}; global batch {DP_BATCH} x seq "
+        f"{TRAIN_SEQ}, P {TRAIN_P}, masked tokens by rank "
+        f"{r0['masked_by_rank']}; build + startup "
+        f"{[round(r['build_s'], 2) for r in ranks]} s a rank")
+    log(f"[dp] losses {r0['losses']}; one rank {ref['losses']}; largest "
+        f"gap {gap:.3e} (bar rtol {rtol}, atol {atol})")
+    log(f"[dp] MLM ratio, rank 1's numbers: the global step "
+        f"{global_ratio:.9f} (rank-reported {r0['mlm']:.9f}, one rank "
+        f"{ref['mlm']:.9f}); the per-rank average would be {per_rank:.9f}; "
+        f"token weights {float(weights.mean()):.6e} (global 1/{total}; per "
+        f"rank 1/({DP_RANKS}*{r0['masked_by_rank'][0]}) and "
+        f"1/({DP_RANKS}*{r0['masked_by_rank'][1]}))")
+    log(f"[dp] launches a rank over {steps} steps "
+        f"{[{k: r['launches'].get(k, 0) for k in want} for r in ranks]} "
+        f"(predicted {want}); startup random_bits "
+        f"{[r['startup_launches'].get('threefry_random_bits', 0) for r in ranks]}")
+    ms = [_p50_ms(r["seconds"]) for r in ranks]
+    one = _p50_ms(ref["seconds"])
+    log(f"[dp] step p50 by rank {[round(m, 2) for m in ms]} ms (steps "
+        f"{[[round(x * 1e3, 2) for x in r['seconds']] for r in ranks]}); one "
+        f"rank on the whole batch {one:.2f} ms (steps "
+        f"{[round(x * 1e3, 2) for x in ref['seconds']]}); "
+        f"{DP_BATCH * TRAIN_SEQ / max(ms) * 1e3:.1f} tokens/s over both "
+        f"ranks against {DP_BATCH * TRAIN_SEQ / one * 1e3:.1f}")
+    for r in ranks:
+        split = [t.get("all_reduce_fused", (0.0, 0.0, 0.0))
+                 for t in r["times"]]
+        d2h, wire, h2d = (float(np.median([t[i] for t in split[1:]])) * 1e3
+                          for i in range(3))
+        step = _p50_ms(r["seconds"])
+        log(f"[dp] rank {r['rank']}: fused grad all-reduce {grad_bytes} "
+            f"bytes a step: D2H {d2h:.2f} ms, gloo {wire:.2f} ms, H2D "
+            f"{h2d:.2f} ms (p50 of steps 2-{steps}), "
+            f"{(d2h + wire + h2d) / step:.4f} of the step; device busy "
+            f"{r['busy_ms']:.2f} ms of a {r['wall_ms']:.2f} ms profiled "
+            f"step, idle share {1 - r['busy_ms'] / r['wall_ms']:.4f}; memory "
+            f"peak {r['peak'] / 2**30:.3f} GiB; collectives of step 1 "
+            f"{r['stats'][0]}, of step 2 {r['stats'][1]}")
+    log(f"[dp] one rank: device busy {ref['busy_ms']:.2f} ms of a "
+        f"{ref['wall_ms']:.2f} ms profiled step, idle share "
+        f"{1 - ref['busy_ms'] / ref['wall_ms']:.4f}; memory peak "
+        f"{ref['peak'] / 2**30:.3f} GiB")
+    log(f"[dp] {card_line()}")
+    log(f"[dp] checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"dp phase failed: {checks}")
+    # the path's launches: both ranks' (startup and steps) and the one-rank
+    # run's
+    launches = {}
+    for r in ranks + [ref]:
+        for part in (r["launches"], r["startup_launches"]):
+            for k, v in part.items():
+                launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+PHASES = tuple(str(n) for n in range(1, 14))
 
 
 def parse_phases(argv):
@@ -5931,6 +6312,7 @@ def main(phases=frozenset(PHASES)):
     ckpt_launches = phase_checkpoint(book) if "10" in phases else zero
     infer_launches = phase_inference() if "11" in phases else zero
     fleet_launches = phase_fleet() if "12" in phases else zero
+    dp_launches = phase_dp() if "13" in phases else zero
     log(f"[done] paged_attention launches: phase 3 "
         f"{engine_launches['paged_attention']}, phase 3b {modes_launches}, "
         f"phase 3c {beam_launches}, phase 3d {overload_launches}")
@@ -5946,23 +6328,27 @@ def main(phases=frozenset(PHASES)):
                          + ckpt_launches["embedding_admission"],
                      "sparse_row_update": ctr_launches["sparse_row_update"],
                      "blocked_topk_abs": dgc_launches["blocked_topk_abs"]}
-    # the float32 flash builds on phase 5's, 10a's and 11's paths, the bf16
+    # the float32 flash builds on phase 5's, 10a's, 11's and 13's paths
+    # (13: both ranks and the one-rank run), the bf16
     # ones on 5c's and 11b's, the float16 ones on 5c's float16 leg
     path_launches.update({n: (amp_launches[n] if n.endswith(("_bf16", "_f16"))
-                              else train_launches[n] + ckpt_launches[n])
+                              else train_launches[n] + ckpt_launches[n]
+                              + dp_launches.get(n, 0))
                           + infer_launches.get(n, 0)
                           for n in KERNELS if n.startswith("flash_attention")})
     # K8: phase 5's startup (random_bits) and dropout sites, phase 5b's,
     # 5c's (its bf16 run) and rank 0's of phase 8, phase 9's startups,
     # phase 10a's startup and steps, phase 11's startups, the startups of
     # phase 12's workers (read over their stats RPC; the killed one's are
-    # lost with it)
+    # lost with it), phase 13's startups and steps (both ranks and the
+    # one-rank run)
     path_launches.update({n: train_launches[n] + unfused_launches[n]
                           + amp_launches[n] + dgc_launches[n]
                           + book_launches[n] + resnet_launches[n]
                           + resnet_amp_launches[n] + ckpt_launches[n]
                           + infer_launches.get(n, 0)
                           + fleet_launches.get(n, 0)
+                          + dp_launches.get(n, 0)
                           for n in KERNELS if n.startswith("threefry")})
     log(f"[done] K8 launches: phase 5 "
         f"{ {n: train_launches[n] for n in path_launches if n.startswith('threefry')} }, "
@@ -5975,6 +6361,8 @@ def main(phases=frozenset(PHASES)):
         f"{resnet_amp_launches['threefry_random_bits']} (9d's), phase 10 "
         f"{ {n: ckpt_launches[n] for n in path_launches if n.startswith('threefry')} }, "
         f"phase 11 {infer_launches.get('threefry_random_bits', 0)}")
+    log(f"[done] phase 13 launches (both ranks and the one-rank run): "
+        f"{ {n: c for n, c in dp_launches.items() if c} }")
     log(f"[done] phase 10 launches: "
         f"{ {n: c for n, c in ckpt_launches.items() if c} }; phase 11: "
         f"{ {n: c for n, c in infer_launches.items() if c} }")
@@ -6003,5 +6391,7 @@ def main(phases=frozenset(PHASES)):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dgc-rank"]:
         dgc_rank_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--dp-rank"]:
+        dp_rank_main(sys.argv[2])
     else:
         main(parse_phases(sys.argv[1:]))

@@ -12,7 +12,10 @@ Entry points (``Executor``, ``CompiledProgram``,
 ``place=CPUPlace()``, and raise when there is no card. ``io`` saves and
 loads parameters, persistables and inference models, and
 ``incubate.checkpoint`` checkpoints and resumes training, in the JAX
-package's files: either package reads what the other wrote.
+package's files: either package reads what the other wrote. ``fleet``
+trains data-parallel across ranks, one process each (the collective
+mode; ``parallel/data_parallel.py`` runs the JAX package's GSPMD step
+per rank).
 """
 
 from paddle_tpu_torch.core import (
@@ -36,6 +39,7 @@ from paddle_tpu_torch.compiler import (
 import paddle_tpu_torch.ops  # noqa: F401  (registers the op library)
 from paddle_tpu_torch import layers
 from paddle_tpu_torch import amp
+from paddle_tpu_torch import fleet
 from paddle_tpu_torch import io
 from paddle_tpu_torch import initializer
 from paddle_tpu_torch import optimizer

@@ -39,9 +39,10 @@ _OP_ROLE_LOSS = 256
 
 #: run-time context the executor passes to stateful/creating ops: a
 #: stateful op's grad gets its forward's key (the grad op carries the
-#: forward's ``__rng_id__``), so a rerun forward draws the same bits, as
-#: the JAX package's generic grad passes ``__rng_key__`` to its vjp
-_CONTEXT_SLOTS = ("__rng_key__", "__device__")
+#: forward's ``__rng_id__``) and counter block, so a rerun forward draws
+#: the same bits, as the JAX package's generic grad passes
+#: ``__rng_key__`` to its vjp
+_CONTEXT_SLOTS = ("__rng_key__", "__rng_block__", "__device__")
 
 
 # ---------------------------------------------------------------------------

@@ -18,13 +18,16 @@ one. A feed that no op reads (the raw ids beside a sharded embedding's
 slot feeds) stays on the host.
 
 A ``CompiledProgram`` (``compiler.py``) runs through its own ``_run``,
-which calls back into ``run`` with this rank's rows of the batch.
+which calls back into ``run`` with this rank's rows of the batch (and,
+for dense data parallelism, a plan with the collectives in place).
 
 The random-key stream is the JAX executor's (``paddle_tpu/core/
 executor.py`` ``_next_rng_key``, ``_run_op_step``): every run, startup and
 eval runs too, increments ``_rng_counter``; the run key is
-``fold_in(PRNGKey(program.random_seed or 0), counter)`` (a data-parallel
-run folds in its rank next, as the JAX package folds ``axis_index``);
+``fold_in(PRNGKey(program.random_seed or 0), counter)`` (a DGC
+data-parallel run folds in its rank next, as the JAX package folds
+``axis_index``; a dense one draws its rows' block of the global draw
+instead, ``__rng_block__``);
 each stateful op gets ``fold_in(run_key, rng_id)`` as
 ``ins["__rng_key__"]``, ``rng_id`` being the op's ``__rng_id__`` (which
 its grad op carries too) or else its index in the block. Keys are pairs of
@@ -64,10 +67,13 @@ ELIDED_OPS = {"feed", "fetch"}
 
 class _OpStep:
     """One op's pre-resolved execution plan: op-def lookup, attrs (with
-    the in-place mark applied), the non-empty input/output slots and the id
-    its random key is folded from."""
+    the in-place mark applied), the non-empty input/output slots, the id
+    its random key is folded from and, for a random op on a dense
+    data-parallel rank's rows, the block of the global draw it takes
+    (``rng_block``, passed as ``ins["__rng_block__"]``)."""
 
-    __slots__ = ("op", "op_def", "attrs", "inputs", "outputs", "rng_id")
+    __slots__ = ("op", "op_def", "attrs", "inputs", "outputs", "rng_id",
+                 "rng_block")
 
     def __init__(self, op, op_def, attrs, inputs, outputs, rng_id):
         self.op = op
@@ -76,6 +82,7 @@ class _OpStep:
         self.inputs = inputs
         self.outputs = outputs
         self.rng_id = rng_id
+        self.rng_block = None
 
 
 def _inplace_scatter(ops, i, block):
@@ -208,6 +215,8 @@ class Executor:
                 ins[slot] = vals
             if step.op_def.stateful:
                 ins["__rng_key__"] = [prng.fold_in(run_key, step.rng_id)]
+                if step.rng_block is not None:
+                    ins["__rng_block__"] = [step.rng_block]
             if step.op_def.creates:
                 ins["__device__"] = [self.device]
             try:
@@ -229,9 +238,13 @@ class Executor:
                         env[name] = val
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
-            return_numpy=True, _rank=None):
-        """``_rank`` (``CompiledProgram``'s data-parallel run) is folded
-        into the run key before the per-op fold."""
+            return_numpy=True, _rank=None, _rewrite_plan=None):
+        """``_rank`` (``CompiledProgram``'s DGC run) is folded into the
+        run key before the per-op fold. ``_rewrite_plan`` (its dense
+        data-parallel run) maps the block's plan to the one this run
+        executes: the collectives of ``parallel/data_parallel.py`` in
+        their places, the grads' all-reduce after the last grad op and
+        before the first optimizer op."""
         from paddle_tpu_torch.compiler import CompiledProgram
 
         if isinstance(program, CompiledProgram):
@@ -249,6 +262,8 @@ class Executor:
         scope = scope if scope is not None else global_scope()
         block = program.global_block()
         steps, persistable, read = self._plan(program)
+        if _rewrite_plan is not None:
+            steps = _rewrite_plan(steps)
         late = kernel_registry.late_launches()
         env = {
             name: self._to_device(value, block.vars.get(name))

@@ -23,10 +23,15 @@ arithmetic and no tensor):
 Bits. ``random_bits(key, shape)`` hashes the key with each element's flat
 row-major index, split into high and low words, and returns the XOR of
 the two output words (the partitionable layout), as uint32 numpy.
-``random_bits_torch(key, n, device)`` is the same in torch: int64
+``random_bits_torch(key, n, device, base)`` is the same in torch: int64
 arithmetic masked to 32 bits, on any device, returned as the int32 view of
 the uint32 words. It is the plain version of K8's ``random_bits``
-(``kernels/random.py``).
+(``kernels/random.py``). Both take a counter ``base``: element ``i``
+hashes the index ``base + i``, so a draw at ``base`` is the slice
+``[base, base + n)`` of a larger draw's flat bits. That is how a
+data-parallel rank draws its rows of the global batch's mask: under the
+partitionable layout, element ``i`` of a global draw depends on ``i``
+alone.
 
 Converters. ``uniform``, ``normal``, ``truncated_normal``, ``bernoulli``
 and ``randint_from`` turn bits (int32 views) into ``jax.random``'s values
@@ -113,11 +118,13 @@ def split(key, num=2):
     return [fold_in(key, i) for i in range(num)]
 
 
-def random_bits(key, shape):
-    """``jax.random.bits(key, shape, "uint32")``: uint32 of ``shape``."""
+def random_bits(key, shape, base=0):
+    """``jax.random.bits(key, shape, "uint32")``: uint32 of ``shape``;
+    with ``base``, the elements ``[base, base + numel)`` of a larger
+    draw's flat bits."""
     shape = tuple(int(d) for d in shape)
     n = int(np.prod(shape, dtype=np.int64))
-    idx = np.arange(n, dtype=np.uint64)
+    idx = np.arange(n, dtype=np.uint64) + np.uint64(int(base))
     hi = (idx >> np.uint64(32)).astype(np.uint32)
     lo = (idx & np.uint64(_M32)).astype(np.uint32)
     y0, y1 = threefry2x32(key, hi, lo)
@@ -143,10 +150,10 @@ def threefry2x32_torch(key, x0, x1):
     return x0, x1
 
 
-def random_bits_torch(key, n, device="cpu"):
-    """``random_bits(key, (n,))`` in torch on ``device``: int32 ``[n]``,
-    the uint32 words' bits."""
-    idx = torch.arange(int(n), dtype=torch.int64, device=device)
+def random_bits_torch(key, n, device="cpu", base=0):
+    """``random_bits(key, (n,), base)`` in torch on ``device``: int32
+    ``[n]``, the uint32 words' bits."""
+    idx = torch.arange(int(n), dtype=torch.int64, device=device) + int(base)
     y0, y1 = threefry2x32_torch(key, idx >> 32, idx & _M32)
     return _as_int32(y0 ^ y1)
 

@@ -11,16 +11,19 @@
 // masks.
 //
 // Entry points (C interface, ctypes; each returns cudaGetLastError()):
-// * threefry_random_bits: out[i] = y0 ^ y1 of threefry2x32(key, hi(i),
-//   lo(i)), i the flat index split into high and low 32-bit words —
-//   jax.random.bits(key, (n,), uint32);
+// * threefry_random_bits: out[i] = y0 ^ y1 of threefry2x32(key, hi(c),
+//   lo(c)), c = base + i the counter of flat index i split into high and
+//   low 32-bit words — jax.random.bits(key, (n,), uint32) at base 0, and
+//   elements [base, base + n) of a larger draw otherwise (a data-parallel
+//   rank's rows of the global draw);
 // * threefry_dropout_f32: for each element, u = the float in [0, 1) from
 //   the top 23 bits of its draw (jax.random.uniform's construction), kept
 //   where u < keep (the float32 1 - p, as jax.random.bernoulli compares);
 //   Mask = 1 or 0, Out = x / scale where kept and 0 elsewhere with
 //   upscale (an IEEE division, __fdiv_rn, as the op's source divides),
-//   else x * Mask. The key's two words are launch arguments: the host
-//   computes them with no device sync.
+//   else x * Mask; element i hashes the counter base + i, as above. The
+//   key's two words and the base are launch arguments: the host computes
+//   them with no device sync.
 //
 // Bound. A draw is one threefry2x32: 2 adds in, 20 rounds of add, rotate
 // (one funnel shift) and xor, 10 key-injection adds and the output xor, 73
@@ -39,8 +42,13 @@
 //
 // Design. One thread takes 4 contiguous elements: one 16-byte load of x and
 // two 16-byte stores (Out, Mask), 4 threefry evaluations in registers; a
-// grid-stride loop covers any n. Pointers that are not 16-byte aligned, and
-// the ragged last quad, take a scalar path. Built without --use_fast_math:
+// grid-stride loop covers any n. The quad's 4 counters share their high
+// word (a base that is a multiple of 4 keeps the low words from carrying).
+// Each kernel is built twice: for counter 0, with no base arithmetic (a
+// base added to every counter measured 5-8% slower at the hidden site than
+// the kernel before the base; tools/torch_k8_cost.py), and for a nonzero
+// base. Pointers that are not 16-byte aligned, a base that is not a
+// multiple of 4, and the ragged last quad take a scalar path. Built without --use_fast_math:
 // the division is the correctly rounded one.
 
 #include <cuda_runtime.h>
@@ -55,11 +63,12 @@ __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
   return __funnelshift_l(x, x, r);
 }
 
-__device__ __forceinline__ uint32_t threefry_xor(uint32_t k0, uint32_t k1,
-                                                 unsigned long long i) {
+// y0 ^ y1 of threefry2x32(key, (hi, lo)): the counter's two words
+__device__ __forceinline__ uint32_t threefry_words(uint32_t k0, uint32_t k1,
+                                                   uint32_t hi, uint32_t lo) {
   const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  uint32_t x0 = static_cast<uint32_t>(i >> 32) + k0;
-  uint32_t x1 = static_cast<uint32_t>(i) + k1;
+  uint32_t x0 = hi + k0;
+  uint32_t x1 = lo + k1;
 #define TF_ROUND(r) \
   x0 += x1;         \
   x1 = rotl(x1, r) ^ x0;
@@ -77,14 +86,23 @@ __device__ __forceinline__ uint32_t threefry_xor(uint32_t k0, uint32_t k1,
   return x0 ^ x1;
 }
 
+__device__ __forceinline__ uint32_t threefry_xor(uint32_t k0, uint32_t k1,
+                                                 unsigned long long c) {
+  return threefry_words(k0, k1, static_cast<uint32_t>(c >> 32),
+                        static_cast<uint32_t>(c));
+}
+
 // jax.random.uniform's float in [0, 1) from 32 bits
 __device__ __forceinline__ float unit_float(uint32_t bits) {
   return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
 }
 
+// kBase: the counters start at `base` (a data-parallel rank's block);
+// false compiles the counter-0 kernel without the base's arithmetic
+template <bool kBase>
 __global__ void __launch_bounds__(kThreads)
 random_bits_kernel(uint32_t* __restrict__ out, long long n, uint32_t k0,
-                   uint32_t k1, int vec) {
+                   uint32_t k1, unsigned long long base, int vec) {
   const long long quads = (n + 3) / 4;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long q = static_cast<long long>(blockIdx.x) * blockDim.x +
@@ -92,15 +110,20 @@ random_bits_kernel(uint32_t* __restrict__ out, long long n, uint32_t k0,
        q < quads; q += stride) {
     const long long i = q * 4;
     if (vec && i + 3 < n) {
+      // vec implies base % 4 == 0: the quad's counters share their high
+      // word, and the low words take no carry
+      const unsigned long long c = kBase ? base + i : i;
+      const uint32_t hi = static_cast<uint32_t>(c >> 32);
+      const uint32_t lo = static_cast<uint32_t>(c);
       uint4 v;
-      v.x = threefry_xor(k0, k1, i);
-      v.y = threefry_xor(k0, k1, i + 1);
-      v.z = threefry_xor(k0, k1, i + 2);
-      v.w = threefry_xor(k0, k1, i + 3);
+      v.x = threefry_words(k0, k1, hi, lo);
+      v.y = threefry_words(k0, k1, hi, lo + 1u);
+      v.z = threefry_words(k0, k1, hi, lo + 2u);
+      v.w = threefry_words(k0, k1, hi, lo + 3u);
       *reinterpret_cast<uint4*>(out + i) = v;
     } else {
       for (long long j = i; j < n && j < i + 4; ++j)
-        out[j] = threefry_xor(k0, k1, j);
+        out[j] = threefry_xor(k0, k1, kBase ? base + j : j);
     }
   }
 }
@@ -114,10 +137,12 @@ __device__ __forceinline__ void drop_one(float x, uint32_t bits, float keep,
   *out = upscale ? (kept ? __fdiv_rn(x, scale) : 0.0f) : x * m;
 }
 
+template <bool kBase>
 __global__ void __launch_bounds__(kThreads)
 dropout_kernel(const float* __restrict__ x, float* __restrict__ out,
                float* __restrict__ mask, long long n, uint32_t k0,
-               uint32_t k1, float keep, float scale, int upscale, int vec) {
+               uint32_t k1, unsigned long long base, float keep, float scale,
+               int upscale, int vec) {
   const long long quads = (n + 3) / 4;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long q = static_cast<long long>(blockIdx.x) * blockDim.x +
@@ -126,21 +151,25 @@ dropout_kernel(const float* __restrict__ x, float* __restrict__ out,
     const long long i = q * 4;
     if (vec && i + 3 < n) {
       const float4 xv = __ldg(reinterpret_cast<const float4*>(x + i));
+      // as in random_bits_kernel: one high word for the quad
+      const unsigned long long c = kBase ? base + i : i;
+      const uint32_t hi = static_cast<uint32_t>(c >> 32);
+      const uint32_t lo = static_cast<uint32_t>(c);
       float4 o, m;
-      drop_one(xv.x, threefry_xor(k0, k1, i), keep, scale, upscale, &o.x,
-               &m.x);
-      drop_one(xv.y, threefry_xor(k0, k1, i + 1), keep, scale, upscale, &o.y,
-               &m.y);
-      drop_one(xv.z, threefry_xor(k0, k1, i + 2), keep, scale, upscale, &o.z,
-               &m.z);
-      drop_one(xv.w, threefry_xor(k0, k1, i + 3), keep, scale, upscale, &o.w,
-               &m.w);
+      drop_one(xv.x, threefry_words(k0, k1, hi, lo), keep, scale, upscale,
+               &o.x, &m.x);
+      drop_one(xv.y, threefry_words(k0, k1, hi, lo + 1u), keep, scale,
+               upscale, &o.y, &m.y);
+      drop_one(xv.z, threefry_words(k0, k1, hi, lo + 2u), keep, scale,
+               upscale, &o.z, &m.z);
+      drop_one(xv.w, threefry_words(k0, k1, hi, lo + 3u), keep, scale,
+               upscale, &o.w, &m.w);
       *reinterpret_cast<float4*>(out + i) = o;
       *reinterpret_cast<float4*>(mask + i) = m;
     } else {
       for (long long j = i; j < n && j < i + 4; ++j)
-        drop_one(x[j], threefry_xor(k0, k1, j), keep, scale, upscale,
-                 out + j, mask + j);
+        drop_one(x[j], threefry_xor(k0, k1, kBase ? base + j : j), keep,
+                 scale, upscale, out + j, mask + j);
     }
   }
 }
@@ -175,35 +204,46 @@ cudaError_t leave(int device, int prev, cudaError_t err) {
 
 extern "C" {
 
-// jax.random.bits(key, (n,), uint32) into `out` ([n] uint32 on card
-// `device`), on `stream`.
+// Elements [base, base + n) of jax.random.bits(key, (N,), uint32), N >=
+// base + n, into `out` ([n] uint32 on card `device`), on `stream`.
 int threefry_random_bits(int device, uint32_t* out, long long n,
-                         unsigned k0, unsigned k1, cudaStream_t stream) {
-  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  int prev = 0;
-  cudaError_t err = enter(device, &prev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  random_bits_kernel<<<grid_for(n), kThreads, 0, stream>>>(
-      out, n, k0, k1, aligned(out) ? 1 : 0);
-  return static_cast<int>(leave(device, prev, cudaGetLastError()));
-}
-
-// Dropout of float32 `x` ([n], contiguous) into `out` and `mask`: keep
-// where the element's uniform is below `keep`; Out = x / scale there with
-// `upscale`, else x * Mask.
-int threefry_dropout_f32(int device, const float* x, float* out,
-                         float* mask, long long n, unsigned k0, unsigned k1,
-                         float keep, float scale, int upscale,
+                         unsigned k0, unsigned k1, unsigned long long base,
                          cudaStream_t stream) {
   if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   int prev = 0;
   cudaError_t err = enter(device, &prev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int vec = aligned(x) && aligned(out) && aligned(mask) ? 1 : 0;
-  dropout_kernel<<<grid_for(n), kThreads, 0, stream>>>(
-      x, out, mask, n, k0, k1, keep, scale, upscale, vec);
+  const int vec = aligned(out) && base % 4 == 0 ? 1 : 0;
+  if (base == 0)
+    random_bits_kernel<false><<<grid_for(n), kThreads, 0, stream>>>(
+        out, n, k0, k1, base, vec);
+  else
+    random_bits_kernel<true><<<grid_for(n), kThreads, 0, stream>>>(
+        out, n, k0, k1, base, vec);
+  return static_cast<int>(leave(device, prev, cudaGetLastError()));
+}
+
+// Dropout of float32 `x` ([n], contiguous) into `out` and `mask`: keep
+// where the element's uniform is below `keep`; Out = x / scale there with
+// `upscale`, else x * Mask. Element i draws the counter base + i.
+int threefry_dropout_f32(int device, const float* x, float* out,
+                         float* mask, long long n, unsigned k0, unsigned k1,
+                         unsigned long long base, float keep, float scale,
+                         int upscale, cudaStream_t stream) {
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  int prev = 0;
+  cudaError_t err = enter(device, &prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec =
+      aligned(x) && aligned(out) && aligned(mask) && base % 4 == 0 ? 1 : 0;
+  if (base == 0)
+    dropout_kernel<false><<<grid_for(n), kThreads, 0, stream>>>(
+        x, out, mask, n, k0, k1, base, keep, scale, upscale, vec);
+  else
+    dropout_kernel<true><<<grid_for(n), kThreads, 0, stream>>>(
+        x, out, mask, n, k0, k1, base, keep, scale, upscale, vec);
   return static_cast<int>(leave(device, prev, cudaGetLastError()));
 }
 

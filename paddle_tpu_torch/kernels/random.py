@@ -15,8 +15,14 @@ equal to JAX). Here:
   ``Out = x / (1 - p)`` where kept (a division, as the op's source
   divides), else ``Out = x * Mask``.
 
+Every function takes a counter ``base`` (default 0): element ``i`` draws
+the counter ``base + i``, so a call at ``base`` gives the slice ``[base,
+base + n)`` of a larger draw (a data-parallel rank's rows of the global
+batch's mask, ``parallel/data_parallel.py``).
+
 A key is a pair of Python ints (``core/prng.py``); the kernel takes its
-two words as launch arguments, so a launch makes no device sync. Each
+two words and the base as launch arguments, so a launch makes no device
+sync. Each
 wrapper launches K8 (``csrc/threefry.cu``) on a CUDA device or tensor and
 counts the launch, or raises; on the CPU it computes the plain version.
 The plain versions run on any device and are what the ``off`` mode runs.
@@ -44,15 +50,15 @@ def keep_threshold(p):
     return prng.f32(1.0 - float(p))
 
 
-def random_bits_plain(key, n, device):
+def random_bits_plain(key, n, device, base=0):
     """``jax.random.bits(key, (n,), uint32)`` as int32 ``[n]`` on
     ``device``, in plain torch (int64 arithmetic masked to 32 bits)."""
-    return prng.random_bits_torch(key, n, device)
+    return prng.random_bits_torch(key, n, device, base)
 
 
-def dropout_fwd_plain(x, key, p, upscale):
+def dropout_fwd_plain(x, key, p, upscale, base=0):
     """The dropout forward in plain torch: ``(Out, Mask)``."""
-    keep = prng.bernoulli(random_bits_plain(key, x.numel(), x.device),
+    keep = prng.bernoulli(random_bits_plain(key, x.numel(), x.device, base),
                           keep_threshold(p)).reshape(x.shape)
     mask = keep.to(x.dtype)
     if upscale:
@@ -84,44 +90,46 @@ def _words(key):
     return ctypes.c_uint(int(key[0])), ctypes.c_uint(int(key[1]))
 
 
-def random_bits(key, n, device):
+def random_bits(key, n, device, base=0):
     """K8's ``random_bits``: int32 ``[n]`` on ``device``. A CUDA device:
     one launch, no sync; the CPU: the plain version."""
     device = torch.device(device)
     if device.type != "cuda":
-        return random_bits_plain(key, n, device)
+        return random_bits_plain(key, n, device, base)
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     out = torch.empty(int(n), dtype=torch.int32, device=device)
     p, ll = ctypes.c_void_p, ctypes.c_longlong
     fn = _fn("threefry_random_bits",
-             [ctypes.c_int, p, ll, ctypes.c_uint, ctypes.c_uint, p])
+             [ctypes.c_int, p, ll, ctypes.c_uint, ctypes.c_uint,
+              ctypes.c_ulonglong, p])
     k0, k1 = _words(key)
-    _check(fn(index, out.data_ptr(), int(n), k0, k1,
+    _check(fn(index, out.data_ptr(), int(n), k0, k1, int(base),
               build.raw_stream_getter()(index)), "random_bits")
     registry.note_launch("threefry_random_bits")
     return out
 
 
-def dropout_fwd(x, key, p, upscale):
+def dropout_fwd(x, key, p, upscale, base=0):
     """K8's fused dropout forward: ``(Out, Mask)`` of float32 ``x``. A
     CUDA tensor: one launch, no sync (any other dtype raises); the CPU:
     the plain version."""
     if not x.is_cuda:
-        return dropout_fwd_plain(x, key, p, upscale)
+        return dropout_fwd_plain(x, key, p, upscale, base)
     if x.dtype != torch.float32:
         raise ValueError(f"the dropout kernel takes float32, got {x.dtype}")
     x = x.contiguous()
     out, mask = torch.empty_like(x), torch.empty_like(x)
     p_, ll, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
     fn = _fn("threefry_dropout_f32",
-             [ctypes.c_int, p_, p_, p_, ll, ctypes.c_uint, ctypes.c_uint, f,
-              f, ctypes.c_int, p_])
+             [ctypes.c_int, p_, p_, p_, ll, ctypes.c_uint, ctypes.c_uint,
+              ctypes.c_ulonglong, f, f, ctypes.c_int, p_])
     keep = np.float32(keep_threshold(p))
     k0, k1 = _words(key)
     index = x.get_device()
     _check(fn(index, x.data_ptr(), out.data_ptr(), mask.data_ptr(),
-              x.numel(), k0, k1, f(keep), f(keep), int(bool(upscale)),
+              x.numel(), k0, k1, int(base), f(keep), f(keep),
+              int(bool(upscale)),
               build.raw_stream_getter()(index)), "dropout")
     registry.note_launch("threefry_dropout")
     return out, mask

@@ -25,6 +25,17 @@ def rng_key(ins):
     return key[0]
 
 
+def rng_counter_base(ins, n):
+    """The counter base of a stateful op's draw of ``n`` elements: 0, or,
+    where the executor names this rank's block of a data-parallel draw
+    (``ins["__rng_block__"]``, a rank ``r`` of a dense data-parallel run
+    drawing rows of the batch), ``r * n``, so that the rank's ``n``
+    elements are its rows of the global draw
+    (``parallel/data_parallel.py``)."""
+    block = ins.get("__rng_block__")
+    return int(block[0]) * int(n) if block else 0
+
+
 def seeded_rng_key(ins, attrs):
     """The op's key, honouring a fixed per-op ``seed`` attribute while
     still advancing between executor runs: ``fold_in(PRNGKey(seed),

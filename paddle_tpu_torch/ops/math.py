@@ -13,6 +13,7 @@ from paddle_tpu_torch.core.backward import make_generic_grad_lowering
 from paddle_tpu_torch.core.registry import OpRegistry, register_grad, register_op
 from paddle_tpu_torch.ops.common import (
     SettingGuard, broadcast_y, first, maybe, reduce_axes)
+from paddle_tpu_torch.parallel import env as penv
 
 _LOW = (torch.bfloat16, torch.float16)
 
@@ -171,9 +172,38 @@ def _clip(ins, attrs):
                                 attrs.get("max"))]}
 
 
+def _batch_axis(attrs):
+    """The data axis a batch reduction all-reduces over: that of a dense
+    data-parallel run, for the ops its plan marks ``_dp_batch`` (their
+    ``X`` holds this rank's rows of the batch; ``parallel/
+    data_parallel.py``), else None."""
+    return penv.current_data_axis() if attrs.get("_dp_batch") else None
+
+
+def _batch_total(x, attrs, axis):
+    """The global sum of this rank's partial sum ``x``. The rerun of the
+    reduction in its generic grad (``_dp_batch`` == "rerun") keeps the
+    local sum: its value is never read, and the backward of the global
+    sum to this rank's rows is the identity."""
+    if attrs["_dp_batch"] == "rerun":
+        return x
+    return penv.psum(x, axis)
+
+
 @register_op("mean")
 def _mean(ins, attrs):
-    return {"Out": [first(ins, "X").mean().reshape((1,))]}
+    """The mean of ``X``; of the global batch under a dense data-parallel
+    run: the ranks' sums all-reduced, over the global count."""
+    x = first(ins, "X")
+    axis = _batch_axis(attrs)
+    if axis is None:
+        return {"Out": [x.mean().reshape((1,))]}
+    total = _batch_total(x.sum(), attrs, axis)
+    # a 0-d divisor: torch multiplies by the reciprocal of a Python
+    # scalar divisor on CUDA
+    count = torch.full((), x.numel() * axis.size, dtype=total.dtype,
+                       device=total.device)
+    return {"Out": [(total / count).reshape((1,))]}
 
 
 @register_op("reduce_sum")
@@ -181,6 +211,9 @@ def _reduce_sum(ins, attrs):
     x = first(ins, "X")
     out = torch.sum(x, dim=reduce_axes(attrs, x.dim()),
                     keepdim=attrs.get("keep_dim", False))
+    axis = _batch_axis(attrs)
+    if axis is not None:
+        out = _batch_total(out, attrs, axis)
     if out.dim() == 0 and not attrs.get("keep_scalar", False):
         out = out.reshape((1,))
     return {"Out": [out]}

@@ -27,7 +27,8 @@ from paddle_tpu_torch.kernels import flash_attention as flash
 from paddle_tpu_torch.kernels import random as random_kernels
 from paddle_tpu_torch.kernels import registry as kernel_registry
 from paddle_tpu_torch.ops.common import (
-    SettingGuard, first, maybe, normalize_padding, seeded_rng_key)
+    SettingGuard, first, maybe, normalize_padding, rng_counter_base,
+    seeded_rng_key)
 
 
 @register_op("relu")
@@ -448,7 +449,8 @@ def _dropout_lowering(fwd):
             return {"Out": [out], "Mask": [torch.ones_like(x)]}
         if x.is_meta:
             return {"Out": [torch.empty_like(x)], "Mask": [torch.empty_like(x)]}
-        out, mask = fwd(x, seeded_rng_key(ins, attrs), p, upscale)
+        out, mask = fwd(x, seeded_rng_key(ins, attrs), p, upscale,
+                        rng_counter_base(ins, x.numel()))
         return {"Out": [out], "Mask": [mask]}
 
     return lower

@@ -10,7 +10,8 @@ from paddle_tpu_torch.core.dtypes import to_torch_dtype
 from paddle_tpu_torch.core.registry import register_op
 from paddle_tpu_torch.kernels import random as random_kernels
 from paddle_tpu_torch.kernels import registry as kernel_registry
-from paddle_tpu_torch.ops.common import first, maybe, seeded_rng_key, xshape
+from paddle_tpu_torch.ops.common import (
+    first, maybe, rng_counter_base, seeded_rng_key, xshape)
 
 
 @register_op("fill_constant", creates=True)
@@ -184,10 +185,10 @@ def _scatter(ins, attrs):
 # (``core/prng.py``): these ops run in startup programs, once.
 
 
-def _bits(key, n, device):
+def _bits(key, n, device, base=0):
     if kernel_registry.mode() == "off":
-        return random_kernels.random_bits_plain(key, n, device)
-    return random_kernels.random_bits(key, n, device)
+        return random_kernels.random_bits_plain(key, n, device, base)
+    return random_kernels.random_bits(key, n, device, base)
 
 
 def _shape(ins, attrs):
@@ -205,7 +206,8 @@ def draw(ins, attrs, shape, convert, device):
     if device.type == "meta":
         return torch.empty(shape, dtype=dtype, device=device)
     n = math.prod(shape)
-    out = convert(_bits(seeded_rng_key(ins, attrs), n, device))
+    out = convert(_bits(seeded_rng_key(ins, attrs), n, device,
+                        rng_counter_base(ins, n)))
     return out.reshape(shape).to(dtype)
 
 
@@ -283,5 +285,6 @@ def _bernoulli(ins, attrs):
     x = first(ins, "X")
     if x.is_meta:
         return {"Out": [torch.empty_like(x)]}
-    u = prng.uniform(_bits(seeded_rng_key(ins, attrs), x.numel(), x.device))
+    u = prng.uniform(_bits(seeded_rng_key(ins, attrs), x.numel(), x.device,
+                           rng_counter_base(ins, x.numel())))
     return {"Out": [(u.reshape(x.shape) < x.to(torch.float32)).to(x.dtype)]}

@@ -16,21 +16,33 @@ k-sized (index, value) pairs, not the gradient.
 
 ``dgc_axis_context`` installs the axis (and the step of this run, read
 once by ``CompiledProgram``) that the ``dgc_momentum`` lowering exchanges
-over; ``collective_stats`` counts each collective's calls and the bytes
-this rank sent, so a test can see what went on the wire.
+over; ``data_axis_context`` the axis of a dense data-parallel run, over
+which the batch reductions it marks all-reduce
+(``parallel/data_parallel.py``); ``collective_context`` binds the
+``ring_id`` of the ``c_*`` collective ops to an axis
+(``layers/collective.py``), as the JAX package's ``collective_context``
+binds it to a mesh axis name. ``collective_stats`` counts each
+collective's calls and the bytes this rank sent, so a test can see what
+went on the wire; ``collective_times`` splits the fused all-reduce's
+host seconds into the copy to the host, the backend's exchange and the
+copy back.
 """
 
 import contextlib
 import os
 import threading
+import time
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["Axis", "Mesh", "make_mesh", "ParallelEnv", "default_backend",
            "dgc_axis_context", "current_dgc_axis", "current_dgc_step",
-           "psum", "pmean", "all_gather", "all_gather_pairs",
-           "collective_stats", "reset_collective_stats"]
+           "data_axis_context", "current_data_axis", "collective_context",
+           "current_mesh_axis", "psum", "psum_fused",
+           "pmean", "pmax", "pmin", "all_gather", "all_gather_rows",
+           "all_gather_pairs", "broadcast", "broadcast_", "collective_stats",
+           "collective_times", "reset_collective_stats"]
 
 INIT_METHOD_ENV = "PADDLE_DIST_INIT_METHOD"
 
@@ -209,9 +221,49 @@ def current_dgc_step():
     return getattr(_dgc, "state", (None, None))[1]
 
 
+# -- dense data-parallel context and c_* ring bindings ------------------------
+_ctx = threading.local()
+
+
+@contextlib.contextmanager
+def data_axis_context(axis):
+    """Installed by ``CompiledProgram`` around a dense data-parallel run:
+    the batch reductions that its plan marks (``mean``, ``reduce_sum`` of
+    this rank's rows) all-reduce over ``axis``."""
+    old = getattr(_ctx, "data_axis", None)
+    _ctx.data_axis = axis
+    try:
+        yield
+    finally:
+        _ctx.data_axis = old
+
+
+def current_data_axis():
+    return getattr(_ctx, "data_axis", None)
+
+
+@contextlib.contextmanager
+def collective_context(bindings):
+    """``bindings``: ``{ring_id: Axis}``, the rings the ``c_*`` ops run
+    over (the JAX package's ``collective_context``, which binds a ring to
+    a mesh axis name). Outside one, a ``c_*`` op is an identity."""
+    old = getattr(_ctx, "rings", {})
+    _ctx.rings = dict(bindings)
+    try:
+        yield
+    finally:
+        _ctx.rings = old
+
+
+def current_mesh_axis(ring_id=0):
+    """The ``Axis`` bound to ``ring_id``, or None."""
+    return getattr(_ctx, "rings", {}).get(ring_id)
+
+
 # -- collectives ------------------------------------------------------------
 _stats_lock = threading.Lock()
 _stats = {}
+_times = {}
 
 
 def _count(kind, tensor):
@@ -220,15 +272,31 @@ def _count(kind, tensor):
         _stats[kind] = (calls + 1, sent + tensor.numel() * tensor.element_size())
 
 
+def _time(kind, d2h, wire, h2d):
+    with _stats_lock:
+        old = _times.get(kind, (0.0, 0.0, 0.0))
+        _times[kind] = (old[0] + d2h, old[1] + wire, old[2] + h2d)
+
+
 def collective_stats():
     """``{kind: (calls, bytes this rank sent)}`` since the last reset."""
     with _stats_lock:
         return dict(_stats)
 
 
+def collective_times():
+    """``{kind: (seconds copying to the host, in the backend's exchange,
+    copying back)}`` of the fused all-reduces since the last reset (host
+    clock; the copy to the host starts after a wait for the card, so it
+    holds no queued compute)."""
+    with _stats_lock:
+        return dict(_times)
+
+
 def reset_collective_stats():
     with _stats_lock:
         _stats.clear()
+        _times.clear()
 
 
 def _transport(x, axis):
@@ -250,6 +318,60 @@ def psum(x, axis):
     return buf.to(x.device)
 
 
+def _reduce(x, axis, op, kind):
+    if axis.size == 1:
+        return x
+    buf = _transport(x.contiguous(), axis)
+    _count(kind, buf)
+    dist.all_reduce(buf, op=op, group=axis.group)
+    return buf.to(x.device)
+
+
+def pmax(x, axis):
+    """Elementwise max of ``x`` over the ranks of ``axis``."""
+    return _reduce(x, axis, dist.ReduceOp.MAX, "all_reduce_max")
+
+
+def pmin(x, axis):
+    """Elementwise min of ``x`` over the ranks of ``axis``."""
+    return _reduce(x, axis, dist.ReduceOp.MIN, "all_reduce_min")
+
+
+def psum_fused(tensors, axis):
+    """The sums over ``axis`` of ``tensors``, with one all-reduce per dtype
+    of one flat buffer, counted as
+    ``all_reduce_fused``; every rank gets the same bits.
+    ``collective_times`` records the split of each buffer's host
+    seconds."""
+    out = list(tensors)
+    if axis.size == 1 or not out:
+        return out
+    by_dtype = {}
+    for i, t in enumerate(out):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        parts = [out[i] for i in idx]
+        device = parts[0].device
+        flat = torch.cat([p.reshape(-1) for p in parts])
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        buf = _transport(flat, axis)
+        t1 = time.perf_counter()
+        _count("all_reduce_fused", buf)
+        dist.all_reduce(buf, group=axis.group)
+        t2 = time.perf_counter()
+        flat = buf.to(device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        _time("all_reduce_fused", t1 - t0, t2 - t1, time.perf_counter() - t2)
+        at = 0
+        for i, p in zip(idx, parts):
+            out[i] = flat[at:at + p.numel()].view(p.shape)
+            at += p.numel()
+    return out
+
+
 def pmean(x, axis):
     """Mean of ``x`` over the ranks of ``axis`` (``psum / n``)."""
     if axis.size == 1:
@@ -266,6 +388,43 @@ def all_gather(x, axis):
     outs = [torch.empty_like(buf) for _ in range(axis.size)]
     dist.all_gather(outs, buf, group=axis.group)
     return torch.stack(outs).to(x.device)
+
+
+def all_gather_rows(x, axis):
+    """Every rank's ``x`` concatenated on dim 0, in rank order: the global
+    value of a var that holds this rank's rows of the batch."""
+    if axis.size == 1:
+        return x
+    g = all_gather(x, axis)
+    return g.reshape((g.shape[0] * g.shape[1],) + tuple(g.shape[2:]))
+
+
+def broadcast(x, axis, src=0):
+    """Rank ``src``'s ``x`` on every rank (a new tensor on ``x``'s
+    device)."""
+    if axis.size == 1:
+        return x
+    buf = _transport(x.contiguous(), axis)
+    if axis.rank == src:
+        _count("broadcast", buf)
+    dist.broadcast(buf, src=src, group=axis.group)
+    return buf.to(x.device)
+
+
+def broadcast_(tensors, axis, src=0):
+    """Overwrite each of ``tensors`` in place with rank ``src``'s, one
+    broadcast per dtype of one flat buffer."""
+    if axis.size == 1:
+        return
+    by_dtype = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for parts in by_dtype.values():
+        flat = broadcast(torch.cat([p.reshape(-1) for p in parts]), axis, src)
+        at = 0
+        for p in parts:
+            p.copy_(flat[at:at + p.numel()].view(p.shape))
+            at += p.numel()
 
 
 def all_gather_pairs(idx, vals, axis):

@@ -63,8 +63,8 @@ flags.define(
     "dgc_sparse_exchange", True,
     "DGCMomentumOptimizer under a data-parallel CompiledProgram exchanges "
     "top-k (index, value) pairs per rank (2*k*n values on the wire) "
-    "instead of the dense gradient; 0 asks for the dense data-parallel "
-    "form, which is not ported yet (ROADMAP M11)",
+    "instead of the dense gradient; 0 runs the dense fused form (the "
+    "grads all-reduced, then dgc_momentum with no exchange)",
 )
 flags.define(
     "pallas_dgc_topk", False,

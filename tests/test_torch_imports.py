@@ -32,6 +32,10 @@ import paddle_tpu_torch.distributed.launch
 import paddle_tpu_torch.distributed.ps
 import paddle_tpu_torch.embedding
 import paddle_tpu_torch.embedding.store
+import paddle_tpu_torch.fleet
+import paddle_tpu_torch.fleet.base
+import paddle_tpu_torch.fleet.collective
+import paddle_tpu_torch.fleet.role_maker
 import paddle_tpu_torch.incubate
 import paddle_tpu_torch.incubate.checkpoint
 import paddle_tpu_torch.inference
@@ -44,6 +48,7 @@ import paddle_tpu_torch.kernels.flash_attention
 import paddle_tpu_torch.kernels.random
 import paddle_tpu_torch.kernels.sparse_update
 import paddle_tpu_torch.kernels.topk
+import paddle_tpu_torch.layers.collective
 import paddle_tpu_torch.models.bert
 import paddle_tpu_torch.models.ctr
 import paddle_tpu_torch.models.mnist
@@ -57,6 +62,7 @@ import paddle_tpu_torch.ops.misc_extra
 import paddle_tpu_torch.ops.sharded_embedding
 import paddle_tpu_torch.optimizer
 import paddle_tpu_torch.parallel
+import paddle_tpu_torch.parallel.data_parallel
 import paddle_tpu_torch.parallel.dgc
 import paddle_tpu_torch.parallel.env
 import paddle_tpu_torch.passes

@@ -3,7 +3,8 @@ op type the port lowers: the same numpy inputs go through
 ``paddle_tpu.core.registry.OpRegistry.get(t).lower`` and the port's
 ``paddle_tpu_torch.core.registry.OpRegistry.get(t).lower``.
 
-Float results agree within rtol=atol=1e-6 (float32 sums in another
+The ``c_*`` collectives run outside a bound ring, where both are
+identities. Float results agree within rtol=atol=1e-6 (float32 sums in another
 order: torch's CPU matmul vs XLA's); integer results and every shape
 agree exactly. A stateful op gets the same key in both (``PRNGKey(0)``),
 so ``uniform_random`` gives ``jax.random``'s bits: it is held equal.
@@ -81,6 +82,14 @@ CASES = {
     "multihead_matmul": ({"Input": [f32(2, 5, 24)], "Bias": [f32(24)]},
                          {"head_number": 2, "alpha": 0.5}),
 }
+# the c_* collectives outside a bound ring: identities in both (inside a
+# ring: tests/test_torch_fleet_collective.py, on 2 ranks)
+CASES.update({
+    t: ({"X": [f32(4, 3)]}, {"ring_id": 0})
+    for t in ("c_allreduce_sum", "c_allreduce_max", "c_allreduce_min",
+              "c_allreduce_prod", "c_allgather", "c_broadcast",
+              "c_reducescatter", "c_sync_calc_stream", "c_sync_comm_stream")
+})
 
 
 def _run_jax(op_type, ins, attrs):
