@@ -7,6 +7,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py --phases 1,11    # the build and phase 11 only
     python3 chip_smoke.py --phases 12      # the build and the fleet
     python3 chip_smoke.py --phases 13      # the build and data parallelism
+    python3 chip_smoke.py --phases 14      # the build, beam translation, dygraph
 
 ``--phases`` takes the phases' top-level numbers (2 runs 2-2f, 3 runs
 3-3d, 5 runs 5-5c, 9 runs 9a-9d; 10 runs 9a first, whose programs it
@@ -31,7 +32,9 @@ and serves an exported BERT-base and ResNet-50 through the predictor
 and the batching ServingEngine, and serves the decoder through a fleet
 router over worker processes, one of them killed mid-flight, and trains
 BERT-base data-parallel on 2 ranks of the card through the collective
-fleet against one rank on the whole batch. Any failure
+fleet against one rank on the whole batch, and translates with beam
+search at Transformer-big width and trains in dygraph (imperative) mode.
+Any failure
 exits non-zero. It
 imports nothing of JAX or of the JAX package, and it refuses to run
 without a CUDA device (or outside a checkout of the repository).
@@ -438,10 +441,54 @@ Phases:
    the card's name and power limit. The ``kernels`` line adds both
    ranks' launches and the one-rank run's.
 
+14. beam translation and dygraph. 14a: ``TransformerConfig.big()``
+   (vocab 37000, d_model 1024, 16 heads, FFN 4096, 6+6 layers, pre-LN)
+   initialised by the startup of ``build_wmt_train(big, src_len=64,
+   tgt_len=64)`` from the seed (K8 draws the Xavier bits),
+   ``params_from_scope``, ``BucketedBeamTranslator(beam_size=4,
+   src_buckets=(16, 32, 64), max_len=64, length_penalty=0.6).warmup(8)``,
+   8 sources of each of the lengths 11, 27 and 50. Checks: (i) each
+   bucketed result against ``make_beam_decoder`` on the unpadded batch:
+   equal hypotheses or, where a row's differ, the step at which the two
+   runs part and the gap between their selected scores there, under
+   ``BEAM_PART_GAP``; scores within ``BEAM_SCORE_TOL`` relative, the bit-equal
+   ones counted; (ii) every hypothesis rescored by the cacheless forward
+   (``decode_logits``): its length-penalised log-prob within
+   ``BEAM_RESCORE_RTOL`` of the returned score; (iii) beam 1's tokens are
+   the cacheless forward's greedy path (its argmax at every position up
+   to the EOS, a flip allowed only at a gap under ``BEAM_PART_GAP``);
+   (iv) K8 launched by the startup and none of K1-K7 during the
+   translation. Prints tokens/s, ms a decode step, host syncs a step and
+   the device's idle share (one translate under ``torch.profiler``).
+   14b: ``models.transformer.copy_task_recipe`` (the tiny copy task of
+   ``examples/machine_translation.py``: src and tgt 12, batch 32, Adam
+   2e-3, 300 steps, seed 0, then buckets (12, 16) at beam 4; under torch's
+   deterministic algorithms, so a run repeats): at least 6
+   of 8 copied, and the bucket-padded tokens equal the exact-length
+   run's. 14c: ``models.mnist.dygraph_mnist_recipe`` (BASELINE workload
+   1: 784-64-10, batch 32, SGD 0.1, 8 steps, seed 0) under
+   ``dygraph.guard()`` on the card: eager losses bit-equal to each
+   step's ``to_static`` capture, within 1e-5 of the same run on the CPU,
+   and falling; prints the step's ms. 14d: the dygraph conv stack of the
+   reference's test_imperative_mnist (Conv2D 1->20 5x5, Pool2D 2,
+   BatchNorm, Conv2D 20->50 5x5, Pool2D 2, Dropout 0.5
+   upscale_in_train, Linear 800->10), batch 64, Adam, 4 steps, with the
+   kernels on and off under torch's deterministic algorithms: losses and
+   parameters bit-equal, K8 launched once a Dropout call plus once an
+   initial draw. 14e: 14c's MLP under ``DataParallel`` on 2 ranks of
+   ``paddle_tpu_torch.distributed.launch`` sharing the card over gloo
+   (this script with ``--dygraph-rank``, 16 rows a rank) against one rank
+   on the whole batch: losses within ``DYGRAPH_DP_TOL``, the ranks'
+   parameters bit-equal after every step (the ranks start after 14a, so
+   their start-up overlaps 14b-14d). The ``kernels`` line adds the
+   K8 launches of 14a's startup, 14b, 14c, 14d's kernels-on run and 14e
+   (both ranks and the one-rank run).
+
 The last lines are the card's name and power limit, one JSON line of
 per-kernel results, and ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import hashlib
 import itertools
 import json
@@ -6106,15 +6153,37 @@ def dp_rank_main(out_dir):
         json.dump(result, f)
 
 
-def _dp_launch():
+def _dp_launch(flag="--dp-rank"):
+    """Runs this script with ``flag DIR`` on DP_RANKS ranks of the card
+    (gloo over a ``file://`` rendezvous) and returns each rank's
+    ``DIR/rank<r>.json``."""
+    return _rank_results(_rank_spawn(flag))
+
+
+def _rank_spawn(flag):
+    """Starts DP_RANKS ranks of this script with ``flag DIR``: (the
+    processes, DIR), for ``_rank_results``."""
     from paddle_tpu_torch.distributed import launch
 
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     try:
         procs = launch.spawn_gang(
-            [os.path.abspath(__file__), "--dp-rank", out_dir],
+            [os.path.abspath(__file__), flag, out_dir],
             nproc=DP_RANKS, init_method="file://" + os.path.join(
                 out_dir, "store"))
+    except BaseException:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        raise
+    return procs, out_dir
+
+
+def _rank_results(gang):
+    """Waits for the ranks of ``_rank_spawn`` (stopping every one of them
+    whatever happens) and returns each rank's ``rank<r>.json``."""
+    from paddle_tpu_torch.distributed import launch
+
+    procs, out_dir = gang
+    try:
         try:
             codes = launch.wait_gang(procs, timeout_s=DP_TIMEOUT)
         finally:
@@ -6247,7 +6316,472 @@ def phase_dp():
     return launches
 
 
-PHASES = tuple(str(n) for n in range(1, 14))
+# -- phase 14: beam translation and dygraph ---------------------------------
+BEAM_LENS, BEAM_BUCKETS, BEAM_BATCH, BEAM_MAX_LEN = (11, 27, 50), (16, 32, 64), 8, 64
+BEAM_SIZE, BEAM_ALPHA = 4, 0.6
+# (i): bucket-padded against exact length on the card. cuBLAS may pick
+# another GEMM for another row count (the row-bits fault ROADMAP queue C
+# shares with the reference), so scores are held within a relative bar
+# (a 64-token hypothesis scores about -150), the bit-equal ones counted,
+# and a hypothesis may part from the other run's only where the two runs'
+# selected candidates were within BEAM_PART_GAP
+BEAM_SCORE_TOL, BEAM_PART_GAP = 1e-4, 1e-4
+# (ii): the cached decode's length-penalised score against the cacheless
+# forward's rescoring of the same tokens
+BEAM_RESCORE_RTOL = 1e-3
+COPY_STEPS, COPY_GATE = 300, 6
+DYGRAPH_STEPS, DYGRAPH_BATCH, DYGRAPH_LR = 8, 32, 0.1
+DYGRAPH_CPU_TOL = (1e-5, 1e-6)
+CONV_BATCH, CONV_STEPS = 64, 4
+DYGRAPH_DP_TOL = (1e-4, 1e-5)
+KERNELS_K1_K7 = ("paged_attention", "decode_attention", "embedding_admission",
+                 "sparse_row_update", "blocked_topk_abs")
+
+
+def _k8(launches):
+    return {n: c for n, c in launches.items() if n.startswith("threefry")}
+
+
+def _other_kernels(launches):
+    return {n: c for n, c in launches.items()
+            if c and (n in KERNELS_K1_K7 or n.startswith("flash_attention"))}
+
+
+def _parting(trace_a, trace_b, row):
+    """The first step at which two traced beam runs select other
+    candidates for ``row``, and the largest gap between their selected
+    scores there: (step, gap), or (None, 0.0)."""
+    for t, ((sa, ia), (sb, ib)) in enumerate(zip(trace_a, trace_b)):
+        if not np.array_equal(ia[row], ib[row]):
+            return t, float(np.abs(sa[row] - sb[row]).max())
+    return None, 0.0
+
+
+def _rescore(tfm, params, cfg, src, toks, alpha):
+    """The length-penalised log-prob of each row of ``toks`` under the
+    cacheless forward, with the decoder's lengths (up to the first EOS,
+    else all of them)."""
+    import torch
+
+    tgt = np.concatenate([np.full((len(toks), 1), cfg.bos_id), toks[:, :-1]],
+                         axis=1)
+    logp = torch.log_softmax(tfm.decode_logits(params, cfg, src, tgt),
+                             -1).double().cpu().numpy()
+    out = []
+    for b, row in enumerate(toks):
+        eos = np.nonzero(row == cfg.eos_id)[0]
+        n = int(eos[0]) + 1 if len(eos) else len(row)
+        total = sum(logp[b, t, row[t]] for t in range(n))
+        out.append(total / ((5.0 + n) / 6.0) ** alpha)
+    return np.asarray(out)
+
+
+def _greedy_flips(tfm, params, cfg, src, toks):
+    """Where beam 1's tokens leave the cacheless forward's argmax path:
+    [(row, position, gap between the two logits)] up to each row's EOS."""
+    tgt = np.concatenate([np.full((len(toks), 1), cfg.bos_id), toks[:, :-1]],
+                         axis=1)
+    logits = tfm.decode_logits(params, cfg, src, tgt).cpu().numpy()
+    flips = []
+    for b, row in enumerate(toks):
+        eos = np.nonzero(row == cfg.eos_id)[0]
+        n = int(eos[0]) + 1 if len(eos) else len(row)
+        for t in range(n):
+            best = int(logits[b, t].argmax())
+            if best != row[t]:
+                flips.append((b, t, float(logits[b, t, best]
+                                          - logits[b, t, row[t]])))
+                break
+    return flips
+
+
+def _p14_beam():
+    """14a: Transformer-big beam translation."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import transformer as tfm
+
+    t0 = time.perf_counter()
+    cfg = tfm.TransformerConfig.big()
+    main, startup, _, _ = tfm.build_wmt_train(cfg, src_len=BEAM_MAX_LEN,
+                                              tgt_len=BEAM_MAX_LEN)
+    startup.random_seed = main.random_seed = SEED
+    scope = fluid.Scope()
+    kernels.reset_launches()
+    fluid.Executor().run(startup, scope=scope)
+    startup_launches = kernels.launches()
+    params = tfm.params_from_scope(cfg, scope)
+    del scope, main, startup
+    torch.cuda.empty_cache()
+    n_values = sum(t.numel() for t in params.values())
+    build_s = time.perf_counter() - t0
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    tr = tfm.BucketedBeamTranslator(
+        cfg, params, beam_size=BEAM_SIZE, src_buckets=BEAM_BUCKETS,
+        max_len=BEAM_MAX_LEN, length_penalty=BEAM_ALPHA).warmup(BEAM_BATCH)
+    warm_s = time.perf_counter() - t0
+    ref = tfm.make_beam_decoder(cfg, beam_size=BEAM_SIZE, max_len=BEAM_MAX_LEN,
+                                length_penalty=BEAM_ALPHA)
+    greedy = tfm.make_beam_decoder(cfg, beam_size=1, max_len=BEAM_MAX_LEN,
+                                   length_penalty=BEAM_ALPHA)
+    rng = np.random.RandomState(SEED + 14)
+    t0 = time.perf_counter()
+    checks, parted, bit_equal, rows = {}, [], 0, 0
+    worst_score = worst_rescore = 0.0
+    flips_all = []
+    for length, bucket in zip(BEAM_LENS, BEAM_BUCKETS):
+        src = rng.randint(3, cfg.vocab_size, (BEAM_BATCH, length))
+        toks, scores = tr.translate(src)
+        rtoks, rscores = (t.cpu().numpy() for t in ref(params, src))
+        differ = [b for b in range(BEAM_BATCH)
+                  if not np.array_equal(toks[b], rtoks[b])]
+        if differ:
+            padded = np.full((BEAM_BATCH, bucket), cfg.pad_id, np.int64)
+            padded[:, :length] = src
+            ta, tb = [], []
+            tr._decode(tr.params, padded, trace=ta)
+            ref(params, src, trace=tb)
+            for b in differ:
+                step, gap = _parting(ta, tb, b)
+                parted.append((length, b, step, gap))
+        same = [b for b in range(BEAM_BATCH) if b not in differ]
+        if same:
+            worst_score = max(worst_score, float(np.max(
+                np.abs(scores[same] - rscores[same]) / np.abs(rscores[same]))))
+        bit_equal += int((scores == rscores).sum())
+        rows += BEAM_BATCH
+        rescored = _rescore(tfm, params, cfg, src, toks, BEAM_ALPHA)
+        worst_rescore = max(worst_rescore, float(np.max(
+            np.abs(rescored - scores) / np.abs(scores))))
+        g_toks = greedy(params, src)[0].cpu().numpy()
+        flips_all += [(length,) + f
+                      for f in _greedy_flips(tfm, params, cfg, src, g_toks)]
+    check_s = time.perf_counter() - t0
+    # the unprofiled translations' numbers, then one more translation of
+    # the middle bucket under the profiler
+    st, tps = dict(tr.stats), tr.tokens_per_sec()
+    src = rng.randint(3, cfg.vocab_size, (BEAM_BATCH, BEAM_LENS[1]))
+    _, busy_us, wall_us, _ = _profile("[beam] 14a", lambda: tr.translate(src))
+    launches = kernels.launches()
+    checks.update({
+        "(i) hypotheses equal, or parted at a near-tie": all(
+            step is not None and gap < BEAM_PART_GAP
+            for _, _, step, gap in parted),
+        f"(i) scores within {BEAM_SCORE_TOL} relative":
+            worst_score <= BEAM_SCORE_TOL,
+        f"(ii) rescored within {BEAM_RESCORE_RTOL} relative":
+            worst_rescore <= BEAM_RESCORE_RTOL,
+        "(iii) beam 1 is the cacheless greedy path": all(
+            gap < BEAM_PART_GAP for *_, gap in flips_all),
+        "(iv) K8 drew the startup": startup_launches.get(
+            "threefry_random_bits", 0) > 0,
+        "(iv) no K1-K7 launch": not _other_kernels(launches)
+                                 and not _other_kernels(startup_launches),
+        "one host sync a step at most": st["syncs"] <= st["steps"],
+    })
+    step_ms = st["seconds"] / st["steps"] * 1e3
+    log(f"[beam] 14a Transformer-big ({n_values} parameter values) built and "
+        f"initialised in {build_s:.1f} s (startup K8 {_k8(startup_launches)}); "
+        f"warmup of buckets {BEAM_BUCKETS} at batch {BEAM_BATCH}, beam "
+        f"{BEAM_SIZE}: {warm_s:.2f} s; the translations and checks (i)-(iii) "
+        f"{check_s:.2f} s")
+    log(f"[beam] 14a (i) {rows - len(parted)}/{rows} hypotheses equal to the "
+        f"exact-length run's, parted {parted} (source length, row, step, "
+        f"gap); scores of the equal ones within {worst_score:.3e} relative, "
+        f"{bit_equal}/{rows} bit-equal; (ii) largest relative rescoring gap "
+        f"{worst_rescore:.3e}; (iii) greedy flips {flips_all} (length, row, "
+        f"position, logit gap)")
+    log(f"[beam] 14a {tps:.1f} tokens/s over "
+        f"{st['sentences']} sentences, {step_ms:.3f} ms a decode step "
+        f"({st['steps']} steps in {st['seconds']:.3f} s), "
+        f"{st['syncs'] / st['steps']:.4f} host syncs a step; profiled "
+        f"translate: device busy {busy_us / 1e3:.2f} ms of {wall_us / 1e3:.2f} "
+        f"ms, idle share {1 - busy_us / wall_us:.4f}; launches {_k8(launches)} "
+        f"{_other_kernels(launches)}")
+    log(f"[beam] 14a checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"phase 14a failed: {checks}")
+    del tr, params
+    torch.cuda.empty_cache()
+    return startup_launches
+
+
+@contextlib.contextmanager
+def _deterministic(nondet):
+    """torch's deterministic algorithms inside the block (the embedding's
+    scatter-added grad and cuDNN's atomics sum in a fixed order, so a run
+    repeats); the ops that have no deterministic path are appended to
+    ``nondet``."""
+    import warnings
+
+    import torch
+
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(prev)
+        nondet.extend(sorted({str(w.message).split(" does not have")[0][:80]
+                              for w in caught
+                              if "deterministic" in str(w.message)}))
+
+
+def _p14_copy():
+    """14b: the copy task of examples/machine_translation.py, under
+    torch's deterministic algorithms (its 300 steps otherwise sum the
+    embedding's grads in another order each run, and the copy count
+    moves with them)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import transformer as tfm
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    nondet = []
+    with _deterministic(nondet):
+        cfg, losses, tr, body, toks, scores, copied = tfm.copy_task_recipe(
+            steps=COPY_STEPS)
+    seconds = time.perf_counter() - t0
+    launches = kernels.launches()
+    exact = tfm.make_beam_decoder(cfg, beam_size=4)(tr.params, body)[0]
+    checks = {f"copied >= {COPY_GATE}/8": copied >= COPY_GATE,
+              "padded tokens equal exact": bool(np.array_equal(
+                  toks, exact.cpu().numpy())),
+              "loss falls": losses[-1] < losses[0]}
+    log(f"[beam] 14b copy task: {COPY_STEPS} steps in {seconds:.1f} s with "
+        f"the translation, loss {losses[0]:.3f} -> {losses[-1]:.3f}; copied "
+        f"{copied}/8; {tr.tokens_per_sec():.1f} tokens/s; K8 {_k8(launches)}; "
+        f"ops without a deterministic path: {nondet}")
+    log(f"[beam] 14b checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"phase 14b failed: {checks}")
+    return launches
+
+
+def _p14_mnist():
+    """14c: imperative MNIST (BASELINE workload 1)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import mnist
+
+    seconds = []
+    kernels.reset_launches()
+    eager, captured = mnist.dygraph_mnist_recipe(
+        DYGRAPH_STEPS, DYGRAPH_BATCH, DYGRAPH_LR, seed=0,
+        step_hook=lambda step, s: seconds.append(s))
+    launches = kernels.launches()
+    cpu, _ = mnist.dygraph_mnist_recipe(DYGRAPH_STEPS, DYGRAPH_BATCH,
+                                        DYGRAPH_LR, seed=0,
+                                        place=fluid.CPUPlace())
+    rtol, atol = DYGRAPH_CPU_TOL
+    checks = {"eager bit-equal to to_static": eager == captured,
+              f"within {DYGRAPH_CPU_TOL} of the CPU": all(
+                  abs(a - b) <= atol + rtol * abs(b) for a, b in zip(eager, cpu)),
+              "loss falls": eager[-1] < eager[0],
+              "K8 drew the initial weights": launches.get(
+                  "threefry_random_bits", 0) > 0}
+    log(f"[dygraph] 14c MNIST MLP 784-64-10: eager {eager}; to_static "
+        f"{captured}; CPU {cpu}; step p50 {_p50_ms(seconds):.3f} ms (steps "
+        f"{[round(x * 1e3, 3) for x in seconds]}); K8 {_k8(launches)}")
+    log(f"[dygraph] 14c checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"phase 14c failed: {checks}")
+    return launches
+
+
+def _conv_stack_run():
+    """14d's net, CONV_STEPS Adam steps under a fresh guard on the card:
+    (losses, final state digest, step seconds, launches)."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import dygraph, kernels
+    from paddle_tpu_torch.models import mnist
+
+    imgs, labels = mnist.synthetic_digits(np.random.RandomState(SEED + 4),
+                                          CONV_BATCH)
+    imgs = imgs.reshape(-1, 1, 28, 28)
+    kernels.reset_launches()
+    losses, seconds = [], []
+    with dygraph.guard(seed=SEED):
+        net = dygraph.Sequential(
+            dygraph.Conv2D(1, 20, 5), dygraph.Pool2D(2, "max", 2),
+            dygraph.BatchNorm(20), dygraph.Conv2D(20, 50, 5),
+            dygraph.Pool2D(2, "max", 2),
+            dygraph.Dropout(0.5, dropout_implementation="upscale_in_train"))
+        fc = dygraph.Linear(800, 10)
+        opt = fluid.optimizer.Adam(learning_rate=1e-3)
+        params = net.parameters() + fc.parameters()
+        for _ in range(CONV_STEPS):
+            t0 = time.perf_counter()
+            h = dygraph.trace_op("reshape2", {"X": [net(
+                dygraph.to_variable(imgs))]}, {"shape": [CONV_BATCH, -1]})["Out"][0]
+            ce = dygraph.trace_op(
+                "softmax_with_cross_entropy",
+                {"Logits": [fc(h)], "Label": [dygraph.to_variable(labels)]},
+                {})["Loss"][0]
+            loss = dygraph.trace_op("mean", {"X": [ce]}, {})["Out"][0]
+            loss.backward()
+            opt.minimize(loss, parameter_list=params)
+            for p in params:
+                p.clear_gradient()
+            losses.append(float(loss.numpy().reshape(-1)[0]))
+            seconds.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        digest = _digest(p.value for p in params + [net[2]._mean,
+                                                    net[2]._variance])
+    return losses, digest, seconds, kernels.launches()
+
+
+def _p14_conv():
+    """14d: the dygraph conv stack with dropout, kernels on against off."""
+    from paddle_tpu_torch import kernels
+
+    nondet = []
+    with _deterministic(nondet):
+        on = _conv_stack_run()
+        with kernels.scoped_mode("off"):
+            off = _conv_stack_run()
+    launches = on[3]
+    checks = {"losses bit-equal on/off": on[0] == off[0],
+              "parameters bit-equal on/off": on[1] == off[1],
+              "K8 once a Dropout call": launches.get("threefry_dropout", 0)
+                                        == CONV_STEPS,
+              "K8 once an initial draw": launches.get(
+                  "threefry_random_bits", 0) == 3,
+              "off run launched nothing": not any(off[3].values()),
+              "loss finite": bool(np.isfinite(on[0]).all())}
+    log(f"[dygraph] 14d conv stack batch {CONV_BATCH}: losses {on[0]} (off "
+        f"{off[0]}); step ms on {[round(x * 1e3, 3) for x in on[2]]}, off "
+        f"{[round(x * 1e3, 3) for x in off[2]]}; K8 {_k8(launches)}; ops "
+        f"without a deterministic path: {nondet}")
+    log(f"[dygraph] 14d checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"phase 14d failed: {checks}")
+    return launches
+
+
+def _dygraph_dp_run(rank, world):
+    """14c's MLP and data, ``DataParallel`` over ``world`` ranks (1: the
+    whole batch, no collectives): losses (this rank's rows' means),
+    parameter digests after every step, step seconds, launches."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import dygraph, kernels
+    from paddle_tpu_torch.models import mnist
+
+    imgs, labels = mnist.synthetic_digits(np.random.RandomState(0),
+                                          DYGRAPH_STEPS * DYGRAPH_BATCH)
+    rows = DYGRAPH_BATCH // world
+    kernels.reset_launches()
+    out = dict(losses=[], digests=[], seconds=[])
+    with dygraph.guard(seed=0):
+        model = mnist.dygraph_mlp()
+        if world > 1:
+            model = dygraph.DataParallel(model)
+        opt = fluid.optimizer.SGD(learning_rate=DYGRAPH_LR)
+        for step in range(DYGRAPH_STEPS):
+            lo = step * DYGRAPH_BATCH + rank * rows
+            t0 = time.perf_counter()
+            loss = mnist.dygraph_loss(model, dygraph.to_variable(
+                imgs[lo:lo + rows]), dygraph.to_variable(labels[lo:lo + rows]))
+            if world > 1:
+                loss = model.scale_loss(loss)
+            loss.backward()
+            if world > 1:
+                model.apply_collective_grads()
+            opt.minimize(loss, parameter_list=model.parameters())
+            model.clear_gradients()
+            out["losses"].append(float(loss.numpy().reshape(-1)[0]) * world)
+            out["seconds"].append(time.perf_counter() - t0)
+            out["digests"].append(_digest(p.value for p in model.parameters()))
+    out["launches"] = kernels.launches()
+    return out
+
+
+def dygraph_rank_main(out_dir):
+    """One rank of phase 14e (``chip_smoke.py --dygraph-rank DIR``)."""
+    check_environment()
+    from paddle_tpu_torch.parallel import env as penv
+
+    axis = penv.make_mesh().axis("data")
+    result = _dygraph_dp_run(axis.rank, axis.size)
+    result.update(rank=axis.rank, size=axis.size, backend=axis.backend)
+    with open(os.path.join(out_dir, f"rank{axis.rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def _p14_dp(gang):
+    """14e: DataParallel on 2 ranks of the card (started by
+    ``phase_beam_dygraph`` after 14a, so that their start-up overlaps
+    14b-14d) against one rank."""
+    one = _dygraph_dp_run(0, 1)
+    ranks = _rank_results(gang)
+    both = np.mean([r["losses"] for r in ranks], axis=0)
+    rtol, atol = DYGRAPH_DP_TOL
+    checks = {"backend gloo": all(r["backend"] == "gloo"
+                                  and r["size"] == DP_RANKS for r in ranks),
+              "ranks bit-equal every step": all(
+                  r["digests"] == ranks[0]["digests"] for r in ranks),
+              f"losses within {DYGRAPH_DP_TOL} of one rank": bool(np.allclose(
+                  both, one["losses"], rtol=rtol, atol=atol))}
+    log(f"[dygraph] 14e DataParallel on {DP_RANKS} ranks: losses {both.tolist()} "
+        f"against one rank {one['losses']}; step p50 by rank "
+        f"{[round(_p50_ms(r['seconds']), 3) for r in ranks]} ms, one rank "
+        f"{_p50_ms(one['seconds']):.3f} ms")
+    log(f"[dygraph] 14e checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"phase 14e failed: {checks}")
+    launches = dict(one["launches"])
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def phase_beam_dygraph():
+    """Phase 14: beam translation at Transformer-big width and dygraph.
+    Returns the K8 launches of the path (14a's startup, 14b, 14c, 14d's
+    kernels-on run, 14e)."""
+    t0 = time.perf_counter()
+    launches = {}
+    gang = None
+
+    def spawn_ranks():
+        # 14e's ranks start after 14a's timed translations, so that their
+        # start-up overlaps 14b-14d and not 14a's rates
+        nonlocal gang
+        gang = _rank_spawn("--dygraph-rank")
+        return {}
+
+    parts = (("14a", _p14_beam), ("", spawn_ranks), ("14b", _p14_copy),
+             ("14c", _p14_mnist), ("14d", _p14_conv),
+             ("14e", lambda: _p14_dp(gang)))
+    try:
+        for tag, part in parts:
+            t1 = time.perf_counter()
+            for k, v in part().items():
+                launches[k] = launches.get(k, 0) + v
+            if tag:
+                log(f"[p14] {tag}: {time.perf_counter() - t1:.1f} s")
+    finally:
+        if gang is not None:
+            # a failed part must not leave the ranks running
+            from paddle_tpu_torch.distributed import launch
+
+            launch.terminate_gang(gang[0])
+            shutil.rmtree(gang[1], ignore_errors=True)
+    log(f"[p14] phase 14: {time.perf_counter() - t0:.1f} s; K8 {_k8(launches)}; "
+        f"{card_line()}")
+    return launches
+
+
+PHASES = tuple(str(n) for n in range(1, 15))
 
 
 def parse_phases(argv):
@@ -6313,6 +6847,7 @@ def main(phases=frozenset(PHASES)):
     infer_launches = phase_inference() if "11" in phases else zero
     fleet_launches = phase_fleet() if "12" in phases else zero
     dp_launches = phase_dp() if "13" in phases else zero
+    p14_launches = phase_beam_dygraph() if "14" in phases else zero
     log(f"[done] paged_attention launches: phase 3 "
         f"{engine_launches['paged_attention']}, phase 3b {modes_launches}, "
         f"phase 3c {beam_launches}, phase 3d {overload_launches}")
@@ -6341,7 +6876,8 @@ def main(phases=frozenset(PHASES)):
     # phase 10a's startup and steps, phase 11's startups, the startups of
     # phase 12's workers (read over their stats RPC; the killed one's are
     # lost with it), phase 13's startups and steps (both ranks and the
-    # one-rank run)
+    # one-rank run), phase 14's (14a's startup, 14b, 14c, 14d's kernels-on
+    # run, 14e's ranks and one-rank run)
     path_launches.update({n: train_launches[n] + unfused_launches[n]
                           + amp_launches[n] + dgc_launches[n]
                           + book_launches[n] + resnet_launches[n]
@@ -6349,6 +6885,7 @@ def main(phases=frozenset(PHASES)):
                           + infer_launches.get(n, 0)
                           + fleet_launches.get(n, 0)
                           + dp_launches.get(n, 0)
+                          + p14_launches.get(n, 0)
                           for n in KERNELS if n.startswith("threefry")})
     log(f"[done] K8 launches: phase 5 "
         f"{ {n: train_launches[n] for n in path_launches if n.startswith('threefry')} }, "
@@ -6363,6 +6900,8 @@ def main(phases=frozenset(PHASES)):
         f"phase 11 {infer_launches.get('threefry_random_bits', 0)}")
     log(f"[done] phase 13 launches (both ranks and the one-rank run): "
         f"{ {n: c for n, c in dp_launches.items() if c} }")
+    log(f"[done] phase 14 launches: "
+        f"{ {n: c for n, c in p14_launches.items() if c} }")
     log(f"[done] phase 10 launches: "
         f"{ {n: c for n, c in ckpt_launches.items() if c} }; phase 11: "
         f"{ {n: c for n, c in infer_launches.items() if c} }")
@@ -6393,5 +6932,7 @@ if __name__ == "__main__":
         dgc_rank_main(sys.argv[2])
     elif sys.argv[1:2] == ["--dp-rank"]:
         dp_rank_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--dygraph-rank"]:
+        dygraph_rank_main(sys.argv[2])
     else:
         main(parse_phases(sys.argv[1:]))

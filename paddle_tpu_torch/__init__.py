@@ -15,7 +15,9 @@ loads parameters, persistables and inference models, and
 package's files: either package reads what the other wrote. ``fleet``
 trains data-parallel across ranks, one process each (the collective
 mode; ``parallel/data_parallel.py`` runs the JAX package's GSPMD step
-per rank).
+per rank). ``dygraph`` runs the imperative mode: eager layers on a tape,
+``to_static`` capture, ``DataParallel``; ``dygraph.guard()`` takes the
+card unless given ``CPUPlace()``.
 """
 
 from paddle_tpu_torch.core import (
@@ -39,6 +41,8 @@ from paddle_tpu_torch.compiler import (
 import paddle_tpu_torch.ops  # noqa: F401  (registers the op library)
 from paddle_tpu_torch import layers
 from paddle_tpu_torch import amp
+from paddle_tpu_torch import dygraph
+from paddle_tpu_torch.dygraph.base import in_dygraph_mode
 from paddle_tpu_torch import fleet
 from paddle_tpu_torch import io
 from paddle_tpu_torch import initializer

@@ -17,13 +17,23 @@ shards, while each rank of the port holds its own ``[1, ...]`` slice.
 ``split_rank_state`` cuts the JAX arrays into the ranks' states and
 ``gather_rank_state`` puts the ranks' slices back together, so both
 packages start from, and can be compared at, the same state.
+
+Dygraph state crosses as the JAX package's ``Layer.state_dict()`` makes
+it, numpy arrays by parameter and buffer name: ``load_layer_state`` puts
+such a dict into a port ``Layer`` (by name, or by order where the two
+models were built with other names), and a port ``Layer``'s
+``state_dict()`` is such a dict for the JAX ``Layer.set_dict``.
+``transformer_params`` reads a Transformer's weights off a JAX scope (or
+any ``{name: array}``) into the dict the port's beam decoder takes
+(``models/transformer.py`` ``params_from_scope``).
 """
 
 import numpy as np
 import torch
 
 __all__ = ["params_from_numpy", "load_params", "persistables_to_numpy",
-           "dgc_state_names", "split_rank_state", "gather_rank_state"]
+           "dgc_state_names", "split_rank_state", "gather_rank_state",
+           "load_layer_state", "transformer_params"]
 
 
 def params_from_numpy(arrays, device):
@@ -105,3 +115,36 @@ def gather_rank_state(per_rank, names):
         else:
             out[name] = np.asarray(a).copy()
     return out
+
+
+def load_layer_state(layer, state, by_order=False):
+    """Put a dygraph ``state_dict`` (``{name: array}``, the JAX package's
+    ``Layer.state_dict()`` or the port's) into the port ``layer``'s
+    parameters and buffers, on their device and in their dtype. By name,
+    or with ``by_order`` matched to ``layer.state_dict()``'s order (two
+    models built with other names); raises if a parameter is missing."""
+    if by_order:
+        names = list(layer.state_dict())
+        if len(names) != len(state):
+            raise ValueError(f"state holds {len(state)} arrays, the layer "
+                             f"{len(names)}")
+        state = dict(zip(names, state.values()))
+    layer.set_dict({n: np.asarray(a) for n, a in state.items()})
+
+
+def transformer_params(source, cfg, device="cpu"):
+    """The Transformer weights the port's beam decoder reads
+    (``models.transformer.param_names(cfg)``), from ``source`` — a scope
+    of either package, or ``{name: array}`` — as ``{name: tensor}`` on
+    ``device``."""
+    from paddle_tpu_torch.models.transformer import param_names
+
+    get = source.find_var if hasattr(source, "find_var") else source.__getitem__
+    arrays = {}
+    for n in param_names(cfg):
+        v = get(n)
+        if v is None:
+            raise KeyError(f"'{n}' not found (run the startup program first)")
+        arrays[n] = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                     else np.asarray(v))
+    return params_from_numpy(arrays, device)

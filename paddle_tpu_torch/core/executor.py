@@ -17,6 +17,11 @@ rewrites (``passes.py``), as the JAX executor does before it compiles
 one. A feed that no op reads (the raw ids beside a sharded embedding's
 slot feeds) stays on the host.
 
+``while`` and ``conditional_block`` (``CONTROL_FLOW_OPS``) run their
+sub-blocks' plans through ``ops/control_flow.py``, as the JAX executor
+dispatches them (``paddle_tpu/core/executor.py`` ``CONTROL_FLOW_OPS``):
+a ``while`` reads its condition on the host once an iteration.
+
 A ``CompiledProgram`` (``compiler.py``) runs through its own ``_run``,
 which calls back into ``run`` with this rank's rows of the batch (and,
 for dense data parallelism, a plan with the collectives in place).
@@ -55,14 +60,23 @@ from paddle_tpu_torch.core import prng
 from paddle_tpu_torch.core.backward import resolve_op_def
 from paddle_tpu_torch.core.ir import default_main_program
 from paddle_tpu_torch.core.places import default_place
+from paddle_tpu_torch.core.registry import OpDef
 from paddle_tpu_torch.core.scope import global_scope
 from paddle_tpu_torch.kernels import registry as kernel_registry
+from paddle_tpu_torch.ops import control_flow
 from paddle_tpu_torch.passes import (
     apply_deferred_sharded_embedding_rewrite, apply_deferred_sparse_rewrite)
 from paddle_tpu_torch.utils.enforce import EnforceError
 
 # pseudo-ops that the executor elides (feed/fetch are direct env access here)
 ELIDED_OPS = {"feed", "fetch"}
+# op types run structurally over their sub-blocks (ops/control_flow.py)
+CONTROL_FLOW_OPS = control_flow.CONTROL_FLOW_OPS
+
+
+def _structural(ins, attrs):
+    raise EnforceError("a control-flow op runs through the executor, "
+                       "which runs its sub-blocks")
 
 
 class _OpStep:
@@ -73,7 +87,7 @@ class _OpStep:
     (``rng_block``, passed as ``ins["__rng_block__"]``)."""
 
     __slots__ = ("op", "op_def", "attrs", "inputs", "outputs", "rng_id",
-                 "rng_block")
+                 "rng_block", "control_flow")
 
     def __init__(self, op, op_def, attrs, inputs, outputs, rng_id):
         self.op = op
@@ -83,6 +97,7 @@ class _OpStep:
         self.outputs = outputs
         self.rng_id = rng_id
         self.rng_block = None
+        self.control_flow = op.type in CONTROL_FLOW_OPS
 
 
 def _inplace_scatter(ops, i, block):
@@ -125,8 +140,10 @@ def block_plan(block):
             # the generic grad lowering differentiates only what the op emits
             attrs = dict(attrs, __grad_outputs__=[
                 slot for slot, names in op.outputs.items() if names])
+        op_def = (OpDef(op.type, _structural) if op.type in CONTROL_FLOW_OPS
+                  else resolve_op_def(op.type))
         plan.append(_OpStep(
-            op, resolve_op_def(op.type), attrs,
+            op, op_def, attrs,
             [(slot, names) for slot, names in op.inputs.items() if names],
             list(op.outputs.items()),
             op.attrs.get("__rng_id__", op_index),
@@ -168,7 +185,9 @@ class Executor:
             persistable = [
                 v.name for v in block.vars.values() if v.persistable
             ]
-            read = {n for op in block.ops for n in op.input_names()}
+            # a feed read only inside a sub-block is read too
+            read = {n for b in program.blocks for op in b.ops
+                    for n in op.input_names()}
             plan = (block_plan(block), persistable, read)
             self._plans[key] = plan
         return plan
@@ -202,8 +221,40 @@ class Executor:
             owner.set(name, v)
         return v
 
+    def _sub_plan(self, block):
+        """A sub-block's plan, cached beside the program's."""
+        prog = block.program
+        key = (prog._uid, prog._version, block.idx)
+        plan = self._plans.get(key)
+        if plan is None:
+            plan = self._plans[key] = block_plan(block)
+        return plan
+
+    def _control_flow(self, step, env, scope, block, run_key):
+        def run_block(sub, local, key):
+            self._run_steps(self._sub_plan(sub), local, scope, sub, key)
+
+        def value(name, local):
+            v = local.get(name)
+            if v is None and scope._find_owner(name) is not None:
+                v = local[name] = self._from_scope(scope, name, block)
+            return v
+
+        try:
+            control_flow.run_control_flow_op(step.op, block, env, run_key,
+                                             run_block, value)
+        except EnforceError:
+            raise
+        except Exception as e:
+            raise EnforceError(
+                f"lowering failed: {e}", op_type=step.op.type,
+                op_callstack=step.op.attrs.get("op_callstack")) from e
+
     def _run_steps(self, steps, env, scope, block, run_key):
         for step in steps:
+            if step.control_flow:
+                self._control_flow(step, env, scope, block, run_key)
+                continue
             ins = {}
             for slot, names in step.inputs:
                 vals = []

@@ -16,6 +16,7 @@ import contextlib
 import copy
 import itertools
 import json
+import operator
 
 import numpy as np
 
@@ -41,6 +42,44 @@ def name_scope(prefix):
 
 def _current_name_scope():
     return "/".join(_name_scope_stack)
+
+
+def parse_getitem_index(idx):
+    """The tensor-index parser of the JAX package's ``core/ir.py``, for
+    dygraph's ``VarBase.__getitem__``: idx -> (axes, starts, ends,
+    squeeze_axes). Ints squeeze their axis and -1 selects from the end
+    (int-max end sentinel); only step-1 slices are expressible as one
+    slice op — anything else raises."""
+    if not isinstance(idx, tuple):
+        idx = (idx,)
+    axes, starts, ends, squeeze_axes = [], [], [], []
+    for ax, s in enumerate(idx):
+        if isinstance(s, slice):
+            if s.step not in (None, 1):
+                raise ValueError(
+                    "tensor slicing supports step 1 only "
+                    "(use layers.strided_slice)"
+                )
+            if s.start is None and s.stop is None:
+                continue
+            axes.append(ax)
+            starts.append(s.start or 0)
+            ends.append(s.stop if s.stop is not None else int(1e9))
+        else:
+            try:
+                # accepts python/numpy ints; a SYMBOLIC tensor index routes
+                # through __index__ and hits its loud capture guard
+                i = operator.index(s)
+            except TypeError:
+                raise TypeError(
+                    f"unsupported tensor index {type(s).__name__} "
+                    "(tensor-valued indices: use layers.gather)"
+                ) from None
+            axes.append(ax)
+            starts.append(i)
+            ends.append(i + 1 if i != -1 else int(1e9))
+            squeeze_axes.append(ax)
+    return axes, starts, ends, squeeze_axes
 
 
 class Variable:

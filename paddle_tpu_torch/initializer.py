@@ -3,7 +3,8 @@
 Same architecture as the reference (reference: python/paddle/fluid/
 initializer.py — initializers append fill_constant/uniform_random/... ops
 to the startup program). The port carries constant, uniform, normal,
-truncated normal, Xavier and MSRA (both forms); their random ops draw
+truncated normal, Xavier and MSRA (both forms), and a numpy array's
+values (``NumpyArrayInitializer``); their random ops draw
 ``jax.random``'s values from the executor's keys, so a seed gives the JAX
 package's startup weights.
 """
@@ -140,6 +141,28 @@ class MSRAInitializer(Initializer):
 
 
 # public aliases matching the reference API surface
+class NumpyArrayInitializer(Initializer):
+    """The array's values, as one ``assign_value`` op in the var's dtype
+    (dygraph-to-static freezes eager weights into a captured program
+    through it)."""
+
+    def __init__(self, value):
+        import numpy as np
+
+        self.value = np.asarray(value)
+
+    def __call__(self, var, block):
+        block.append_op(
+            "assign_value",
+            outputs={"Out": [var.name]},
+            attrs={
+                "shape": list(self.value.shape),
+                "dtype": var.dtype,
+                "values": self.value.reshape(-1).tolist(),
+            },
+        )
+
+
 Constant = ConstantInitializer
 Uniform = UniformInitializer
 Normal = NormalInitializer

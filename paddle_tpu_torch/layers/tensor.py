@@ -23,8 +23,16 @@ __all__ = [
     "create_global_var",
     "sums",
     "concat",
+    "equal",
     "not_equal",
     "less_than",
+    "less_equal",
+    "greater_than",
+    "greater_equal",
+    "logical_and",
+    "logical_or",
+    "logical_not",
+    "increment",
     "uniform_random",
     "gaussian_random",
 ]
@@ -236,8 +244,33 @@ def _make_compare(op_type):
     return fn
 
 
+equal = _make_compare("equal")
 not_equal = _make_compare("not_equal")
 less_than = _make_compare("less_than")
+less_equal = _make_compare("less_equal")
+greater_than = _make_compare("greater_than")
+greater_equal = _make_compare("greater_equal")
+logical_and = _make_compare("logical_and")
+logical_or = _make_compare("logical_or")
+
+
+def logical_not(x, name=None):
+    helper = LayerHelper("logical_not", name=name)
+    out = helper.create_variable_for_type_inference("bool", stop_gradient=True)
+    helper.append_op("logical_not", {"X": [x.name]}, {"Out": [out.name]})
+    return out
+
+
+def increment(x, value=1.0, in_place=True, name=None):
+    helper = LayerHelper("increment", name=name)
+    if in_place:
+        out = x
+    else:
+        out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        "increment", {"X": [x.name]}, {"Out": [out.name]}, {"step": value}
+    )
+    return out
 
 
 def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, seed=0, name=None):

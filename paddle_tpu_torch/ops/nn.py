@@ -493,3 +493,85 @@ def _dropout_grad(ins, attrs):
     if upscale:
         dx = dx / _f32_scalar(1.0 - p, dx)
     return {"X@GRAD": [dx]}
+
+
+# -- the layers dygraph reaches ----------------------------------------------
+#
+# XLA code in the JAX package (``paddle_tpu/ops/nn.py``), with no Pallas
+# kernel: plain torch here, and their grads are the generic one.
+
+
+@register_op("prelu")
+def _prelu(ins, attrs):
+    """``x`` where positive, else ``alpha * x``; ``mode="channel"``
+    broadcasts a ``[C]`` alpha over NCHW."""
+    x, alpha = first(ins, "X"), first(ins, "Alpha")
+    if attrs.get("mode", "all") == "channel" and alpha.dim() == 1:
+        alpha = alpha.reshape((1, -1) + (1,) * (x.dim() - 2))
+    return {"Out": [torch.where(x > 0, x, alpha * x)]}
+
+
+@register_op("conv2d_transpose")
+def _conv2d_transpose(ins, attrs):
+    """Transposed convolution with the reference's filter layout
+    ``[in_c, out_c/groups, kh, kw]`` (``torch``'s own), the strides and
+    groups; the JAX lowering takes no dilation, so neither does this one.
+    Pads of two values are symmetric; four are (top, bottom, left, right),
+    cropped from the unpadded output. Full float32 on the card."""
+    x, w = first(ins, "Input"), first(ins, "Filter")
+    strides = tuple(attrs.get("strides", [1, 1]))
+    groups = attrs.get("groups", 1)
+    pads = list(attrs.get("paddings", [0, 0]))
+    if len(pads) == 2:
+        pads = [pads[0], pads[0], pads[1], pads[1]]
+    top, bottom, left, right = pads
+    symmetric = top == bottom and left == right
+    with FLOAT32_CONVS.on(x):
+        out = F.conv_transpose2d(
+            x, w, None, strides, (top, left) if symmetric else 0, 0, groups)
+    if not symmetric:
+        out = out[:, :, top:out.shape[2] - bottom, left:out.shape[3] - right]
+    return {"Output": [out]}
+
+
+def _affine_channels(y, ins):
+    """``y * Scale + Bias`` with ``[C]`` parameters broadcast over NCHW."""
+    scale, bias = maybe(ins, "Scale"), maybe(ins, "Bias")
+    shape = (1, -1) + (1,) * (y.dim() - 2)
+    if scale is not None:
+        y = y * scale.reshape(shape)
+    if bias is not None:
+        y = y + bias.reshape(shape)
+    return y
+
+
+@register_op("instance_norm")
+def _instance_norm(ins, attrs):
+    """Each (sample, channel) plane normalised by its own mean and biased
+    variance, then scaled and shifted per channel."""
+    x = first(ins, "X")
+    eps = attrs.get("epsilon", 1e-5)
+    axes = tuple(range(2, x.dim()))
+    mean = x.mean(dim=axes, keepdim=True)
+    var = (x - mean).square().mean(dim=axes, keepdim=True)
+    y = _affine_channels((x - mean) / torch.sqrt(var + eps), ins)
+    return {"Y": [y], "SavedMean": [mean], "SavedVariance": [var]}
+
+
+@register_op("group_norm")
+def _group_norm(ins, attrs):
+    """The channels cut into ``groups``; each (sample, group) normalised
+    by its own mean and biased variance, then scaled and shifted per
+    channel. ``Mean``/``Variance`` are ``[N, groups]``."""
+    x = first(ins, "X")
+    groups = attrs.get("groups", 1)
+    eps = attrs.get("epsilon", 1e-5)
+    n, c = x.shape[0], x.shape[1]
+    g = x.reshape((n, groups, c // groups) + tuple(x.shape[2:]))
+    axes = tuple(range(2, g.dim()))
+    mean = g.mean(dim=axes, keepdim=True)
+    var = (g - mean).square().mean(dim=axes, keepdim=True)
+    y = _affine_channels(((g - mean) / torch.sqrt(var + eps)).reshape(x.shape),
+                         ins)
+    return {"Y": [y], "Mean": [mean.reshape(n, groups)],
+            "Variance": [var.reshape(n, groups)]}

@@ -140,8 +140,19 @@ def _compare(name, fn):
         return {"Out": [_fn(first(ins, "X"), first(ins, "Y"))]}
 
 
+_compare("equal", torch.eq)
 _compare("not_equal", torch.ne)
 _compare("less_than", torch.lt)
+_compare("less_equal", torch.le)
+_compare("greater_than", torch.gt)
+_compare("greater_equal", torch.ge)
+_compare("logical_and", torch.logical_and)
+_compare("logical_or", torch.logical_or)
+
+
+@register_op("logical_not", nondiff_inputs=("X",))
+def _logical_not(ins, attrs):
+    return {"Out": [torch.logical_not(first(ins, "X"))]}
 
 
 @register_op("gather", nondiff_inputs=("Index",))

@@ -11,7 +11,8 @@ the same training program. The port carries ``SGDOptimizer``,
 with weight decay (``regularizer.py``: ``regularization=`` for every
 parameter, a parameter's own ``ParamAttr(regularizer=)`` first); gradient
 clipping and per-parameter learning rates are not ported yet (ROADMAP
-M1b).
+M1b). In dygraph mode ``minimize(loss, parameter_list=)`` runs a static
+apply program over the eager parameters (``_dygraph_minimize``).
 """
 
 from paddle_tpu_torch.core.backward import append_backward
@@ -20,6 +21,7 @@ from paddle_tpu_torch.core.ir import (
 from paddle_tpu_torch.layer_helper import LayerHelper
 from paddle_tpu_torch.layers import tensor as tensor_layers
 from paddle_tpu_torch.utils import unique_name
+from paddle_tpu_torch.utils.enforce import EnforceError
 from paddle_tpu_torch.utils.flags import flags
 
 __all__ = ["Optimizer", "SGDOptimizer", "SGD", "MomentumOptimizer",
@@ -129,6 +131,10 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
+        from paddle_tpu_torch.dygraph.base import in_dygraph_mode
+
+        if in_dygraph_mode():
+            return self._dygraph_minimize(loss, parameter_list)
         self.helper = LayerHelper(self.__class__.__name__)
         self._create_global_learning_rate()
         params_grads = self.backward(
@@ -136,6 +142,106 @@ class Optimizer:
         )
         optimize_ops = self.apply_gradients(params_grads)
         return optimize_ops, params_grads
+
+    # -- dygraph path --------------------------------------------------
+    # As in the JAX package: the SAME _append_optimize_op machinery builds
+    # a static "apply program" once per parameter set (all updates + lr +
+    # regularization), run by the port's Executor on the guard's place
+    # with the accumulators in a private Scope. The parameters and grads
+    # feed it as the tensors they are and the updated parameters come
+    # back as tensors: they stay on the card, no host round trip a step.
+    def _dygraph_minimize(self, loss, parameter_list):
+        from paddle_tpu_torch.core.executor import Executor
+        from paddle_tpu_torch.core.ir import Program, program_guard
+        from paddle_tpu_torch.core.scope import Scope, scope_guard
+        from paddle_tpu_torch.dygraph.base import _dygraph_tracer
+
+        if parameter_list is None:
+            raise EnforceError(
+                "parameter_list is required for minimize() in dygraph mode "
+                "(pass layer.parameters())")
+        params = [
+            p
+            for p in parameter_list
+            if getattr(p, "trainable", True) and p.grad_value is not None
+        ]
+        if not params:
+            return [], []
+        key = tuple((p.name, tuple(p.shape), str(p.dtype)) for p in params)
+        if getattr(self, "_dy_key", None) != key:
+            self._dy_scope = Scope()
+            self._dy_exe = Executor(_dygraph_tracer().place)
+            main, startup = Program(), Program()
+            self._lr_var = None
+            self._accumulators = {}
+            self.helper = LayerHelper(self.__class__.__name__)
+            with program_guard(main, startup):
+                self._create_global_learning_rate()
+                block = main.global_block()
+                params_grads = []
+                for p in params:
+                    sp = block.create_parameter(
+                        shape=list(p.shape), dtype=p.dtype, name=p.name
+                    )
+                    sp.optimize_attr = dict(p.optimize_attr)
+                    sp.regularizer = p.regularizer
+                    g = block.create_var(
+                        name=p.name + "@GRAD", shape=list(p.shape), dtype=p.dtype
+                    )
+                    params_grads.append((sp, g))
+                self.apply_gradients(params_grads)
+            with scope_guard(self._dy_scope):
+                self._dy_exe.run(startup)
+            self._dy_prog = main
+            self._dy_key = key
+        feed = {p.name: p.value for p in params}
+        for p in params:
+            feed[p.name + "@GRAD"] = p.grad_value
+        with scope_guard(self._dy_scope):
+            outs = self._dy_exe.run(
+                self._dy_prog,
+                feed=feed,
+                fetch_list=[p.name for p in params],
+                return_numpy=False,
+            )
+        for p, v in zip(params, outs):
+            p.value = v
+        return [], [(p, p.grad_value) for p in params]
+
+    def state_dict(self):
+        """Dygraph accumulator state, as numpy (reference: dygraph
+        optimizer state_dict)."""
+        from paddle_tpu_torch.dygraph.base import to_numpy
+
+        out = {}
+        scope = getattr(self, "_dy_scope", None)
+        if scope is None:
+            return out
+        for per_param in self._accumulators.values():
+            for var in per_param.values():
+                val = scope.find_var(var.name)
+                if val is not None:
+                    out[var.name] = to_numpy(val)
+        if self._lr_var is not None:
+            val = scope.find_var(self._lr_var.name)
+            if val is not None:
+                out[self._lr_var.name] = to_numpy(val)
+        return out
+
+    def set_state_dict(self, state_dict):
+        import numpy as np
+        import torch
+
+        scope = getattr(self, "_dy_scope", None)
+        if scope is None:
+            raise EnforceError("optimizer has no state yet (run a step first)")
+        device = self._dy_exe.device
+        for name, val in state_dict.items():
+            if not isinstance(val, torch.Tensor):
+                val = torch.from_numpy(np.array(val))
+            scope.set(name, val.to(device))
+
+    set_dict = set_state_dict
 
     def _append_optimize_op(self, block, param_and_grad):
         raise NotImplementedError
@@ -160,7 +266,9 @@ class SGDOptimizer(Optimizer):
         result = super().minimize(
             loss, startup_program, parameter_list, no_grad_set
         )
-        if flags.sparse_embedding_update:
+        from paddle_tpu_torch.dygraph.base import in_dygraph_mode
+
+        if not in_dygraph_mode() and flags.sparse_embedding_update:
             # SelectedRows analog (reference: operators/optimizers/sgd_op.h
             # sparse branch): single-use embedding grads become row-sparse
             # updates instead of [V, D] dense tensors. The rewrite is

@@ -28,6 +28,16 @@ import paddle_tpu_torch.core.backward
 import paddle_tpu_torch.dataio.sparse
 import paddle_tpu_torch.dataio.state
 import paddle_tpu_torch.distributed
+import paddle_tpu_torch.dygraph
+import paddle_tpu_torch.dygraph.ast_transform
+import paddle_tpu_torch.dygraph.base
+import paddle_tpu_torch.dygraph.checkpoint
+import paddle_tpu_torch.dygraph.container
+import paddle_tpu_torch.dygraph.jit
+import paddle_tpu_torch.dygraph.layers
+import paddle_tpu_torch.dygraph.nn
+import paddle_tpu_torch.dygraph.parallel
+import paddle_tpu_torch.dygraph.varbase
 import paddle_tpu_torch.distributed.launch
 import paddle_tpu_torch.distributed.ps
 import paddle_tpu_torch.embedding
@@ -49,6 +59,7 @@ import paddle_tpu_torch.kernels.random
 import paddle_tpu_torch.kernels.sparse_update
 import paddle_tpu_torch.kernels.topk
 import paddle_tpu_torch.layers.collective
+import paddle_tpu_torch.layers.control_flow
 import paddle_tpu_torch.models.bert
 import paddle_tpu_torch.models.ctr
 import paddle_tpu_torch.models.mnist
@@ -57,6 +68,7 @@ import paddle_tpu_torch.models.transformer
 import paddle_tpu_torch.models.wide_deep
 import paddle_tpu_torch.observability.lockdep
 import paddle_tpu_torch.observability.metrics
+import paddle_tpu_torch.ops.control_flow
 import paddle_tpu_torch.ops.fused
 import paddle_tpu_torch.ops.misc_extra
 import paddle_tpu_torch.ops.sharded_embedding

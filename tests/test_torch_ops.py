@@ -114,6 +114,7 @@ def _run_torch(op_type, ins, attrs):
 
 def test_cases_cover_every_ported_op_type():
     from test_torch_amp import CASES as AMP_CASES
+    from test_torch_control_flow import CASES as CONTROL_FLOW_CASES
     from test_torch_conv import CASES as CONV_CASES
     from test_torch_ctr import CASES as CTR_CASES
     from test_torch_random import CASES as RANDOM_CASES
@@ -122,7 +123,9 @@ def test_cases_cover_every_ported_op_type():
 
     assert sorted(set(CASES) | set(TRAIN_CASES) | set(CTR_CASES)
                   | set(DGC_CASES) | set(RANDOM_CASES)
-                  | set(CONV_CASES) | set(AMP_CASES)) == TorchOps.all_types()
+                  | set(CONV_CASES) | set(AMP_CASES)
+                  | {op for op, _, _ in CONTROL_FLOW_CASES.values()}
+                  ) == TorchOps.all_types()
 
 
 @pytest.mark.parametrize("op_type", sorted(CASES))
