@@ -8,6 +8,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py --phases 12      # the build and the fleet
     python3 chip_smoke.py --phases 13      # the build and data parallelism
     python3 chip_smoke.py --phases 14      # the build, beam translation, dygraph
+    python3 chip_smoke.py --phases 15      # the build, the data plane, the PS
 
 ``--phases`` takes the phases' top-level numbers (2 runs 2-2f, 3 runs
 3-3d, 5 runs 5-5c, 9 runs 9a-9d; 10 runs 9a first, whose programs it
@@ -33,7 +34,10 @@ and the batching ServingEngine, and serves the decoder through a fleet
 router over worker processes, one of them killed mid-flight, and trains
 BERT-base data-parallel on 2 ranks of the card through the collective
 fleet against one rank on the whole batch, and translates with beam
-search at Transformer-big width and trains in dygraph (imperative) mode.
+search at Transformer-big width and trains in dygraph (imperative) mode,
+and feeds Wide&Deep through the DataLoader and the dense CTR through a
+Dataset on the native feed and ``train_from_dataset``, and trains the
+CTR model against the port's native parameter server.
 Any failure
 exits non-zero. It
 imports nothing of JAX or of the JAX package, and it refuses to run
@@ -41,8 +45,9 @@ without a CUDA device (or outside a checkout of the repository).
 
 Phases:
 
-1. build — one ``nvcc`` per kernel source, all started together, then
-   load them.
+1. build — one ``nvcc`` per kernel source and one ``g++`` per native host
+   component (phase 15's feed and PS), all started together, then load
+   the kernels. Each phase's seconds follow it on a ``[time]`` line.
 2. parity — each kernel against its plain version on the same inputs
    (S=8 slots, L=1024 positions, H=768, R=8192 arena rows, random block
    row maps with rows shared between slots, random cursors, one retired
@@ -113,18 +118,18 @@ Phases:
    draft "same", all three with cut's weights (``convert.load_params``).
    A burst of 16 requests (96-384 prompt tokens, 4 sharing a 128-token
    prefix, 64 new tokens each: a beam of width 4, a speculative one on
-   "same" with draft-KV, a sampled one and 13 greedy ones; every prompt
+   "same" with draft-KV, a sampled one and 9 greedy ones; every prompt
    over 128 tokens streams through the chunk program) is submitted at
    once and hand-stepped to the end, first on "uncut", then on "cut",
    whose 8 live slots need about twice its blocks, so sessions park to
    the host tier and resume. Launch counters are zeroed before the cut
    burst and read after (the kernels line adds them). Checks: parked ==
    resumed >= 1, nothing failed, no walk-back, the pool conserved and
-   empty; the beam against ``offline_beam`` and the 15 other streams
+   empty; the beam against ``offline_beam`` and the 11 other streams
    against ``offline_decode`` by phase 3's rule; the sampled stream
    bit-equal to the uncut pool's (the log counts the streams that are).
    Prints the spill's ms a park and the resume's a row run (p50, max) with
-   bytes and GB/s, the 16 requests' latency p50/p99 on both pools,
+   bytes and GB/s, the 12 requests' latency p50/p99 on both pools,
    tokens/s on both, the brownout transitions with their triggers and the
    host tier's counters. Legs: corruption (5 prompts of 300 tokens; the
    first parked session's tier entry gets a byte flipped: quarantined,
@@ -483,6 +488,42 @@ Phases:
    their start-up overlaps 14b-14d). The ``kernels`` line adds the
    K8 launches of 14a's startup, 14b, 14c, 14d's kernels-on run and 14e
    (both ranks and the one-rank run).
+15. the data plane and the parameter server. The native feed and the
+   native PS build in phase 1 from the port's copies (one ``g++`` each,
+   beside the ``nvcc`` builds; a failed build fails the script: no
+   fallback). 15a: phase 6's
+   24 x 4096 click-log records through ``wide_deep.make_loader``
+   (``DataLoader.from_generator(feed_list, capacity=8, num_workers=2)
+   .set_sample_generator(..., 4096, sample_transform=...)``) into
+   ``engine.prepare_feed`` and ``exe.run``: every batch (2 workers, and
+   the first 8 with none) bit-equal to ``make_batch``'s, the ids numpy on the host and the
+   dense feeds CUDA tensors; the 24 losses, the persistables, the host
+   tier and the K5 launches bit-equal to the directly-fed run's. Prints
+   the loader's batches/s alone (its first 8 batches), step p50 against
+   the directly-fed p50,
+   the consumer's wait share and the idle share (the loaded run's last 4
+   steps under ``torch.profiler``). 15b: phase 7's 8 batches written as MultiSlot
+   files by the port's ``MultiSlotDataGenerator``, an ``InMemoryDataset``
+   on the native feed (its batches equal ``_PyFeed``'s and the rows'),
+   ``exe.train_from_dataset(main, dataset, fetch_list=[loss])`` (Hogwild
+   behind the prefetcher) against ``exe.run`` over the same batches:
+   losses and tables bit-equal, K6 16 a step, ``exe.run``'s host syncs
+   phase 7's 26 a step and the training thread's those less the feed
+   uploads' (the prefetcher stages the feeds). Prints records/s parsed and the
+   step p50 against ``exe.run``'s. 15c: ``build_ctr_train()`` at its own
+   width (8 slots x 3 ids, deep 16, MLP 64-32, Adam), batch 4096, 8 steps
+   a leg against an in-process native ``PSServer``: (i)
+   ``ps_mode=True``, ids over 2^40, through ``fleet.worker(exe).run``;
+   (ii) ``ps_mode="remote"``, ids under 2^31, ``prefetch_for_program``
+   one batch ahead; (iii) leg (i)'s program and batches as MultiSlot
+   files through ``train_from_dataset`` (DownpourSGD). Checks: (iii)
+   equal to (i) bit for bit, the server's rows equal to the unique ids
+   pulled, prefetch hits in (ii), and a parity leg (SGD 0.3, zero init,
+   ids under 2^20, 4 steps) within rtol 2e-3 / atol 2e-4 of the dense
+   tables' losses. Prints per leg the step p50, the pull and push ms a step and
+   their share, the host syncs of one step and the idle share of one
+   step. The ``kernels`` line adds 15a's K5, 15b's K6 and the startups'
+   K8 launches.
 
 The last lines are the card's name and power limit, one JSON line of
 per-kernel results, and ``{"ok": true, "device": {...}}``.
@@ -497,6 +538,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -536,11 +578,12 @@ GRAMMAR_REGEX = "[A-Z][a-z]+( [A-Z][a-z]+)*"
 # fails any hypothesis that a real selection error would change.
 BEAM_TOL = 1e-3
 # Phase 3d, the engine under overload: a pool of 96 blocks (1536 rows)
-# for a burst of 16 requests of 96-384 prompt tokens (4 share a 128-token
-# prefix) and 64 new tokens each, beside the same burst on an uncut pool
-# of 512; a 1 GiB host tier; the breaker opens after 3 failed steps and
+# for a burst of 12 requests of 96-384 prompt tokens (3 share a 128-token
+# prefix) and 64 new tokens each (16 until the whole script neared its
+# time limit; the first 12 of the same prompts), beside the same burst on
+# an uncut pool of 512; a 1 GiB host tier; the breaker opens after 3 failed steps and
 # half-opens after 0.5 s; the corruption leg's 5 prompts of 300 tokens
-OV_REQUESTS, OV_SHARED, OV_PROMPT_LEN, OV_MAX_NEW = 16, 128, (96, 384), 64
+OV_REQUESTS, OV_SHARED, OV_PROMPT_LEN, OV_MAX_NEW = 12, 128, (96, 384), 64
 OV_BLOCKS, OV_UNCUT_BLOCKS, OV_TIER_MB = 96, 512, 1024
 OV_BREAKER, OV_COOLDOWN_S, OV_CORRUPT_LEN = 3, 0.5, 300
 NEG_INF = -1e9
@@ -833,17 +876,23 @@ def check_environment():
 
 # -- phase 1 ----------------------------------------------------------------
 def phase_build():
+    from paddle_tpu_torch import native
     from paddle_tpu_torch.kernels import KERNELS, build
 
     sources = sorted({os.path.basename(k.source) for k in KERNELS.values()}
                      | {FLOOR_SOURCE})
     t0 = time.perf_counter()
-    # one nvcc per source, all started together
-    with ThreadPoolExecutor(len(sources)) as pool:
-        outputs = dict(zip(sources, pool.map(build.build, sources)))
+    # one nvcc per source and one g++ per native host component (phase
+    # 15's), all started together
+    with ThreadPoolExecutor(len(sources) + len(NATIVE)) as pool:
+        kernel_outputs = pool.map(build.build, sources)
+        native_outputs = pool.map(native.build_native, NATIVE)
+        outputs = dict(zip(sources, kernel_outputs))
+        list(native_outputs)
     for source in sources:
         build.load(source)
-    log(f"[build] {', '.join(sources)}: {time.perf_counter() - t0:.2f}s")
+    log(f"[build] {', '.join(sources)}, and the native "
+        f"{' and '.join(NATIVE)}: {time.perf_counter() - t0:.2f}s")
     for source, out in outputs.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -2127,8 +2176,8 @@ def phase_beam_grammar(greedy_tps, greedy_step):
 
 # -- phase 3d ---------------------------------------------------------------
 def overload_prompts(vocab):
-    """Phase 3d's burst: 16 prompts of 96-384 tokens (4 share a 128-token
-    prefix), from the seed."""
+    """Phase 3d's burst: OV_REQUESTS prompts of 96-384 tokens (every
+    fourth shares a 128-token prefix), from the seed."""
     rng = np.random.RandomState(SEED + 3)
     prefix = rng.randint(0, vocab, OV_SHARED).tolist()
     prompts = []
@@ -2143,7 +2192,7 @@ def overload_prompts(vocab):
 
 
 def _ov_submit(engine, model, prompts):
-    """The burst's 16 requests, in this order: a beam of width 4, a
+    """The burst's requests, in this order: a beam of width 4, a
     speculative one on the draft "same" (draft-KV), a sampled one, then
     plain greedy ones (every prompt over 128 tokens streams through the
     chunk program)."""
@@ -2176,7 +2225,7 @@ def _hand_step(entry, resps, hook=None, limit=20000):
 
 
 def _ov_burst(engine, entry, prompts, timed_resume=False):
-    """One burst through ``entry``: submit all 16 at once, hand-step to
+    """One burst through ``entry``: submit all at once, hand-step to
     the end. Returns (kinds, outputs, per-request latency s, wall s,
     resume ms by session)."""
     import torch
@@ -2421,7 +2470,7 @@ def phase_overload(greedy_tps):
     log(f"[overload] pool {OV_BLOCKS} blocks ({OV_BLOCKS * BLOCK} rows, "
         f"arena {cut.model.arena_bytes() / 1e6:.1f} MB), uncut "
         f"{OV_UNCUT_BLOCKS}; {per_token} KV bytes a token; the first 8 "
-        f"slots need up to {demand} blocks, the 16 requests "
+        f"slots need up to {demand} blocks, the {OV_REQUESTS} requests "
         f"{sum(blocks(p) for p in prompts) + 3 * blocks(prompts[0])}; "
         f"prompts {min(map(len, prompts))}-{max(map(len, prompts))} "
         f"tokens; startup {time.perf_counter() - t_phase:.2f}s")
@@ -2508,7 +2557,7 @@ def phase_overload(greedy_tps):
         f"CRC, one upload, the inject program, synchronised): "
         f"{_pcts(resume_ms)}, {rs_b.mean() / 1e6:.2f} MB a run on average, "
         f"{rs_b.sum() / sum(resume_ms) / 1e6:.3f} GB/s")
-    log(f"[overload] latency of the 16: cut pool p50 "
+    log(f"[overload] latency of the {OV_REQUESTS}: cut pool p50 "
         f"{np.median(lat):.3f} s p99 {np.percentile(lat, 99):.3f} s; uncut "
         f"p50 {np.median(ulat):.3f} s p99 {np.percentile(ulat, 99):.3f} s "
         f"(engine histogram, cut: p50 {st['latency_p50_s']:.3f} p99 "
@@ -3491,29 +3540,51 @@ def _count_syncs(fn):
     return len(_sync_warnings(fn))
 
 
-def _sync_warnings(fn):
+def _sync_warnings(fn, threads=False):
     """Run ``fn`` once with PyTorch's sync debug mode on; returns where
     each operation that synchronized the host with the card was called
-    (file:line of the warning, then its text)."""
+    (file:line of the warning, then its text), on any thread; with
+    ``threads``, (``threading.get_ident()`` of the thread that made the
+    call, where) pairs."""
     import warnings
 
     import torch
 
-    with warnings.catch_warnings(record=True) as caught:
+    caught = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        # the mode's own one-time notice ("Synchronization debug mode is
+        # a prototype feature ...") is not a sync: the sync's message only
+        if "called a synchronizing CUDA operation" in str(message):
+            caught.append((threading.get_ident(),
+                           f"{os.path.basename(filename)}:{lineno} {message}"))
+
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = show
         torch.cuda.set_sync_debug_mode("warn")
         try:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    # the mode's own one-time notice ("Synchronization debug mode is a
-    # prototype feature ...") is not a sync: match the sync's message only
-    return [f"{os.path.basename(w.filename)}:{w.lineno} {w.message}"
-            for w in caught
-            if "called a synchronizing CUDA operation" in str(w.message)]
+    return caught if threads else [where for _, where in caught]
 
 
 # -- phase 6 ----------------------------------------------------------------
+_CLICK_RECORDS = []
+
+
+def _click_records():
+    """Phase 6's 24 x 4096 click-log records (``click_log(..., seed=0)``),
+    made once a process: phases 6, 10b and 15a read the same records and
+    never change them (the Python loop that draws them takes 15-20 s)."""
+    from paddle_tpu_torch.models import wide_deep as wd
+
+    if not _CLICK_RECORDS:
+        _CLICK_RECORDS.extend(wd.click_log(WD_BATCH * WD_STEPS, seed=0))
+    return _CLICK_RECORDS
+
+
 def _wide_deep_run(batches, capacity, state=None, timed=False):
     """One Wide&Deep training run over ``batches`` on the card. Returns
     the losses, launches, per-step K5 launches and tables with misses,
@@ -3603,7 +3674,7 @@ def phase_wide_deep():
     from paddle_tpu_torch.utils import unique_name
 
     t0 = time.perf_counter()
-    records = list(wd.click_log(WD_BATCH * WD_STEPS, seed=0))
+    records = _click_records()
     with unique_name.guard():
         feeds = wd.build_programs()[2]
     batches = [wd.make_batch(records[i * WD_BATCH:(i + 1) * WD_BATCH], feeds)
@@ -5001,7 +5072,7 @@ def _ckpt_wide_deep(ckdir):
     from paddle_tpu_torch.models import wide_deep as wd
     from paddle_tpu_torch.utils import unique_name
 
-    records = list(wd.click_log(WD_BATCH * WD_STEPS, seed=0))
+    records = _click_records()
     with unique_name.guard():
         main, startup, feeds, (loss, pred) = wd.build_programs(
             capacity=WD_CAPACITY)
@@ -6781,7 +6852,590 @@ def phase_beam_dygraph():
     return launches
 
 
-PHASES = tuple(str(n) for n in range(1, 15))
+# -- phase 15 ---------------------------------------------------------------
+NATIVE = ("datafeed", "ps")  # the host components, built in phase 1
+P15_FILES = 4                # MultiSlot files the generator writes (15b/15c)
+P15_THREADS = 4              # native feed parse threads
+P15_PS_STEPS = 8             # 15c: steps a leg
+P15_PARITY_STEPS = 4         # 15c: steps of the parity leg's two runs
+P15_PS_BATCH = 4096
+P15_SERIAL = 8               # 15a: batches of the loader alone and unpooled
+P15_PARITY_LR = 0.3
+P15_PARITY_TOL = dict(rtol=2e-3, atol=2e-4)   # tests/test_ps.py's bars
+
+
+def _p15_load_native():
+    """Loads the native feed and PS, which phase 1 built from the port's
+    copies (a build that failed there failed the script)."""
+    from paddle_tpu_torch import native
+
+    t0 = time.perf_counter()
+    libs = [native.load_native(c) for c in NATIVE]
+    log(f"[p15] native datafeed and ps (built in phase 1) loaded in "
+        f"{time.perf_counter() - t0:.2f}s "
+        f"({', '.join(os.path.basename(l._name) for l in libs)})")
+
+
+def _p15_syncs(fn):
+    """(host syncs on this thread, host syncs on every other thread) of
+    one ``fn()``, each warning counted on the thread that raised it."""
+    me = threading.get_ident()
+    caught = _sync_warnings(fn, threads=True)
+    mine = sum(ident == me for ident, _ in caught)
+    return mine, len(caught) - mine
+
+
+def _p15_waits(pipeline):
+    """The registry's prefetch waits of ``pipeline`` so far: (the
+    consumer's seconds, the producer's waits on its copies, their
+    seconds). The producer's are event waits, which the sync debug mode
+    does not report, so they are counted here."""
+    from paddle_tpu_torch.observability import registry
+
+    reg = registry()
+    consumer = reg.histogram("dataio_consumer_wait_seconds",
+                             labels={"pipeline": pipeline})
+    copies = reg.histogram("dataio_copy_wait_seconds",
+                           labels={"pipeline": pipeline})
+    return consumer.sum, copies.count, copies.sum
+
+
+def _p15_idle(tag, run):
+    """(device busy ms, wall ms, idle share) of ``run()`` under
+    torch.profiler (``_profile``)."""
+    _, busy_us, wall_us, _ = _profile(tag, run)
+    return busy_us / 1e3, wall_us / 1e3, 1 - busy_us / wall_us
+
+
+def _p15_wd_run(feeds, state=None, profile_steps=0, keep=False):
+    """Phase 6's Wide&Deep on the card over ``feeds`` (an iterable of feed
+    dicts: the DataLoader's or ``make_batch``'s), each through
+    ``engine.prepare_feed`` and ``exe.run``; the last ``profile_steps``
+    steps under torch.profiler. Returns losses, step seconds (the run
+    alone, not the wait for the feed; the profiled steps not among
+    them), wall seconds, K5 launches, the
+    persistables and host tier after a flush, the feeds' placement, the
+    idle share and (``keep``) the feeds themselves."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.convert import load_params, persistables_to_numpy
+    from paddle_tpu_torch.embedding import EmbeddingEngine
+    from paddle_tpu_torch.models import wide_deep as wd
+    from paddle_tpu_torch.utils import unique_name
+
+    with unique_name.guard():
+        main, startup, names, (loss, _pred) = wd.build_programs(
+            capacity=WD_CAPACITY)
+    startup.random_seed = SEED
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    if state is None:
+        state = persistables_to_numpy(scope, startup)
+    else:
+        load_params(scope, state)
+    engine = EmbeddingEngine(scope=scope)
+    torch.cuda.synchronize()
+    before = kernels.launches("embedding_admission")
+    losses, seconds, placement, idle, kept = [], [], set(), None, []
+    t_all = time.perf_counter()
+
+    def step(feed, timed=True):
+        if keep:
+            kept.append(feed)
+        t0 = time.perf_counter()
+        feed = engine.prepare_feed(main, dict(feed))
+        losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                    scope=scope)[0][0]))
+        if timed:
+            seconds.append(time.perf_counter() - t0)
+
+    it = iter(feeds)
+    for i, feed in enumerate(it):
+        for n in names:
+            v = feed[n]
+            placement.add((n.startswith("slot_") and not n.endswith("_w"),
+                           type(v).__name__,
+                           v.device.type if isinstance(v, torch.Tensor)
+                           else "host"))
+        if profile_steps and i == WD_STEPS - profile_steps:
+            # the last steps under the profiler, the loader still feeding
+            rest = [feed]
+            idle = _p15_idle("[p15a]", lambda: [
+                step(f, timed=False) for f in itertools.chain(rest, it)])
+            break
+        step(feed)
+    wall = time.perf_counter() - t_all
+    launches = kernels.launches("embedding_admission") - before
+    host = engine.host_rows()
+    engine.close()
+    return dict(losses=losses, seconds=seconds, wall=wall, state=state,
+                launches=launches, host=host, placement=placement,
+                idle=idle, final=persistables_to_numpy(scope, main),
+                feeds=kept)
+
+
+def _p15_loader():
+    """15a: phase 6's click log through the DataLoader into Wide&Deep."""
+    import torch
+
+    from paddle_tpu_torch.models import wide_deep as wd
+    from paddle_tpu_torch.utils import unique_name
+
+    t0 = time.perf_counter()
+    records = _click_records()
+    with unique_name.guard():
+        main, _startup, names, _ = wd.build_programs(capacity=WD_CAPACITY)
+    t1 = time.perf_counter()
+    direct = [wd.make_batch(records[i * WD_BATCH:(i + 1) * WD_BATCH], names)
+              for i in range(WD_STEPS)]
+    log(f"[p15a] {len(records)} click-log records ready in {t1 - t0:.2f}s "
+        f"(phase 6's, when it ran), stacked by make_batch in "
+        f"{time.perf_counter() - t1:.2f}s")
+
+    def loader(workers):
+        return wd.make_loader(main, names, lambda: iter(records), WD_BATCH,
+                              capacity=8, num_workers=workers)
+
+    # the loader alone, and the synchronous pool, over the first
+    # P15_SERIAL batches (the loaded run below checks all of them)
+    t0 = time.perf_counter()
+    staged = list(itertools.islice(loader(2), P15_SERIAL))
+    torch.cuda.synchronize()
+    alone_s = time.perf_counter() - t0
+    serial = list(itertools.islice(loader(0), P15_SERIAL))
+
+    def host(v):
+        return v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+
+    def equal(got, want):
+        return all(host(g[n]).dtype == w[n].dtype
+                   and host(g[n]).shape == w[n].shape
+                   and host(g[n]).tobytes() == w[n].tobytes()
+                   for g, w in zip(got, want) for n in names)
+
+    same = (len(staged) == len(serial) == P15_SERIAL
+            and equal(staged, direct) and equal(serial, direct))
+    del staged, serial
+    fed = _p15_wd_run(direct)
+    waits = _p15_waits("dataloader-prefetch")
+    loaded = _p15_wd_run(loader(2), state=fed["state"], profile_steps=4,
+                         keep=True)
+    wait, copies, copy_s = (b - a for a, b in zip(
+        waits, _p15_waits("dataloader-prefetch")))
+    same = same and len(loaded["feeds"]) == WD_STEPS and equal(
+        loaded["feeds"], direct)
+    import paddle_tpu_torch as fluid
+
+    want_place = {(True, "ndarray", "host"),
+                  (False, "Tensor", fluid.Executor().device.type)}
+    checks = {
+        "batches (workers 2 and 0) == make_batch": same,
+        "losses": loaded["losses"] == fed["losses"],
+        "persistables": set(loaded["final"]) == set(fed["final"]) and all(
+            loaded["final"][n].tobytes() == a.tobytes()
+            for n, a in fed["final"].items()),
+        "host tier": _same_host_tier(loaded["host"], fed["host"]),
+        "K5 launches": loaded["launches"] == fed["launches"] > 0,
+        "ids on the host, dense feeds on the card":
+            loaded["placement"] == want_place,
+        "the producer waited on its copies once a batch": copies == WD_STEPS,
+    }
+    step_ms = float(np.median(loaded["seconds"][1:])) * 1e3
+    fed_ms = float(np.median(fed["seconds"][1:])) * 1e3
+    busy, wall, idle = loaded["idle"]
+    log(f"[p15a] DataLoader alone: {P15_SERIAL} batches of {WD_BATCH} in "
+        f"{alone_s:.3f}s, {P15_SERIAL / alone_s:.2f} batches/s (2 workers, "
+        f"staged on the card)")
+    log(f"[p15a] step p50 {step_ms:.2f} ms through the loader against "
+        f"{fed_ms:.2f} ms fed directly; wall {loaded['wall']:.3f}s against "
+        f"{fed['wall']:.3f}s, the consumer's wait {wait:.3f}s, a share "
+        f"{wait / loaded['wall']:.4f}; the producer's {copies} waits on its "
+        f"copies {copy_s:.3f}s; K5 launches {loaded['launches']} (directly "
+        f"{fed['launches']}); placement {sorted(loaded['placement'])}")
+    log(f"[p15a] the last 4 loaded steps profiled: device busy {busy:.2f} ms of "
+        f"{wall:.2f}, idle share {idle:.4f}; bit-equal: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"15a: the loader's run differs: {checks}")
+    return step_ms
+
+
+class _LossTap:
+    """A fetch handler that keeps every step's fetches and the time
+    between them (``period_secs`` 0: ``train_from_dataset`` hands it
+    every step's)."""
+
+    period_secs = 0.0
+
+    def __init__(self):
+        self.values, self.stamps = [], []
+
+    def handler(self, fetched):
+        self.stamps.append(time.perf_counter())
+        self.values.append({k: np.asarray(v).copy() for k, v in fetched.items()})
+
+
+def _p15_write_multislot(batches, root, names):
+    """MultiSlot files of ``batches``' rows through the port's
+    MultiSlotDataGenerator, ``P15_FILES`` files in row order."""
+    from paddle_tpu_torch.incubate.data_generator import MultiSlotDataGenerator
+
+    rows = [(b, r) for b in batches for r in range(len(b[names[0]]))]
+
+    class Rows(MultiSlotDataGenerator):
+        def generate_sample(self, line):
+            b, r = rows[int(line)]
+
+            def it():
+                yield [(n, b[n][r].reshape(-1).tolist()) for n in names]
+
+            return it
+
+    os.makedirs(root, exist_ok=True)
+    per = -(-len(rows) // P15_FILES)
+    files = []
+    for f in range(P15_FILES):
+        path = os.path.join(root, f"part-{f}")
+        lines = Rows().run_from_memory(
+            str(i) for i in range(f * per, min((f + 1) * per, len(rows))))
+        with open(path, "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+        files.append(path)
+    return files
+
+
+def _p15_dataset(feed_vars, files, batch, native=True):
+    import paddle_tpu_torch as fluid
+
+    ds = fluid.DatasetFactory().create_dataset("InMemoryDataset")
+    ds._use_native = native
+    ds.set_batch_size(batch)
+    ds.set_thread(P15_THREADS)
+    ds.set_use_var(feed_vars)
+    ds.set_filelist(files)
+    t0 = time.perf_counter()
+    ds.load_into_memory()
+    return ds, time.perf_counter() - t0
+
+
+def _same_batches(a, b):
+    return len(a) == len(b) and all(
+        set(x) == set(y) and all(np.asarray(x[k]).tobytes()
+                                 == np.asarray(y[k]).tobytes() for k in x)
+        for x, y in zip(a, b))
+
+
+def _p15_dataset_ctr(root):
+    """15b: phase 7's dense CTR fed by an InMemoryDataset on the native
+    feed through ``train_from_dataset`` (Hogwild, the prefetcher),
+    against ``exe.run`` over the same batches."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import ctr
+    from paddle_tpu_torch.utils import unique_name
+    from paddle_tpu_torch.utils.flags import flags
+
+    rng = np.random.RandomState(SEED + 4)
+    batches = [ctr.synthetic_batch(rng, CTR_BATCH, id_space=CTR_VOCAB)
+               for _ in range(CTR_STEPS)]
+    with unique_name.guard():
+        main, startup, feed_vars, (loss, _pred) = ctr.build_ctr_train(
+            ps_mode=False, vocab_size=CTR_VOCAB,
+            optimizer=fluid.optimizer.SGD(learning_rate=0.1))
+    names = [v.name for v in feed_vars]
+    t0 = time.perf_counter()
+    files = _p15_write_multislot(batches, os.path.join(root, "ctr"), names)
+    write_s = time.perf_counter() - t0
+    ds, load_s = _p15_dataset(feed_vars, files, CTR_BATCH)
+    py_ds, py_load_s = _p15_dataset(feed_vars, files, CTR_BATCH, native=False)
+    if not ds.native_feed:
+        raise AssertionError("15b: the dataset is not on the native feed")
+    native_b, py_b = list(ds._iter_batches()), list(py_ds._iter_batches())
+    want = [{n: b[n].astype(np.int64 if n.startswith("slot_") else np.float32)
+             for n in names} for b in batches]
+    feed_checks = {"native == _PyFeed": _same_batches(native_b, py_b),
+                   "native == the generator's rows": _same_batches(
+                       native_b, want)}
+    del native_b, py_b, py_ds
+    tables = [v.name for v in main.global_block().vars.values()
+              if v.persistable and v.name.endswith("_w")
+              and v.shape[0] == CTR_VOCAB]
+    startup.random_seed = SEED
+    scopes = {}
+    for arm in ("dataset", "run"):
+        scopes[arm] = fluid.Scope()
+        fluid.Executor().run(startup, scope=scopes[arm])
+    old = flags.pallas_sparse_update
+    flags.pallas_sparse_update = True
+    try:
+        exe = fluid.Executor()
+        ref, ref_s = [], []
+        for i, b in enumerate(batches):
+            t0 = time.perf_counter()
+            run = lambda: ref.append(float(exe.run(  # noqa: E731
+                main, feed=dict(b), fetch_list=[loss],
+                scope=scopes["run"])[0][0]))
+            if i == len(batches) - 1:
+                ref_syncs = _count_syncs(run)
+            else:
+                run()
+            ref_s.append(time.perf_counter() - t0)
+        # the feed uploads' share of exe.run's syncs: what the prefetcher
+        # takes off the training thread
+        feed_syncs = _count_syncs(lambda: [
+            torch.from_numpy(np.ascontiguousarray(a)).to(exe.device)
+            for a in batches[0].values()])
+        torch.cuda.synchronize()
+        before = kernels.launches("sparse_row_update")
+        tap = _LossTap()
+        waits = _p15_waits("train_from_dataset")
+        t0 = time.perf_counter()
+        consumer_syncs, other_syncs = _p15_syncs(
+            lambda: exe.train_from_dataset(main, ds, scope=scopes["dataset"],
+                                           fetch_list=[loss],
+                                           fetch_handler=tap))
+        wall = time.perf_counter() - t0
+        launches = kernels.launches("sparse_row_update") - before
+        wait, copies, copy_s = (b - a for a, b in zip(
+            waits, _p15_waits("train_from_dataset")))
+    finally:
+        flags.pallas_sparse_update = old
+    got = [float(v[loss.name].reshape(-1)[0]) for v in tap.values]
+    steps = np.diff([t0] + tap.stamps)
+    checks = dict(feed_checks)
+    checks["losses"] = got == ref
+    checks["tables"] = all(torch.equal(scopes["dataset"].find_var(n),
+                                       scopes["run"].find_var(n))
+                           for n in tables)
+    checks["K6 16 a step"] = launches == 16 * CTR_STEPS
+    checks["the producer waited on its copies once a batch"] = (
+        copies == CTR_STEPS)
+    checks[f"exe.run's syncs {CTR_STEP_SYNCS} a step (phase 7)"] = (
+        ref_syncs == CTR_STEP_SYNCS)
+    checks["training-thread syncs: exe.run's less the feed uploads'"] = (
+        consumer_syncs == (ref_syncs - feed_syncs) * CTR_STEPS)
+    n_records = CTR_BATCH * CTR_STEPS
+    log(f"[p15b] {n_records} records in {P15_FILES} MultiSlot files "
+        f"(written in {write_s:.2f}s); load_into_memory native "
+        f"{load_s:.3f}s = {n_records / load_s:.0f} records/s parsed "
+        f"({P15_THREADS} threads), _PyFeed {py_load_s:.3f}s = "
+        f"{n_records / py_load_s:.0f} records/s")
+    log(f"[p15b] train_from_dataset step p50 "
+        f"{float(np.median(steps[1:])) * 1e3:.2f} ms (first "
+        f"{steps[0] * 1e3:.2f}) against exe.run's "
+        f"{float(np.median(ref_s[1:])) * 1e3:.2f} ms; wall {wall:.3f}s, "
+        f"the consumer's wait {wait:.3f}s; K6 launches {launches}; host "
+        f"syncs {consumer_syncs / CTR_STEPS:.2f} a step on the training "
+        f"thread, {other_syncs / CTR_STEPS:.2f} on the others; the "
+        f"producer's {copies} waits on its copies (an event, which the "
+        f"sync debug mode does not see) {copy_s:.3f}s; exe.run's step "
+        f"{ref_syncs}, {feed_syncs} of them the 9 feeds' uploads")
+    log(f"[p15b] losses {got}; bit-equal: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"15b: train_from_dataset differs: {checks}")
+    return launches
+
+
+def _p15_ps_leg(tag, ps_mode, batches, optimizer=None, sparse_lr=0.1,
+                zero_init=False, dataset=None, vocab=None):
+    """One PS leg: ``build_ctr_train(ps_mode=...)`` against a fresh
+    in-process native PSServer, ``len(batches)`` steps through
+    ``fleet.worker(exe).run`` (True), ``exe.run`` with
+    ``prefetch_for_program`` ("remote"), ``train_from_dataset`` with the
+    DownpourSGD worker (``dataset=``), or the dense baseline (False).
+    Returns losses, step seconds, pull/push seconds, host syncs of one
+    step, the idle share of one step, table row counts and the unique
+    ids a table pulled."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.distributed import lookup
+    from paddle_tpu_torch.fleet import parameter_server as psfleet
+    from paddle_tpu_torch.fleet.role_maker import UserDefinedRoleMaker
+    from paddle_tpu_torch.models import ctr
+    from paddle_tpu_torch.utils import unique_name
+
+    fleet = psfleet.fleet
+    fleet.init(UserDefinedRoleMaker(current_id=0, worker_num=1))
+    with unique_name.guard():
+        main, startup, feed_vars, (loss, _pred) = ctr.build_ctr_train(
+            ps_mode=ps_mode, optimizer=optimizer, sparse_lr=sparse_lr,
+            vocab_size=vocab)
+    if zero_init:
+        for t in getattr(main, "_sparse_tables", {}).values():
+            t["init_range"] = 0.0
+    startup.random_seed = SEED
+    exe, scope = fluid.Executor(), fluid.Scope()
+    out = dict(losses=[], seconds=[], syncs=None, idle=None, rows=None,
+               pulled={}, pull_s=0.0, push_s=0.0, hits=None)
+    srv = fleet.init_server(port=0) if ps_mode else None
+    try:
+        if ps_mode:
+            fleet.init_worker(main)
+        exe.run(startup, scope=scope)
+        if ps_mode is False and zero_init:
+            for v in main.all_parameters():
+                if v.name.startswith("deep_") and v.name.endswith("_w"):
+                    scope.set(v.name, torch.zeros(v.shape,
+                                                  device=exe.device))
+        worker = fleet.worker(exe, main) if ps_mode is True else None
+        ctx = lookup.active_context()
+        if dataset is not None:
+            tap = _LossTap()
+            t0 = time.perf_counter()
+            exe.train_from_dataset(main, dataset, scope=scope,
+                                   fetch_list=[loss], fetch_handler=tap)
+            out["losses"] = [float(v[loss.name].reshape(-1)[0])
+                             for v in tap.values]
+            out["seconds"] = list(np.diff([t0] + tap.stamps))
+        else:
+            def step(i):
+                b = batches[i]
+                t0 = time.perf_counter()
+                if ps_mode is True:
+                    if i + 1 < len(batches):
+                        worker.prefetch(main, batches[i + 1])
+                    r = worker.run(main, dict(b), fetch_list=[loss],
+                                   scope=scope)
+                else:
+                    if ps_mode == "remote" and i + 1 < len(batches):
+                        lookup.prefetch_for_program(main, batches[i + 1])
+                    r = exe.run(main, feed=dict(b), fetch_list=[loss],
+                                scope=scope)
+                out["losses"].append(float(r[0][0]))
+                out["seconds"].append(time.perf_counter() - t0)
+
+            last = len(batches) - 1
+            for i in range(len(batches)):
+                if i == last - 1:
+                    out["syncs"] = _count_syncs(lambda: step(i))
+                elif i == last:
+                    out["idle"] = _p15_idle(f"[p15c] {tag}",
+                                            lambda: step(i))
+                else:
+                    step(i)
+        if worker is not None:
+            worker.flush()
+            out["pull_s"] = worker.stats["pull_seconds"]
+            out["push_s"] = worker.stats["push_seconds"]
+        if ctx is not None:
+            out["pull_s"] = ctx.stats["pull_seconds"]
+            out["push_s"] = ctx.stats["push_seconds"]
+            out["hits"] = ctx.stats["prefetch_hits"]
+            out["transfers"] = (ctx.stats["uploads"], ctx.stats["downloads"])
+        if ps_mode:
+            out["rows"] = fleet._client.table_stats()
+            for tables in (getattr(main, "_sparse_tables", {}),
+                           getattr(main, "_remote_tables", {})):
+                for t in tables.values():
+                    ids = np.concatenate([np.asarray(b[t["ids"]]).ravel()
+                                          for b in batches])
+                    out["pulled"][t["table_id"]] = len(np.unique(ids))
+    finally:
+        if ps_mode:
+            fleet.stop_worker()
+            srv.stop()
+    return out, feed_vars
+
+
+def _p15_ps(root):
+    """15c: ``build_ctr_train()`` at its own width against the port's
+    native PS: (i) ps_mode=True, (ii) "remote", (iii) (i) as DownpourSGD
+    through ``train_from_dataset``, and the parity leg against the dense
+    baseline."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import ctr
+
+    rng = np.random.RandomState(SEED + 15)
+    big = [ctr.synthetic_batch(rng, P15_PS_BATCH) for _ in range(P15_PS_STEPS)]
+    small = [ctr.synthetic_batch(rng, P15_PS_BATCH, id_space=2 ** 31 - 1)
+             for _ in range(P15_PS_STEPS)]
+    legs = {}
+    t0 = time.perf_counter()
+    legs["i"], feed_vars = _p15_ps_leg("i", True, big)
+    legs["ii"], _ = _p15_ps_leg("ii", "remote", small)
+    log(f"[p15c] legs (i) and (ii) in {time.perf_counter() - t0:.1f}s")
+    names = [v.name for v in feed_vars]
+    files = _p15_write_multislot(big, os.path.join(root, "ps"), names)
+    ds, _ = _p15_dataset(feed_vars, files, P15_PS_BATCH)
+    if not ds.native_feed:
+        raise AssertionError("15c: the dataset is not on the native feed")
+    legs["iii"], _ = _p15_ps_leg("iii", True, big, dataset=ds)
+    parity_batches = [ctr.synthetic_batch(rng, P15_PS_BATCH,
+                                          id_space=CTR_VOCAB)
+                      for _ in range(P15_PARITY_STEPS)]
+    sgd = dict(sparse_lr=P15_PARITY_LR, zero_init=True)
+    ps_par, _ = _p15_ps_leg("parity PS", True, parity_batches,
+                            optimizer=fluid.optimizer.SGD(P15_PARITY_LR),
+                            **sgd)
+    dense_par, _ = _p15_ps_leg("parity dense", False, parity_batches,
+                               optimizer=fluid.optimizer.SGD(P15_PARITY_LR),
+                               vocab=CTR_VOCAB, **sgd)
+    diff = np.abs(np.subtract(ps_par["losses"], dense_par["losses"]))
+    parity = bool(np.all(diff <= P15_PARITY_TOL["atol"]
+                         + P15_PARITY_TOL["rtol"]
+                         * np.abs(dense_par["losses"])))
+    checks = {
+        "(iii) == (i) bit for bit": legs["iii"]["losses"] == legs["i"]["losses"],
+        "server rows == unique ids pulled": all(
+            legs[k]["rows"] == legs[k]["pulled"] for k in ("i", "ii", "iii")),
+        "prefetch hits > 0": (legs["ii"]["hits"] or 0) > 0,
+        "parity within rtol 2e-3, atol 2e-4": parity,
+        "losses finite": all(np.all(np.isfinite(legs[k]["losses"]))
+                             for k in legs),
+    }
+    for k, leg in legs.items():
+        n = len(leg["seconds"])
+        p50 = float(np.median(leg["seconds"][1:])) * 1e3
+        pull_ms, push_ms = leg["pull_s"] / n * 1e3, leg["push_s"] / n * 1e3
+        idle = leg["idle"]
+        log(f"[p15c] leg ({k}): step p50 {p50:.2f} ms (first "
+            f"{leg['seconds'][0] * 1e3:.2f}); pull {pull_ms:.2f} ms and push "
+            f"{push_ms:.2f} ms a step ({(pull_ms + push_ms) / p50:.3f} of "
+            f"the p50); host syncs in one step {leg['syncs']}; "
+            + (f"profiled step: device busy {idle[0]:.2f} of {idle[1]:.2f} "
+               f"ms, idle share {idle[2]:.4f}; " if idle else "")
+            + f"prefetch hits {leg['hits']}, transfers (uploads, downloads) "
+            f"{leg.get('transfers')}; server rows "
+            f"{sum(leg['rows'].values())} in {len(leg['rows'])} tables; "
+            f"losses {leg['losses']}")
+    log(f"[p15c] parity (SGD {P15_PARITY_LR}, zero init, vocab 2^20): PS "
+        f"{ps_par['losses']} against dense {dense_par['losses']}, largest "
+        f"difference {float(diff.max()):.3e}; checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"15c: the parameter-server legs fail: {checks}")
+
+
+def phase_data_plane():
+    """15: the data plane and the parameter server (15a-15c). Returns
+    the launches of the whole phase (K5 in 15a, K6 in 15b, K8 in the
+    startups)."""
+    import tempfile
+
+    from paddle_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    _p15_load_native()
+    root = tempfile.mkdtemp(prefix="p15_")
+    try:
+        kernels.reset_launches()
+        _p15_loader()
+        log(f"[p15] 15a done at {time.perf_counter() - t0:.1f}s")
+        _p15_dataset_ctr(root)
+        log(f"[p15] 15b done at {time.perf_counter() - t0:.1f}s")
+        _p15_ps(root)
+        counts = kernels.launches()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[p15] phase 15 {time.perf_counter() - t0:.1f}s; launches "
+        f"{ {n: c for n, c in counts.items() if c} }")
+    return counts
+
+
+PHASES = tuple(str(n) for n in range(1, 16))
 
 
 def parse_phases(argv):
@@ -6811,43 +7465,56 @@ def main(phases=frozenset(PHASES)):
         f"device {torch.cuda.get_device_name(0)}; phases "
         f"{sorted(phases, key=int)}")
     zero = {n: 0 for n in KERNELS}
-    phase_build()
+
+    def timed(tag, fn, *args):
+        """``fn(*args)``, and a line with its seconds (the breakdown the
+        whole script's time limit is budgeted by)."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"[time] phase {tag}: {time.perf_counter() - t0:.1f}s")
+        return out
+
+    timed("1", phase_build)
     parity = {}
     if "2" in phases:
-        parity = phase_parity()
-        parity.update(phase_flash())
-        parity.update(phase_flash16())
-        parity.update(phase_ctr_kernels())
-        parity.update(phase_topk())
-        parity.update(phase_random())
+        for tag, fn in (("2", phase_parity), ("2 flash", phase_flash),
+                        ("2f", phase_flash16), ("2 ctr", phase_ctr_kernels),
+                        ("2 topk", phase_topk), ("2e", phase_random)):
+            parity.update(timed(tag, fn))
     engine_launches, modes_launches = zero, 0
     beam_launches = overload_launches = 0
     if "3" in phases:
-        engine_launches, greedy_tps, greedy_step = phase_engine()
-        modes_launches = phase_decode_modes(greedy_tps)
-        beam_launches = phase_beam_grammar(greedy_tps, greedy_step)
-        overload_launches = phase_overload(greedy_tps)
-    dense_launches = phase_dense() if "4" in phases else zero
+        engine_launches, greedy_tps, greedy_step = timed("3", phase_engine)
+        modes_launches = timed("3b", phase_decode_modes, greedy_tps)
+        beam_launches = timed("3c", phase_beam_grammar, greedy_tps,
+                              greedy_step)
+        overload_launches = timed("3d", phase_overload, greedy_tps)
+    dense_launches = timed("4", phase_dense) if "4" in phases else zero
     train_launches = unfused_launches = amp_launches = zero
     if "5" in phases:
-        train_launches = phase_train()
-        unfused_launches = phase_bert_unfused()
-        amp_launches = phase_train_amp()
-    wide_deep_launches = phase_wide_deep() if "6" in phases else zero
-    ctr_launches = phase_dense_ctr() if "7" in phases else zero
-    dgc_launches = phase_dgc() if "8" in phases else zero
+        train_launches = timed("5", phase_train)
+        unfused_launches = timed("5b", phase_bert_unfused)
+        amp_launches = timed("5c", phase_train_amp)
+    wide_deep_launches = (timed("6", phase_wide_deep) if "6" in phases
+                          else zero)
+    ctr_launches = timed("7", phase_dense_ctr) if "7" in phases else zero
+    dgc_launches = timed("8", phase_dgc) if "8" in phases else zero
     book_launches = resnet_launches = resnet_amp_launches = zero
     if "9" in phases or "10" in phases:
         # phase 10 exports 9a's trained book programs
-        book_launches, book = phase_book()
+        book_launches, book = timed("9a", phase_book)
     if "9" in phases:
-        resnet_launches = phase_resnet()
-        resnet_amp_launches = phase_resnet_amp()
-    ckpt_launches = phase_checkpoint(book) if "10" in phases else zero
-    infer_launches = phase_inference() if "11" in phases else zero
-    fleet_launches = phase_fleet() if "12" in phases else zero
-    dp_launches = phase_dp() if "13" in phases else zero
-    p14_launches = phase_beam_dygraph() if "14" in phases else zero
+        resnet_launches = timed("9b-9c", phase_resnet)
+        resnet_amp_launches = timed("9d", phase_resnet_amp)
+    ckpt_launches = (timed("10", phase_checkpoint, book) if "10" in phases
+                     else zero)
+    infer_launches = timed("11", phase_inference) if "11" in phases else zero
+    fleet_launches = timed("12", phase_fleet) if "12" in phases else zero
+    dp_launches = timed("13", phase_dp) if "13" in phases else zero
+    p14_launches = (timed("14", phase_beam_dygraph) if "14" in phases
+                    else zero)
+    p15_launches = (timed("15", phase_data_plane) if "15" in phases
+                    else zero)
     log(f"[done] paged_attention launches: phase 3 "
         f"{engine_launches['paged_attention']}, phase 3b {modes_launches}, "
         f"phase 3c {beam_launches}, phase 3d {overload_launches}")
@@ -6860,8 +7527,10 @@ def main(phases=frozenset(PHASES)):
                      "decode_attention": dense_launches["decode_attention"],
                      "embedding_admission":
                          wide_deep_launches["embedding_admission"]
-                         + ckpt_launches["embedding_admission"],
-                     "sparse_row_update": ctr_launches["sparse_row_update"],
+                         + ckpt_launches["embedding_admission"]
+                         + p15_launches["embedding_admission"],
+                     "sparse_row_update": ctr_launches["sparse_row_update"]
+                         + p15_launches["sparse_row_update"],
                      "blocked_topk_abs": dgc_launches["blocked_topk_abs"]}
     # the float32 flash builds on phase 5's, 10a's, 11's and 13's paths
     # (13: both ranks and the one-rank run), the bf16
@@ -6877,7 +7546,7 @@ def main(phases=frozenset(PHASES)):
     # phase 12's workers (read over their stats RPC; the killed one's are
     # lost with it), phase 13's startups and steps (both ranks and the
     # one-rank run), phase 14's (14a's startup, 14b, 14c, 14d's kernels-on
-    # run, 14e's ranks and one-rank run)
+    # run, 14e's ranks and one-rank run), phase 15's startups
     path_launches.update({n: train_launches[n] + unfused_launches[n]
                           + amp_launches[n] + dgc_launches[n]
                           + book_launches[n] + resnet_launches[n]
@@ -6886,6 +7555,7 @@ def main(phases=frozenset(PHASES)):
                           + fleet_launches.get(n, 0)
                           + dp_launches.get(n, 0)
                           + p14_launches.get(n, 0)
+                          + p15_launches.get(n, 0)
                           for n in KERNELS if n.startswith("threefry")})
     log(f"[done] K8 launches: phase 5 "
         f"{ {n: train_launches[n] for n in path_launches if n.startswith('threefry')} }, "
@@ -6902,6 +7572,8 @@ def main(phases=frozenset(PHASES)):
         f"{ {n: c for n, c in dp_launches.items() if c} }")
     log(f"[done] phase 14 launches: "
         f"{ {n: c for n, c in p14_launches.items() if c} }")
+    log(f"[done] phase 15 launches: "
+        f"{ {n: c for n, c in p15_launches.items() if c} }")
     log(f"[done] phase 10 launches: "
         f"{ {n: c for n, c in ckpt_launches.items() if c} }; phase 11: "
         f"{ {n: c for n, c in infer_launches.items() if c} }")

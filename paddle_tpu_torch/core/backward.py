@@ -139,10 +139,12 @@ def resolve_op_def(op_type):
 # ---------------------------------------------------------------------------
 
 
-def _requires_grad_vars(block, ops, no_grad_set):
-    """Forward propagation of the requires-grad property."""
+def _requires_grad_vars(block, ops, no_grad_set, extra_seeds=()):
+    """Forward propagation of the requires-grad property. `extra_seeds` are
+    vars the caller wants gradients for even if they are not leaves (the
+    PS fleet's pulled rows and remote lookup outputs)."""
     produced = {n for op in ops for n in op.output_names()}
-    requires = set()
+    requires = set(extra_seeds)
     for v in block.vars.values():
         if v.name in no_grad_set:
             continue
@@ -174,9 +176,13 @@ def _create_grad_var(block, fwd_name, grad_name):
     )
 
 
-def append_backward(loss, parameter_list=None, no_grad_set=None):
+def append_backward(loss, parameter_list=None, no_grad_set=None,
+                    extra_seeds=()):
     """Append grad ops for ``loss`` to its program; returns
     ``[(param, grad)]`` (reference: python/paddle/fluid/backward.py:1139).
+    ``extra_seeds`` names vars whose ``@GRAD`` is finalized too, as in the
+    JAX package (``fleet/parameter_server.py`` seeds each PS table's rows
+    feed and each remote lookup's output).
 
     Recompute segments (``program._recompute_checkpoints``) are not
     ported yet (ROADMAP M8)."""
@@ -203,7 +209,7 @@ def append_backward(loss, parameter_list=None, no_grad_set=None):
     if fwd_ops:
         fwd_ops[-1].attrs["op_role"] = _OP_ROLE_LOSS
 
-    requires = _requires_grad_vars(block, fwd_ops, no_grad_set)
+    requires = _requires_grad_vars(block, fwd_ops, no_grad_set, extra_seeds)
 
     # relevance: ops on a path from requires-grad vars to the loss
     pending = {loss.name}
@@ -347,6 +353,9 @@ def append_backward(loss, parameter_list=None, no_grad_set=None):
             outputs=grad_outputs,
             attrs=grad_attrs,
         )
+
+    for name in extra_seeds:
+        finalize(name)
 
     # finalize any leaf grads never finalized (params consumed once)
     params_and_grads = []

@@ -15,7 +15,20 @@ lowering turns autograd on for its own recomputed forward only.
 Before planning a program, ``run`` applies the deferred sparse-update
 rewrites (``passes.py``), as the JAX executor does before it compiles
 one. A feed that no op reads (the raw ids beside a sharded embedding's
-slot feeds) stays on the host.
+slot feeds) stays on the host, and so does a feed that the host reads
+(``host_read_feeds``: the ids of the program's sharded, PS and remote
+tables; the remote lookup's lowering pulls their rows on the host), as a
+CPU tensor.
+
+``train_from_dataset`` / ``infer_from_dataset`` are the JAX executor's
+dataset mode (``paddle_tpu/core/executor.py``): the trainer and device
+worker come from the program's ``_fleet_opt`` (``device_worker.py``), the
+batches come through a ``DevicePrefetcher`` that keeps the host-read
+feeds on the host (the JAX package skips its prefetcher for PS programs
+instead), a program with remote tables is driven one batch ahead so the
+next batch's rows are prefetched behind the current step's pushes, and a
+``fetch_handler`` with ``background=True`` delivers from a
+``FetchHandlerMonitor`` thread.
 
 ``while`` and ``conditional_block`` (``CONTROL_FLOW_OPS``) run their
 sub-blocks' plans through ``ops/control_flow.py``, as the JAX executor
@@ -53,11 +66,13 @@ and no other op of the program reads or writes ``X``. The scatter then
 writes into ``X``'s tensor, and the assign hands back that same tensor.
 """
 
+import time
+
 import numpy as np
 import torch
 
 from paddle_tpu_torch.core import prng
-from paddle_tpu_torch.core.backward import resolve_op_def
+from paddle_tpu_torch.core.backward import _OP_ROLE_OPTIMIZE, resolve_op_def
 from paddle_tpu_torch.core.ir import default_main_program
 from paddle_tpu_torch.core.places import default_place
 from paddle_tpu_torch.core.registry import OpDef
@@ -151,6 +166,18 @@ def block_plan(block):
     return plan
 
 
+def host_read_feeds(program):
+    """The feeds of ``program`` that the host reads: the raw ids of its
+    sharded-engine, PS and remote tables (``_sharded_tables``,
+    ``_sparse_tables``, ``_remote_tables``). The DataLoader, the
+    prefetcher of ``train_from_dataset`` and ``Executor.run`` keep them on
+    the host; every other feed goes to the card."""
+    prog = getattr(program, "program", program)  # unwrap CompiledProgram
+    return {t["ids"]
+            for reg in ("_sharded_tables", "_sparse_tables", "_remote_tables")
+            for t in (getattr(prog, reg, None) or {}).values()}
+
+
 def _to_numpy(t):
     """A fetch as a numpy array. numpy has no bfloat16, so a bfloat16
     fetch comes back as float32, an exact widening (the JAX package
@@ -198,13 +225,14 @@ class Executor:
         return prng.fold_in(prng.prng_key(program.random_seed or 0),
                             self._rng_counter)
 
-    def _to_device(self, value, var):
+    def _to_device(self, value, var, device=None):
+        device = self.device if device is None else device
         if isinstance(value, torch.Tensor):
-            return value.to(self.device)
+            return value.to(device)
         arr = np.asarray(value)
         if var is not None and var.dtype is not None:
             arr = arr.astype(var.dtype, copy=False)
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
     def _from_scope(self, scope, name, block):
         owner = scope._find_owner(name)
@@ -316,8 +344,11 @@ class Executor:
         if _rewrite_plan is not None:
             steps = _rewrite_plan(steps)
         late = kernel_registry.late_launches()
+        host = host_read_feeds(program)
+        cpu = torch.device("cpu")
         env = {
-            name: self._to_device(value, block.vars.get(name))
+            name: self._to_device(value, block.vars.get(name),
+                                  cpu if name in host else None)
             for name, value in feed.items()
             if name in read or name in fetch_names
         }
@@ -342,6 +373,140 @@ class Executor:
         if kernel_registry.late_launches() != late:
             self._raise_late(steps, synced=return_numpy and bool(fetches))
         return fetches
+
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100,
+                           fetch_handler=None, is_infer=False):
+        """Dataset-mode training loop (reference: python/paddle/fluid/
+        executor.py:1124 train_from_dataset -> C++ Executor::RunFromDataset
+        with thread-per-core DeviceWorkers), as the JAX executor runs it:
+        the per-batch driver comes from the program's `_fleet_opt` via
+        TrainerFactory (device_worker.py): Hogwild = plain step,
+        DownpourSGD = the PS pull/step/push loop; its run configuration
+        (fetch/debug/infer) travels on the TrainerDesc. Returns the last
+        batch's fetches."""
+        from paddle_tpu_torch.dataio.prefetch import DevicePrefetcher
+        from paddle_tpu_torch.device_worker import TrainerFactory
+        from paddle_tpu_torch.utils.enforce import enforce
+
+        enforce(dataset is not None, "dataset is required")
+        prog_obj = getattr(program, "program", program)
+        if is_infer:
+            # evaluation must not update state: a program still carrying
+            # optimizer ops (or in-step grad pushes) would train on the
+            # eval data — demand the test clone, like the reference's
+            # infer-trainer contract
+            bad = [
+                op.type
+                for op in prog_obj.global_block().ops
+                if op.attrs.get("op_role", 0) == _OP_ROLE_OPTIMIZE
+                or op.type == "distributed_push_sparse"
+            ]
+            enforce(
+                not bad,
+                "infer_from_dataset got a TRAINING program (contains "
+                f"{sorted(set(bad))[:3]}...): pass the "
+                "clone(for_test=True) inference program instead",
+            )
+        trainer = TrainerFactory()._create_trainer(
+            getattr(prog_obj, "_fleet_opt", None)
+        )
+        trainer._set_thread(thread)
+        trainer._set_debug(debug)
+        trainer._set_infer(is_infer)
+        trainer._set_fetch_var_and_info(fetch_list, fetch_info, print_period)
+        trainer._set_program(prog_obj)
+        worker = trainer._device_worker
+        worker.prepare(self, prog_obj, scope)
+
+        fetch_list = trainer._fetch_vars
+        fetch_info = trainer._fetch_info or [str(f) for f in fetch_list]
+        print_period = trainer._print_period
+        debug = trainer._debug
+        step = 0
+        last = None
+        last_handled = time.monotonic()
+        # background=True on the FetchHandler moves delivery off the
+        # training loop onto a period-driven monitor thread (reference:
+        # FetchHandlerMonitor) — a long epoch reports on schedule even
+        # when single steps are slow
+        monitor = None
+        if fetch_list and fetch_handler is not None and getattr(
+                fetch_handler, "background", False):
+            from paddle_tpu_torch.observability.fetcher import (
+                FetchHandlerMonitor)
+
+            monitor = FetchHandlerMonitor(fetch_handler).start()
+        # lookahead iteration ONLY for programs with remote tables: the
+        # NEXT batch's ids are announced before the current step runs, so
+        # the PS pull overlaps the step — the dataset-mode analog of the
+        # reference's prefetch thread (reference: paddle/fluid/operators/
+        # distributed/parameter_prefetch.cc). Other programs keep strict
+        # one-batch-at-a-time iteration.
+        lookahead = bool(getattr(prog_obj, "_remote_tables", None))
+        # the copy of batch N+1 overlaps step N (buffered_reader.cc); the
+        # ids the host reads stay on the host, cast to their vars' types
+        block = prog_obj.global_block()
+        specs = {n: (v.dtype, v.shape) for n, v in block.vars.items()
+                 if v.is_data}
+        it = iter(DevicePrefetcher(
+            dataset._iter_batches(), depth=2, device=self.device,
+            host_keys=host_read_feeds(prog_obj), specs=specs,
+            name="train_from_dataset"))
+        feed = next(it, None)
+        nxt = None
+        try:
+            while feed is not None:
+                if lookahead:
+                    nxt = next(it, None)
+                    if nxt is not None:
+                        from paddle_tpu_torch.distributed import lookup
+
+                        lookup.prefetch_for_program(prog_obj, nxt)
+                out = worker.run_batch(
+                    self, program, feed, fetch_list=fetch_list, scope=scope
+                )
+                last = out
+                if fetch_list and fetch_handler is not None:
+                    names = [f if isinstance(f, str) else f.name
+                             for f in fetch_list]
+                    if monitor is not None:
+                        # the monitor owns the cadence; the loop only
+                        # publishes the newest values (one dict swap)
+                        monitor.update(dict(zip(names, out)))
+                    else:
+                        # in-loop cadence with a step fallback so short
+                        # runs still observe fetches
+                        now = time.monotonic()
+                        if (now - last_handled >= fetch_handler.period_secs
+                                or step % print_period == 0):
+                            fetch_handler.handler(dict(zip(names, out)))
+                            last_handled = now
+                elif fetch_list and (debug or step % print_period == 0):
+                    msgs = [
+                        f"{info}={np.asarray(v).reshape(-1)[:1][0]:.6f}"
+                        for info, v in zip(fetch_info, out)
+                    ]
+                    print(f"step {step}: " + ", ".join(msgs))
+                step += 1
+                feed = nxt if lookahead else next(it, None)
+        finally:
+            # a mid-epoch raise must not leak the monitor's daemon thread;
+            # the final tick delivers the last published fetch either way
+            if monitor is not None:
+                monitor.stop()
+        worker.finish()
+        return last
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100,
+                           fetch_handler=None):
+        return self.train_from_dataset(
+            program, dataset, scope, thread, debug, fetch_list, fetch_info,
+            print_period, fetch_handler, is_infer=True,
+        )
 
     def _raise_late(self, steps, synced):
         """A kernel that finds a bad input on the card (K6's id check)

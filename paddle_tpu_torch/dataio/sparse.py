@@ -12,9 +12,10 @@ transform gives a dense (ids, weights) pair per slot:
   exactly 0.0 to the pooled slot embedding;
 * an EMPTY slot emits ids of 0 with all-zero weights.
 
-The JAX package runs the transform on its DataLoader's worker pool; the
-port has no DataLoader yet (ROADMAP M9), so callers stack transformed
-records into a batch themselves (``models/wide_deep.py`` ``make_batch``).
+The DataLoader runs the transform on its ordered worker pool
+(``set_sample_generator(..., sample_transform=)``, as the JAX package's
+does; ``models/wide_deep.py`` ``make_loader``), and ``make_batch`` stacks
+transformed records by hand.
 """
 
 import numpy as np

@@ -6,9 +6,10 @@ The schema — epoch, shard cursor, RNG state, emitted-batch count — rides
 the ``incubate/checkpoint.py`` manifests: the state is serialized to a
 JSON blob stored as a uint8 array under ``STATE_KEY`` inside
 ``state.npz``, so it inherits the per-array CRC32, the whole-file CRC,
-the atomic rename, and the corrupt-walkback behavior for free. The
-``DataEngine`` that produces such a state is not ported yet (ROADMAP M9);
-any object with ``state_dict()`` / ``load_state_dict()`` can be attached.
+the atomic rename, and the corrupt-walkback behavior for free.
+``DataEngine`` (``engine.py``) produces such a state and
+``DevicePrefetcher`` proxies it; any object with ``state_dict()`` /
+``load_state_dict()`` can be attached.
 
 Elastic translation: a per-rank cursor is only meaningful under the
 shard geometry that produced it, but the GLOBAL stream position is

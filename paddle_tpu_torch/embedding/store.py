@@ -29,7 +29,7 @@ as the JAX engine's do through its ``distributed/lookup.py``. Checkpoints (``inc
 host tier per ep shard in the format-2 manifest; a restore re-hashes the
 ids under the current ep and cold-resets the slab, so the first batch
 re-admits its rows through the admission kernel. Not ported yet: a
-mesh-sharded slab (ROADMAP M9's remainder). Metrics are plain counters
+mesh-sharded slab (ROADMAP M11). Metrics are plain counters
 behind the same ``stats()`` keys.
 """
 

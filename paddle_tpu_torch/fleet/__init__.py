@@ -3,8 +3,9 @@ JAX package's ``fleet/`` in its collective mode.
 
 Reference: python/paddle/fluid/incubate/fleet/ — the Fleet facade
 (base/fleet_base.py:38), role makers (base/role_maker.py) and collective
-mode (collective/__init__.py). The parameter-server mode is not ported
-(ROADMAP M9). Usage, one process per rank under
+mode (collective/__init__.py). The parameter-server mode is
+``fleet.parameter_server`` (its own ``fleet`` object, as in the JAX
+package). Collective usage, one process per rank under
 ``python -m paddle_tpu_torch.distributed.launch --nproc N train.py``:
 
     from paddle_tpu_torch.fleet import fleet, DistributedStrategy

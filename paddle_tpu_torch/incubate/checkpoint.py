@@ -44,6 +44,10 @@ Restored values are torch tensors of the manifest's dtype: on the CPU
 from ``load_checkpoint`` (the executor moves them on first read), on the
 executor's device from ``AutoCheckpoint.resume``.
 
+``HeartBeatMonitor`` is the JAX package's chief-side worker-lost
+detection over the parameter server's heartbeat table (its lock is the
+lockdep class ``resilience.heartbeat``, as there).
+
 Lock order (declared to the lockdep witness, as in the JAX package): the
 checkpoint writer-state lock comes before the embedding engine's host
 tier and pending-marker locks it snapshots through
@@ -89,6 +93,7 @@ __all__ = [
     "load_data_state",
     "gang_generations",
     "GANG_GENERATION_ENV",
+    "HeartBeatMonitor",
 ]
 
 log = logging.getLogger("paddle_tpu_torch.checkpoint")
@@ -1046,3 +1051,86 @@ class AutoCheckpoint:
                         f"blocking save also failed: {e2}"
                     )
             raise RuntimeError(f"async checkpoint write failed: {err}")
+
+
+class HeartBeatMonitor:
+    """Chief-side worker-lost detection over the PS heartbeat table
+    (reference: paddle/fluid/operators/distributed/heart_beat_monitor.h:54 —
+    UNINITED/RUNNING/COMPLETED per worker, lost workers logged).
+
+        mon = HeartBeatMonitor(client, worker_id=0, worker_num=2,
+                               timeout=5.0, on_lost=callback)
+        mon.start();  ...  mon.stop()
+    """
+
+    def __init__(self, client, worker_id, worker_num, timeout=30.0,
+                 period=1.0, on_lost=None):
+        self._client = client
+        self._id = int(worker_id)
+        self._n = int(worker_num)
+        self._timeout = float(timeout)
+        self._period = float(period)
+        self._on_lost = on_lost
+        self._stop = threading.Event()
+        self._thread = None
+        self._seen = set()
+        # guards `lost`: the monitor thread adds while callers read
+        self._mu = lockdep.named_lock("resilience.heartbeat")
+        self.lost = set()
+
+    def _loop(self):
+        hb_log = logging.getLogger("paddle_tpu_torch.heartbeat")
+        start = time.monotonic()
+        while not self._stop.is_set():
+            try:
+                ages = self._client.heartbeat(self._id)
+            except Exception as e:  # server gone: report and stop
+                hb_log.warning("heartbeat RPC failed: %s", e)
+                break
+            self._seen.update(ages)
+            # a worker that NEVER heartbeats (died during startup) has no
+            # server entry — treat absence past the grace window as lost
+            # (the reference's UNINITED state, heart_beat_monitor.h:38)
+            elapsed = time.monotonic() - start
+            for wid in range(self._n):
+                if wid == self._id or wid in ages or wid in self._seen:
+                    continue
+                if elapsed > self._timeout:
+                    ages = dict(ages)
+                    ages[wid] = elapsed
+            for wid, age in ages.items():
+                with self._mu:
+                    newly = age > self._timeout and wid not in self.lost
+                    if newly:
+                        self.lost.add(wid)
+                if newly:
+                    hb_log.warning(
+                        "worker %d LOST: no heartbeat for %.1fs "
+                        "(timeout %.1fs)", wid, age, self._timeout,
+                    )
+                    if self._on_lost is not None:
+                        self._on_lost(wid, age)
+            self._stop.wait(self._period)
+
+    def start(self):
+        # idempotent while the monitor is RUNNING, restartable once it
+        # is not: a loop that self-terminated (heartbeat RPC failure)
+        # leaves a dead _thread behind, and a stop() whose join timed
+        # out keeps the stuck thread pinned here so start() cannot
+        # clear _stop underneath it (which would revive it NEXT TO a
+        # fresh one)
+        if self._thread is not None:
+            if self._thread.is_alive():
+                return self
+            self._thread = None
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            if not self._thread.is_alive():
+                self._thread = None

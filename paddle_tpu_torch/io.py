@@ -20,8 +20,8 @@ same bits. No other dtype the port holds is a 2-byte void.
 
 Loads place tensors on ``executor.place``'s device; without an executor
 they stay on the CPU and the executor moves them on first read.
-``fluid.io.robust`` (the JAX package's reader decorator) comes with the
-DataLoader (ROADMAP M9).
+``io.robust`` is the reader decorator (``reader/decorator.py``), as the
+JAX package exposes it.
 """
 
 import json
@@ -33,6 +33,7 @@ import torch
 
 from paddle_tpu_torch.core.ir import Parameter, Program, default_main_program
 from paddle_tpu_torch.core.scope import global_scope
+from paddle_tpu_torch.reader.decorator import robust  # noqa: F401  (fluid.io.robust)
 from paddle_tpu_torch.utils.enforce import EnforceError, enforce
 
 MODEL_FORMAT_VERSION = 1

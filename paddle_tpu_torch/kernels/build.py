@@ -4,6 +4,9 @@ plain C interface, loaded with ``ctypes``.
 A source under ``csrc/`` builds at first use into ``_build/`` (listed in
 ``.gitignore``), named by a hash of the source and the flags, so an
 edited source rebuilds and an unchanged one loads the existing library.
+The host components of ``paddle_tpu_torch/native`` build through the same
+cache with ``g++``: ``library_path``, ``build`` and ``load`` take the
+source directory, the build directory, the compiler and its flags.
 """
 
 import ctypes
@@ -41,41 +44,49 @@ def nvcc_path():
                      "the CUDA kernels build only where the CUDA toolkit is")
 
 
-def library_path(source):
-    """Where the library for ``source`` (a file name under ``csrc/``)
+def library_path(source, csrc=CSRC, build_dir=BUILD_DIR, flags=NVCC_FLAGS):
+    """Where the library for ``source`` (a file name under ``csrc``)
     lands: named by a hash of the source text and the flags."""
-    text = (CSRC / source).read_bytes()
-    tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{Path(source).stem}-{tag}.so"
+    text = (csrc / source).read_bytes()
+    tag = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
+    return build_dir / f"lib{Path(source).stem}-{tag}.so"
 
 
-def build(source):
-    """Compile ``source`` unless its library exists. Returns nvcc's output
-    (``-Xptxas -v``: registers, shared memory, spills), empty when the
-    library already existed; raises ``BuildError`` when nvcc fails."""
-    path = library_path(source)
+def build(source, csrc=CSRC, build_dir=BUILD_DIR, compiler=None,
+          flags=NVCC_FLAGS):
+    """Compile ``source`` with ``compiler`` (default nvcc) unless its
+    library exists. Returns the compiler's output (nvcc's ``-Xptxas -v``:
+    registers, shared memory, spills), empty when the library already
+    existed; raises ``BuildError`` when the compiler is missing or fails."""
+    path = library_path(source, csrc, build_dir, flags)
     if path.exists():
         return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    compiler = compiler or nvcc_path()
+    try:
+        proc = subprocess.run(
+            [compiler, *flags, "-o", str(tmp), str(csrc / source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    except OSError as e:
+        raise BuildError(f"{compiler} unavailable: {e}") from e
     if proc.returncode != 0:
-        raise BuildError(f"nvcc failed for {source} (exit {proc.returncode}):"
-                         f"\n{proc.stdout}")
+        raise BuildError(f"{Path(compiler).name} failed for {source} (exit "
+                         f"{proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
     return proc.stdout
 
 
-def load(source):
+def load(source, csrc=CSRC, build_dir=BUILD_DIR, compiler=None,
+         flags=NVCC_FLAGS):
     """The loaded ``ctypes.CDLL`` for ``source``, building it first when
     its library is missing."""
     with _lock:
-        lib = _loaded.get(source)
+        lib = _loaded.get(csrc / source)
         if lib is None:
-            build(source)
-            lib = _loaded[source] = ctypes.CDLL(str(library_path(source)))
+            build(source, csrc, build_dir, compiler, flags)
+            lib = _loaded[csrc / source] = ctypes.CDLL(
+                str(library_path(source, csrc, build_dir, flags)))
         return lib
 
 

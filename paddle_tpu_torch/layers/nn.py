@@ -17,6 +17,9 @@ __all__ = [
     "fc",
     "embedding",
     "sharded_embedding",
+    "sparse_embedding",
+    "distributed_embedding",
+    "auc",
     "layer_norm",
     "scaled_dot_product_attention",
     "softmax_with_cross_entropy",
@@ -137,6 +140,144 @@ def embedding(
         {"Out": [out.name]},
         {"padding_idx": -1 if padding_idx is None else padding_idx},
     )
+    return out
+
+
+def _next_table_id(program):
+    """First free PS table id across BOTH registries (host-pull
+    `_sparse_tables` and in-graph `_remote_tables`) — one allocation rule
+    for every producer (sparse_embedding, distributed_embedding, the
+    is_distributed transpiler)."""
+    used = {
+        t["table_id"]
+        for reg in ("_sparse_tables", "_remote_tables")
+        for t in getattr(program, reg, {}).values()
+    }
+    return max(used, default=100) + 1
+
+
+def sparse_embedding(
+    input,
+    embedding_dim,
+    table_id=None,
+    init_range=0.01,
+    optimizer="sgd",
+    name=None,
+):
+    """Parameter-server-backed embedding for billion-feature tables
+    (reference: distributed_lookup_table / prefetch flow —
+    paddle/fluid/operators/distributed/parameter_prefetch.cc; pslib pull in
+    fleet_wrapper.h:84). The table never materializes on device: per step
+    the PS worker pulls the batch's unique rows (fleet/parameter_server.py
+    PSWorker.run), feeds them as `<name>__rows`, and the graph gathers via
+    `<name>__idx`; row grads flow back through the gather's grad and are
+    pushed to the server. `input` must be an int feed var of ids (any
+    shape)."""
+    from paddle_tpu_torch.core.ir import default_main_program
+    from paddle_tpu_torch.layers import tensor as tensor_layers
+    from paddle_tpu_torch.utils import unique_name
+
+    helper = LayerHelper("sparse_embedding", name=name)
+    tname = name or unique_name.generate("sparse_emb")
+    program = default_main_program()
+    tables = getattr(program, "_sparse_tables", None)
+    if tables is None:
+        tables = program._sparse_tables = {}
+    if table_id is None:
+        table_id = _next_table_id(program)
+    rows = tensor_layers.data(
+        f"{tname}__rows", shape=[-1, embedding_dim],
+        dtype="float32", append_batch_size=False,
+    )
+    rows.stop_gradient = False  # leaf grad target (extra seed in backward)
+    idx_shape = [(-1 if d in (-1, None) else d) for d in (input.shape or [-1])]
+    idx = tensor_layers.data(
+        f"{tname}__idx", shape=idx_shape, dtype="int32",
+        append_batch_size=False,
+    )
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op(
+        "lookup_table_ps",
+        {"Rows": [rows.name], "Idx": [idx.name]},
+        {"Out": [out.name]},
+        {"table_id": table_id},
+    )
+    tables[tname] = {
+        "table_id": table_id,
+        "ids": input.name,
+        "rows": rows.name,
+        "idx": idx.name,
+        "dim": embedding_dim,
+        "init_range": init_range,
+        "optimizer": optimizer,
+    }
+    return out
+
+
+def distributed_embedding(
+    input,
+    size,
+    table_name=None,
+    table_id=None,
+    init_range=0.01,
+    optimizer="sgd",
+    dtype="float32",
+):
+    """Embedding whose table lives ONLY on parameter servers, pulled inside
+    the step by its op's lowering (reference: distributed_lookup_table +
+    paddle/fluid/operators/distributed/parameter_prefetch.cc:1). No local
+    parameter is created; `size` is [vocab, dim] where vocab is advisory
+    (servers grow rows on demand — billion-feature tables never
+    materialize). The backward pushes merged row grads to the servers
+    (ParameterServerOptimizer wires the push op); fleet.init_worker()
+    creates the server tables and activates the lookup context. Use
+    `RemoteLookupContext.prefetch` / PSWorker.prefetch for double-buffered
+    pulls.
+
+    Id range: ids must be < 2^31, as in the JAX package, whose in-graph ids
+    ride int32 (the port reads them as int64 on the host, and its lowering
+    refuses ids >= 2^31 so that both packages accept the same programs) —
+    pre-hash larger spaces (`id % (2**31 - 1)`, the reference's hash-op
+    recipe) or use `sparse_embedding`, whose host-side pull keeps the full
+    uint64 space."""
+    from paddle_tpu_torch.core.ir import default_main_program
+    from paddle_tpu_torch.utils import unique_name
+
+    enforce(
+        dtype == "float32",
+        f"distributed_embedding dtype must be float32 (got {dtype}): the "
+        "PS wire format and the pulled rows are f32",
+    )
+    helper = LayerHelper("distributed_embedding", name=table_name)
+    tname = table_name or unique_name.generate("dist_emb")
+    dim = int(size[1])
+    program = default_main_program()
+    tables = getattr(program, "_remote_tables", None)
+    if tables is None:
+        tables = program._remote_tables = {}
+    if table_id is None:
+        table_id = _next_table_id(program)
+    out = helper.create_variable_for_type_inference(dtype)
+    ids_shape = [d for d in (input.shape or [-1])]
+    if len(ids_shape) >= 2 and ids_shape[-1] == 1:
+        ids_shape = ids_shape[:-1]
+    out.shape = ids_shape + [dim]
+    out.stop_gradient = False
+    helper.append_op(
+        "distributed_lookup_table",
+        {"Ids": [input.name]},
+        {"Outputs": [out.name]},
+        {"table_name": tname, "dim": dim},
+    )
+    tables[tname] = {
+        "table_id": table_id,
+        "table_name": tname,  # wire/registration name (entry keys may differ)
+        "ids": input.name,
+        "out": out.name,
+        "dim": dim,
+        "init_range": init_range,
+        "optimizer": optimizer,
+    }
     return out
 
 
@@ -737,6 +878,39 @@ def accuracy(input, label, k=1, name=None):
         {"Accuracy": [acc.name], "Correct": [correct.name], "Total": [total.name]},
     )
     return acc
+
+
+def auc(input, label, num_thresholds=4095, name=None):
+    """Streaming AUC; stats are persistable state vars
+    (reference: python/paddle/fluid/layers/metric_op.py auc)."""
+    helper = LayerHelper("auc", name=name)
+    stat_pos = helper.create_parameter(
+        ParamAttr(initializer=ConstantInitializer(0.0), trainable=False),
+        shape=[num_thresholds + 1],
+        dtype="int64",
+    )
+    stat_neg = helper.create_parameter(
+        ParamAttr(initializer=ConstantInitializer(0.0), trainable=False),
+        shape=[num_thresholds + 1],
+        dtype="int64",
+    )
+    auc_out = helper.create_variable_for_type_inference("float32", stop_gradient=True)
+    helper.append_op(
+        "auc",
+        {
+            "Predict": [input.name],
+            "Label": [label.name],
+            "StatPos": [stat_pos.name],
+            "StatNeg": [stat_neg.name],
+        },
+        {
+            "AUC": [auc_out.name],
+            "StatPosOut": [stat_pos.name],
+            "StatNegOut": [stat_neg.name],
+        },
+        {"num_thresholds": num_thresholds},
+    )
+    return auc_out, [stat_pos, stat_neg]
 
 
 def sigmoid(x, name=None, **attrs):

@@ -1,10 +1,17 @@
-"""Wide&Deep CTR model with on-device tables, copied from the JAX
-package's ``models/ctr.py`` (``ps_mode=False``): hashed sparse id slots ->
-wide (linear, dim 1) + deep (embedding + MLP) -> sigmoid CTR, over dense
-``[vocab_size, dim]`` tables. With an SGD optimizer the deferred
-``sparse_weight_update`` pass turns each table's grad + sgd into one
-row-sparse ``sgd_sparse`` update (``FLAGS_pallas_sparse_update`` sends it
-through the sparse-row kernel).
+"""Wide&Deep CTR model, copied from the JAX package's ``models/ctr.py``:
+hashed sparse id slots -> wide (linear, dim 1) + deep (embedding + MLP)
+-> sigmoid CTR. Three table modes:
+
+* ``ps_mode=True``: ``layers.sparse_embedding`` tables on the parameter
+  server; the PS worker pulls the batch's unique rows on the host
+  (``fleet.parameter_server.PSWorker``), ids span the full u64 space;
+* ``ps_mode="remote"``: ``layers.distributed_embedding`` tables, pulled
+  and pushed by the lookup and push ops' lowerings (ids < 2^31);
+* ``ps_mode=False``: dense ``[vocab_size, dim]`` tables on the card.
+  With an SGD optimizer the deferred ``sparse_weight_update`` pass turns
+  each table's grad + sgd into one row-sparse ``sgd_sparse`` update
+  (``FLAGS_pallas_sparse_update`` sends it through the sparse-row
+  kernel).
 """
 
 import numpy as np
@@ -24,13 +31,12 @@ def build_ctr_train(
     ps_mode=True,
     vocab_size=None,
 ):
-    """Returns (main, startup, feeds, fetches). ``ps_mode=False`` uses an
-    on-device dense table of ``vocab_size`` rows per slot and side; the
-    parameter-server modes (``True``, ``"remote"``) are not ported yet."""
-    if ps_mode:
-        raise NotImplementedError(
-            f"build_ctr_train(ps_mode={ps_mode!r}): the parameter-server "
-            "modes are not ported yet (ROADMAP M11); use ps_mode=False")
+    """Returns (main, startup, feeds, fetches). ps_mode=True uses
+    PS sparse_embedding (host pre-pull, ids unbounded); ps_mode="remote"
+    uses distributed_embedding (pull/push in the ops' lowerings, the
+    reference's parameter_prefetch flow); ps_mode=False uses an on-device
+    dense table of `vocab_size` rows (parity baseline for tests)."""
+    remote = ps_mode == "remote"
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         slots = [
@@ -41,17 +47,32 @@ def build_ctr_train(
 
         wide_parts, deep_parts = [], []
         for i, s in enumerate(slots):
-            wide_e = fluid.layers.embedding(
-                s, (vocab_size, 1),
-                param_attr=fluid.ParamAttr(
-                    name=f"wide_{i}_w",
-                    initializer=fluid.initializer.Constant(0.0),
-                ),
-            )
-            deep_e = fluid.layers.embedding(
-                s, (vocab_size, deep_dim),
-                param_attr=fluid.ParamAttr(name=f"deep_{i}_w"),
-            )
+            if remote:
+                wide_e = fluid.layers.distributed_embedding(
+                    s, [0, 1], table_name=f"wide_{i}", init_range=0.0
+                )
+                deep_e = fluid.layers.distributed_embedding(
+                    s, [0, deep_dim], table_name=f"deep_{i}", init_range=0.0
+                )
+            elif ps_mode:
+                wide_e = fluid.layers.sparse_embedding(
+                    s, 1, name=f"wide_{i}", init_range=0.0
+                )
+                deep_e = fluid.layers.sparse_embedding(
+                    s, deep_dim, name=f"deep_{i}", init_range=0.01
+                )
+            else:
+                wide_e = fluid.layers.embedding(
+                    s, (vocab_size, 1),
+                    param_attr=fluid.ParamAttr(
+                        name=f"wide_{i}_w",
+                        initializer=fluid.initializer.Constant(0.0),
+                    ),
+                )
+                deep_e = fluid.layers.embedding(
+                    s, (vocab_size, deep_dim),
+                    param_attr=fluid.ParamAttr(name=f"deep_{i}_w"),
+                )
             # sum-pool the slot's ids: [B, ids_per_slot, d] -> [B, d]
             wide_parts.append(fluid.layers.reduce_sum(wide_e, dim=1))
             deep_parts.append(fluid.layers.reduce_sum(deep_e, dim=1))
@@ -67,7 +88,15 @@ def build_ctr_train(
         )
         pred = fluid.layers.sigmoid(logit)
         opt = optimizer or fluid.optimizer.Adam(learning_rate=1e-3)
-        opt.minimize(loss)
+        if ps_mode:
+            from paddle_tpu_torch.fleet import parameter_server as psfleet
+
+            strategy = psfleet.PSDistributedStrategy(
+                mode="sync", sparse_lr=sparse_lr
+            )
+            psfleet.fleet.distributed_optimizer(opt, strategy).minimize(loss)
+        else:
+            opt.minimize(loss)
     return main, startup, slots + [label], [loss, pred]
 
 

@@ -6,15 +6,17 @@ package's ``examples/wide_deep.py`` (``build_programs``, ``click_log``):
   2^40 space with no dense table anywhere;
 * click-log records (variable-length id lists per slot) become fixed
   (ids, weights) batches through the ``sparse_batch`` transform
-  (``dataio/sparse.py``); ``make_batch`` stacks them (the JAX example runs
-  them through its DataLoader, not ported yet);
+  (``dataio/sparse.py``) on the DataLoader's ordered worker pool
+  (``make_loader``, as the JAX example feeds its program): the dense
+  feeds arrive on the card, the raw ids stay on the host for the engine;
+  ``make_batch`` stacks the same records by hand;
 * Adam drives the dense half, each table its own row-sparse SGD.
 
     main, startup, feeds, (loss, pred) = build_programs()
     exe = Executor(); exe.run(startup, scope=scope)
     engine = EmbeddingEngine(scope=scope)
-    for batch in batches:
-        feed = engine.prepare_feed(main, make_batch(batch, feeds))
+    for feed in make_loader(main, feeds, lambda: click_log(n), batch):
+        feed = engine.prepare_feed(main, dict(feed))
         exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
 """
 
@@ -24,7 +26,7 @@ from paddle_tpu_torch.dataio.sparse import make_sparse_batch_transform
 from paddle_tpu_torch.embedding.table import splitmix64
 
 __all__ = ["NUM_SLOTS", "IDS_PER_SLOT", "DEEP_DIM", "ID_SPACE", "CAPACITY",
-           "EP", "build_programs", "click_log", "make_batch"]
+           "EP", "build_programs", "click_log", "make_batch", "make_loader"]
 
 NUM_SLOTS = 4
 IDS_PER_SLOT = 5
@@ -130,3 +132,24 @@ def make_batch(records, feed_names):
     rows = [transform(r) for r in records]
     return {name: np.stack([row[i] for row in rows])
             for i, name in enumerate(feed_names)}
+
+
+def make_loader(main, feed_names, records, batch, capacity=8, num_workers=2,
+                places=None):
+    """The JAX example's input pipeline: ``records`` (a zero-arg callable
+    returning click-log records) through
+    ``DataLoader.from_generator(feed_list, capacity, num_workers)
+    .set_sample_generator(records, batch, sample_transform=...)``. The
+    feed list is ``main``'s variables, so the loader keeps the raw ids,
+    which ``EmbeddingEngine.prepare_feed`` reads, on the host and stages
+    the rest on ``places`` (the first card when None)."""
+    from paddle_tpu_torch.reader import DataLoader
+
+    block = main.global_block()
+    transform = make_sparse_batch_transform(
+        [f"slot_{i}" for i in range(NUM_SLOTS)], IDS_PER_SLOT)
+    return DataLoader.from_generator(
+        feed_list=[block.var(n) for n in feed_names], capacity=capacity,
+        num_workers=num_workers,
+    ).set_sample_generator(records, batch, places=places,
+                           sample_transform=transform)

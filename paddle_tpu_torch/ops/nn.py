@@ -28,7 +28,7 @@ from paddle_tpu_torch.kernels import random as random_kernels
 from paddle_tpu_torch.kernels import registry as kernel_registry
 from paddle_tpu_torch.ops.common import (
     SettingGuard, first, maybe, normalize_padding, rng_counter_base,
-    seeded_rng_key)
+    segment_sum, seeded_rng_key)
 
 
 @register_op("relu")
@@ -360,6 +360,57 @@ def _lookup_table(ins, attrs):
                           torch.zeros((), dtype=out.dtype, device=out.device),
                           out)
     return {"Out": [out]}
+
+
+@register_op("lookup_table_ps", nondiff_inputs=("Idx",))
+def _lookup_table_ps(ins, attrs):
+    """PS-backed embedding lookup: `Rows` are the batch's unique embedding
+    vectors pulled from the parameter server by the worker (host side,
+    fleet/parameter_server.py), `Idx` maps each id occurrence to its row
+    (the JAX package's ``ops/nn.py`` ``lookup_table_ps``)."""
+    rows, idx = first(ins, "Rows"), first(ins, "Idx")
+    out = rows.index_select(0, idx.reshape(-1).to(torch.int64))
+    return {"Out": [out.reshape(tuple(idx.shape) + tuple(rows.shape[1:]))]}
+
+
+@register_grad("lookup_table_ps")
+def _lookup_table_ps_grad(ins, attrs):
+    """Rows@GRAD: the occurrences' grads summed into their rows — the
+    SelectedRows grad aggregation of the reference's lookup_table_grad
+    (reference: paddle/fluid/operators/lookup_table_op.h
+    LookupTableGradKernel), the JAX package's gather vjp. A segment sum
+    (``ops/common.py``): the same bits on every run, on the card too."""
+    rows, idx = first(ins, "Rows"), first(ins, "Idx")
+    og = first(ins, "Out@GRAD")
+    d = rows.shape[-1]
+    return {"Rows@GRAD": [segment_sum(og.reshape(-1, d).to(rows.dtype),
+                                      idx.reshape(-1), rows.shape[0])]}
+
+
+@register_op("auc", nondiff_inputs=("Predict", "Label"))
+def _auc(ins, attrs):
+    """Streaming AUC via fixed histogram buckets (reference:
+    paddle/fluid/operators/metrics/auc_op.cc), the JAX package's ``auc``:
+    the same bucket of each prediction, so the same accumulators (the JAX
+    package keeps them int32, the port int64), and the trapezoid over the
+    descending threshold in float32."""
+    pred, label = first(ins, "Predict"), first(ins, "Label")
+    stat_pos, stat_neg = first(ins, "StatPos"), first(ins, "StatNeg")
+    num_thresholds = attrs.get("num_thresholds", 4095)
+    pos_score = pred[:, -1] if pred.dim() == 2 else pred
+    bucket = torch.clamp((pos_score * num_thresholds).to(torch.int64), 0,
+                         num_thresholds)
+    lab = label.reshape(-1).to(stat_pos.dtype)
+    new_pos = stat_pos.index_add(0, bucket, lab)
+    new_neg = stat_neg.index_add(0, bucket, 1 - lab)
+    # integrate trapezoid over descending threshold
+    tp = torch.cumsum(new_pos.flip(0), 0)
+    fp = torch.cumsum(new_neg.flip(0), 0)
+    tpr = tp.to(torch.float32) / torch.clamp(tp[-1], min=1).to(torch.float32)
+    fpr = fp.to(torch.float32) / torch.clamp(fp[-1], min=1).to(torch.float32)
+    auc = 0.5 * ((fpr[1:] - fpr[:-1]) * (tpr[1:] + tpr[:-1])).sum()
+    return {"AUC": [auc.reshape((1,))], "StatPosOut": [new_pos],
+            "StatNegOut": [new_neg]}
 
 
 def _cached_attention_reference(ins, attrs):

@@ -302,9 +302,15 @@ class SubprocessReplica:
         while time.monotonic() < deadline:
             line = proc.stdout.readline()
             if not line:
+                # stdout closes during the interpreter's shutdown, before
+                # the process is reaped: wait for the exit code
+                try:
+                    code = proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    code = None
                 raise ReplicaError(
                     f"replica {rid} worker exited during startup "
-                    f"(code {proc.poll()})", fatal=True)
+                    f"(code {code})", fatal=True)
             if line.startswith("FLEET_WORKER_READY "):
                 meta = json.loads(line[len("FLEET_WORKER_READY "):])
                 break

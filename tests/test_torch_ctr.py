@@ -15,7 +15,8 @@ size on the CPU:
 * both CTR builders (Wide&Deep over the engine, and ``build_ctr_train``
   with on-device tables and SGD) give the same programs as the JAX
   package's after the deferred rewrites: op types, slots, attributes and
-  var names, in order;
+  var names, in order; ``build_ctr_train``'s parameter-server modes give
+  the JAX programs' op types and table registries;
 * the dense CTR model (``vocab_size=1000``, 4 slots in place of 8 so the
   JAX step with 8 interpret-mode kernels compiles in seconds, 3 SGD steps
   at batch 8, flag off and on) from the JAX startup's state: the loss
@@ -345,9 +346,24 @@ def test_programs_match_the_jax_builders(model, program):
 
 
 def test_ps_modes_are_not_ported_yet():
+    """The parameter-server modes build the JAX package's programs: the
+    same op types in order, the same table registries and the
+    DownpourSGD fleet options (they train in
+    ``test_torch_ps_ctr.py``)."""
     for mode in (True, "remote"):
-        with pytest.raises(NotImplementedError, match="M11"):
-            torch_ctr.build_ctr_train(ps_mode=mode)
+        with jax_names.guard():
+            jmain, jstart, _f, _v = jax_ctr.build_ctr_train(ps_mode=mode)
+        with torch_names.guard():
+            main, start, _f, _v = torch_ctr.build_ctr_train(ps_mode=mode)
+        assert ([op.type for op in main.global_block().ops]
+                == [op.type for op in jmain.global_block().ops])
+        assert ([op.type for op in start.global_block().ops]
+                == [op.type for op in jstart.global_block().ops])
+        reg = "_remote_tables" if mode == "remote" else "_sparse_tables"
+        assert getattr(main, reg) == getattr(jmain, reg)
+        assert len(getattr(main, reg)) == 16
+        assert main._fleet_opt == jmain._fleet_opt == {
+            "trainer": "DistMultiTrainer", "device_worker": "DownpourSGD"}
 
 
 # ---------------------------------------------------------------------------

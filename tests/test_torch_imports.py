@@ -101,6 +101,23 @@ import paddle_tpu_torch.serving.fleet.worker
 import paddle_tpu_torch.serving.metrics
 import paddle_tpu_torch.serving.request
 import paddle_tpu_torch.utils.flags
+import paddle_tpu_torch.data_feeder
+import paddle_tpu_torch.dataio.engine
+import paddle_tpu_torch.dataio.prefetch
+import paddle_tpu_torch.dataio.source
+import paddle_tpu_torch.dataset
+import paddle_tpu_torch.device_worker
+import paddle_tpu_torch.distributed.lookup
+import paddle_tpu_torch.fleet.parameter_server
+import paddle_tpu_torch.incubate.data_generator
+import paddle_tpu_torch.incubate.fleet_utils
+import paddle_tpu_torch.native
+import paddle_tpu_torch.observability.fetcher
+import paddle_tpu_torch.observability.logger
+import paddle_tpu_torch.reader
+import paddle_tpu_torch.reader.dataloader
+import paddle_tpu_torch.reader.decorator
+import paddle_tpu_torch.trainer_desc
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "paddle_tpu" or m.startswith("paddle_tpu."))

@@ -7,7 +7,8 @@
   record straight; same-class nesting raises; toggling mid-hold leaves
   no phantom edge; disabled, the witness is inert;
 * the port declares every lock order the JAX package declares among the
-  lock names the port has;
+  lock names the port has (the data plane's, the remote lookup's, the
+  fetcher's and the heartbeat monitor's included);
 * armed, the fleet router's 8-thread hammer (a replica dies mid-hammer)
   and a decode engine's chunked, speculative and parked serving run
   with no violation, witnessing ``fleet.router -> serving.queue`` and
@@ -202,13 +203,19 @@ def _pairs(chains):
 
 
 def test_port_declares_every_jax_order_among_its_lock_names():
+    import paddle_tpu.dataset  # noqa: F401
+    import paddle_tpu.distributed.lookup  # noqa: F401
     import paddle_tpu.embedding.store  # noqa: F401
     import paddle_tpu.incubate.checkpoint  # noqa: F401
+    import paddle_tpu.observability.fetcher  # noqa: F401
     import paddle_tpu.serving.fleet  # noqa: F401
     from paddle_tpu.observability import lockdep as jax_lockdep
 
+    import paddle_tpu_torch.dataset  # noqa: F401
+    import paddle_tpu_torch.distributed.lookup  # noqa: F401
     import paddle_tpu_torch.embedding.store  # noqa: F401
     import paddle_tpu_torch.incubate.checkpoint  # noqa: F401
+    import paddle_tpu_torch.observability.fetcher  # noqa: F401
     import paddle_tpu_torch.serving.fleet  # noqa: F401
 
     have = set()
@@ -218,7 +225,9 @@ def test_port_declares_every_jax_order_among_its_lock_names():
     for path in (ROOT / "paddle_tpu").rglob("*.py"):
         jax_names.update(_NAMED.findall(path.read_text()))
     assert {"fleet.router", "serving.queue", "decode.tenant",
-            "decode.blocks", "checkpoint.manifest"} <= have
+            "decode.blocks", "checkpoint.manifest", "dataio.dataset.feed",
+            "dataio.dataset.truncate", "lookup.prefetch", "lookup.push",
+            "observability.fetcher", "resilience.heartbeat"} <= have
     # every name the port takes is one the JAX package takes
     assert have <= jax_names, have - jax_names
     want = {(a, b) for a, b in _pairs(jax_lockdep.declared_orders())

@@ -117,12 +117,13 @@ def test_cases_cover_every_ported_op_type():
     from test_torch_control_flow import CASES as CONTROL_FLOW_CASES
     from test_torch_conv import CASES as CONV_CASES
     from test_torch_ctr import CASES as CTR_CASES
+    from test_torch_ps_ctr import CASES as PS_CASES
     from test_torch_random import CASES as RANDOM_CASES
     from test_torch_train_ops import CASES as TRAIN_CASES
     from test_torch_transformer import CASES as DGC_CASES
 
     assert sorted(set(CASES) | set(TRAIN_CASES) | set(CTR_CASES)
-                  | set(DGC_CASES) | set(RANDOM_CASES)
+                  | set(PS_CASES) | set(DGC_CASES) | set(RANDOM_CASES)
                   | set(CONV_CASES) | set(AMP_CASES)
                   | {op for op, _, _ in CONTROL_FLOW_CASES.values()}
                   ) == TorchOps.all_types()
