@@ -9,6 +9,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py --phases 13      # the build and data parallelism
     python3 chip_smoke.py --phases 14      # the build, beam translation, dygraph
     python3 chip_smoke.py --phases 15      # the build, the data plane, the PS
+    python3 chip_smoke.py --phases 16      # the build, hybrid parallelism
 
 ``--phases`` takes the phases' top-level numbers (2 runs 2-2f, 3 runs
 3-3d, 5 runs 5-5c, 9 runs 9a-9d; 10 runs 9a first, whose programs it
@@ -88,7 +89,8 @@ Phases:
    speculative one on "same" bit for bit. Launch counters are zeroed
    before each leg and read after; the ``paged_attention`` row of the
    kernels line adds these launches to phase 3's.
-3c. beam search and grammars — one ``GenerationEngine()`` at the same
+3c. beam search and grammars (8 new tokens a request) — one
+   ``GenerationEngine()`` at the same
    width hosting a target with ``eos_id=95``, ``logits_mask=True`` (the
    ``DEC_MASK`` feed) and the chunk budget of 128, beside the 2-layer
    draft "small". The grammars' vocabulary is made from the seed: ids
@@ -116,8 +118,8 @@ Phases:
    width hosting "cut" (a chunk budget of 128 and a pool of 96 blocks,
    1536 rows, a 113 MB arena), "uncut" (the same with 512 blocks) and the
    draft "same", all three with cut's weights (``convert.load_params``).
-   A burst of 16 requests (96-384 prompt tokens, 4 sharing a 128-token
-   prefix, 64 new tokens each: a beam of width 4, a speculative one on
+   A burst of 12 requests (96-384 prompt tokens, 3 sharing a 128-token
+   prefix, 16 new tokens each: a beam of width 4, a speculative one on
    "same" with draft-KV, a sampled one and 9 greedy ones; every prompt
    over 128 tokens streams through the chunk program) is submitted at
    once and hand-stepped to the end, first on "uncut", then on "cut",
@@ -131,7 +133,8 @@ Phases:
    Prints the spill's ms a park and the resume's a row run (p50, max) with
    bytes and GB/s, the 12 requests' latency p50/p99 on both pools,
    tokens/s on both, the brownout transitions with their triggers and the
-   host tier's counters. Legs: corruption (5 prompts of 300 tokens; the
+   host tier's counters. Legs: corruption (5 prompts of 300 tokens, 32
+   new tokens each; the
    first parked session's tier entry gets a byte flipped: quarantined,
    one walk-back, its tokens held by phase 3's rule, the rows that differ
    from the spilled ones counted, every other resume bit-exact, and K3
@@ -280,8 +283,8 @@ Phases:
    dropout 0.1, seq 64, DGC momentum with warm-up at step 0, sparsity
    0.996 then 0.999) trained data-parallel on 2 ranks of
    ``paddle_tpu_torch.distributed.launch`` sharing the card over gloo,
-   ``CompiledProgram.with_parallel``, global batch 128, 6 steps with
-   ``FLAGS_pallas_dgc_topk`` on; then the same 6 steps with the kernels
+   ``CompiledProgram.with_parallel``, global batch 128, 3 steps with
+   ``FLAGS_pallas_dgc_topk`` on; then the same 3 steps with the kernels
    off (a fresh executor, so the run keys repeat). Each rank runs this
    script with ``--dgc-rank``. Checks: K7
    launched 97 times a rank on each sparse step (the parameters over one
@@ -404,13 +407,14 @@ Phases:
    beside a plain lock's, then ``offline_decode`` of phase 3's burst by
    an in-process entry built from the same spec. 12a: 2
    workers (each one's spawn-to-ready seconds printed), phase 3's burst
-   of 16 submitted at once: every stream against the offline reference
+   of 16 (16 new tokens each) submitted at once: every stream against the
+   offline reference
    by phase 3's near-tie rule, the 4 shared-prefix requests routed to
    one worker; tokens/s and latency p50/p99; then the burst again on the
    warm workers, the same checks and numbers; each worker's ``stats`` RPC
    counting K3 launches (12 a decode step, more than 0) and K8
    ``random_bits`` from its startup. 12b: a fresh router (autoscale, 2 to
-   3 workers) over 2 new workers, worker 1 spawned with a
+   3 workers) over 2 new workers (spawned beside 12a's), worker 1 with a
    ``replica.kill`` schedule that exits it at its 6th RPC while it holds
    accepted work: the victim exits with 43 and is latched dead, 1 death
    and at least 1 re-dispatch, accepted == completed == 16 (the
@@ -524,6 +528,22 @@ Phases:
    their share, the host syncs of one step and the idle share of one
    step. The ``kernels`` line adds 15a's K5, 15b's K6 and the startups'
    K8 launches.
+16. hybrid parallelism on the IR path — ``models/gpt_ir.py`` at the JAX
+   package's GPT-base width (vocab 32000, hidden 768, 12 layers, 12
+   heads, context 1024) with Megatron tp 2, on 4 gloo ranks of the card
+   relaunched as ``chip_smoke.py --hybrid-rank DIR``, mesh (data, stage,
+   model) = (1, 2, 2) through ``CompiledProgram.with_parallel(param_specs=
+   stack.param_spec_overrides())``: GPipe over 2 stages of 6 layers, 4
+   microbatches of 2 x 1024 tokens, 3 Adam steps; causal attention on
+   K1/K2a/K2b. Against one rank of the same global weights at tp 1 (this
+   process, the plain executor): losses within rtol 5e-4, every grad of
+   step 1 (gathered from the shards) within 1e-3 of its largest, every
+   parameter after the steps within 2 lr a step and 1e-6 on average;
+   replicas of a shard bit-equal; the same startup weights on every rank;
+   K1, K2a and K2b once a layer a microbatch on every rank; each step's
+   model all-reduces, stage sends, receives and broadcasts as planned.
+   Prints step p50 a rank, the collectives' calls, MB and ms by axis, the
+   receive-wait share beside the predicted bubble, and the idle share.
 
 The last lines are the card's name and power limit, one JSON line of
 per-kernel results, and ``{"ok": true, "device": {...}}``.
@@ -566,6 +586,9 @@ SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)
 # DEC_MASK feed: beams of width 4 (one a 300-token prompt, past the chunk
 # budget); the grammar vocabulary's stop token; the leg-B grammars
 EOS, BEAM_WIDTH, BEAM_CHUNKED_LEN = 95, 4, 300
+# new tokens of each 3c request (both legs; MAX_NEW until the whole script
+# neared its time limit)
+BEAM_MAX_NEW = 8
 GRAMMAR_SCHEMA = {"type": "object", "properties": {
     "name": {"type": "string"}, "age": {"type": "integer"},
     "tags": {"type": "array", "items": {"enum": ["a", "b", "c"]}},
@@ -579,13 +602,17 @@ GRAMMAR_REGEX = "[A-Z][a-z]+( [A-Z][a-z]+)*"
 BEAM_TOL = 1e-3
 # Phase 3d, the engine under overload: a pool of 96 blocks (1536 rows)
 # for a burst of 12 requests of 96-384 prompt tokens (3 share a 128-token
-# prefix) and 64 new tokens each (16 until the whole script neared its
-# time limit; the first 12 of the same prompts), beside the same burst on
+# prefix) and 16 new tokens each (16 requests of 64 until the whole script
+# neared its time limit; the first 12 of the same prompts; the first 8
+# slots still need 123 blocks of the 96), beside the same burst on
 # an uncut pool of 512; a 1 GiB host tier; the breaker opens after 3 failed steps and
 # half-opens after 0.5 s; the corruption leg's 5 prompts of 300 tokens
-OV_REQUESTS, OV_SHARED, OV_PROMPT_LEN, OV_MAX_NEW = 12, 128, (96, 384), 64
+OV_REQUESTS, OV_SHARED, OV_PROMPT_LEN, OV_MAX_NEW = 12, 128, (96, 384), 16
 OV_BLOCKS, OV_UNCUT_BLOCKS, OV_TIER_MB = 96, 512, 1024
 OV_BREAKER, OV_COOLDOWN_S, OV_CORRUPT_LEN = 3, 0.5, 300
+# the corruption leg's new tokens: its 5 prompts of 300 tokens hold 95 of
+# the 96 blocks after prefill and park once they decode past 304
+OV_CORRUPT_NEW = 32
 NEG_INF = -1e9
 # The kernel and its plain version both produce convex combinations of
 # N(0, 1) value rows, summed in float32 over 1024 positions in different
@@ -601,7 +628,12 @@ PARITY_ATOL = 1e-4
 # rtol = atol = 1e-5, the JAX test's; grads rtol 1e-4, atol 1e-5),
 # applied elementwise.
 FLASH_SHAPES = (dict(B=32, H=12, S=128, D=64, causal=False, timed=True),
-                dict(B=32, H=12, S=512, D=64, causal=True, timed=False))
+                dict(B=32, H=12, S=512, D=64, causal=True, timed=False),
+                # phase 16's attention on a rank: 2 sequences a microbatch,
+                # 6 of the 12 heads (tp 2), 1024 tokens, causal, no key
+                # bias; timed beside the BERT row (``causal_*`` keys)
+                dict(B=2, H=6, S=1024, D=64, causal=True, timed=True,
+                     bias=False, row="causal"))
 FWD_TOL, BWD_TOL = (1e-5, 1e-5), (1e-4, 1e-5)
 # Phase 2f, the 16-bit builds against their plain versions in the same
 # type: at BERT-base's shape (timed), causal and not, with a dead batch
@@ -707,13 +739,15 @@ TOPK_CASES = (("word_emb k=75776", 37000 * 512, 75776, TOPK_BLOCK, "normal"),
               ("all equal, cut inside a middle CTA", 2 * TOPK_BLOCK, 53248,
                TOPK_BLOCK, "equal"))
 # Transformer-base data-parallel DGC training: 2 ranks on the one card,
-# global batch 128 (64 sentences, 4096 target tokens a rank), seq 64, 6
+# global batch 128 (64 sentences, 4096 target tokens a rank), seq 64, 3
 # steps: step 0 dense (rampup_begin_step 1), step 1 sparse at 0.996,
-# steps 2-5 at 0.999 (rampup_step 2), where the keep mask cuts k
-DGC_RANKS, DGC_BATCH, DGC_SEQ, DGC_STEPS = 2, 128, 64, 6
-# steps of the same model without dropout (the first dense, then sparse),
-# timed for the cost of dropout on the same host clock
-DGC_NODROP_STEPS = 5
+# step 2 at 0.999 (rampup_step 2), where the keep mask cuts k (6 steps
+# until the whole script neared its time limit)
+DGC_RANKS, DGC_BATCH, DGC_SEQ, DGC_STEPS = 2, 128, 64, 3
+# steps of the same model without dropout (the first dense, then one
+# sparse), timed for the cost of dropout on the same host clock (5 until
+# then)
+DGC_NODROP_STEPS = 2
 DGC_OPT = dict(learning_rate=0.01, momentum=0.9, rampup_begin_step=1,
                rampup_step=2, sparsity=[0.996, 0.999])
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
@@ -1223,23 +1257,27 @@ FLASH_RATES = {"flash_attention_fwd": PEAK_3XTF32_FLOPS,
                "flash_attention_bwd_dq": PEAK_3XTF32_FLOPS}
 
 
-def flash_bounds(B, H, S, D, rates=FLASH_RATES, elem=4):
-    """(bound_ms, bound_by) of K1, K2a and K2b, non-causal: the larger of
-    each input read once and each output written once at the card's
-    memory rate, and its multiply-adds (two FLOPs each) at ``rates[name]``,
-    the FLOP/s of the kernel's route (K2a's bytes include the dbias it
-    writes). q, k, v, O, dO, dQ, dK and dV take ``elem`` bytes a value;
-    the LSE, delta, bias and dbias are float32."""
+def flash_bounds(B, H, S, D, rates=FLASH_RATES, elem=4, causal=False,
+                 bias=True):
+    """(bound_ms, bound_by) of K1, K2a and K2b: the larger of each input
+    read once and each output written once at the card's memory rate, and
+    its multiply-adds (two FLOPs each) at ``rates[name]``, the FLOP/s of
+    the kernel's route (K2a's bytes include the dbias it writes, with a
+    ``bias``). Causal attention needs the ``S (S + 1) / 2`` query-key
+    pairs on or below the diagonal. q, k, v, O, dO, dQ, dK and dV take
+    ``elem`` bytes a value; the LSE, delta, bias and dbias are float32."""
     tensor = B * H * S * D * elem
     row = B * H * S * 4
-    bias = B * S * 4
+    bias = B * S * 4 if bias else 0
+    dbias = row if bias else 0
+    pairs = S * (S + 1) // 2 if causal else S * S
     work = {"flash_attention_fwd": (4, 3 * tensor + bias + tensor + row),
             "flash_attention_bwd_dkdv": (8, 4 * tensor + 2 * row + bias
-                                         + 2 * tensor + row),
+                                         + 2 * tensor + dbias),
             "flash_attention_bwd_dq": (6, 4 * tensor + 2 * row + bias + tensor)}
     out = {}
     for name, (mults, bytes_) in work.items():
-        t_ops = mults * B * H * S * S * D / rates[name] * 1e3
+        t_ops = mults * B * H * pairs * D / rates[name] * 1e3
         t_bytes = bytes_ / PEAK_BYTES_S * 1e3
         out[name] = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
     return out
@@ -1286,7 +1324,8 @@ def _flash_parity(FA, names, inputs, causal, tag, checks, errs):
                                  f"{want.dtype}, expected {q.dtype}")
     errs[names[1]] = max(errs[names[1]], grad_check(f"K2a dK {tag}", dk, dk_p),
                          grad_check(f"K2a dV {tag}", dv, dv_p),
-                         grad_check(f"K2a dbias {tag}", db, db_p))
+                         grad_check(f"K2a dbias {tag}", db, db_p)
+                         if bias is not None else 0.0)
     errs[names[2]] = max(errs[names[2]], grad_check(f"K2b dQ {tag}", dq, dq_p))
     _same_bits(f"K1 {tag}", lambda: FA.flash_attention_fwd(
         q, k, v, bias, causal, scale))
@@ -1309,13 +1348,16 @@ def _flash_times(FA, names, args, bounds):
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     q, k, v, bias, dout, _, _, causal, scale = args
-    mask4 = bias[:, None, None, :].to(q.dtype)
+    # a key bias rides as sdpa's additive mask; without one, causality is
+    # sdpa's own (it takes one or the other)
+    mask4 = bias[:, None, None, :].to(q.dtype) if bias is not None else None
+    lib_causal = causal and mask4 is None
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
     with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
         lib_out = F.scaled_dot_product_attention(
-            ql, kl, vl, attn_mask=mask4, scale=scale)
+            ql, kl, vl, attn_mask=mask4, is_causal=lib_causal, scale=scale)
         lib_fwd = device_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask4, scale=scale), 10)
+            q, k, v, attn_mask=mask4, is_causal=lib_causal, scale=scale), 10)
     lib_bwd = device_ms(lambda: torch.autograd.grad(
         lib_out, (ql, kl, vl), dout, retain_graph=True), 10)
     timed = {
@@ -1353,16 +1395,44 @@ def phase_flash():
     checks = (lambda n, g, w: _check_close(n, g, w, FWD_TOL),
               lambda n, g, w: _check_close(n, g, w, FWD_TOL),
               lambda n, g, w: _check_close(n, g, w, BWD_TOL))
-    results = {}
+    results, extra = {}, {n: {} for n in names}
     for shape in FLASH_SHAPES:
         B, H, S, D, causal = (shape[k] for k in ("B", "H", "S", "D", "causal"))
         inputs = flash_inputs(gen, dev, B, H, S, D)
+        with_bias = shape.get("bias", True)
+        if not with_bias:
+            inputs = inputs[:4] + (None,)
         tag = f"S={S}{' causal' if causal else ''}"
-        args, o_p = _flash_parity(FA, names, inputs, causal, tag, checks, errs)
-        log(f"[flash] {tag}: max abs err K1 {errs[names[0]]:.3e} "
-            f"K2a {errs[names[1]]:.3e} K2b {errs[names[2]]:.3e}; two launches "
-            "of each give the same bits")
+        if "row" in shape:
+            tag = f"[{B}, {H}, {S}, {D}]{' causal' if causal else ''}" + (
+                "" if with_bias else " no bias")
+        shape_errs = {n: 0.0 for n in names}
+        args, o_p = _flash_parity(FA, names, inputs, causal, tag, checks,
+                                  shape_errs)
+        for n in names:
+            errs[n] = max(errs[n], shape_errs[n])
+        log(f"[flash] {tag}: max abs err K1 {shape_errs[names[0]]:.3e} "
+            f"K2a {shape_errs[names[1]]:.3e} K2b {shape_errs[names[2]]:.3e}; "
+            "two launches of each give the same bits")
         if not shape["timed"]:
+            continue
+        if "row" in shape:
+            # a second timed row, beside the first's numbers in the
+            # kernels line
+            bounds = flash_bounds(B, H, S, D, causal=causal, bias=with_bias)
+            row, _ = _flash_times(FA, names, args, [bounds[n] for n in names])
+            for n in names:
+                r = dict(row[n], max_abs_err=shape_errs[n],
+                         shape=[B, H, S, D])
+                extra[n].update({f"{shape['row']}_{k}": v
+                                 for k, v in r.items()})
+                log(f"[flash] {tag} {n}: kernel_ms={r['ms']:.4f} "
+                    f"plain_ms={r['plain_ms']:.4f} library_ms="
+                    f"{r['library_ms']:.4f} (sdpa, is_causal, memory-"
+                    f"efficient pinned{'; its backward: dq+dk+dv' if n != names[0] else ''}) "
+                    f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}, the "
+                    f"{S * (S + 1) // 2} causal pairs a head) max_abs_err="
+                    f"{r['max_abs_err']:.3e}")
             continue
         bounds = flash_bounds(B, H, S, D)
         results, lib_bwd = _flash_times(FA, names, args,
@@ -1398,6 +1468,7 @@ def phase_flash():
     for name in names:
         r = results[name]
         r["max_abs_err"] = errs[name]
+        r.update(extra[name])
         log(f"[flash] {name}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
             f"library_ms={r['library_ms']:.4f}"
             f"{' (sdpa backward, dq+dk+dv together)' if name != names[0] else ''}"
@@ -1977,7 +2048,7 @@ def _leg_beam(engine, target, schema, greedy_tps):
     t0 = time.perf_counter()
     results = []
     for w, wave in enumerate(waves):
-        resps = [engine.submit(p, model="gen", max_new_tokens=MAX_NEW,
+        resps = [engine.submit(p, model="gen", max_new_tokens=BEAM_MAX_NEW,
                                beam_width=BEAM_WIDTH, grammar=g)
                  for p, g in wave]
         for it in range(5000):
@@ -2021,7 +2092,7 @@ def _leg_beam(engine, target, schema, greedy_tps):
         if g is not None:
             for h in out["beams"]:
                 walk_grammar(g, [int(t) for t in h["tokens"]], {}, "beam A")
-        want = target.offline_beam(p, MAX_NEW, BeamParams(BEAM_WIDTH),
+        want = target.offline_beam(p, BEAM_MAX_NEW, BeamParams(BEAM_WIDTH),
                                    grammar=g)
         n, gap = check_beams(target, p, out, want, g)
         partings += n
@@ -2067,8 +2138,8 @@ def _leg_grammar(engine, target, schema, regex, greedy_tps, greedy_step):
     mask0 = len(before["mask_seconds"])
     kernels.reset_launches()
     t0 = time.perf_counter()
-    resps = [engine.submit(p, model="gen", max_new_tokens=MAX_NEW, grammar=g,
-                           **kw) for p, _k, g, kw in requests]
+    resps = [engine.submit(p, model="gen", max_new_tokens=BEAM_MAX_NEW,
+                           grammar=g, **kw) for p, _k, g, kw in requests]
     outs = [[int(t) for t in r.result(timeout=600)["tokens"]] for r in resps]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2097,8 +2168,8 @@ def _leg_grammar(engine, target, schema, regex, greedy_tps, greedy_step):
         if g is not None:
             key = "regex" if kind == "regex" else "schema"
             walk_grammar(fresh[key], got, build_ms[key], tag)
-        want = target.offline_decode(p, MAX_NEW, sampling=kw.get("sampling"),
-                                     grammar=g)
+        want = target.offline_decode(p, BEAM_MAX_NEW,
+                                     sampling=kw.get("sampling"), grammar=g)
         if kind == "spec":
             if got != want:
                 raise AssertionError(f"{tag}: the speculative stream differs "
@@ -2329,7 +2400,7 @@ def _ov_corruption(engine, entry, prompts):
     entry._inject_rows = inject
     before = entry.stats()
     resps = [engine.submit(p, model=entry.model.name,
-                           max_new_tokens=OV_MAX_NEW) for p in prompts]
+                           max_new_tokens=OV_CORRUPT_NEW) for p in prompts]
     try:
         _hand_step(entry, resps, hook=corrupt)
     finally:
@@ -2578,10 +2649,10 @@ def phase_overload(greedy_tps):
     t_leg = time.perf_counter()
     (cp, ctoks), diff, intact, k3_err = _ov_corruption(engine, cut, cprompts)
     verdict = check_against_offline(cut, cp, ctoks,
-                                    cut.offline_decode(cp, OV_MAX_NEW),
+                                    cut.offline_decode(cp, OV_CORRUPT_NEW),
                                     tag="overload corruption")
     log(f"[overload] corruption: quarantined, recomputed rows differ from "
-        f"the spilled ones in {diff[0]} of {len(cp) + OV_MAX_NEW} x "
+        f"the spilled ones in {diff[0]} of {len(cp) + OV_CORRUPT_NEW} x "
         f"{2 * MODEL['num_layers']} rows by at most {diff[1]:.3e}; "
         f"{intact} intact resumes bit-exact; tokens {verdict}; K3 over "
         f"every resumed slot's rows within {k3_err:.3e} of its plain "
@@ -4302,7 +4373,7 @@ def phase_dgc():
                                  for i in sparse_steps[1:]])) * 1e3
     nodrop = r0["nodrop_seconds"]
     log(f"[dgc] without dropout, same call: sparse steps p50 "
-        f"{float(np.median(nodrop[2:])) * 1e3:.2f} ms (steps "
+        f"{float(np.median(nodrop[1:])) * 1e3:.2f} ms (steps "
         f"{[round(x * 1e3, 2) for x in nodrop]}) against {sparse_ms:.2f} "
         "with it")
     tokens = DGC_BATCH * DGC_SEQ
@@ -5757,6 +5828,9 @@ def phase_inference():
 
 # -- phase 12 ---------------------------------------------------------------
 FLEET_SPEC = dict(MODEL, name="fleet", version="1")
+# new tokens of each fleet request (MAX_NEW until the whole script neared
+# its time limit)
+FLEET_MAX_NEW = 16
 # the victim's worker dies at its 6th RPC (pings, submits and polls all
 # count): the fleet test's schedule (tests/test_fleet_serving.py), by
 # which time it holds accepted work
@@ -5807,7 +5881,7 @@ def _fleet_burst(router, prompts):
     t0 = time.perf_counter()
     resps, sent, first = [], [], []
     for p in prompts:
-        resps.append(router.submit(p, max_new_tokens=MAX_NEW))
+        resps.append(router.submit(p, max_new_tokens=FLEET_MAX_NEW))
         sent.append(time.perf_counter())
         with router._lock:
             rr = next((r for r in router._inflight.values()
@@ -5881,20 +5955,18 @@ def _lock_cost():
         f"{named_us:.3f} µs, a plain lock's {plain_us:.3f} µs")
 
 
-def _fleet_chaos(entry, prompts, refs, handles, p99_steady):
-    """12b: a fresh router (autoscale, 2-3 workers); worker 1 dies at its
-    6th RPC while it holds work."""
+def _fleet_chaos(entry, prompts, refs, handles, p99_steady, r0, r1):
+    """12b: a fresh router (autoscale, 2-3 workers) over ``r0`` and the
+    armed ``r1`` (spawned beside 12a's workers); worker 1 dies at its 6th
+    RPC while it holds work."""
     import threading
 
     from paddle_tpu_torch.serving.fleet import FleetRouter
     from paddle_tpu_torch.serving.fleet.router import RoutedRequest
     from paddle_tpu_torch.serving.request import Priority
 
-    r0, r1 = _fleet_spawn_all(
-        [(0, None), (1, {"PADDLE_TPU_FAULTS": json.dumps(FLEET_KILL)})],
-        handles)
-    log(f"[fleet] 12b spawn-to-ready: r0 {r0.ready_s:.2f}s, r1 (armed) "
-        f"{r1.ready_s:.2f}s")
+    log(f"[fleet] 12b spawn-to-ready (beside 12a's): r0 {r0.ready_s:.2f}s, "
+        f"r1 (armed) {r1.ready_s:.2f}s")
 
     def factory(index):
         h = _fleet_spawn(index)
@@ -5961,10 +6033,10 @@ def _fleet_chaos(entry, prompts, refs, handles, p99_steady):
         new = next(rid for rid in st["replicas"] if rid not in ("r0", "r1"))
         with router._lock:
             i = next(i for i, p in enumerate(prompts) if router._route(
-                RoutedRequest(0, p, MAX_NEW, "t", Priority.NORMAL, None,
-                              None, None), set()) == new)
+                RoutedRequest(0, p, FLEET_MAX_NEW, "t", Priority.NORMAL,
+                              None, None, None), set()) == new)
         got = [int(t) for t in router.submit(
-            prompts[i], max_new_tokens=MAX_NEW).result(
+            prompts[i], max_new_tokens=FLEET_MAX_NEW).result(
                 timeout=FLEET_SPAWN_TIMEOUT)["tokens"]]
         verdict = check_against_offline(entry, prompts[i], got, refs[i],
                                         tag="fleet 12b replacement")
@@ -5999,13 +6071,16 @@ def phase_fleet():
     entry = engine.register_model(build_decoder_model(**FLEET_SPEC))
     prompts = make_prompts(MODEL["vocab_size"])
     t0 = time.perf_counter()
-    refs = [entry.offline_decode(p, MAX_NEW) for p in prompts]
+    refs = [entry.offline_decode(p, FLEET_MAX_NEW) for p in prompts]
     log(f"[fleet] offline references {time.perf_counter() - t0:.1f}s")
     handles = []
     total = {"paged_attention": 0, "threefry_random_bits": 0}
     try:
         # -- 12a: no chaos --------------------------------------------------
-        r0, r1 = _fleet_spawn_all([(0, None), (1, None)], handles)
+        # 12b's two workers (the second armed) come up beside 12a's
+        r0, r1, c0, c1 = _fleet_spawn_all(
+            [(0, None), (1, None), (0, None),
+             (1, {"PADDLE_TPU_FAULTS": json.dumps(FLEET_KILL)})], handles)
         log(f"[fleet] 12a spawn-to-ready: r0 {r0.ready_s:.2f}s, r1 "
             f"{r1.ready_s:.2f}s ({r0._meta['device']}, pids "
             f"{r0._meta['pid']} {r1._meta['pid']})")
@@ -6046,7 +6121,8 @@ def phase_fleet():
         finally:
             router.shutdown()
         # -- 12b: a worker killed mid-flight --------------------------------
-        for n, c in _fleet_chaos(entry, prompts, refs, handles, p99).items():
+        for n, c in _fleet_chaos(entry, prompts, refs, handles, p99, c0,
+                                 c1).items():
             total[n] += c
     finally:
         _fleet_close(handles)
@@ -6231,8 +6307,8 @@ def _dp_launch(flag="--dp-rank"):
     return _rank_results(_rank_spawn(flag))
 
 
-def _rank_spawn(flag):
-    """Starts DP_RANKS ranks of this script with ``flag DIR``: (the
+def _rank_spawn(flag, n=DP_RANKS):
+    """Starts ``n`` ranks of this script with ``flag DIR``: (the
     processes, DIR), for ``_rank_results``."""
     from paddle_tpu_torch.distributed import launch
 
@@ -6240,7 +6316,7 @@ def _rank_spawn(flag):
     try:
         procs = launch.spawn_gang(
             [os.path.abspath(__file__), flag, out_dir],
-            nproc=DP_RANKS, init_method="file://" + os.path.join(
+            nproc=n, init_method="file://" + os.path.join(
                 out_dir, "store"))
     except BaseException:
         shutil.rmtree(out_dir, ignore_errors=True)
@@ -6248,26 +6324,28 @@ def _rank_spawn(flag):
     return procs, out_dir
 
 
-def _rank_results(gang):
-    """Waits for the ranks of ``_rank_spawn`` (stopping every one of them
-    whatever happens) and returns each rank's ``rank<r>.json``."""
+def _rank_results(gang, n=DP_RANKS, timeout=DP_TIMEOUT, keep=False):
+    """Waits for the ``n`` ranks of ``_rank_spawn`` (stopping every one of
+    them whatever happens) and returns each rank's ``rank<r>.json``; the
+    directory goes after, unless ``keep`` (the caller removes it)."""
     from paddle_tpu_torch.distributed import launch
 
     procs, out_dir = gang
     try:
         try:
-            codes = launch.wait_gang(procs, timeout_s=DP_TIMEOUT)
+            codes = launch.wait_gang(procs, timeout_s=timeout)
         finally:
             launch.terminate_gang(procs)
-        if codes != [0] * DP_RANKS:
-            raise AssertionError(f"dp ranks exited {codes}")
+        if codes != [0] * n:
+            raise AssertionError(f"ranks exited {codes}")
         ranks = []
-        for r in range(DP_RANKS):
+        for r in range(n):
             with open(os.path.join(out_dir, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
         return ranks
     finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(out_dir, ignore_errors=True)
 
 
 def _p50_ms(seconds):
@@ -7435,7 +7513,338 @@ def phase_data_plane():
     return counts
 
 
-PHASES = tuple(str(n) for n in range(1, 16))
+# -- phase 16: hybrid parallelism on the IR path ----------------------------
+# models/gpt_ir.py at the JAX package's GPT-base width (GPTConfig,
+# paddle_tpu/models/gpt.py:44-50: vocab 32000, hidden 768, 12 layers, 12
+# heads, ffn 4x, context 1024), Megatron tp 2, on 4 gloo ranks of the one
+# card as (data, stage, model) = (1, 2, 2): GPipe over 2 stages of 6
+# layers, 4 microbatches of 2 sequences of 1024 tokens (global batch 8),
+# 3 Adam steps at `build_gpt_ir`'s lr; against one rank (this process) running
+# the same global weights at tp 1 through the plain executor. Every rank's
+# startup draws the global weights the one-rank run draws (the programs
+# create the same parameters in the same order); placement slices them.
+P16_CONFIG = dict(vocab_size=32000, hidden_size=768, num_layers=12,
+                  num_heads=12, ffn_mult=4, max_seq_len=1024)
+P16_TP, P16_MESH, P16_AXES = 2, (1, 2, 2), ("data", "stage", "model")
+P16_RANKS = int(np.prod(P16_MESH))
+P16_SEQ, P16_BATCH, P16_MICROBATCHES, P16_STEPS, P16_LR = 1024, 8, 4, 3, 1e-3
+P16_TIMEOUT = 600.0
+# The bars sit between what sound runs read on an H100 80GB HBM3 at 700 W
+# and the smallest fault they must catch. Losses: the JAX package's
+# tp-parity bar (tests/test_pipeline_ir.py:141-168), rtol 5e-4. Grads of
+# step 1 (every parameter, gathered from the shards): each within 1e-5 of
+# its parameter's largest |grad| of the one-rank run (or of 1e-3 of the
+# model's largest, for the key biases, whose grads are 0 up to rounding,
+# softmax being blind to a per-query constant); sound runs read 1.91e-06
+# (a rank's GEMMs contract half the width, or sum two partial products
+# through the model all-reduce, in another order); a wrong shard, a
+# missing or doubled all-reduce or a LayerNorm grad summed over the wrong
+# axis moves a grad by its own size. Parameters after the steps: Adam
+# moves an element by up to lr a step, so a wrong update of any one
+# element (a fault in the optimizer slots, which step 1's grads cannot
+# see) moves it by about 1e-3; sound runs read 4.066e-06 at most and
+# 2.517e-09 on average over the 134,994,432 values: every element within
+# 1e-4, and the mean |difference| within 1e-8.
+P16_LOSS_TOL, P16_GRAD_TOL = (5e-4, 1e-6), 1e-5
+P16_PARAM_MAX, P16_PARAM_MEAN = 1e-4, 1e-8
+P16_FLASH = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
+             "flash_attention_bwd_dq")
+
+
+def _p16_program(tp):
+    """(cfg, main, startup, loss, stack) of phase 16's gpt_ir at ``tp``."""
+    from paddle_tpu_torch.models import gpt_ir
+    from paddle_tpu_torch.utils import unique_name
+
+    cfg = gpt_ir.GPTIRConfig(**P16_CONFIG, tp=tp)
+    with unique_name.guard():
+        main, startup, _, loss, stack = gpt_ir.build_gpt_ir(
+            cfg, seq_len=P16_SEQ, num_microbatches=P16_MICROBATCHES,
+            lr=P16_LR)
+    startup.random_seed = main.random_seed = SEED
+    return cfg, main, startup, loss, stack
+
+
+def _p16_feed(cfg):
+    from paddle_tpu_torch.models import gpt_ir
+
+    toks, labs = gpt_ir.synthetic_batch(np.random.RandomState(SEED + 16),
+                                        P16_BATCH, P16_SEQ, cfg)
+    return {"tokens": toks, "labels": labs}
+
+
+def _p16_steps(exe, prog, scope, feed, loss, names):
+    """P16_STEPS steps: losses, host seconds (the run, ending in the
+    loss's copy, and a synchronize), the collectives by axis of each step;
+    the first also fetches every parameter's grad (returned, numpy)."""
+    import torch
+
+    from paddle_tpu_torch.parallel import env as penv
+
+    out = dict(losses=[], seconds=[], stats=[])
+    grads = None
+    for step in range(P16_STEPS):
+        fetch = [loss] + ([n + "@GRAD" for n in names] if step == 0 else [])
+        penv.reset_collective_stats()
+        t0 = time.perf_counter()
+        vals = exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)
+        torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+        out["losses"].append(float(vals[0].reshape(-1)[0]))
+        out["stats"].append({f"{k}|{a}": list(v) for (k, a), v in
+                             penv.collective_stats(by_axis=True).items()})
+        if step == 0:
+            grads = dict(zip(names, vals[1:]))
+    return out, grads
+
+
+def _p16_run(exe, prog, main, startup, scope, loss, feed):
+    """Startup, the steps and one profiled step of phase 16 in this
+    process; returns (what it saw, the grads of step 1)."""
+    import torch
+
+    from paddle_tpu_torch import kernels
+
+    names = [p.name for p in main.all_parameters()]
+    kernels.reset_launches()
+    exe.run(startup, scope=scope)
+    startup_launches = kernels.launches()
+    init = _digest(scope.find_var(n) for n in names)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    run, grads = _p16_steps(exe, prog, scope, feed, loss, names)
+    launches = kernels.launches()
+    peak = torch.cuda.max_memory_allocated()
+    sub = [b for b in main.blocks if b.idx > 0]
+    n_sdpa = sum(op.type == "scaled_dot_product_attention"
+                 for b in sub for op in b.ops)
+    return dict(run, names=names, init=init, launches=launches,
+                startup_launches=startup_launches, peak=peak, n_sdpa=n_sdpa,
+                device=torch.cuda.get_device_name(0)), grads
+
+
+def _p16_profile(exe, prog, scope, feed, loss, tag):
+    """(device busy ms, wall ms) of one more step under torch.profiler."""
+    _, busy_us, wall_us, _ = _profile(tag, lambda: exe.run(
+        prog, feed=feed, fetch_list=[loss], scope=scope))
+    return busy_us / 1e3, wall_us / 1e3
+
+
+def hybrid_rank_main(out_dir):
+    """One rank of phase 16 (``chip_smoke.py --hybrid-rank DIR``): without
+    its card it exits nonzero before any step. It writes what it saw to
+    ``DIR/rank<r>.json`` and rank 0 the global parameters after the steps
+    and the grads of step 1 to ``DIR/state.npz``."""
+    check_environment()
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.parallel import env as penv
+
+    t0 = time.perf_counter()
+    mesh = penv.make_mesh(P16_MESH, P16_AXES)
+    cfg, main, startup, loss, stack = _p16_program(P16_TP)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    prog = fluid.CompiledProgram(main).with_parallel(
+        mesh=mesh, loss_name=loss.name,
+        param_specs=stack.param_spec_overrides())
+    feed = _p16_feed(cfg)
+    result, grads = _p16_run(exe, prog, main, startup, scope, loss, feed)
+    names = result["names"]
+    specs = prog.specs(names)
+    result.update(
+        rank=mesh.rank, coords=mesh.coords, backend=mesh.backend,
+        build_s=time.perf_counter() - t0 - sum(result["seconds"]),
+        specs={n: [list(e) if isinstance(e, tuple) else e for e in specs[n]]
+               for n in names},
+        local={n: _digest([scope.find_var(n)]) for n in names},
+        shapes={n: list(scope.find_var(n).shape) for n in names})
+    # every rank takes part in the gathers; rank 0 keeps the result
+    params = {n: prog.global_value(scope, n).cpu().numpy() for n in names}
+    if mesh.rank == 0:
+        np.savez(os.path.join(out_dir, "state.npz"),
+                 **{"p." + n: v for n, v in params.items()},
+                 **{"g." + n: v for n, v in grads.items()})
+    del params, grads
+    torch.cuda.synchronize()
+    result["busy_ms"], result["wall_ms"] = _p16_profile(
+        exe, prog, scope, feed, loss, f"[hybrid] rank {mesh.rank}")
+    with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def _p16_reference():
+    """The one-rank run: tp 1, the plain executor, this process."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+
+    cfg, main, startup, loss, _ = _p16_program(1)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    feed = _p16_feed(cfg)
+    ref, grads = _p16_run(exe, main, main, startup, scope, loss, feed)
+    params = {n: scope.find_var(n).cpu().numpy() for n in ref["names"]}
+    ref["busy_ms"], ref["wall_ms"] = _p16_profile(
+        exe, main, scope, feed, loss, "[hybrid] one rank")
+    del scope, exe
+    torch.cuda.empty_cache()
+    return ref, grads, params
+
+
+def _p16_axis_line(r, key, steps):
+    """calls, MB and host ms a step of one collective kind on one axis
+    (p50 of the steps after the first)."""
+    vals = [s.get(key, [0, 0, 0.0]) for s in r["stats"][1:]] or [[0, 0, 0.0]]
+    calls, nbytes, secs = (float(np.median([v[i] for v in vals]))
+                           for i in range(3))
+    return calls, nbytes, secs * 1e3
+
+
+def phase_hybrid():
+    """Phase 16: the one-rank run here, then the 4 ranks; hold them
+    against each other and against the plan."""
+    import torch
+
+    from paddle_tpu_torch.parallel import pipeline
+
+    t_phase = time.perf_counter()
+    ref, ref_grads, ref_params = _p16_reference()
+    procs, out_dir = _rank_spawn("--hybrid-rank", P16_RANKS)
+    try:
+        ranks = _rank_results((procs, out_dir), P16_RANKS, P16_TIMEOUT,
+                              keep=True)
+        state = np.load(os.path.join(out_dir, "state.npz"))
+        got_params = {n: state["p." + n] for n in ref["names"]}
+        got_grads = {n: state["g." + n] for n in ref["names"]}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    r0 = ranks[0]
+    n_stage, n_model = P16_MESH[1], P16_MESH[2]
+    layers = P16_CONFIG["num_layers"] // n_stage
+    m = P16_MICROBATCHES
+    act = P16_BATCH // P16_MESH[0] // m * P16_SEQ * P16_CONFIG["hidden_size"] * 4
+    plan = {"all_reduce|model": (4 * layers * m, 4 * layers * m * act),
+            "send|stage": (m, m * act), "recv|stage": (m, m * act),
+            "broadcast|stage": (1, m * act)}
+    # one K1, K2a and K2b a layer a microbatch: the grad keeps the
+    # forward's graph, so no forward runs twice
+    want_launches = {n: r0["n_sdpa"] * layers * m * P16_STEPS
+                     for n in P16_FLASH}
+    want_ref = {n: ref["n_sdpa"] * P16_CONFIG["num_layers"] * m * P16_STEPS
+                for n in P16_FLASH}
+    rtol, atol = P16_LOSS_TOL
+    largest = max(float(np.abs(g).max()) for g in ref_grads.values())
+    grad_err = {n: float(np.abs(got_grads[n] - ref_grads[n]).max())
+                / max(float(np.abs(ref_grads[n]).max()), 1e-3 * largest)
+                for n in ref["names"]}
+    diffs = {n: np.abs(got_params[n] - ref_params[n]) for n in ref["names"]}
+    n_values = sum(d.size for d in diffs.values())
+    param_max = max(float(d.max()) for d in diffs.values())
+    param_mean = sum(float(d.sum()) for d in diffs.values()) / n_values
+    by_shard = {}
+    for r in ranks:
+        for n, digest in r["local"].items():
+            used = {a for e in r["specs"][n] if e is not None
+                    for a in (e if isinstance(e, list) else [e])}
+            key = (n,) + tuple(sorted((a, i) for a, i in r["coords"].items()
+                                      if a in used))
+            by_shard.setdefault(key, set()).add(digest)
+    def as_planned(s, i):
+        # the first step also places the parameters (broadcasts along the
+        # axes they are replicated on) and gathers the grads it fetches
+        return all(tuple(s.get(k, [0, 0])[:2]) == v for k, v in plan.items()
+                   if i or k != "broadcast|stage")
+
+    checks = {
+        "backend gloo": all(r["backend"] == "gloo" for r in ranks),
+        "every rank's startup drew the one-rank weights": all(
+            r["init"] == ref["init"] for r in ranks),
+        "ranks' losses equal": all(r["losses"] == r0["losses"]
+                                   for r in ranks),
+        f"losses within {P16_LOSS_TOL} of one rank": all(
+            abs(a - b) <= atol + rtol * abs(b)
+            for a, b in zip(r0["losses"], ref["losses"])),
+        f"grads of step 1 within {P16_GRAD_TOL} of their largest": all(
+            e <= P16_GRAD_TOL for e in grad_err.values()),
+        f"parameters within {P16_PARAM_MAX} (max) and {P16_PARAM_MEAN} "
+        "(mean)": param_max <= P16_PARAM_MAX and param_mean <= P16_PARAM_MEAN,
+        "replicas of a shard bit-equal": all(
+            len(d) == 1 for d in by_shard.values()),
+        "K1, K2a, K2b launched on every rank as planned": all(
+            r["launches"].get(k, 0) == v for r in ranks
+            for k, v in want_launches.items()),
+        "one rank's launches as planned": all(
+            ref["launches"].get(k, 0) == v for k, v in want_ref.items()),
+        "each step's model all-reduces and stage hops as planned": all(
+            as_planned(s, i) for r in ranks
+            for i, s in enumerate(r["stats"])),
+        "losses finite and falling": bool(np.isfinite(r0["losses"]).all())
+        and r0["losses"][-1] < r0["losses"][0],
+    }
+    ms = [_p50_ms(r["seconds"]) for r in ranks]
+    one = _p50_ms(ref["seconds"])
+    log(f"[hybrid] gpt_ir GPT-base width ({P16_CONFIG}), tp {P16_TP}, mesh "
+        f"{dict(zip(P16_AXES, P16_MESH))} on {P16_RANKS} ranks over "
+        f"{r0['backend']} sharing {r0['device']}; seq {P16_SEQ}, global "
+        f"batch {P16_BATCH}, {m} microbatches, {P16_STEPS} Adam steps; "
+        f"{r0['n_sdpa']} attention ops a stage, build + startup "
+        f"{[round(r['build_s'], 2) for r in ranks]} s a rank")
+    log(f"[hybrid] losses {r0['losses']}; one rank at tp 1 {ref['losses']}; "
+        f"largest gap {max(abs(a - b) for a, b in zip(r0['losses'], ref['losses'])):.3e}")
+    worst = sorted(grad_err.items(), key=lambda x: -x[1])[:4]
+    log(f"[hybrid] grads of step 1 against one rank, |diff| / max|grad|: "
+        f"largest {[(n, f'{e:.2e}') for n, e in worst]}; parameters after "
+        f"{P16_STEPS} steps: max |diff| {param_max:.3e}, mean "
+        f"{param_mean:.3e} over {n_values} values; {len(by_shard)} "
+        f"(parameter, shard) pairs, replicas bit-equal")
+    log(f"[hybrid] launches a rank over {P16_STEPS} steps "
+        f"{[{k: r['launches'].get(k, 0) for k in P16_FLASH} for r in ranks]}"
+        f" (planned {want_launches}); one rank {[ref['launches'].get(k, 0) for k in P16_FLASH]}")
+    bubble = pipeline.predicted_bubble(n_stage, m)
+    log(f"[hybrid] step p50 by rank {[round(x, 2) for x in ms]} ms (steps "
+        f"{[[round(s * 1e3, 2) for s in r['seconds']] for r in ranks]}); one "
+        f"rank at tp 1 {one:.2f} ms (steps "
+        f"{[round(s * 1e3, 2) for s in ref['seconds']]}); "
+        f"{P16_BATCH * P16_SEQ / max(ms) * 1e3:.1f} tokens/s against "
+        f"{P16_BATCH * P16_SEQ / one * 1e3:.1f}; GPipe bubble predicted "
+        f"{bubble:.4f} of a stage's ticks")
+    for r in ranks:
+        step = _p50_ms(r["seconds"])
+        parts = {k: _p16_axis_line(r, k, P16_STEPS) for k in plan}
+        recv_ms = parts["recv|stage"][2]
+        log(f"[hybrid] rank {r['rank']} {r['coords']}: " + ", ".join(
+            f"{k} {c:.0f} calls {b / 1e6:.1f} MB {t:.1f} ms"
+            for k, (c, b, t) in parts.items())
+            + f" a step (p50 after the first); waiting on the stage's "
+            f"receives {recv_ms / step:.4f} of the step (the bubble and the "
+            f"other stage's work); model all-reduces "
+            f"{parts['all_reduce|model'][2] / step:.4f} of it; device busy "
+            f"{r['busy_ms']:.2f} ms of a {r['wall_ms']:.2f} ms profiled step,"
+            f" idle share {1 - r['busy_ms'] / r['wall_ms']:.4f}; memory peak "
+            f"{r['peak'] / 2**30:.3f} GiB")
+    log(f"[hybrid] one rank: device busy {ref['busy_ms']:.2f} ms of a "
+        f"{ref['wall_ms']:.2f} ms profiled step, idle share "
+        f"{1 - ref['busy_ms'] / ref['wall_ms']:.4f}; memory peak "
+        f"{ref['peak'] / 2**30:.3f} GiB")
+    parted = sorted(k for k, d in by_shard.items() if len(d) > 1)
+    if parted:
+        log(f"[hybrid] replicas that part: {parted}")
+    log(f"[hybrid] {card_line()}")
+    log(f"[hybrid] checks: {checks}")
+    log(f"[hybrid] phase 16 {time.perf_counter() - t_phase:.1f}s")
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"hybrid phase failed: {checks}")
+    launches = {}
+    for r in ranks + [ref]:
+        for part in (r["launches"], r["startup_launches"]):
+            for k, v in part.items():
+                launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+PHASES = tuple(str(n) for n in range(1, 17))
 
 
 def parse_phases(argv):
@@ -7515,6 +7924,7 @@ def main(phases=frozenset(PHASES)):
                     else zero)
     p15_launches = (timed("15", phase_data_plane) if "15" in phases
                     else zero)
+    p16_launches = timed("16", phase_hybrid) if "16" in phases else zero
     log(f"[done] paged_attention launches: phase 3 "
         f"{engine_launches['paged_attention']}, phase 3b {modes_launches}, "
         f"phase 3c {beam_launches}, phase 3d {overload_launches}")
@@ -7537,7 +7947,8 @@ def main(phases=frozenset(PHASES)):
     # ones on 5c's and 11b's, the float16 ones on 5c's float16 leg
     path_launches.update({n: (amp_launches[n] if n.endswith(("_bf16", "_f16"))
                               else train_launches[n] + ckpt_launches[n]
-                              + dp_launches.get(n, 0))
+                              + dp_launches.get(n, 0)
+                              + p16_launches.get(n, 0))
                           + infer_launches.get(n, 0)
                           for n in KERNELS if n.startswith("flash_attention")})
     # K8: phase 5's startup (random_bits) and dropout sites, phase 5b's,
@@ -7556,6 +7967,7 @@ def main(phases=frozenset(PHASES)):
                           + dp_launches.get(n, 0)
                           + p14_launches.get(n, 0)
                           + p15_launches.get(n, 0)
+                          + p16_launches.get(n, 0)
                           for n in KERNELS if n.startswith("threefry")})
     log(f"[done] K8 launches: phase 5 "
         f"{ {n: train_launches[n] for n in path_launches if n.startswith('threefry')} }, "
@@ -7574,6 +7986,8 @@ def main(phases=frozenset(PHASES)):
         f"{ {n: c for n, c in p14_launches.items() if c} }")
     log(f"[done] phase 15 launches: "
         f"{ {n: c for n, c in p15_launches.items() if c} }")
+    log(f"[done] phase 16 launches (the 4 ranks and the one-rank run): "
+        f"{ {n: c for n, c in p16_launches.items() if c} }")
     log(f"[done] phase 10 launches: "
         f"{ {n: c for n, c in ckpt_launches.items() if c} }; phase 11: "
         f"{ {n: c for n, c in infer_launches.items() if c} }")
@@ -7606,5 +8020,7 @@ if __name__ == "__main__":
         dp_rank_main(sys.argv[2])
     elif sys.argv[1:2] == ["--dygraph-rank"]:
         dygraph_rank_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--hybrid-rank"]:
+        hybrid_rank_main(sys.argv[2])
     else:
         main(parse_phases(sys.argv[1:]))

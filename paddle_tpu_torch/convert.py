@@ -26,6 +26,13 @@ models were built with other names), and a port ``Layer``'s
 ``transformer_params`` reads a Transformer's weights off a JAX scope (or
 any ``{name: array}``) into the dict the port's beam decoder takes
 (``models/transformer.py`` ``params_from_scope``).
+
+A hybrid-parallel program's parameters (``models/gpt_ir.py``: the
+stacked ``[L, ...]`` layers of its ``pipeline_stack``) cross as the JAX
+package's global arrays (``gpt_ir_params``); ``shard_params`` cuts them
+into the shard a rank holds at its mesh coordinates, by the specs its
+``CompiledProgram`` places them with (``CompiledProgram.specs``), so a
+rank's scope can be loaded with its shard directly.
 """
 
 import numpy as np
@@ -33,7 +40,8 @@ import torch
 
 __all__ = ["params_from_numpy", "load_params", "persistables_to_numpy",
            "dgc_state_names", "split_rank_state", "gather_rank_state",
-           "load_layer_state", "transformer_params"]
+           "load_layer_state", "transformer_params", "gpt_ir_params",
+           "shard_params"]
 
 
 def params_from_numpy(arrays, device):
@@ -148,3 +156,24 @@ def transformer_params(source, cfg, device="cpu"):
         arrays[n] = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
                      else np.asarray(v))
     return params_from_numpy(arrays, device)
+
+
+def gpt_ir_params(source, program):
+    """``{name: global numpy array}`` of ``program``'s parameters (a
+    ``models/gpt_ir.py`` program: the stacked layers ``[L, ...]``) read
+    off a JAX scope or any ``{name: array}``: the names are the same in
+    both packages."""
+    get = source.find_var if hasattr(source, "find_var") else source.__getitem__
+    return {p.name: np.asarray(get(p.name)) for p in program.all_parameters()}
+
+
+def shard_params(arrays, specs, mesh, coords=None):
+    """``{name: global array}`` -> the shards a rank holds under ``specs``
+    (``{name: PartitionSpec}``) at ``coords`` (``{axis: index}``; default
+    this process's place on ``mesh``). A name without a spec is
+    replicated."""
+    from paddle_tpu_torch.parallel.sharding import shard_of
+
+    return {n: np.ascontiguousarray(shard_of(np.asarray(a), specs.get(n, ()),
+                                             mesh, coords))
+            for n, a in arrays.items()}

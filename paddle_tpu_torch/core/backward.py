@@ -128,7 +128,7 @@ def resolve_op_def(op_type):
             base = OpRegistry.get(base_type)
             lower = base.grad or make_generic_grad_lowering(base)
             gdef = OpDef(op_type, lower, stateful=base.stateful,
-                         creates=base.creates)
+                         creates=base.creates, needs_block=base.needs_block)
             _GRAD_DEF_CACHE[op_type] = gdef
             return gdef
     raise EnforceError(f"op {op_type} is not registered")

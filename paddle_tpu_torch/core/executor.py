@@ -146,6 +146,10 @@ def block_plan(block):
     indexed = [(i, op) for i, op in enumerate(block.ops)
                if op.type not in ELIDED_OPS]
     ops = [op for _, op in indexed]
+    # outputs whose op's grad op reads them (a saves_for_grad op keeps
+    # what its grad needs only then)
+    grad_read = {n for op in ops if op.type.endswith("_grad")
+                 for n in op.input("Out")}
     plan = []
     for i, (op_index, op) in enumerate(indexed):
         attrs = op.attrs
@@ -157,6 +161,8 @@ def block_plan(block):
                 slot for slot, names in op.outputs.items() if names])
         op_def = (OpDef(op.type, _structural) if op.type in CONTROL_FLOW_OPS
                   else resolve_op_def(op.type))
+        if op_def.saves_for_grad and grad_read & set(op.output("Out")):
+            attrs = dict(attrs, _save_for_grad=True)
         plan.append(_OpStep(
             op, op_def, attrs,
             [(slot, names) for slot, names in op.inputs.items() if names],
@@ -186,6 +192,24 @@ def _to_numpy(t):
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.cpu().numpy()
+
+
+class _Runner:
+    """What a ``needs_block`` op runs its sub-blocks with: the executor's
+    plan of a block and its step loop over an env, reading the run's
+    scope for names the env lacks."""
+
+    __slots__ = ("exe", "scope")
+
+    def __init__(self, exe, scope):
+        self.exe = exe
+        self.scope = scope
+
+    def plan(self, block):
+        return self.exe._sub_plan(block)
+
+    def run(self, steps, env, key, block):
+        self.exe._run_steps(steps, env, self.scope, block, key)
 
 
 class Executor:
@@ -298,6 +322,9 @@ class Executor:
                     ins["__rng_block__"] = [step.rng_block]
             if step.op_def.creates:
                 ins["__device__"] = [self.device]
+            if step.op_def.needs_block:
+                ins["__block__"] = [block]
+                ins["__runner__"] = [_Runner(self, scope)]
             try:
                 outs = step.op_def.lowering()(ins, step.attrs)
             except EnforceError:

@@ -24,7 +24,13 @@ their random key (``core/prng.py``: the run key folded with the op's
 receive the target ``torch.device`` as ``ins["__device__"]``. A third,
 ``reports_late``, marks ops whose kernel finds a bad input on the card
 after the launch (``kernels.registry.report_late``): the executor raises
-it at the end of the run, naming those ops.
+it at the end of the run, naming those ops. ``needs_block`` ops (and
+their grads) run sub-blocks: they receive the block they sit in as
+``ins["__block__"]`` and the executor's runner of plans as
+``ins["__runner__"]`` (``runner.plan(block)``, ``runner.run(steps, env,
+key, block)``). A ``saves_for_grad`` op gets ``_save_for_grad`` in its
+attrs when its block holds its grad op, which then reads what the
+forward kept.
 """
 
 from paddle_tpu_torch.utils.enforce import EnforceError
@@ -33,7 +39,7 @@ from paddle_tpu_torch.utils.enforce import EnforceError
 class OpDef:
     def __init__(self, type, lower, kernel=None, grad=None,
                  nondiff_inputs=(), stateful=False, creates=False,
-                 reports_late=False):
+                 reports_late=False, needs_block=False, saves_for_grad=False):
         self.type = type
         self.lower = lower
         self.kernel = kernel
@@ -42,6 +48,8 @@ class OpDef:
         self.stateful = stateful
         self.creates = creates
         self.reports_late = reports_late
+        self.needs_block = needs_block
+        self.saves_for_grad = saves_for_grad
 
     def lowering(self):
         """What the executor runs: the kernel lowering when the op has
@@ -75,14 +83,16 @@ class OpRegistry:
 
 
 def register_op(type, kernel=None, nondiff_inputs=(), stateful=False,
-                creates=False, reports_late=False):
+                creates=False, reports_late=False, needs_block=False,
+                saves_for_grad=False):
     """Decorator form:  @register_op("relu")  def _(ins, attrs): ..."""
 
     def deco(fn):
         OpRegistry.register(
             OpDef(type, fn, kernel=kernel, nondiff_inputs=nondiff_inputs,
                   stateful=stateful, creates=creates,
-                  reports_late=reports_late)
+                  reports_late=reports_late, needs_block=needs_block,
+                  saves_for_grad=saves_for_grad)
         )
         return fn
 

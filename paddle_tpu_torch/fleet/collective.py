@@ -1,5 +1,6 @@
-"""Collective fleet mode: data parallelism over the port's data mesh, the
-counterpart of the JAX package's ``fleet/collective.py``.
+"""Collective fleet mode: data, pipeline and tensor parallelism over the
+strategy's mesh, the counterpart of the JAX package's
+``fleet/collective.py``.
 
 Reference: python/paddle/fluid/incubate/fleet/collective/__init__.py —
 `CollectiveOptimizer` :378 transpiles the program (inserting c_allreduce
@@ -18,18 +19,21 @@ from paddle_tpu_torch.parallel.env import make_mesh
 
 __all__ = ["DistributedStrategy", "CollectiveOptimizer", "fleet"]
 
-# placement options of the GSPMD, tensor-parallel and pipeline forms
-_PLACEMENT = ("param_rules", "param_specs", "input_specs", "spec_layout",
-              "mesh_axis_tags", "pipeline_schedule", "pipeline_interleave")
+# placement options the port does not run yet: feed specs (sequence
+# parallelism), the cost stage's axis tags, the pipeline runtime's schedules
+_NOT_PORTED = ("input_specs", "mesh_axis_tags", "pipeline_schedule",
+               "pipeline_interleave")
 
 
 class DistributedStrategy(BuildStrategy):
     """Extends BuildStrategy the way the reference's collective
     DistributedStrategy does (reference: incubate/fleet/collective/
-    __init__.py:134), with the JAX package's fields. The port's mesh is
-    one data axis: a multi-axis ``mesh_shape`` and the placement fields
-    raise naming ROADMAP M11, ``recompute`` naming M8. NCCL tuning knobs
-    are accepted and change nothing."""
+    __init__.py:134), with the JAX package's fields: ``mesh_shape`` and
+    ``mesh_axis_names`` build the mesh, ``param_rules``, ``param_specs``
+    and ``spec_layout`` place the parameters (``CompiledProgram.
+    with_parallel``). ``input_specs``, ``mesh_axis_tags`` and the
+    pipeline schedules raise naming ROADMAP M11, ``recompute`` naming M8.
+    NCCL tuning knobs are accepted and change nothing."""
 
     def __init__(self):
         super().__init__()
@@ -74,7 +78,7 @@ class CollectiveOptimizer(DistributedOptimizer):
         if strategy.recompute or strategy.forward_recompute:
             raise NotImplementedError(
                 "DistributedStrategy.recompute is not ported yet (ROADMAP M8)")
-        given = [f for f in _PLACEMENT
+        given = [f for f in _NOT_PORTED
                  if getattr(strategy, f) not in (None, False)]
         if given:
             raise NotImplementedError(
@@ -99,7 +103,10 @@ class CollectiveOptimizer(DistributedOptimizer):
         fleet._startup_program = startup_program or default_startup_program()
         fleet._main_program = CompiledProgram(
             main, build_strategy=strategy).with_parallel(
-                mesh=mesh, loss_name=loss.name)
+                mesh=mesh, loss_name=loss.name,
+                param_rules=strategy.param_rules,
+                param_specs=strategy.param_specs,
+                spec_layout=strategy.spec_layout)
         return optimize_ops, params_grads
 
 

@@ -11,7 +11,8 @@ of the port's process group bound by ``parallel.env.collective_context``
 every rank gets the JAX lowering's bits (``tests/test_torch_
 fleet_collective.py``). Outside a bound ring (a single-trainer run, and
 the dense data-parallel path, as under the JAX package's GSPMD path) each
-op is an identity.
+op is an identity. Under ``torch.autograd`` (a ``pipeline_stack`` body,
+``ops/pipeline.py``) ``c_allreduce_sum`` passes its cotangent through.
 """
 
 from paddle_tpu_torch.core.registry import register_op
@@ -32,7 +33,8 @@ def _reduce_scatter(x, axis):
 
 
 _COLLECTIVES = {
-    "c_allreduce_sum": penv.psum,
+    # under autograd (a pipeline_stack body) its cotangent passes through
+    "c_allreduce_sum": penv.psum_diff,
     "c_allreduce_max": penv.pmax,
     "c_allreduce_min": penv.pmin,
     # lax.all_gather(x, ax).prod(axis=0): the product in rank order

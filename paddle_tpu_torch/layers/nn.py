@@ -35,6 +35,8 @@ __all__ = [
     "elementwise_sub",
     "log_softmax",
     "pow",
+    "relu",
+    "gelu",
     "square",
     "cached_attention",
     "paged_attention",
@@ -738,6 +740,14 @@ def log_softmax(input, axis=-1, name=None):
 
 def pow(x, factor=1.0, name=None):
     return _single_op("pow", x, {"factor": factor}, name=name)
+
+
+def relu(x, name=None):
+    return _single_op("relu", x, name=name)
+
+
+def gelu(x, approximate=False, name=None):
+    return _single_op("gelu", x, {"approximate": approximate}, name=name)
 
 
 def square(x, name=None, **attrs):

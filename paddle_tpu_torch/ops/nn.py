@@ -362,6 +362,31 @@ def _lookup_table(ins, attrs):
     return {"Out": [out]}
 
 
+@register_grad("lookup_table_v2")
+def _lookup_table_grad(ins, attrs):
+    """``W@GRAD``: each row the sum of the cotangents of the positions that
+    read it (none from ids at ``padding_idx``). The gather's autograd sums
+    them with ``index_add_``, which on the card adds with atomics in an
+    order that changes from run to run; on the card the sum runs through
+    ``index_put_(accumulate=True)``, which sorts the ids first (one order
+    every run), so ranks that compute one replicated table's grad apart
+    hold the same bits. On the CPU ``index_add_`` adds in id order."""
+    w, ids = first(ins, "W"), first(ins, "Ids")
+    flat = ids.reshape(-1)
+    g = first(ins, "Out@GRAD").reshape((flat.numel(),) + tuple(w.shape[1:]))
+    g = g.to(w.dtype)
+    padding_idx = attrs.get("padding_idx", -1)
+    if padding_idx is not None and padding_idx >= 0:
+        g = torch.where((flat == padding_idx).reshape((-1,) + (1,) * (
+            g.dim() - 1)), torch.zeros((), dtype=g.dtype, device=g.device), g)
+    dw = torch.zeros_like(w)
+    if dw.device.type == "cuda":
+        dw.index_put_((flat,), g, accumulate=True)
+    else:
+        dw.index_add_(0, flat, g)
+    return {"W@GRAD": [dw]}
+
+
 @register_op("lookup_table_ps", nondiff_inputs=("Idx",))
 def _lookup_table_ps(ins, attrs):
     """PS-backed embedding lookup: `Rows` are the batch's unique embedding

@@ -27,6 +27,17 @@ from paddle_tpu_torch.utils.flags import flags
 __all__ = ["Optimizer", "SGDOptimizer", "SGD", "MomentumOptimizer",
            "Momentum", "AdamOptimizer", "Adam", "DGCMomentumOptimizer"]
 
+#: accumulator slot names (the JAX package's set): the suffixes by which
+#: ``parallel/sharding.py`` finds a slot's parameter; ``_add_accumulator``
+#: adds any other slot it makes
+ACCUMULATOR_SLOT_NAMES = {
+    "velocity", "moment", "moment1", "moment2",
+    "beta1_pow_acc", "beta2_pow_acc", "inf_norm",
+    "_avg_squared_grad", "_avg_squared_update",
+    "momentum", "mean_square", "mean_grad",
+    "squared", "linear", "dgc_u", "dgc_v",
+}
+
 _OP_ROLE_OPTIMIZE = 2
 
 
@@ -67,6 +78,7 @@ class Optimizer:
     # -- accumulators -------------------------------------------------
     def _add_accumulator(self, name, param, fill_value=0.0, dtype="float32",
                          shape=None):
+        ACCUMULATOR_SLOT_NAMES.add(name)
         acc = self._accumulators.setdefault(name, {})
         if param.name in acc:
             return acc[param.name]

@@ -244,6 +244,13 @@ def _rows_kind(op, rows, block):
         if a.get("input_dim_idx", 0) != 0 or a.get("output_dim_idx", 0) != 0:
             raise _not_ported(t, "a batch dim other than dim 0")
         return ROWS, False
+    if t == "pipeline_stack":
+        # its layers run on each microbatch of the rank's rows; its
+        # stacked parameters are weights
+        bad = [s for s in ("StackedParams", "Ex") if s in rows]
+        if bad:
+            raise _not_ported(t, f"rows in {bad}")
+        return ROWS, False
     if t == "mean":
         return REPL, True
     if t == "reduce_sum":

@@ -332,14 +332,24 @@ def test_world_of_one_runs_the_dense_fused_form():
 
 
 def test_what_is_not_ported_raises_naming_m11():
-    # the dense data-parallel form and DGC's dense fused form across ranks
-    # run since the dense path was ported (tests/test_torch_data_parallel.py
-    # and tests/test_torch_fleet_collective.py hold them against the JAX
-    # mesh); placement, multi-axis meshes and batch statistics still raise
-    with pytest.raises(NotImplementedError, match="M11"):
-        pt.CompiledProgram(pt.Program()).with_parallel(param_rules={})
-    with pytest.raises(NotImplementedError, match="M11"):
-        penv.make_mesh((2, 2), ("data", "model"))
+    # the dense data-parallel form, DGC's dense fused form across ranks,
+    # parameter placement and multi-axis meshes run since they were ported
+    # (tests/test_torch_data_parallel.py, tests/test_torch_fleet_collective
+    # .py and tests/test_torch_hybrid.py hold them against the JAX mesh);
+    # feed specs, the pipeline runtime's schedules and batch statistics
+    # across ranks still raise
+    for placement in ({"param_rules": {}}, {"param_specs": {"w": (None,)}},
+                      {"spec_layout": True}):
+        compiled = pt.CompiledProgram(pt.Program())
+        assert compiled.with_parallel(**placement) is compiled
+    mesh = penv.make_mesh((1, 1), ("data", "model"))
+    assert mesh.axis_names == ("data", "model") and mesh.shape == (1, 1)
+    assert mesh.axis("model").size == 1 and mesh.rank == 0
+    for field, value in (("input_specs", {"x": ("data",)}),
+                         ("pipeline_schedule", "1f1b"),
+                         ("pipeline_interleave", 2)):
+        with pytest.raises(NotImplementedError, match=f"{field}.*M11"):
+            pt.CompiledProgram(pt.Program()).with_parallel(**{field: value})
     two = penv.Mesh(penv.Axis("data", 2, 0, backend="gloo"))
     exe = pt.Executor(pt.CPUPlace())
     feed = {"x": np.zeros((8, 16), np.float32),

@@ -254,13 +254,27 @@ def test_strategy_forms_not_ported_raise():
 
     with pytest.raises(NotImplementedError, match="recompute.*M8"):
         build(recompute=True)
-    for field, value in (("param_rules", {"w": None}),
-                         ("param_specs", {"w": None}),
-                         ("spec_layout", True)):
+    # the placement fields and a multi-axis mesh build since they were
+    # ported (tests/test_torch_hybrid.py runs them across ranks); feed
+    # specs, axis tags and the pipeline runtime's schedules still raise
+    for fields in ({"param_rules": [(".*", (None,))]},
+                   {"param_specs": {"w": (None,)}}, {"spec_layout": True},
+                   {"mesh_shape": (1, 1), "mesh_axis_names": ("data",
+                                                              "model")}):
+        build(**fields)
+        compiled = fleet.main_program
+        for field, value in fields.items():
+            if field.startswith("mesh_"):
+                assert compiled._mesh.axis_names == ("data", "model")
+            else:
+                got = getattr(compiled, "_" + field, None)
+                assert got is not None, field
+    for field, value in (("input_specs", {"x": ("data",)}),
+                         ("mesh_axis_tags", {"data": "ici"}),
+                         ("pipeline_schedule", "1f1b"),
+                         ("pipeline_interleave", 2)):
         with pytest.raises(NotImplementedError, match=f"{field}.*M11"):
             build(**{field: value})
-    with pytest.raises(NotImplementedError, match="M11"):
-        build(mesh_shape=(1, 1))
     # refused before the program changed: no optimizer op was added
     main = pt.Program()
     with pytest.raises(NotImplementedError):

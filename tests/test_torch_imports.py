@@ -60,8 +60,10 @@ import paddle_tpu_torch.kernels.sparse_update
 import paddle_tpu_torch.kernels.topk
 import paddle_tpu_torch.layers.collective
 import paddle_tpu_torch.layers.control_flow
+import paddle_tpu_torch.layers.pipeline
 import paddle_tpu_torch.models.bert
 import paddle_tpu_torch.models.ctr
+import paddle_tpu_torch.models.gpt_ir
 import paddle_tpu_torch.models.mnist
 import paddle_tpu_torch.models.resnet
 import paddle_tpu_torch.models.transformer
@@ -71,12 +73,16 @@ import paddle_tpu_torch.observability.metrics
 import paddle_tpu_torch.ops.control_flow
 import paddle_tpu_torch.ops.fused
 import paddle_tpu_torch.ops.misc_extra
+import paddle_tpu_torch.ops.pipeline
 import paddle_tpu_torch.ops.sharded_embedding
 import paddle_tpu_torch.optimizer
 import paddle_tpu_torch.parallel
 import paddle_tpu_torch.parallel.data_parallel
 import paddle_tpu_torch.parallel.dgc
 import paddle_tpu_torch.parallel.env
+import paddle_tpu_torch.parallel.pipeline
+import paddle_tpu_torch.parallel.sharding
+import paddle_tpu_torch.parallel.spec_layout
 import paddle_tpu_torch.passes
 import paddle_tpu_torch.regularizer
 import paddle_tpu_torch.resilience.faults

@@ -26,6 +26,7 @@ import paddle_tpu_torch as pt
 from paddle_tpu_torch.observability import lockdep
 from paddle_tpu_torch.serving.decode import GenerationEngine, build_decoder_model
 from paddle_tpu_torch.serving.fleet import FleetRouter, LocalReplica
+from paddle_tpu_torch.serving.request import RejectedError
 
 ROOT = Path(__file__).resolve().parents[1]
 GEOM = dict(vocab_size=24, hidden=8, num_layers=1, slots=2, max_len=16)
@@ -250,6 +251,23 @@ def _builder(name="fleet_t", version="1", **over):
     return b
 
 
+def _submit_until_admitted(router, prompt, tenant, wait_s=120.0):
+    """Submit as a client does under backpressure: a shed (RejectedError
+    with a retry-after, from a full queue or a brownout ladder at L4) is
+    retried after its hint until ``wait_s`` has passed; a refusal without
+    one, or past the wait, raises. The ladder reads queue pressure from
+    the wall-clock drain rate, so how often a loaded host sheds varies;
+    the ledger below counts the admitted requests only."""
+    end = time.monotonic() + wait_s
+    while True:
+        try:
+            return router.submit(prompt, max_new_tokens=3, tenant=tenant)
+        except RejectedError as e:
+            if e.retry_after_s <= 0 or time.monotonic() > end:
+                raise
+            time.sleep(min(e.retry_after_s, 0.1))
+
+
 def test_router_hammer_8_threads_under_lockdep(armed_lockdep):
     """8 submit threads race the pump's failover/health passes and stats
     readers while a replica dies mid-hammer: totals stay exact
@@ -270,8 +288,8 @@ def test_router_hammer_8_threads_under_lockdep(armed_lockdep):
     def submitter(k):
         try:
             for i in range(N):
-                r = router.submit([((k * N + i) % 23) + 1, 2],
-                                  max_new_tokens=3, tenant=f"t{k % 3}")
+                r = _submit_until_admitted(
+                    router, [((k * N + i) % 23) + 1, 2], f"t{k % 3}")
                 with resp_lock:
                     responses.append(r)
                 time.sleep(0.001)
