@@ -10,6 +10,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py --phases 14      # the build, beam translation, dygraph
     python3 chip_smoke.py --phases 15      # the build, the data plane, the PS
     python3 chip_smoke.py --phases 16      # the build, hybrid parallelism
+    python3 chip_smoke.py --phases 17      # the build, the op surface, MobileNet
 
 ``--phases`` takes the phases' top-level numbers (2 runs 2-2f, 3 runs
 3-3d, 5 runs 5-5c, 9 runs 9a-9d; 10 runs 9a first, whose programs it
@@ -38,7 +39,10 @@ fleet against one rank on the whole batch, and translates with beam
 search at Transformer-big width and trains in dygraph (imperative) mode,
 and feeds Wide&Deep through the DataLoader and the dense CTR through a
 Dataset on the native feed and ``train_from_dataset``, and trains the
-CTR model against the port's native parameter server.
+CTR model against the port's native parameter server, and trains GPT
+hybrid-parallel, and holds the common op surface (its 85 op types,
+forward and grad) and MobileNet V1/V2 at ImageNet width against the
+host's CPU.
 Any failure
 exits non-zero. It
 imports nothing of JAX or of the JAX package, and it refuses to run
@@ -544,6 +548,26 @@ Phases:
    model all-reduces, stage sends, receives and broadcasts as planned.
    Prints step p50 a rank, the collectives' calls, MB and ms by axis, the
    receive-wait share beside the predicted bubble, and the idle share.
+17. the common op surface (ROADMAP M12a) and MobileNet — 17a: each of
+   the 85 op types of ``P17_OPS`` (``_p17_cases``: sizes of 0.25-1 M
+   elements, MobileNet's own where it runs the op, with 0, 6, the clip
+   ends, tied maxima and sort keys and duplicate indices planted),
+   forward and grad (random cotangents), on the card against the same
+   lowering on the host's CPU: floats within ``P17_FWD_TOL`` /
+   ``P17_GRAD_TOL`` of each output's largest value, integers and bools
+   exact; the sums over duplicate indices (``P17_REPEAT``) twice on the
+   card, bit for bit. 17b: ``build_mobilenet_train(version=1|2,
+   class_dim=1000, image_shape=(3, 224, 224))`` (momentum 0.9, lr 0.1),
+   its startup drawn through K8; one step at batch 8 on the card and on
+   the host's CPU from the startup's weights, in float32 and float64,
+   held as 9b holds ResNet-50 with each grad's and statistic's error
+   over the larger of its own size and ``P17_FLOOR`` of the largest
+   (batch-norm biases feeding another batch norm have a true grad of 0).
+   17c: V2 (17b's program and startup weights) at batch 128, 2 warm-up
+   and 5 timed steps: step p50/p90, images/s, memory peak, conv and fc
+   FLOP/s; 1 profiled step (idle share, top ops and kernels); the loss
+   finite and below its peak; the ``for_test`` clone's softmax rows sum
+   to 1.
 
 The last lines are the card's name and power limit, one JSON line of
 per-kernel results, and ``{"ok": true, "device": {...}}``.
@@ -7844,7 +7868,482 @@ def phase_hybrid():
     return launches
 
 
-PHASES = tuple(str(n) for n in range(1, 17))
+# -- phase 17: the common op surface (M12a) and MobileNet ---------------------
+
+# the op types of the common surface, each run by 17a on the card and on
+# the host's CPU (tests/test_torch_ops_m12a_*.py hold them against the JAX
+# package on the CPU)
+P17_OPS = (
+    "flatten2", "adaptive_pool2d", "depthwise_conv2d",
+    "abs", "ceil", "floor", "round", "cos", "sin", "exp", "log", "log1p",
+    "log2", "sqrt", "rsqrt", "reciprocal", "erf", "reduce_mean",
+    "reduce_max", "reduce_min", "reduce_prod", "arg_max", "arg_min",
+    "cumsum", "elementwise_pow", "elementwise_mod", "elementwise_floordiv",
+    "elu", "leaky_relu", "relu6", "softplus", "softsign", "swish", "silu",
+    "mish", "hard_sigmoid", "hard_swish", "one_hot", "huber_loss",
+    "smooth_l1_loss", "kldiv_loss",
+    "selu", "brelu", "soft_relu", "stanh", "argsort", "diag", "reverse",
+    "rank", "size", "crop_tensor", "log_loss", "label_smooth",
+    "transpose", "split", "stack", "unstack", "strided_slice", "expand",
+    "expand_as", "tile", "gather_nd", "scatter_nd_add", "index_select",
+    "flip", "roll", "pad", "pad2d", "shape", "range", "linspace", "eye",
+    "fill_constant_batch_size_like", "where_index", "isfinite",
+    "isfinite_v2",
+    "fill_any_like", "reduce_all", "reduce_any", "squeeze", "flatten",
+    "unsqueeze", "unique", "unique_with_counts", "hinge_loss")
+# the sums over duplicate indices (scatter_nd_add's forward, the grads of
+# the gathers and of the broadcasts): two card runs must be bit-equal
+P17_REPEAT = {"scatter_nd_add": "forward", "gather_nd": "grad",
+              "index_select": "grad", "expand": "grad", "expand_as": "grad",
+              "tile": "grad"}
+# 17a's bars on float results, card against the host's CPU: the largest
+# error of an output over its largest value, forward and grad
+P17_FWD_TOL, P17_GRAD_TOL = 1e-5, 1e-5
+# 17b: one MobileNet step at batch 8, card against the host's CPU, in
+# float32 and float64, as 9b holds ResNet-50 (RESNET_F32_TOLS and
+# RESNET_F64_TOLS: loss rtol, moving statistics, grads; float32 grads in
+# norm, float64 ones elementwise), except that each grad's and statistic's
+# error is taken over the larger of its own size and P17_FLOOR of the
+# largest of all: the bias of a batch norm whose output feeds a
+# convolution and another batch norm has a true grad of 0 (the second
+# norm removes any shift), and both devices give it rounding noise
+P17_FLOOR = 1e-3
+P17_IMAGE, P17_CHECK_BATCH, P17_BATCH = (3, 224, 224), 8, 128
+P17_WARMUP, P17_STEPS, P17_PROFILED = 2, 5, 1
+
+
+def _p17_cases():
+    """{op type: (ins {slot: [np arrays]}, attrs)} of ``P17_OPS`` at sizes
+    the card does real work on (MobileNet's where it runs the op), with
+    the kinks and ties of the JAX formulas planted: 0, 6, the clip ends,
+    tied maxima and sort keys, duplicate indices."""
+    rng = np.random.RandomState(SEED + 17)
+
+    def f(*shape):
+        return rng.randn(*shape).astype(np.float32)
+
+    def pos(*shape):
+        return (np.abs(rng.randn(*shape)) + 0.2).astype(np.float32)
+
+    def kinks(*points):
+        x = f(256, 1024) * 4
+        x[0, :len(points)] = points
+        return {"X": [x]}
+
+    ties = np.round(f(256, 1024) * 2) / 2
+    halves = f(256, 1024) * 4
+    halves[0, :6] = [-2.5, -1.5, -0.5, 0.5, 1.5, 2.5]
+    divisor = pos(256, 1024) * np.sign(f(256, 1024))
+    red = {"keep_dim": False, "reduce_all": False}
+    hinge = f(4096, 1)
+    hinge[:2, 0] = [1.0, -1.0]
+    huber_x, huber_y = f(4096, 1), f(4096, 1)
+    huber_y[:3, 0] = huber_x[:3, 0] + np.float32([0.0, 1.0, -1.0])
+    inf = f(256, 1024)
+    inf[3, 5], inf[7, 9] = np.inf, np.nan
+    cases = {
+        "flatten2": ({"X": [f(8, 1280, 1, 1)]}, {"axis": 1}),
+        "adaptive_pool2d": ({"X": [f(8, 1280, 7, 7)]},
+                            {"pooled_height": 1, "pooled_width": 1,
+                             "pooling_type": "avg"}),
+        "depthwise_conv2d": ({"Input": [f(8, 96, 56, 56)],
+                              "Filter": [f(96, 1, 3, 3)]},
+                             {"strides": [2, 2], "paddings": [1, 1],
+                              "dilations": [1, 1]}),
+        "abs": (kinks(0.0), {}), "ceil": ({"X": [halves]}, {}),
+        "floor": ({"X": [halves]}, {}), "round": ({"X": [halves]}, {}),
+        "cos": ({"X": [f(256, 1024)]}, {}), "sin": ({"X": [f(256, 1024)]}, {}),
+        "exp": ({"X": [f(256, 1024)]}, {}), "erf": ({"X": [f(256, 1024)]}, {}),
+        "log": ({"X": [pos(256, 1024)]}, {}),
+        "log1p": ({"X": [pos(256, 1024) - 0.5]}, {}),
+        "log2": ({"X": [pos(256, 1024)]}, {}),
+        "sqrt": ({"X": [pos(256, 1024)]}, {}),
+        "rsqrt": ({"X": [pos(256, 1024)]}, {}),
+        "reciprocal": ({"X": [divisor]}, {}),
+        "reduce_mean": ({"X": [f(64, 128, 32)]}, dict(red, dim=[1, 2])),
+        "reduce_max": ({"X": [ties]}, dict(red, dim=[1])),
+        "reduce_min": ({"X": [ties]}, dict(red, dim=[1])),
+        "reduce_prod": ({"X": [rng.uniform(0.5, 1.5, (256, 16))
+                               .astype(np.float32)]}, dict(red, dim=[1])),
+        "arg_max": ({"X": [ties]}, {"axis": 1}),
+        "arg_min": ({"X": [ties]}, {"axis": 1}),
+        "cumsum": ({"X": [f(256, 1024)]}, {"axis": 1, "reverse": True,
+                                           "exclusive": True}),
+        "elementwise_pow": ({"X": [pos(256, 1024)], "Y": [f(256, 1024) / 2]},
+                            {"axis": -1}),
+        "elementwise_mod": ({"X": [f(256, 1024) * 8], "Y": [divisor]},
+                            {"axis": -1}),
+        "elementwise_floordiv": ({"X": [f(256, 1024) * 8], "Y": [divisor]},
+                                 {"axis": -1}),
+        "elu": (kinks(0.0), {"alpha": 1.0}),
+        "leaky_relu": (kinks(0.0), {"alpha": 0.02}),
+        "relu6": (kinks(0.0, 6.0), {"threshold": 6.0}),
+        "softplus": (kinks(0.0), {}), "softsign": (kinks(0.0), {}),
+        "swish": (kinks(0.0), {"beta": 1.5}), "silu": (kinks(0.0), {}),
+        "mish": (kinks(0.0), {}),
+        "hard_sigmoid": (kinks(-2.5, 2.5), {}),
+        "hard_swish": (kinks(-3.0, 3.0), {}),
+        "one_hot": ({"X": [rng.randint(-1, 1001, (4096, 1))]}, {"depth": 1000}),
+        "huber_loss": ({"X": [huber_x], "Y": [huber_y]}, {"delta": 1.0}),
+        "smooth_l1_loss": ({"X": [f(512, 64)], "Y": [f(512, 64)]},
+                           {"sigma": 1.0}),
+        "kldiv_loss": ({"X": [f(512, 1000)], "Target": [np.abs(f(512, 1000))]},
+                       {"reduction": "batchmean"}),
+        "selu": (kinks(0.0), {}), "brelu": (kinks(0.0, 24.0), {}),
+        "soft_relu": (kinks(-40.0, 40.0), {}), "stanh": (kinks(0.0), {}),
+        "argsort": ({"X": [ties]}, {"axis": -1, "descending": True}),
+        "diag": ({"Diagonal": [f(1024)]}, {}),
+        "reverse": ({"X": [f(64, 128, 32)]}, {"axis": [0, 2]}),
+        "rank": ({"Input": [f(64, 128)]}, {}),
+        "size": ({"Input": [f(64, 128)]}, {}),
+        "crop_tensor": ({"X": [f(64, 128, 32)]},
+                        {"offsets": [1, 2, 3], "shape": [32, 64, 16]}),
+        "log_loss": ({"Predicted": [rng.uniform(0.05, 0.95, (4096, 1))
+                                    .astype(np.float32)],
+                      "Labels": [rng.randint(0, 2, (4096, 1))
+                                 .astype(np.float32)]}, {"epsilon": 1e-4}),
+        "label_smooth": ({"X": [np.eye(1000, dtype=np.float32)[
+            rng.randint(0, 1000, 4096)]]}, {"epsilon": 0.1}),
+        "transpose": ({"X": [f(64, 128, 32)]}, {"axis": [2, 0, 1]}),
+        "split": ({"X": [f(64, 96, 32)]}, {"axis": 1, "num": 0,
+                                           "sections": [32, 48, -1]}),
+        "stack": ({"X": [f(256, 1024) for _ in range(3)]}, {"axis": 1}),
+        "unstack": ({"X": [f(64, 8, 128)]}, {"axis": 1, "num": 8}),
+        "strided_slice": ({"Input": [f(64, 128, 32)]},
+                          {"axes": [0, 1, 2], "starts": [1, -1, 0],
+                           "ends": [64, -128, 32], "strides": [2, -2, 3]}),
+        "expand": ({"X": [f(64, 1, 128)]}, {"expand_times": [2, 16, 1]}),
+        "expand_as": ({"X": [f(1, 1024)], "target_tensor": [f(256, 1024)]},
+                      {}),
+        "tile": ({"X": [f(64, 128)]}, {"repeat_times": [2, 1, 4]}),
+        "gather_nd": ({"X": [f(256, 64, 32)],
+                       "Index": [np.stack([rng.randint(0, 256, 4096),
+                                           rng.randint(0, 64, 4096)], 1)]},
+                      {}),
+        "scatter_nd_add": ({"X": [f(256, 64, 32)],
+                            "Index": [np.stack([rng.randint(0, 16, 4096),
+                                                rng.randint(0, 8, 4096)], 1)],
+                            "Updates": [f(4096, 32)]}, {}),
+        "index_select": ({"X": [f(256, 1024)],
+                          "Index": [rng.randint(0, 1024, 4096)]}, {"dim": 1}),
+        "flip": ({"X": [f(64, 128, 32)]}, {"axis": [0, 2]}),
+        "roll": ({"X": [f(256, 1024)]}, {"shifts": [3, -7], "axis": [0, 1]}),
+        "pad": ({"X": [f(256, 1024)]}, {"paddings": [1, 2, 3, 4],
+                                        "pad_value": 0.5}),
+        "pad2d": ({"X": [f(8, 32, 56, 56)]}, {"paddings": [1, 2, 3, 4],
+                                              "mode": "reflect"}),
+        "shape": ({"Input": [f(8, 32, 56, 56)]}, {}),
+        "range": ({"Start": [np.float32([0.0])], "End": [np.float32([1000.0])],
+                   "Step": [np.float32([0.25])]}, {}),
+        "linspace": ({"Start": [np.float32([-3.0])], "Stop": [np.float32([5.0])],
+                      "Num": [np.int32([4097])]}, {}),
+        "eye": ({}, {"num_rows": 512, "num_columns": 1024,
+                     "dtype": "float32"}),
+        "fill_constant_batch_size_like": (
+            {"Input": [f(4096, 2)]}, {"shape": [-1, 1000], "dtype": "float32",
+                                      "value": 0.5}),
+        "where_index": ({"Condition": [rng.rand(256, 1024) > 0.5]}, {}),
+        "isfinite": ({"X": [inf]}, {}), "isfinite_v2": ({"X": [inf]}, {}),
+        "fill_any_like": ({"X": [f(256, 1024)]}, {"value": 2.5}),
+        "reduce_all": ({"X": [rng.rand(256, 1024) > 0.001]}, dict(red, dim=[1])),
+        "reduce_any": ({"X": [rng.rand(256, 1024) > 0.999]}, dict(red, dim=[1])),
+        "squeeze": ({"X": [f(256, 1, 1024)]}, {"axes": [1]}),
+        "flatten": ({"X": [f(16, 32, 8, 8)]}, {"axis": 2}),
+        "unsqueeze": ({"X": [f(256, 1024)]}, {"axes": [0, 2]}),
+        "unique": ({"X": [rng.randint(0, 5000, 65536)]}, {"dtype": "int32"}),
+        "unique_with_counts": ({"X": [rng.randint(0, 5000, 65536)]},
+                               {"dtype": "int32"}),
+        "hinge_loss": ({"Logits": [hinge],
+                        "Labels": [np.float32(rng.rand(4096, 1) > 0.5)]}, {}),
+    }
+    assert sorted(cases) == sorted(P17_OPS)
+    return cases
+
+
+def _p17_run(lower, op_def, ins, attrs, device):
+    """``lower`` on ``ins`` (numpy or tensors) moved to ``device``: the
+    outputs as CPU tensors."""
+    import torch
+
+    tins = {k: [(torch.from_numpy(np.ascontiguousarray(a))
+                 if isinstance(a, np.ndarray) else a).to(device) for a in v]
+            for k, v in ins.items()}
+    if op_def.creates:
+        tins["__device__"] = [torch.device(device)]
+    out = lower(tins, dict(attrs))
+    return {k: [t.detach().cpu() for t in v] for k, v in out.items()}
+
+
+def _p17_errors(got, want):
+    """(largest float error over each output's largest value, count of
+    integer or bool elements that differ)."""
+    import torch
+
+    assert sorted(got) == sorted(want), (sorted(got), sorted(want))
+    rel, wrong = 0.0, 0
+    for slot in want:
+        for g, w in zip(got[slot], want[slot]):
+            assert tuple(g.shape) == tuple(w.shape), (slot, g.shape, w.shape)
+            if slot == "XShape":
+                continue
+            if w.is_floating_point():
+                g64, w64 = g.double(), w.double()
+                both = torch.isfinite(w64)
+                if not torch.equal(both, torch.isfinite(g64)):
+                    wrong += int((both != torch.isfinite(g64)).sum())
+                scale = float(w64[both].abs().max()) if both.any() else 0.0
+                err = float((g64[both] - w64[both]).abs().max()) if \
+                    both.any() else 0.0
+                rel = max(rel, err / max(scale, 1e-30))
+            else:
+                wrong += int((g.to(w.dtype) != w).sum())
+    return rel, wrong
+
+
+def _p17_op_sweep():
+    """17a: every op type of ``P17_OPS``, forward and grad, on the card
+    against the same lowering on the host's CPU (same inputs, same
+    cotangents); the run-dependent sums of ``P17_REPEAT`` twice on the
+    card, bit for bit."""
+    import torch
+
+    from paddle_tpu_torch.core.backward import resolve_op_def
+
+    cases = _p17_cases()
+    rng = np.random.RandomState(SEED + 170)
+    fwd_err, grad_err, repeats, failures = {}, {}, [], []
+    ints = grads = 0
+    for op in P17_OPS:
+        ins, attrs = cases[op]
+        op_def = resolve_op_def(op)
+        lower = op_def.lowering()
+        cpu = _p17_run(lower, op_def, ins, attrs, "cpu")
+        card = _p17_run(lower, op_def, ins, attrs, "cuda")
+        fwd_err[op], wrong = _p17_errors(card, cpu)
+        ints += sum(not t.is_floating_point() for v in cpu.values() for t in v)
+        if wrong or not fwd_err[op] <= P17_FWD_TOL:
+            failures.append(f"{op} forward: rel {fwd_err[op]:.3e}, "
+                            f"{wrong} exact elements differ")
+        gins = {k: [torch.from_numpy(np.ascontiguousarray(a)) for a in v]
+                for k, v in ins.items()}
+        for slot, vals in cpu.items():
+            gins[slot] = vals
+            if slot != "XShape" and all(t.is_floating_point() for t in vals):
+                gins[slot + "@GRAD"] = [torch.from_numpy(
+                    rng.randn(*t.shape).astype(np.float32)) for t in vals]
+        gattrs = dict(attrs, __fwd_inputs__=list(ins),
+                      __fwd_outputs__=list(cpu))
+        gdef = resolve_op_def(op + "_grad")
+        gcpu = _p17_run(gdef.lower, gdef, gins, gattrs, "cpu")
+        gcard = _p17_run(gdef.lower, gdef, gins, gattrs, "cuda")
+        grad_err[op], wrong = _p17_errors(gcard, gcpu)
+        grads += bool(gcpu)
+        if wrong or not grad_err[op] <= P17_GRAD_TOL:
+            failures.append(f"{op} grad: rel {grad_err[op]:.3e}, {wrong} "
+                            f"exact elements differ")
+        if op in P17_REPEAT:
+            which = P17_REPEAT[op]
+            again = (_p17_run(lower, op_def, ins, attrs, "cuda")
+                     if which == "forward" else
+                     _p17_run(gdef.lower, gdef, gins, gattrs, "cuda"))
+            first = card if which == "forward" else gcard
+            same = all(torch.equal(a, b) for s in first
+                       for a, b in zip(first[s], again[s]))
+            repeats.append(f"{op} {which} {'bit-equal' if same else 'DIFFER'}")
+            if not same:
+                failures.append(f"{op} {which}: two card runs differ")
+    worst_f = max(fwd_err, key=fwd_err.get)
+    worst_g = max(grad_err, key=grad_err.get)
+    log(f"[m12a] 17a: {len(P17_OPS)} op types, card against the host's CPU: "
+        f"{len(P17_OPS)} forwards (worst {worst_f} {fwd_err[worst_f]:.3e}, bar "
+        f"{P17_FWD_TOL}), {grads} non-empty grads (worst {worst_g} "
+        f"{grad_err[worst_g]:.3e}, bar {P17_GRAD_TOL}), {ints} integer or "
+        f"bool outputs exact; run-dependent sums over two card runs: "
+        f"{', '.join(repeats)}")
+    log(f"[m12a] 17a forward errors by op "
+        f"{ {k: float(f'{v:.2e}') for k, v in fwd_err.items() if v} }")
+    log(f"[m12a] 17a grad errors by op "
+        f"{ {k: float(f'{v:.2e}') for k, v in grad_err.items() if v} }")
+    return failures
+
+
+def _p17_check_step(tag, gpu, cpu, grads, stats, dtype, seconds):
+    """17b's comparison of one MobileNet step on the card and on the CPU
+    (9b's, with ``P17_FLOOR``): logs the worst errors, returns what broke
+    a bar."""
+    (g_loss, *g_grads), g_stats = gpu
+    (c_loss, *c_grads), c_stats = cpu
+    f32 = dtype == np.float32
+    loss_tol, stat_tol, grad_tol = RESNET_F32_TOLS if f32 else RESNET_F64_TOLS
+    loss_err = abs(float(g_loss[0]) - float(c_loss[0])) / abs(float(c_loss[0]))
+    stat_top = max(float(np.abs(c).max()) for c in c_stats.values())
+    stat_err = {n: float(np.abs(g_stats[n] - c).max())
+                / max(float(np.abs(c).max()), P17_FLOOR * stat_top)
+                for n, c in c_stats.items()}
+    if f32:        # in norm: ReLU masks flip as in 9b
+        top = float(np.sqrt(sum(np.sum(c.astype(np.float64) ** 2)
+                                for c in c_grads)))
+        grad_err = {n: float(np.linalg.norm(g - c)
+                             / max(np.linalg.norm(c), P17_FLOOR * top))
+                    for n, g, c in zip(grads, g_grads, c_grads)}
+    else:
+        top = max(float(np.abs(c).max()) for c in c_grads)
+        grad_err = {n: float(np.abs(g - c).max()
+                             / max(float(np.abs(c).max()), P17_FLOOR * top))
+                    for n, g, c in zip(grads, g_grads, c_grads)}
+    kind = "float32" if f32 else "float64"
+    worst_s = max(stat_err, key=stat_err.get)
+    worst_g = max(grad_err, key=grad_err.get)
+    log(f"[m12a] 17b {tag} {kind}: one step at batch {P17_CHECK_BATCH}, card "
+        f"against the host's CPU ({seconds:.2f}s for both): loss "
+        f"{float(g_loss[0]):.9g} against {float(c_loss[0]):.9g} (rel "
+        f"{loss_err:.3e}, bar {loss_tol}); moving statistics worst "
+        f"{worst_s} {stat_err[worst_s]:.3e} (bar {stat_tol}); grads worst "
+        f"{worst_g} {grad_err[worst_g]:.3e} "
+        + ("in norm" if f32 else "elementwise") + f" (bar {grad_tol})")
+    bad = ([f"{tag} {kind} loss rel {loss_err:.3e}"]
+           if not loss_err <= loss_tol else [])
+    bad += [f"{tag} {kind} {n} {e:.3e}" for n, e in stat_err.items()
+            if not e <= stat_tol]
+    bad += [f"{tag} {kind} {n} {e:.3e}" for n, e in grad_err.items()
+            if not e <= grad_tol]
+    return bad
+
+
+def _p17_mobilenet_step_check(fluid, mobilenet, unique_name, version):
+    """17b for one version: its startup on the card (K8), one step at
+    batch 8 on the card and the CPU in float32 and float64. Returns the
+    failures, the training program, its loss and the startup's state."""
+    import torch
+
+    from paddle_tpu_torch.convert import persistables_to_numpy
+
+    with unique_name.guard():
+        main, startup, _, (loss, _acc) = mobilenet.build_mobilenet_train(
+            version=version, class_dim=1000, image_shape=P17_IMAGE)
+    startup.random_seed = main.random_seed = SEED
+    params = [p.name for p in main.all_parameters() if p.trainable]
+    grads = [p + "@GRAD" for p in params]
+    stats = [p.name for p in main.all_parameters() if not p.trainable]
+    scope = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope)
+    torch.cuda.synchronize()
+    state0 = persistables_to_numpy(scope, main)
+    check = _resnet_batch(np.random.RandomState(SEED + 1), P17_CHECK_BATCH)
+    failures, runs = [], {}
+    tag = f"V{version}"
+    for dtype in (np.float32, np.float64):
+        t0 = time.perf_counter()
+        runs[dtype] = [_resnet_step(fluid, main, state0, check, dtype, place,
+                                    [loss.name] + grads, stats)
+                       for place in (None, fluid.CPUPlace())]
+        failures += _p17_check_step(tag, *runs[dtype], grads, stats, dtype,
+                                    time.perf_counter() - t0)
+    f32_err = []
+    for device in (0, 1):
+        lo = runs[np.float32][device][0][1:]
+        hi = runs[np.float64][device][0][1:]
+        f32_err.append(float(np.sqrt(sum(np.sum((a - b) ** 2)
+                                         for a, b in zip(lo, hi))
+                                     / sum(np.sum(b ** 2) for b in hi))))
+    log(f"[m12a] 17b {tag}: {len(main.global_block().ops)} ops a step, "
+        f"{len(params)} trainable parameters "
+        f"({sum(state0[p].size for p in params)} values); float32 grads "
+        f"against float64 on the same device, in norm: card "
+        f"{f32_err[0]:.3e}, CPU {f32_err[1]:.3e} (bar: the card's at most "
+        f"{RESNET_F32_ACCURACY}x the CPU's)")
+    if not f32_err[0] <= RESNET_F32_ACCURACY * f32_err[1]:
+        failures.append(f"{tag} float32 grads on the card {f32_err[0]:.3e} "
+                        f"from float64, the CPU's {f32_err[1]:.3e}")
+    return failures, main, loss, state0
+
+
+def phase_m12a():
+    """Phase 17: the common op surface (17a) and MobileNet V1/V2 at
+    ImageNet width (17b: one step card against CPU; 17c: timed V2 steps
+    at batch 128, a profiled window, the inference clone)."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import mobilenet
+    from paddle_tpu_torch.utils import unique_name
+
+    t_phase = time.perf_counter()
+    failures = _p17_op_sweep()
+    log(f"[m12a] 17a {time.perf_counter() - t_phase:.1f}s")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for version in (1, 2):
+        bad, main, loss, state0 = _p17_mobilenet_step_check(
+            fluid, mobilenet, unique_name, version)
+        failures += bad
+    log(f"[m12a] 17b {time.perf_counter() - t0:.1f}s")
+
+    # 17c: MobileNet V2 (17b's program) at batch 128 from its startup's
+    # weights
+    prob = main.global_block().vars[next(
+        op.input("X")[0] for op in main.global_block().ops
+        if op.type == "cross_entropy")]
+    infer = main.clone(for_test=True)
+    n_ops = len(main.global_block().ops)
+    fwd_flops = _conv_flops(main, P17_BATCH)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    for name, a in state0.items():
+        scope.set(name, torch.from_numpy(a).cuda())
+    batch = _resnet_batch(np.random.RandomState(SEED), P17_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    losses, seconds = [], []
+    for _ in range(P17_WARMUP + P17_STEPS):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=batch, fetch_list=[loss], scope=scope)
+        losses.append(float(out[0][0]))
+        seconds.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    timed = np.asarray(seconds[P17_WARMUP:]) * 1e3
+    p50, p90 = float(np.median(timed)), float(np.percentile(timed, 90))
+    flops = 4 * fwd_flops
+    log(f"[m12a] 17c: MobileNet V2, batch {P17_BATCH}, {n_ops} ops a step: "
+        f"step p50 {p50:.2f} ms, p90 {p90:.2f} (timed "
+        f"{np.round(timed, 2).tolist()}, warm-up "
+        f"{[round(t * 1e3, 2) for t in seconds[:P17_WARMUP]]}), "
+        f"{P17_BATCH / p50 * 1e3:.1f} images/s; device memory peak "
+        f"{peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB held before the "
+        f"steps); conv and fc work {flops / 1e12:.3f} TFLOP a step "
+        f"(forward {fwd_flops / 1e12:.4f}, about x4 with the grads' rerun), "
+        f"{flops / p50 / 1e9:.2f} TFLOP/s over the step")
+    losses += _profiled_steps(
+        "[m12a] 17c", P17_PROFILED,
+        lambda: float(exe.run(main, feed=batch, fetch_list=[loss],
+                              scope=scope)[0][0]))
+    log(f"[m12a] 17c losses over the {len(losses)} steps {losses}")
+    if not (np.isfinite(losses).all() and losses[-1] < max(losses)):
+        failures.append(f"MobileNet V2 loss did not fall on its fixed batch: "
+                        f"{losses}")
+    rows = 16
+    (probs,) = exe.run(infer, feed={"img": batch["img"][:rows],
+                                    "label": batch["label"][:rows]},
+                       fetch_list=[prob.name], scope=scope)
+    sums = probs.sum(axis=1)
+    if probs.shape != (rows, 1000) or not np.isfinite(probs).all() or \
+            not np.allclose(sums, 1.0, atol=1e-5):
+        failures.append(f"the inference clone's softmax rows: shape "
+                        f"{probs.shape}, sums {sums}")
+    launches = kernels.launches()
+    log(f"[m12a] inference clone (for_test) on the trained scope: {rows} rows "
+        f"of 1000 summing to 1 within {float(np.abs(sums - 1).max()):.2e}; "
+        f"launches over 17b and 17c {launches}")
+    if not launches["threefry_random_bits"]:
+        failures.append("the MobileNet startups drew nothing through K8")
+    log(f"[m12a] phase 17 {time.perf_counter() - t_phase:.1f}s")
+    if failures:
+        raise AssertionError("phase 17: " + "; ".join(failures))
+    return launches
+
+
+PHASES = tuple(str(n) for n in range(1, 18))
 
 
 def parse_phases(argv):
@@ -7925,6 +8424,7 @@ def main(phases=frozenset(PHASES)):
     p15_launches = (timed("15", phase_data_plane) if "15" in phases
                     else zero)
     p16_launches = timed("16", phase_hybrid) if "16" in phases else zero
+    p17_launches = timed("17", phase_m12a) if "17" in phases else zero
     log(f"[done] paged_attention launches: phase 3 "
         f"{engine_launches['paged_attention']}, phase 3b {modes_launches}, "
         f"phase 3c {beam_launches}, phase 3d {overload_launches}")
@@ -7968,6 +8468,7 @@ def main(phases=frozenset(PHASES)):
                           + p14_launches.get(n, 0)
                           + p15_launches.get(n, 0)
                           + p16_launches.get(n, 0)
+                          + p17_launches.get(n, 0)
                           for n in KERNELS if n.startswith("threefry")})
     log(f"[done] K8 launches: phase 5 "
         f"{ {n: train_launches[n] for n in path_launches if n.startswith('threefry')} }, "
@@ -7988,6 +8489,8 @@ def main(phases=frozenset(PHASES)):
         f"{ {n: c for n, c in p15_launches.items() if c} }")
     log(f"[done] phase 16 launches (the 4 ranks and the one-rank run): "
         f"{ {n: c for n, c in p16_launches.items() if c} }")
+    log(f"[done] phase 17 launches (the MobileNet startups and steps): "
+        f"{ {n: c for n, c in p17_launches.items() if c} }")
     log(f"[done] phase 10 launches: "
         f"{ {n: c for n, c in ckpt_launches.items() if c} }; phase 11: "
         f"{ {n: c for n, c in infer_launches.items() if c} }")

@@ -58,6 +58,39 @@ __all__ = [
     "square_error_cost",
     "topk",
     "accuracy",
+    # M12a
+    "conv2d_transpose",
+    "instance_norm",
+    "group_norm",
+    "mul",
+    "relu6",
+    "tanh",
+    "leaky_relu",
+    "elu",
+    "swish",
+    "hard_swish",
+    "hard_sigmoid",
+    "softplus",
+    "softsign",
+    "prelu",
+    "huber_loss",
+    "kldiv_loss",
+    "mse_loss",
+    "one_hot",
+    "reduce_mean",
+    "reduce_max",
+    "reduce_min",
+    "reduce_prod",
+    "elementwise_pow",
+    "sqrt",
+    "abs",
+    "exp",
+    "log",
+    "sin",
+    "cos",
+    "erf",
+    "argmax",
+    "argmin",
 ]
 
 
@@ -1004,3 +1037,228 @@ def dropout(
         },
     )
     return out
+
+
+# -- M12a: the common layer surface, copied from the JAX package's
+# ``layers/nn.py`` ------------------------------------------------------------
+
+
+def conv2d_transpose(
+    input,
+    num_filters,
+    filter_size,
+    stride=1,
+    padding=0,
+    groups=1,
+    param_attr=None,
+    bias_attr=None,
+    act=None,
+    name=None,
+):
+    helper = LayerHelper(
+        "conv2d_transpose",
+        param_attr=param_attr,
+        bias_attr=bias_attr,
+        act=act,
+        name=name,
+    )
+    dtype = input.dtype
+    if isinstance(filter_size, int):
+        filter_size = [filter_size, filter_size]
+    if isinstance(stride, int):
+        stride = [stride, stride]
+    if isinstance(padding, int):
+        padding = [padding, padding]
+    channels = input.shape[1]
+    filter_shape = [channels, num_filters // groups] + list(filter_size)
+    w = helper.create_parameter(helper.param_attr, shape=filter_shape, dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "conv2d_transpose",
+        {"Input": [input.name], "Filter": [w.name]},
+        {"Output": [out.name]},
+        {"strides": stride, "paddings": padding, "groups": groups},
+    )
+    if helper.bias_attr is not False:
+        b = helper.create_parameter(
+            helper.bias_attr, shape=[num_filters], dtype=dtype, is_bias=True
+        )
+        out = helper.append_bias_op(out, b, axis=1)
+    return helper.append_activation(out)
+
+
+def instance_norm(input, epsilon=1e-5, param_attr=None, bias_attr=None, name=None):
+    helper = LayerHelper(
+        "instance_norm", param_attr=param_attr, bias_attr=bias_attr, name=name
+    )
+    channels = input.shape[1]
+    s = helper.create_parameter(
+        helper.param_attr,
+        shape=[channels],
+        dtype=input.dtype,
+        default_initializer=ConstantInitializer(1.0),
+    )
+    b = helper.create_parameter(
+        helper.bias_attr, shape=[channels], dtype=input.dtype, is_bias=True
+    )
+    out = helper.create_variable_for_type_inference(input.dtype)
+    sm = helper.create_variable_for_type_inference(input.dtype, stop_gradient=True)
+    sv = helper.create_variable_for_type_inference(input.dtype, stop_gradient=True)
+    helper.append_op(
+        "instance_norm",
+        {"X": [input.name], "Scale": [s.name], "Bias": [b.name]},
+        {"Y": [out.name], "SavedMean": [sm.name], "SavedVariance": [sv.name]},
+        {"epsilon": epsilon},
+    )
+    return out
+
+
+def group_norm(
+    input, groups, epsilon=1e-5, param_attr=None, bias_attr=None, act=None, name=None
+):
+    helper = LayerHelper(
+        "group_norm", param_attr=param_attr, bias_attr=bias_attr, act=act, name=name
+    )
+    channels = input.shape[1]
+    s = helper.create_parameter(
+        helper.param_attr,
+        shape=[channels],
+        dtype=input.dtype,
+        default_initializer=ConstantInitializer(1.0),
+    )
+    b = helper.create_parameter(
+        helper.bias_attr, shape=[channels], dtype=input.dtype, is_bias=True
+    )
+    out = helper.create_variable_for_type_inference(input.dtype)
+    m = helper.create_variable_for_type_inference(input.dtype, stop_gradient=True)
+    v = helper.create_variable_for_type_inference(input.dtype, stop_gradient=True)
+    helper.append_op(
+        "group_norm",
+        {"X": [input.name], "Scale": [s.name], "Bias": [b.name]},
+        {"Y": [out.name], "Mean": [m.name], "Variance": [v.name]},
+        {"groups": groups, "epsilon": epsilon},
+    )
+    return helper.append_activation(out)
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        "mul",
+        {"X": [x.name], "Y": [y.name]},
+        {"Out": [out.name]},
+        {"x_num_col_dims": x_num_col_dims, "y_num_col_dims": y_num_col_dims},
+    )
+    return out
+
+
+def _make_act(op_type):
+    def act_fn(x, name=None, **attrs):
+        return _single_op(op_type, x, attrs, name=name)
+
+    act_fn.__name__ = op_type
+    return act_fn
+
+
+relu6 = _make_act("relu6")
+tanh = _make_act("tanh")
+leaky_relu = _make_act("leaky_relu")
+elu = _make_act("elu")
+swish = _make_act("swish")
+hard_swish = _make_act("hard_swish")
+hard_sigmoid = _make_act("hard_sigmoid")
+softplus = _make_act("softplus")
+softsign = _make_act("softsign")
+sqrt = _make_act("sqrt")
+abs = _make_act("abs")
+exp = _make_act("exp")
+log = _make_act("log")
+sin = _make_act("sin")
+cos = _make_act("cos")
+erf = _make_act("erf")
+
+
+def prelu(x, mode="all", param_attr=None, name=None):
+    helper = LayerHelper("prelu", param_attr=param_attr, name=name)
+    alpha_shape = [1] if mode == "all" else [x.shape[1]]
+    alpha = helper.create_parameter(
+        helper.param_attr,
+        shape=alpha_shape,
+        dtype=x.dtype,
+        default_initializer=ConstantInitializer(0.25),
+    )
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        "prelu",
+        {"X": [x.name], "Alpha": [alpha.name]},
+        {"Out": [out.name]},
+        {"mode": mode},
+    )
+    return out
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_pow", x, y, axis, act, name)
+
+
+def _make_reduce(op_type):
+    def fn(input, dim=None, keep_dim=False, name=None):
+        attrs = {
+            "dim": dim if dim is not None else [0],
+            "keep_dim": keep_dim,
+            "reduce_all": dim is None,
+        }
+        return _single_op(op_type, input, attrs, name=name)
+
+    fn.__name__ = op_type
+    return fn
+
+
+reduce_mean = _make_reduce("reduce_mean")
+reduce_max = _make_reduce("reduce_max")
+reduce_min = _make_reduce("reduce_min")
+reduce_prod = _make_reduce("reduce_prod")
+
+
+def mse_loss(input, label, name=None):
+    return mean(square_error_cost(input, label), name=name)
+
+
+def huber_loss(input, label, delta, name=None):
+    helper = LayerHelper("huber_loss", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    residual = helper.create_variable_for_type_inference(
+        input.dtype, stop_gradient=True
+    )
+    helper.append_op(
+        "huber_loss",
+        {"X": [input.name], "Y": [label.name]},
+        {"Out": [out.name], "Residual": [residual.name]},
+        {"delta": delta},
+    )
+    return out
+
+
+def kldiv_loss(x, target, reduction="mean", name=None):
+    helper = LayerHelper("kldiv_loss", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        "kldiv_loss",
+        {"X": [x.name], "Target": [target.name]},
+        {"Loss": [out.name]},
+        {"reduction": reduction},
+    )
+    return out
+
+
+def one_hot(input, depth, name=None):
+    return _single_op("one_hot", input, {"depth": depth}, out_dtype="float32", name=name)
+
+
+def argmax(x, axis=-1, name=None):
+    return _single_op("arg_max", x, {"axis": axis}, out_dtype="int64", name=name)
+
+
+def argmin(x, axis=-1, name=None):
+    return _single_op("arg_min", x, {"axis": axis}, out_dtype="int64", name=name)

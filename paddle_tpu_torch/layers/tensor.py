@@ -3,10 +3,16 @@
 decode engine's and BERT's programs use, copied from the JAX package's
 ``layers/tensor.py`` so both packages emit the same ops and names."""
 
+import builtins as _builtins
+
 from paddle_tpu_torch.core.dtypes import convert_dtype
 from paddle_tpu_torch.core.ir import default_main_program, default_startup_program
 from paddle_tpu_torch.layer_helper import LayerHelper
 from paddle_tpu_torch.utils import unique_name
+
+# this module defines a `range` LAYER below, which shadows the builtin for
+# any module-level function that runs after import — keep the real one
+_builtin_range = _builtins.range
 
 __all__ = [
     "data",
@@ -35,6 +41,26 @@ __all__ = [
     "increment",
     "uniform_random",
     "gaussian_random",
+    # M12a
+    "fill_constant_batch_size_like",
+    "zeros",
+    "ones",
+    "zeros_like",
+    "ones_like",
+    "split",
+    "flatten",
+    "stack",
+    "unstack",
+    "expand",
+    "gather_nd",
+    "cond_select",
+    "shape",
+    "range",
+    "linspace",
+    "create_tensor",
+    "cumsum",
+    "isfinite",
+    "pad",
 ]
 
 
@@ -293,5 +319,223 @@ def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32", name=None
         {},
         {"Out": [out.name]},
         {"shape": list(shape), "dtype": convert_dtype(dtype), "mean": mean, "std": std, "seed": seed},
+    )
+    return out
+
+
+# -- M12a: the common layer surface, copied from the JAX package's
+# ``layers/tensor.py`` ---------------------------------------------------------
+
+
+def zeros(shape, dtype="float32", name=None):
+    return fill_constant(shape, dtype, 0.0, name=name)
+
+
+def ones(shape, dtype="float32", name=None):
+    return fill_constant(shape, dtype, 1.0, name=name)
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0,
+                                  name=None):
+    """reference: python/paddle/fluid/layers/tensor.py
+    fill_constant_batch_size_like — `shape[output_dim_idx]` is replaced by
+    `input.shape[input_dim_idx]` at run time."""
+    helper = LayerHelper("fill_constant_batch_size_like", name=name)
+    dtype = convert_dtype(dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "fill_constant_batch_size_like",
+        {"Input": [input.name]},
+        {"Out": [out.name]},
+        {
+            "shape": list(shape),
+            "dtype": dtype,
+            "value": value,
+            "input_dim_idx": input_dim_idx,
+            "output_dim_idx": output_dim_idx,
+        },
+    )
+    return out
+
+
+def zeros_like(x, name=None):
+    helper = LayerHelper("zeros_like", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("fill_zeros_like", {"X": [x.name]}, {"Out": [out.name]})
+    return out
+
+
+def ones_like(x, name=None):
+    helper = LayerHelper("ones_like", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        "fill_constant_batch_size_like",
+        {"Input": [x.name]},
+        {"Out": [out.name]},
+        {"shape": list(x.shape), "dtype": x.dtype, "value": 1.0},
+    )
+    return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", name=name)
+    if isinstance(num_or_sections, int):
+        num = num_or_sections
+        sections = []
+        n_out = num
+    else:
+        num = 0
+        sections = list(num_or_sections)
+        n_out = len(sections)
+    outs = [
+        helper.create_variable_for_type_inference(input.dtype)
+        for _ in _builtin_range(n_out)
+    ]
+    helper.append_op(
+        "split",
+        {"X": [input.name]},
+        {"Out": [o.name for o in outs]},
+        {"num": num, "sections": sections, "axis": dim},
+    )
+    return outs
+
+
+def flatten(x, axis=1, name=None):
+    helper = LayerHelper("flatten2", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype, stop_gradient=True)
+    helper.append_op(
+        "flatten2",
+        {"X": [x.name]},
+        {"Out": [out.name], "XShape": [xshape.name]},
+        {"axis": axis},
+    )
+    return out
+
+
+def stack(x, axis=0, name=None):
+    helper = LayerHelper("stack", name=name)
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op(
+        "stack", {"X": [v.name for v in x]}, {"Y": [out.name]}, {"axis": axis}
+    )
+    return out
+
+
+def unstack(x, axis=0, num=None, name=None):
+    helper = LayerHelper("unstack", name=name)
+    if num is None:
+        num = x.shape[axis]
+    outs = [helper.create_variable_for_type_inference(x.dtype)
+            for _ in _builtin_range(num)]
+    helper.append_op(
+        "unstack",
+        {"X": [x.name]},
+        {"Y": [o.name for o in outs]},
+        {"axis": axis, "num": num},
+    )
+    return outs
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        "expand",
+        {"X": [x.name]},
+        {"Out": [out.name]},
+        {"expand_times": list(expand_times)},
+    )
+    return out
+
+
+def gather_nd(input, index, name=None):
+    helper = LayerHelper("gather_nd", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "gather_nd",
+        {"X": [input.name], "Index": [index.name]},
+        {"Out": [out.name]},
+    )
+    return out
+
+
+cond_select = where
+
+
+def shape(input, name=None):
+    helper = LayerHelper("shape", name=name)
+    out = helper.create_variable_for_type_inference("int32", stop_gradient=True)
+    helper.append_op("shape", {"Input": [input.name]}, {"Out": [out.name]})
+    return out
+
+
+def range(start, end, step, dtype="float32", name=None):
+    helper = LayerHelper("range", name=name)
+    vals = []
+    for v in (start, end, step):
+        if not hasattr(v, "name"):
+            v = fill_constant([1], dtype, float(v))
+        vals.append(v)
+    out = helper.create_variable_for_type_inference(convert_dtype(dtype))
+    helper.append_op(
+        "range",
+        {"Start": [vals[0].name], "End": [vals[1].name], "Step": [vals[2].name]},
+        {"Out": [out.name]},
+    )
+    return out
+
+
+def linspace(start, stop, num, dtype="float32", name=None):
+    helper = LayerHelper("linspace", name=name)
+    vals = []
+    for v, d in ((start, dtype), (stop, dtype), (num, "int32")):
+        if not hasattr(v, "name"):
+            v = fill_constant([1], d, float(v))
+        vals.append(v)
+    out = helper.create_variable_for_type_inference(convert_dtype(dtype))
+    helper.append_op(
+        "linspace",
+        {"Start": [vals[0].name], "Stop": [vals[1].name], "Num": [vals[2].name]},
+        {"Out": [out.name]},
+    )
+    return out
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    helper = LayerHelper("create_tensor", name=name)
+    return helper.block.create_var(
+        name=name or helper.name, dtype=dtype, persistable=persistable, shape=None
+    )
+
+
+def cumsum(x, axis=-1, exclusive=False, reverse=False, name=None):
+    helper = LayerHelper("cumsum", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        "cumsum",
+        {"X": [x.name]},
+        {"Out": [out.name]},
+        {"axis": axis, "exclusive": exclusive, "reverse": reverse},
+    )
+    return out
+
+
+def isfinite(x, name=None):
+    helper = LayerHelper("isfinite", name=name)
+    out = helper.create_variable_for_type_inference("bool", stop_gradient=True)
+    helper.append_op("isfinite", {"X": [x.name]}, {"Out": [out.name]})
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        "pad",
+        {"X": [x.name]},
+        {"Out": [out.name]},
+        {"paddings": list(paddings), "pad_value": pad_value},
     )
     return out

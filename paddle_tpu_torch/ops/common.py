@@ -6,6 +6,7 @@ import threading
 import torch
 
 from paddle_tpu_torch.core import prng
+from paddle_tpu_torch.core.registry import register_op
 
 
 def first(ins, slot):
@@ -15,6 +16,13 @@ def first(ins, slot):
 def maybe(ins, slot, default=None):
     vals = ins.get(slot)
     return vals[0] if vals else default
+
+
+def unary_op(name, fn):
+    """Register ``name`` as ``Out = fn(X, attrs)``."""
+    @register_op(name)
+    def _lower(ins, attrs, _fn=fn):
+        return {"Out": [_fn(first(ins, "X"), attrs)]}
 
 
 def rng_key(ins):
@@ -115,6 +123,25 @@ def segment_sum(rows, index, n):
     out = torch.zeros((n,) + tuple(rows.shape[1:]), dtype=rows.dtype,
                       device=rows.device)
     return out.index_put_((index.to(torch.int64),), rows, accumulate=True)
+
+
+def scalar_like(value, x):
+    """``value`` as a 0-d tensor of ``x``'s dtype on its device. A lowering
+    divides by one where the JAX one divides by a Python scalar: torch
+    multiplies by the reciprocal of a Python scalar divisor on CUDA."""
+    return torch.full((), value, dtype=x.dtype, device=x.device)
+
+
+def jnp_clip(x, lo=None, hi=None):
+    """``jnp.clip(x, lo, hi)``: ``maximum`` then ``minimum`` against 0-d
+    tensors, so that an element on either end splits its grad in half
+    with the bound, as the JAX package's does (``torch.clamp`` gives it
+    all to ``x``)."""
+    if lo is not None:
+        x = torch.maximum(x, scalar_like(lo, x))
+    if hi is not None:
+        x = torch.minimum(x, scalar_like(hi, x))
+    return x
 
 
 class SettingGuard:

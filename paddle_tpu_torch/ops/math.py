@@ -12,7 +12,7 @@ import torch
 from paddle_tpu_torch.core.backward import make_generic_grad_lowering
 from paddle_tpu_torch.core.registry import OpRegistry, register_grad, register_op
 from paddle_tpu_torch.ops.common import (
-    SettingGuard, broadcast_y, first, maybe, reduce_axes)
+    SettingGuard, broadcast_y, first, jnp_clip, maybe, reduce_axes, unary_op)
 from paddle_tpu_torch.parallel import env as penv
 
 _LOW = (torch.bfloat16, torch.float16)
@@ -168,8 +168,8 @@ def _sum(ins, attrs):
 
 @register_op("clip")
 def _clip(ins, attrs):
-    return {"Out": [torch.clamp(first(ins, "X"), attrs.get("min"),
-                                attrs.get("max"))]}
+    return {"Out": [jnp_clip(first(ins, "X"), attrs.get("min"),
+                             attrs.get("max"))]}
 
 
 def _batch_axis(attrs):
@@ -216,4 +216,84 @@ def _reduce_sum(ins, attrs):
         out = _batch_total(out, attrs, axis)
     if out.dim() == 0 and not attrs.get("keep_scalar", False):
         out = out.reshape((1,))
+    return {"Out": [out]}
+
+
+# -- M12a: the common math surface -------------------------------------------
+#
+# ``elementwise_mod`` is ``jnp.mod`` (the result takes the divisor's sign)
+# and ``elementwise_floordiv`` ``jnp.floor_divide``: ``torch.remainder``
+# and ``torch.div(rounding_mode="floor")``, never ``torch.fmod``.
+
+_elementwise("elementwise_pow", torch.pow)
+_elementwise("elementwise_mod", torch.remainder)
+_elementwise("elementwise_floordiv",
+             lambda x, y: torch.div(x, y, rounding_mode="floor"))
+
+
+# ``abs``'s grad at 0 is 0 here (``sign(x)``, the reference's
+# AbsGradFunctor); the JAX package's ``jnp.abs`` gives 1 there (ROADMAP
+# queue C)
+for _name, _fn in (("sqrt", torch.sqrt), ("rsqrt", torch.rsqrt),
+                   ("abs", torch.abs), ("log", torch.log),
+                   ("log2", torch.log2), ("log1p", torch.log1p),
+                   ("exp", torch.exp), ("floor", torch.floor),
+                   ("ceil", torch.ceil), ("round", torch.round),
+                   ("reciprocal", torch.reciprocal), ("sin", torch.sin),
+                   ("cos", torch.cos), ("erf", torch.erf)):
+    unary_op(_name, lambda x, a, _fn=_fn: _fn(x))
+
+
+def _reduce(name, fn):
+    @register_op(name)
+    def _lower(ins, attrs, _fn=fn):
+        x = first(ins, "X")
+        out = _fn(x, dim=reduce_axes(attrs, x.dim()),
+                  keepdim=attrs.get("keep_dim", False))
+        if out.dim() == 0 and not attrs.get("keep_scalar", False):
+            out = out.reshape((1,))
+        return {"Out": [out]}
+
+
+def _prod(x, dim, keepdim):
+    # one axis at a time (``torch.prod`` takes one), in X's dtype (torch
+    # would widen an int32 product to int64)
+    for d in sorted(dim, reverse=True):
+        x = torch.prod(x, dim=d, keepdim=keepdim, dtype=x.dtype)
+    return x
+
+
+# ``amax``/``amin`` split the grad evenly among tied extremes, as
+# ``jnp.max``/``jnp.min`` do (``torch.max(dim=)`` gives it all to one)
+_reduce("reduce_mean", torch.mean)
+_reduce("reduce_max", torch.amax)
+_reduce("reduce_min", torch.amin)
+_reduce("reduce_prod", _prod)
+
+
+@register_op("arg_max", nondiff_inputs=("X",))
+def _arg_max(ins, attrs):
+    """The first largest element's index, int64 (the JAX package's int32
+    values)."""
+    return {"Out": [torch.argmax(first(ins, "X"), dim=attrs.get("axis", -1))]}
+
+
+@register_op("arg_min", nondiff_inputs=("X",))
+def _arg_min(ins, attrs):
+    return {"Out": [torch.argmin(first(ins, "X"), dim=attrs.get("axis", -1))]}
+
+
+@register_op("cumsum")
+def _cumsum(ins, attrs):
+    """``jnp.cumsum`` along ``axis``, from the end with ``reverse``, and
+    ``out - x`` with ``exclusive``, in the JAX lowering's order."""
+    x = first(ins, "X")
+    axis = attrs.get("axis", -1)
+    if attrs.get("reverse", False):
+        out = torch.flip(torch.cumsum(torch.flip(x, (axis,)), dim=axis,
+                                      dtype=x.dtype), (axis,))
+    else:
+        out = torch.cumsum(x, dim=axis, dtype=x.dtype)
+    if attrs.get("exclusive", False):
+        out = out - x
     return {"Out": [out]}

@@ -21,17 +21,12 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core import prng
-from paddle_tpu_torch.core.registry import register_op
-from paddle_tpu_torch.ops.common import first, maybe
-from paddle_tpu_torch.ops.tensor import draw, mean_std
+from paddle_tpu_torch.core.dtypes import to_torch_dtype
+from paddle_tpu_torch.core.registry import get_op_def, register_op
+from paddle_tpu_torch.ops.common import first, maybe, reduce_axes
+from paddle_tpu_torch.ops.tensor import (
+    batch_size_like_shape, draw, mean_std)
 from paddle_tpu_torch.utils.enforce import EnforceError
-
-
-def _batch_shape(ins, attrs):
-    shape = [int(d) for d in attrs["shape"]]
-    shape[attrs.get("output_dim_idx", 0)] = int(
-        first(ins, "Input").shape[attrs.get("input_dim_idx", 0)])
-    return tuple(shape)
 
 
 @register_op("uniform_random_batch_size_like", stateful=True,
@@ -39,7 +34,7 @@ def _batch_shape(ins, attrs):
 def _uniform_random_bsl(ins, attrs):
     """reference: paddle/fluid/operators/uniform_random_batch_size_like_op.cc."""
     lo, hi = attrs.get("min", -1.0), attrs.get("max", 1.0)
-    return {"Out": [draw(ins, attrs, _batch_shape(ins, attrs),
+    return {"Out": [draw(ins, attrs, batch_size_like_shape(ins, attrs),
                          lambda b: prng.uniform(b, lo, hi),
                          first(ins, "Input").device)]}
 
@@ -48,7 +43,7 @@ def _uniform_random_bsl(ins, attrs):
              nondiff_inputs=("Input",))
 def _gaussian_random_bsl(ins, attrs):
     """reference: paddle/fluid/operators/gaussian_random_batch_size_like_op.cc."""
-    z = draw(ins, attrs, _batch_shape(ins, attrs), prng.normal,
+    z = draw(ins, attrs, batch_size_like_shape(ins, attrs), prng.normal,
              first(ins, "Input").device)
     return {"Out": [mean_std(z, attrs)]}
 
@@ -148,3 +143,84 @@ def _distributed_push_sparse(ins, attrs):
     if ctx is not None:
         ctx.stats["push_seconds"] += time.perf_counter() - t0
     return {}
+
+
+# -- M12a: the common ops of the JAX package's ``ops/misc_extra.py`` ---------
+
+
+@register_op("fill_any_like")
+def _fill_any_like(ins, attrs):
+    """reference: paddle/fluid/operators/fill_any_like_op.cc."""
+    return {"Out": [torch.full_like(first(ins, "X"), attrs.get("value", 0.0))]}
+
+
+def _bool_reduce(ins, attrs, fn):
+    x = first(ins, "X").to(torch.bool)
+    if attrs.get("reduce_all", False):
+        return fn(x)
+    dims = reduce_axes(attrs, x.dim())
+    return fn(x, dim=dims, keepdim=attrs.get("keep_dim", False))
+
+
+@register_op("reduce_all", nondiff_inputs=("X",))
+def _reduce_all(ins, attrs):
+    """reference: paddle/fluid/operators/reduce_ops/reduce_all_op.cc; with
+    ``reduce_all`` a 0-d bool, as in the JAX package."""
+    return {"Out": [_bool_reduce(ins, attrs, torch.all)]}
+
+
+@register_op("reduce_any", nondiff_inputs=("X",))
+def _reduce_any(ins, attrs):
+    return {"Out": [_bool_reduce(ins, attrs, torch.any)]}
+
+
+def _v1(name, v2):
+    """The v1 op ``name``: ``v2``'s lowering without its XShape
+    (reference: paddle/fluid/operators/squeeze_op.cc, flatten_op.cc,
+    unsqueeze_op.cc)."""
+    @register_op(name)
+    def _lower(ins, attrs):
+        return {"Out": get_op_def(v2).lower(ins, attrs)["Out"]}
+
+
+_v1("squeeze", "squeeze2")
+_v1("flatten", "flatten2")
+_v1("unsqueeze", "unsqueeze2")
+
+
+def _unique(x, attrs, counts):
+    """``jnp.unique(x, size=len(x), fill_value=x[-1])`` of flattened X:
+    the sorted uniques first, the tail filled with X's LAST ELEMENT; the
+    index of each element's unique; the counts, 0 in the tail. Index and
+    counts in the ``dtype`` attribute (int32 by default). The number of
+    uniques depends on the data: on the card the call syncs with the
+    host."""
+    x = x.reshape(-1)
+    it = to_torch_dtype(attrs.get("dtype", "int32"))
+    if x.is_meta:   # shape inference: every output keeps X's length
+        out = {"Out": [torch.empty_like(x)],
+               "Index": [torch.empty_like(x, dtype=it)]}
+        if counts:
+            out["Count"] = [torch.empty_like(x, dtype=it)]
+        return out
+    uniq, inverse, count = torch.unique(x, sorted=True, return_inverse=True,
+                                        return_counts=True)
+    tail = x.shape[0] - uniq.shape[0]
+    out = {"Out": [torch.cat([uniq, x[-1:].expand(tail)])],
+           "Index": [inverse.to(it)]}
+    if counts:
+        out["Count"] = [torch.cat([count, count.new_zeros(tail)]).to(it)]
+    return out
+
+
+@register_op("unique", nondiff_inputs=("X",))
+def _unique_op(ins, attrs):
+    """reference: paddle/fluid/operators/unique_op.h, in the JAX package's
+    static-shape form (``_unique``)."""
+    return _unique(first(ins, "X"), attrs, counts=False)
+
+
+@register_op("unique_with_counts", nondiff_inputs=("X",))
+def _unique_with_counts(ins, attrs):
+    """reference: paddle/fluid/operators/unique_with_counts_op.h."""
+    return _unique(first(ins, "X"), attrs, counts=True)

@@ -27,8 +27,8 @@ from paddle_tpu_torch.kernels import flash_attention as flash
 from paddle_tpu_torch.kernels import random as random_kernels
 from paddle_tpu_torch.kernels import registry as kernel_registry
 from paddle_tpu_torch.ops.common import (
-    SettingGuard, first, maybe, normalize_padding, rng_counter_base,
-    segment_sum, seeded_rng_key)
+    SettingGuard, first, jnp_clip, maybe, normalize_padding, rng_counter_base,
+    scalar_like, segment_sum, seeded_rng_key, unary_op)
 
 
 @register_op("relu")
@@ -51,6 +51,41 @@ def _gelu(ins, attrs):
     approximate = "tanh" if attrs.get("approximate", False) else "none"
     return {"Out": [torch.nn.functional.gelu(first(ins, "X"),
                                              approximate=approximate)]}
+
+
+def _softplus(x):
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``, with no beta or
+    threshold (``F.softplus`` turns linear above its threshold)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _elu(x, alpha):
+    """``jax.nn.elu``: the ``expm1`` branch sees no positive value, and
+    ``x == 0`` takes it (grad ``alpha`` there)."""
+    pos = x > 0
+    return torch.where(pos, x, alpha * torch.expm1(
+        torch.where(pos, torch.zeros_like(x), x)))
+
+
+# M12a's activations, each the JAX lowering's formula, so that the grads
+# agree at the kinks too: ``leaky_relu`` is ``where(x >= 0, ...)`` (grad 1
+# at 0), ``relu6`` a ``minimum`` (a tie at the threshold splits the grad),
+# ``hard_sigmoid`` and ``hard_swish`` clips (``jnp_clip``)
+unary_op("relu6", lambda x, a: torch.minimum(
+    torch.relu(x), scalar_like(a.get("threshold", 6.0), x)))
+unary_op("leaky_relu", lambda x, a: torch.where(
+    x >= 0, x, a.get("alpha", 0.02) * x))
+unary_op("elu", lambda x, a: _elu(x, a.get("alpha", 1.0)))
+unary_op("softplus", lambda x, a: _softplus(x))
+unary_op("softsign", lambda x, a: x / (torch.abs(x) + 1))
+unary_op("silu", lambda x, a: x * torch.sigmoid(x))
+unary_op("swish", lambda x, a: x * torch.sigmoid(a.get("beta", 1.0) * x))
+unary_op("hard_sigmoid", lambda x, a: jnp_clip(
+    a.get("slope", 0.2) * x + a.get("offset", 0.5), 0.0, 1.0))
+unary_op("hard_swish", lambda x, a: x * jnp_clip(
+    x + a.get("offset", 3.0), 0.0, a.get("threshold", 6.0))
+    / scalar_like(a.get("scale", 6.0), x))
+unary_op("mish", lambda x, a: x * torch.tanh(_softplus(x)))
 
 
 @register_op("softmax")
@@ -147,6 +182,26 @@ def _conv2d_grad(ins, attrs):
     ``torch.autograd.grad`` is called, after the forward's scope ends."""
     with FLOAT32_CONVS.on(first(ins, "Input")):
         return _conv2d_generic_grad(ins, attrs)
+
+
+@register_op("depthwise_conv2d")
+def _depthwise_conv2d(ins, attrs):
+    """``conv2d`` with ``groups`` = the input's channels (the JAX
+    package's form; cuDNN picks its depthwise algorithm)."""
+    x = first(ins, "Input")
+    nhwc = attrs.get("data_format", "NCHW") == "NHWC"
+    attrs = dict(attrs, groups=int(x.shape[-1] if nhwc else x.shape[1]))
+    return _conv2d(ins, attrs)
+
+
+_depthwise_generic_grad = make_generic_grad_lowering(
+    OpRegistry.get("depthwise_conv2d"))
+
+
+@register_grad("depthwise_conv2d")
+def _depthwise_conv2d_grad(ins, attrs):
+    with FLOAT32_CONVS.on(first(ins, "Input")):
+        return _depthwise_generic_grad(ins, attrs)
 
 
 def _window_sum(x, ksize, strides, pad):
@@ -329,6 +384,65 @@ def _cross_entropy(ins, attrs):
 @register_op("square_error_cost")
 def _square_error_cost(ins, attrs):
     return {"Out": [torch.square(first(ins, "X") - first(ins, "Y"))]}
+
+
+@register_op("huber_loss")
+def _huber_loss(ins, attrs):
+    """``0.5 d^2`` where ``|d| <= delta``, else ``delta (|d| - delta/2)``,
+    ``d = Y - X``; ``Residual`` is ``d``."""
+    x, y = first(ins, "X"), first(ins, "Y")
+    delta = attrs.get("delta", 1.0)
+    diff = y - x
+    absd = torch.abs(diff)
+    loss = torch.where(absd <= delta, 0.5 * torch.square(diff),
+                       delta * (absd - 0.5 * delta))
+    return {"Out": [loss], "Residual": [diff]}
+
+
+@register_op("smooth_l1_loss")
+def _smooth_l1_loss(ins, attrs):
+    """Per row: the sum over every other axis of ``0.5 sigma^2 d^2`` where
+    ``|d| < 1/sigma^2``, else ``|d| - 0.5/sigma^2``; ``Diff`` is
+    ``d = X - Y``."""
+    x, y = first(ins, "X"), first(ins, "Y")
+    sigma2 = attrs.get("sigma", 1.0) ** 2
+    diff = x - y
+    absd = torch.abs(diff)
+    loss = torch.where(absd < 1.0 / sigma2, 0.5 * sigma2 * torch.square(diff),
+                       absd - 0.5 / sigma2)
+    if x.dim() > 1:
+        loss = loss.sum(dim=tuple(range(1, x.dim())))
+    return {"Out": [loss.reshape(-1, 1)], "Diff": [diff]}
+
+
+@register_op("kldiv_loss")
+def _kldiv_loss(ins, attrs):
+    """``target * (log(max(target, 1e-10)) - X)``, reduced by
+    ``reduction``: ``mean``, ``sum``, ``batchmean`` (the sum over X's
+    rows) or ``none``."""
+    x, target = first(ins, "X"), first(ins, "Target")
+    loss = target * (torch.log(torch.maximum(
+        target, scalar_like(1e-10, target))) - x)
+    reduction = attrs.get("reduction", "mean")
+    if reduction == "mean":
+        loss = loss.mean().reshape((1,))
+    elif reduction == "sum":
+        loss = loss.sum().reshape((1,))
+    elif reduction == "batchmean":
+        loss = (loss.sum() / scalar_like(x.shape[0], loss)).reshape((1,))
+    return {"Loss": [loss]}
+
+
+@register_op("one_hot", nondiff_inputs=("X",))
+def _one_hot(ins, attrs):
+    """float32 rows of ``depth``; an id outside ``[0, depth)`` gives a row
+    of zeros, as ``jax.nn.one_hot`` does (``F.one_hot`` raises)."""
+    x = first(ins, "X")
+    if x.dim() >= 2 and x.shape[-1] == 1:
+        x = x[..., 0]
+    depth = int(attrs.get("depth"))
+    classes = torch.arange(depth, device=x.device)
+    return {"Out": [(x.unsqueeze(-1) == classes).to(torch.float32)]}
 
 
 @register_op("accuracy", nondiff_inputs=("Out", "Indices", "Label"))

@@ -3,7 +3,9 @@ with the semantics of the JAX package's ``ops/tensor.py``."""
 
 import math
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from paddle_tpu_torch.core import prng
 from paddle_tpu_torch.core.dtypes import to_torch_dtype
@@ -12,6 +14,7 @@ from paddle_tpu_torch.kernels import random as random_kernels
 from paddle_tpu_torch.kernels import registry as kernel_registry
 from paddle_tpu_torch.ops.common import (
     first, maybe, rng_counter_base, seeded_rng_key, xshape)
+from paddle_tpu_torch.utils.enforce import EnforceError
 
 
 @register_op("fill_constant", creates=True)
@@ -186,6 +189,257 @@ def _scatter(ins, attrs):
     else:
         out.index_add_(0, ids, updates.to(out.dtype))
     return {"Out": [out]}
+
+
+# -- M12a: creation, shape and indexing -------------------------------------
+#
+# Index tensors are int64 (the JAX package's int32 values). Where a sum
+# over duplicate indices happens (``scatter_nd_add``, and the autograd
+# grads of ``gather_nd`` and ``index_select``), it goes through advanced
+# indexing, whose accumulating ``index_put_`` sorts the indices and sums
+# each run in one fixed order on CUDA: the same bits on every run, where
+# ``index_add_``'s atomics add in an order that varies. The grads of
+# ``expand``, ``expand_as`` and ``tile`` are reductions, which are
+# run-to-run stable on the card too.
+
+
+def batch_size_like_shape(ins, attrs):
+    """The declared ``shape`` with its ``output_dim_idx`` dimension taken
+    from ``Input``'s ``input_dim_idx`` one (the ``*_batch_size_like``
+    ops)."""
+    shape = [int(d) for d in attrs["shape"]]
+    shape[attrs.get("output_dim_idx", 0)] = int(
+        first(ins, "Input").shape[attrs.get("input_dim_idx", 0)])
+    return tuple(shape)
+
+
+@register_op("fill_constant_batch_size_like")
+def _fill_constant_bsl(ins, attrs):
+    x = first(ins, "Input")
+    return {"Out": [torch.full(
+        batch_size_like_shape(ins, attrs), attrs.get("value", 0.0),
+        dtype=to_torch_dtype(attrs.get("dtype", "float32")), device=x.device)]}
+
+
+def _host_scalar(t):
+    """A 1-element tensor's value, read on the host (a device sync for a
+    tensor on the card)."""
+    return t.reshape(()).item()
+
+
+@register_op("range", nondiff_inputs=("Start", "End", "Step"))
+def _range(ins, attrs):
+    """``jnp.arange(start, end, step)`` in float32 (float64 for float64
+    bounds), cast to Start's dtype; the bounds are read on the host, so
+    the output's length is known there."""
+    start, end, step = first(ins, "Start"), first(ins, "End"), first(ins, "Step")
+    wide = np.float64 if start.dtype == torch.float64 else np.float32
+    values = np.arange(float(_host_scalar(start)), float(_host_scalar(end)),
+                       float(_host_scalar(step)), dtype=wide)
+    return {"Out": [torch.from_numpy(values).to(start.device, start.dtype)]}
+
+
+@register_op("linspace")
+def _linspace(ins, attrs):
+    """``jnp.linspace(start, stop, num)``, float32; the bounds and the
+    count are read on the host."""
+    start, stop, num = first(ins, "Start"), first(ins, "Stop"), first(ins, "Num")
+    return {"Out": [torch.linspace(
+        float(_host_scalar(start)), float(_host_scalar(stop)),
+        int(_host_scalar(num)), dtype=torch.float32, device=start.device)]}
+
+
+@register_op("eye", creates=True)
+def _eye(ins, attrs):
+    rows = attrs["num_rows"]
+    cols = attrs.get("num_columns")
+    return {"Out": [torch.eye(
+        rows, rows if cols is None else cols,
+        dtype=to_torch_dtype(attrs.get("dtype", "float32")),
+        device=first(ins, "__device__"))]}
+
+
+@register_op("transpose")
+def _transpose(ins, attrs):
+    """``transpose2`` without its ``XShape``."""
+    return {"Out": _transpose2(ins, attrs)["Out"]}
+
+
+@register_op("flatten2")
+def _flatten2(ins, attrs):
+    """X as a matrix: the axes before ``axis`` make its rows."""
+    x = first(ins, "X")
+    axis = attrs.get("axis", 1)
+    lead = math.prod(x.shape[:axis]) if axis else 1
+    return {"Out": [x.reshape(lead, -1)], "XShape": [xshape(x)]}
+
+
+@register_op("split")
+def _split(ins, attrs):
+    """``sections`` sizes (the last may be -1) or ``num`` equal parts
+    along ``axis``, split where ``jnp.split`` splits."""
+    x = first(ins, "X")
+    axis = attrs.get("axis", 0)
+    sections = attrs.get("sections", [])
+    if sections:
+        cuts = np.cumsum(sections[:-1]).tolist()
+    else:
+        num = attrs.get("num", 0)
+        if not num or x.shape[axis] % num:
+            raise EnforceError(
+                f"split: axis {axis} of size {x.shape[axis]} does not "
+                f"divide into {num} equal parts")
+        step = x.shape[axis] // num
+        cuts = [step * i for i in range(1, num)]
+    return {"Out": list(torch.tensor_split(x, [int(c) for c in cuts],
+                                           dim=axis))}
+
+
+@register_op("stack")
+def _stack(ins, attrs):
+    return {"Y": [torch.stack(ins["X"], dim=attrs.get("axis", 0))]}
+
+
+@register_op("unstack")
+def _unstack(ins, attrs):
+    return {"Y": list(torch.unbind(first(ins, "X"), dim=attrs.get("axis", 0)))}
+
+
+def _strided(x, axis, start, end, step):
+    """``x[start:end:step]`` along ``axis`` with Python's slice rules,
+    negative steps too (torch slices take none: those flip first)."""
+    dim = x.shape[axis]
+    picked = range(*slice(start, end, step).indices(dim))
+    idx = [slice(None)] * x.dim()
+    if step > 0:
+        idx[axis] = slice(picked.start, picked.stop, step)
+        return x[tuple(idx)]
+    if not len(picked):
+        idx[axis] = slice(0, 0)
+        return x[tuple(idx)]
+    first_at = dim - 1 - picked[0]
+    idx[axis] = slice(first_at, first_at + (len(picked) - 1) * -step + 1, -step)
+    return torch.flip(x, (axis,))[tuple(idx)]
+
+
+@register_op("strided_slice")
+def _strided_slice(ins, attrs):
+    x = first(ins, "Input")
+    for a, s, e, st in zip(attrs["axes"], attrs["starts"], attrs["ends"],
+                           attrs["strides"]):
+        x = _strided(x, a, s, e, st)
+    return {"Out": [x]}
+
+
+@register_op("expand")
+def _expand(ins, attrs):
+    """``jnp.tile(x, expand_times)``."""
+    return {"Out": [torch.tile(first(ins, "X"),
+                               tuple(attrs.get("expand_times")))]}
+
+
+@register_op("expand_as")
+def _expand_as(ins, attrs):
+    return {"Out": [torch.broadcast_to(
+        first(ins, "X"), tuple(first(ins, "target_tensor").shape))]}
+
+
+@register_op("tile")
+def _tile(ins, attrs):
+    return {"Out": [torch.tile(first(ins, "X"), tuple(attrs["repeat_times"]))]}
+
+
+def _nd_index(index):
+    """``tuple(moveaxis(index, -1, 0))``: one int64 index tensor a leading
+    axis of X."""
+    return tuple(index.to(torch.int64).unbind(-1))
+
+
+@register_op("gather_nd", nondiff_inputs=("Index",))
+def _gather_nd(ins, attrs):
+    """``X[index[..., 0], index[..., 1], ...]``. Indices must lie in X
+    (torch raises on one outside; the JAX package clamps)."""
+    return {"Out": [first(ins, "X")[_nd_index(first(ins, "Index"))]]}
+
+
+@register_op("scatter_nd_add", nondiff_inputs=("Index",))
+def _scatter_nd_add(ins, attrs):
+    """X with ``Updates`` added at the rows ``Index`` names, duplicates
+    summed (sorted and in one order on the card)."""
+    x, index, updates = first(ins, "X"), first(ins, "Index"), first(ins, "Updates")
+    return {"Out": [x.index_put(_nd_index(index), updates.to(x.dtype),
+                                accumulate=True)]}
+
+
+@register_op("index_select", nondiff_inputs=("Index",))
+def _index_select(ins, attrs):
+    """``jnp.take(x, index, axis=dim)``."""
+    x, index = first(ins, "X"), first(ins, "Index")
+    dim = attrs.get("dim", 0) % x.dim()
+    return {"Out": [x[(slice(None),) * dim + (index.to(torch.int64),)]]}
+
+
+@register_op("flip")
+def _flip(ins, attrs):
+    return {"Out": [torch.flip(first(ins, "X"), tuple(attrs["axis"]))]}
+
+
+@register_op("roll")
+def _roll(ins, attrs):
+    return {"Out": [torch.roll(first(ins, "X"), tuple(attrs["shifts"]),
+                               tuple(attrs.get("axis", [0])))]}
+
+
+@register_op("pad")
+def _pad(ins, attrs):
+    """Constant padding, ``paddings`` = ``[lo0, hi0, lo1, hi1, ...]`` over
+    every axis."""
+    x = first(ins, "X")
+    p = attrs["paddings"]
+    pads = [v for i in reversed(range(x.dim())) for v in (p[2 * i], p[2 * i + 1])]
+    return {"Out": [F.pad(x, pads, value=attrs.get("pad_value", 0.0))]}
+
+
+@register_op("pad2d")
+def _pad2d(ins, attrs):
+    """NCHW H and W padding, ``paddings`` = ``[top, bottom, left,
+    right]``: ``constant``, ``reflect`` or ``edge``."""
+    x = first(ins, "X")
+    top, bottom, left, right = attrs["paddings"]
+    mode = attrs.get("mode", "constant")
+    pads = (left, right, top, bottom)
+    if mode == "constant":
+        return {"Out": [F.pad(x, pads, value=attrs.get("pad_value", 0.0))]}
+    return {"Out": [F.pad(x, pads, mode={"reflect": "reflect",
+                                         "edge": "replicate"}[mode])]}
+
+
+@register_op("shape", nondiff_inputs=("Input",))
+def _shape_op(ins, attrs):
+    """X's shape, int32."""
+    x = first(ins, "Input")
+    return {"Out": [torch.tensor(tuple(x.shape), dtype=torch.int32).to(
+        x.device)]}
+
+
+@register_op("where_index", nondiff_inputs=("Condition",))
+def _where_index(ins, attrs):
+    """The ``[n, rank]`` int64 coordinates of Condition's true elements,
+    in row-major order. ``n`` depends on the data: on the card the call
+    syncs with the host."""
+    return {"Out": [torch.nonzero(first(ins, "Condition"))]}
+
+
+@register_op("isfinite", nondiff_inputs=("X",))
+def _isfinite(ins, attrs):
+    """One bool, ``[1]``: every element of X finite (reference:
+    paddle/fluid/operators/isfinite_op.cc)."""
+    return {"Out": [torch.isfinite(first(ins, "X")).all().reshape((1,))]}
+
+
+@register_op("isfinite_v2", nondiff_inputs=("X",))
+def _isfinite_v2(ins, attrs):
+    return {"Out": [torch.isfinite(first(ins, "X"))]}
 
 
 # -- random (stateful) -------------------------------------------------------

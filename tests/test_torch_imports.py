@@ -60,19 +60,25 @@ import paddle_tpu_torch.kernels.sparse_update
 import paddle_tpu_torch.kernels.topk
 import paddle_tpu_torch.layers.collective
 import paddle_tpu_torch.layers.control_flow
+import paddle_tpu_torch.layers.extra3
+import paddle_tpu_torch.layers.extras
+import paddle_tpu_torch.layers.nn_extra
 import paddle_tpu_torch.layers.pipeline
 import paddle_tpu_torch.models.bert
 import paddle_tpu_torch.models.ctr
 import paddle_tpu_torch.models.gpt_ir
 import paddle_tpu_torch.models.mnist
+import paddle_tpu_torch.models.mobilenet
 import paddle_tpu_torch.models.resnet
 import paddle_tpu_torch.models.transformer
 import paddle_tpu_torch.models.wide_deep
 import paddle_tpu_torch.observability.lockdep
 import paddle_tpu_torch.observability.metrics
 import paddle_tpu_torch.ops.control_flow
+import paddle_tpu_torch.ops.extras
 import paddle_tpu_torch.ops.fused
 import paddle_tpu_torch.ops.misc_extra
+import paddle_tpu_torch.ops.nn_extra
 import paddle_tpu_torch.ops.pipeline
 import paddle_tpu_torch.ops.sharded_embedding
 import paddle_tpu_torch.optimizer

@@ -118,6 +118,10 @@ def test_cases_cover_every_ported_op_type():
     from test_torch_conv import CASES as CONV_CASES
     from test_torch_ctr import CASES as CTR_CASES
     from test_torch_hybrid import CASES as HYBRID_CASES
+    from test_torch_ops_m12a_math import CASES as M12A_MATH_CASES
+    from test_torch_ops_m12a_nn import CASES as M12A_NN_CASES
+    from test_torch_ops_m12a_nn_extra import CASES as M12A_NN_EXTRA_CASES
+    from test_torch_ops_m12a_tensor import CASES as M12A_TENSOR_CASES
     from test_torch_ps_ctr import CASES as PS_CASES
     from test_torch_random import CASES as RANDOM_CASES
     from test_torch_train_ops import CASES as TRAIN_CASES
@@ -126,6 +130,8 @@ def test_cases_cover_every_ported_op_type():
     assert sorted(set(CASES) | set(TRAIN_CASES) | set(CTR_CASES)
                   | set(PS_CASES) | set(DGC_CASES) | set(RANDOM_CASES)
                   | set(CONV_CASES) | set(AMP_CASES) | set(HYBRID_CASES)
+                  | set(M12A_MATH_CASES) | set(M12A_NN_CASES)
+                  | set(M12A_NN_EXTRA_CASES) | set(M12A_TENSOR_CASES)
                   | {op for op, _, _ in CONTROL_FLOW_CASES.values()}
                   ) == TorchOps.all_types()
 
