@@ -568,6 +568,25 @@ Phases:
    FLOP/s; 1 profiled step (idle share, top ops and kernels); the loss
    finite and below its peak; the ``for_test`` clone's softmax rows sum
    to 1.
+18. Remat and the optimizer surface (M8, M1b). 18a: the 12 update ops
+   (``adamw`` ... ``model_average_update``), ``clip_by_norm``,
+   ``squared_l2_norm`` and ``norm`` once each on BERT-base's parameter
+   shapes (``word_embedding`` [30522, 768], an ``ffn1`` weight [768,
+   3072], a bias [3072], a LayerNorm scale [768]), card against the host's
+   CPU, each output's largest error over its largest value within
+   ``P18_TOL``; ``dpsgd``'s noise bits through K8 (at the ``ffn1``
+   weight's shape) held to the CPU's threefry bits exactly. 18b: BERT-base (phase 5's recipe: flash, hidden
+   dropout 0.1, batch 32, seq 128, P 20) with LAMB (weight decay 0.01 but
+   LayerNorm and bias), ``linear_lr_warmup(polynomial_decay(...))`` past
+   its warm-up and ``GradientClipByGlobalNorm(1.0)``, one startup, then 4
+   steps (a warm-up, 2 timed, 1 profiled) each with no recompute and under
+   ``RecomputeOptimizer`` at the 12 encoder layers' outputs with the
+   ``full``, ``dots`` and ``save_all`` policies, from the same state: the
+   losses bit-equal across the policies (and how each compares with no
+   recompute), K1/K2a/K2b/K8 launches a step equal to the program's sites
+   (forward, replayed, grad reruns), peak memory ordered ``full`` <
+   ``dots`` <= ``save_all`` with ``full``'s saving beside the bytes of the
+   ``save_all`` names, step p50 and idle share of each run.
 
 The last lines are the card's name and power limit, one JSON line of
 per-kernel results, and ``{"ok": true, "device": {...}}``.
@@ -8343,7 +8362,402 @@ def phase_m12a():
     return launches
 
 
-PHASES = tuple(str(n) for n in range(1, 18))
+# -- phase 18: remat (M8) and the optimizer surface (M1b) -----------------
+
+P18_SHAPES = (("word_embedding", (30522, 768)), ("ffn1.w", (768, 3072)),
+              ("ffn1.b", (3072,)), ("ln.scale", (768,)))
+P18_UPDATE_OPS = ("adamw", "adagrad", "rmsprop", "adamax", "adadelta",
+                  "decayed_adagrad", "ftrl", "lamb", "lars_momentum",
+                  "dpsgd", "ema_update", "model_average_update")
+P18_NORM_OPS = ("clip_by_norm", "squared_l2_norm", "norm")
+# each output's largest error over its largest value, card against the
+# CPU: float32 elementwise work agrees to an ulp or two; the norms sum up
+# to 23.4M squares in another order (17a's bar)
+P18_TOL = 1e-5
+P18_POLICIES = (None, "full", "dots", "save_all")
+# a warm-up step, 2 timed, 1 profiled; LAMB at lr 1e-3 (decay over 10^5
+# steps, the warm-up's 10^4 behind the counter)
+P18_STEPS, P18_TIMED = 4, (1, 2)
+P18_LR, P18_WARMUP, P18_DECAY = 1e-3, 10000, 100000
+P18_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
+               "flash_attention_bwd_dq", "threefry_dropout")
+
+
+def _p18_base(shape, rng):
+    """The arrays every 18a op at a parameter of ``shape`` draws from (one
+    draw each, float32 from the generator ``rng``)."""
+    def a(scale):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+
+    def pos(scale):
+        return np.abs(a(scale)) + np.float32(1e-8)
+
+    return {"p": a(0.05), "g": a(0.01), "m3": a(1e-3), "m4": a(1e-4),
+            "s": a(0.5), "v2": pos(1e-2), "v4": pos(1e-4), "v5": pos(1e-5),
+            "v6": pos(1e-6)}
+
+
+def _p18_inputs(op, b):
+    """(inputs, attrs) of update or norm op ``op`` over the arrays ``b``
+    (``_p18_base``)."""
+    def one(v):
+        return np.array([v], np.float32)
+
+    p, g, lr = b["p"], b["g"], one(1e-3)
+    adam = {"Param": [p], "Grad": [g], "Moment1": [b["m3"]],
+            "Moment2": [b["v5"]], "Beta1Pow": [one(0.9 ** 5)],
+            "Beta2Pow": [one(0.999 ** 5)], "LearningRate": [lr]}
+    adam_attrs = {"beta1": 0.9, "beta2": 0.999}
+    if op == "adamw":
+        return adam, dict(adam_attrs, epsilon=1e-8, coeff=0.01)
+    if op == "lamb":
+        return adam, dict(adam_attrs, epsilon=1e-6, weight_decay=0.01)
+    if op in ("adagrad", "decayed_adagrad"):
+        return ({"Param": [p], "Grad": [g], "Moment": [b["v4"]],
+                 "LearningRate": [lr]},
+                {"epsilon": 1e-6} if op == "adagrad"
+                else {"decay": 0.95, "epsilon": 1e-6})
+    if op == "rmsprop":
+        return ({"Param": [p], "Grad": [g], "Moment": [b["m4"]],
+                 "MeanSquare": [b["v4"]], "MeanGrad": [b["m3"]],
+                 "LearningRate": [lr]},
+                {"decay": 0.95, "epsilon": 1e-6, "momentum": 0.9,
+                 "centered": True})
+    if op == "adamax":
+        return ({"Param": [p], "Grad": [g], "Moment": [b["m3"]],
+                 "InfNorm": [b["v2"]], "Beta1Pow": [one(0.9 ** 5)],
+                 "LearningRate": [lr]},
+                dict(adam_attrs, epsilon=1e-8))
+    if op == "adadelta":
+        return ({"Param": [p], "Grad": [g], "AvgSquaredGrad": [b["v4"]],
+                 "AvgSquaredUpdate": [b["v6"]]},
+                {"epsilon": 1e-6, "rho": 0.95})
+    if op == "ftrl":
+        return ({"Param": [p], "Grad": [g], "SquaredAccumulator": [b["v4"]],
+                 "LinearAccumulator": [b["m3"]], "LearningRate": [lr]},
+                {"l1": 1e-4, "l2": 1e-4, "lr_power": -0.5})
+    if op == "lars_momentum":
+        return ({"Param": [p], "Grad": [g], "Velocity": [b["m4"]],
+                 "LearningRate": [lr]},
+                {"mu": 0.9, "lars_coeff": 0.001,
+                 "lars_weight_decay": 0.0005, "epsilon": 0.0})
+    if op == "dpsgd":
+        return ({"Param": [p], "Grad": [g], "LearningRate": [lr]},
+                {"clip": 1.0, "batch_size": 32.0, "sigma": 1.0})
+    if op == "ema_update":
+        return {"Param": [p], "Shadow": [b["s"]]}, {"decay": 0.999}
+    if op == "model_average_update":
+        return ({"Param": [p], "Sum": [b["s"]],
+                 "Count": [np.array([10.0, 80.0], np.float32)]},
+                {"rate": 0.15, "min_window": 5.0, "max_window": 10.0})
+    if op == "clip_by_norm":
+        return {"X": [g]}, {"max_norm": 1.0}
+    if op == "squared_l2_norm":
+        return {"X": [g]}, {}
+    return {"X": [p]}, {"axis": -1, "epsilon": 1e-10}       # norm
+
+
+def _p18_run(op_def, ins, attrs, device, key):
+    """``op_def``'s lowering on ``device`` (its kernel lowering: K8 for
+    ``dpsgd`` on the card), the outputs as CPU tensors."""
+    import torch
+
+    tins = {k: [(torch.from_numpy(v) if isinstance(v, np.ndarray)
+                 else v).to(device) for v in vals]
+            for k, vals in ins.items()}
+    if op_def.stateful:
+        tins["__rng_key__"] = [key]
+    out = op_def.lowering()(tins, dict(attrs))
+    return {k: [t.detach().cpu() for t in v] for k, v in out.items()}
+
+
+def _p18_ops():
+    """18a: every update and norm op on each of ``P18_SHAPES``, card
+    against the host's CPU; ``dpsgd``'s bits (K8) against the CPU's
+    threefry bits. Returns the failures and K8's launches in 18a."""
+    import torch
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core import prng
+    from paddle_tpu_torch.core.registry import get_op_def
+    from paddle_tpu_torch.kernels import random as random_kernels
+
+    rng = np.random.default_rng(SEED + 180)
+    # the arrays once a shape, on the host and (copied once) on the card
+    bases = {name: {k: torch.from_numpy(v) for k, v in
+                    _p18_base(shape, rng).items()}
+             for name, shape in P18_SHAPES}
+    cards = {name: {k: v.cuda() for k, v in b.items()}
+             for name, b in bases.items()}
+    errs, failures = {}, []
+    kernels.reset_launches()
+    for i, op in enumerate(P18_UPDATE_OPS + P18_NORM_OPS):
+        op_def = get_op_def(op)
+        for name, shape in P18_SHAPES:
+            key = prng.fold_in(prng.prng_key(SEED), i)
+            card = _p18_run(op_def, *_p18_inputs(op, cards[name]), "cuda",
+                            key)
+            cpu = _p18_run(op_def, *_p18_inputs(op, bases[name]), "cpu",
+                           key)
+            err, wrong = _p17_errors(card, cpu)
+            errs[(op, name)] = err
+            if wrong or not err <= P18_TOL:
+                failures.append(f"{op} at {name} {shape}: rel {err:.3e}, "
+                                f"{wrong} elements non-finite on one side")
+    dpsgd_launches = kernels.launches()["threefry_random_bits"]
+    want = len(P18_SHAPES)
+    if dpsgd_launches != want:
+        failures.append(f"dpsgd drew through K8 {dpsgd_launches} times, "
+                        f"want {want}")
+    # its bits, K8 against the CPU's threefry, at the ffn1 weight's shape
+    n = int(np.prod(P18_SHAPES[1][1]))
+    key = prng.fold_in(prng.prng_key(SEED), P18_UPDATE_OPS.index("dpsgd"))
+    bits_equal = torch.equal(
+        random_kernels.random_bits(key, n, torch.device("cuda")).cpu(),
+        random_kernels.random_bits_plain(key, n, torch.device("cpu")))
+    if not bits_equal:
+        failures.append("dpsgd's K8 bits differ from the CPU's threefry")
+    by_op = {op: max(e for (o, _), e in errs.items() if o == op)
+             for op in P18_UPDATE_OPS + P18_NORM_OPS}
+    worst = max(by_op, key=by_op.get)
+    log(f"[remat] 18a: {len(by_op)} ops x {len(P18_SHAPES)} shapes "
+        f"{[s for _, s in P18_SHAPES]}, card against the host's CPU: worst "
+        f"{worst} {by_op[worst]:.3e} of the output's largest value (bar "
+        f"{P18_TOL}); dpsgd's noise drew {dpsgd_launches} times through K8, "
+        f"its {n} bits {'bit-equal to' if bits_equal else 'DIFFER from'} "
+        f"the CPU's threefry")
+    log(f"[remat] 18a errors by op "
+        f"{ {k: float(f'{v:.2e}') for k, v in by_op.items()} }")
+    return failures, dpsgd_launches
+
+
+class _BackwardStartTap:
+    """Within the block, the card's allocated bytes when each step's
+    backward starts: the loss grad's ``fill_constant`` (the first op of
+    ``op_role`` 1) is wrapped, so the executor's plan calls the wrapper.
+    What the forward left alive for the backward, read on the host (no
+    sync)."""
+
+    def __enter__(self):
+        import torch
+
+        from paddle_tpu_torch.core.registry import get_op_def
+
+        self._op = get_op_def("fill_constant")
+        self._inner = self._op.lower
+        self.samples = []
+
+        def tapped(ins, attrs):
+            if attrs.get("op_role") == 1:
+                self.samples.append(torch.cuda.memory_allocated())
+            return self._inner(ins, attrs)
+
+        self._op.lower = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self._op.lower = self._inner
+
+
+def _p18_no_decay(param):
+    """LAMB's exclusion: LayerNorm scales and biases, and every bias."""
+    return "ln" in param.name or param.name.endswith((".b", ".b_0"))
+
+
+def _p18_program(fluid, bert, cfg, unique_name, policy):
+    """BERT-base pretraining with LAMB, the warm-up into polynomial decay
+    and the global-norm clip, under ``RecomputeOptimizer(policy)`` at the
+    encoder layers' outputs (None: no recompute)."""
+    sched = fluid.layers.learning_rate_scheduler
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = main.random_seed = SEED
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        _, fetches = bert.bert_pretrain_net(cfg, TRAIN_SEQ, TRAIN_P)
+        lr = sched.linear_lr_warmup(
+            sched.polynomial_decay(P18_LR, P18_DECAY, 0.0, 1.0),
+            P18_WARMUP, 0.0, P18_LR)
+        opt = fluid.optimizer.Lamb(
+            learning_rate=lr, lamb_weight_decay=0.01,
+            exclude_from_weight_decay_fn=_p18_no_decay,
+            grad_clip=fluid.clip.GradientClipByGlobalNorm(1.0))
+        if policy:
+            opt = fluid.optimizer.RecomputeOptimizer(opt, policy=policy)
+            opt._set_checkpoints(bert.encoder_checkpoints(main))
+        opt.minimize(fetches[0])
+    return main, startup, fetches[0]
+
+
+def _p18_sites(main):
+    """Per-step launches the program asks of K1, K2a, K2b and K8's
+    dropout: forward sites, replayed sites (the segments') and the flash
+    grad ops (each reruns its forward: K1, then K2a and K2b)."""
+    ops = main.global_block().ops
+    fwd = {t: sum(op.type == t for op in ops)
+           for t in ("scaled_dot_product_attention", "dropout")}
+    replay = {t: sum(e[0] == t for op in ops
+                     if op.type == "recompute_segment_grad"
+                     for e in op.attrs["__segment__"])
+              for t in ("scaled_dot_product_attention", "dropout")}
+    grads = sum(op.type == "scaled_dot_product_attention_grad" for op in ops)
+    sdpa = "scaled_dot_product_attention"
+    return {"flash_attention_fwd": fwd[sdpa] + replay[sdpa] + grads,
+            "flash_attention_bwd_dkdv": replay[sdpa] + grads,
+            "flash_attention_bwd_dq": replay[sdpa] + grads,
+            "threefry_dropout": fwd["dropout"] + replay["dropout"]}
+
+
+def _p18_saved_bytes(main, batch):
+    """Bytes of each policy's kept names over the program's segments (each
+    var's shape with the batch for -1, its dtype's width)."""
+    block = main.global_block()
+    out = {}
+    for op in block.ops:
+        if op.type != "recompute_segment_grad":
+            continue
+        for policy, names in op.attrs["__segment_saved_names__"].items():
+            for n in names:
+                v = block._find_var_recursive(n)
+                numel = int(np.prod([batch if d == -1 else d
+                                     for d in v.shape]))
+                width = 2 if v.dtype in ("bfloat16", "float16") else \
+                    8 if v.dtype in ("int64", "float64") else 4
+                out[policy] = out.get(policy, 0) + numel * width
+    return out
+
+
+def phase_remat():
+    """Phase 18: the optimizer surface's ops on the card (18a), then
+    BERT-base pretraining with LAMB, a global-norm clip and remat under no
+    recompute and three policies (18b)."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.convert import load_params, persistables_to_numpy
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.utils import unique_name
+
+    t_phase = time.perf_counter()
+    failures, _ = _p18_ops()
+    log(f"[remat] 18a {time.perf_counter() - t_phase:.1f}s")
+
+    cfg = bert.BertConfig.base()
+    cfg.use_flash_attention = True
+    cfg.hidden_dropout_prob = TRAIN_DROPOUT
+    cfg.attention_probs_dropout_prob = 0.0
+    batch = bert.synthetic_batch(np.random.RandomState(SEED), TRAIN_BATCH,
+                                 TRAIN_SEQ, cfg, TRAIN_P)
+    # one startup (K8's random_bits), its state loaded into every run
+    main, startup, loss = _p18_program(fluid, bert, cfg, unique_name, None)
+    scope = fluid.Scope()
+    kernels.reset_launches()
+    fluid.Executor().run(startup, scope=scope)
+    startup_launches = kernels.launches()
+    load_params(scope, {COUNTER: np.full([1], float(P18_WARMUP),
+                                         np.float32)})
+    state = persistables_to_numpy(scope, main)
+    del scope
+    runs, path = {}, {n: 0 for n in startup_launches}
+    for n, c in startup_launches.items():
+        path[n] += c
+    for policy in P18_POLICIES:
+        tag = policy or "none"
+        if policy:
+            main, _, loss = _p18_program(fluid, bert, cfg, unique_name,
+                                         policy)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        for name, a in state.items():
+            scope.set(name, torch.from_numpy(a).cuda())
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        kernels.reset_launches()
+        losses, seconds = [], []
+
+        def step():
+            out = exe.run(main, feed=batch, fetch_list=[loss], scope=scope)
+            return float(out[0].reshape(-1)[0])
+
+        with _BackwardStartTap() as tap:
+            for _ in range(P18_STEPS - 1):
+                t0 = time.perf_counter()
+                losses.append(step())
+                seconds.append(time.perf_counter() - t0)
+            _, busy_us, wall_us, last = _profile(f"[remat] 18b {tag}", step)
+        losses.append(last)
+        peak = torch.cuda.max_memory_allocated()
+        at_bwd = max(tap.samples) - held
+        launches = kernels.launches()
+        for n, c in launches.items():
+            path[n] += c
+        want = _p18_sites(main)
+        got = {n: launches[n] / P18_STEPS for n in P18_KERNELS}
+        if any(got[n] != want[n] for n in P18_KERNELS):
+            failures.append(f"{tag}: launches a step {got}, the program "
+                            f"asks {want}")
+        timed = [seconds[i] * 1e3 for i in P18_TIMED]
+        runs[policy] = dict(losses=losses, peak=peak, held=held,
+                            at_bwd=at_bwd,
+                            p50=float(np.median(timed)), busy=busy_us / 1e3,
+                            idle=1 - busy_us / wall_us,
+                            saved=_p18_saved_bytes(main, TRAIN_BATCH),
+                            ops=len(main.global_block().ops), launches=got)
+        r = runs[policy]
+        log(f"[remat] 18b {tag}: {r['ops']} ops; losses "
+            f"{[v.hex() for v in losses]} ({losses}); step p50 "
+            f"{r['p50']:.2f} ms (all {[round(t * 1e3, 2) for t in seconds]}"
+            f"), profiled step: device busy {r['busy']:.2f} ms, idle share "
+            f"{r['idle']:.4f}; memory peak {peak / 2**30:.3f} GiB "
+            f"({held / 2**30:.3f} GiB held before the steps, "
+            f"{at_bwd / 2**30:.3f} GiB more at the backward's start); "
+            f"launches a "
+            f"step {got} (the program's sites {want})")
+        del exe, scope
+    plain = runs[None]["losses"]
+    hexes = {p: [v.hex() for v in runs[p]["losses"]] for p in P18_POLICIES}
+    if not hexes["full"] == hexes["dots"] == hexes["save_all"]:
+        failures.append(f"losses differ across the policies: {hexes}")
+    if not all(np.isfinite(plain)) or plain[-1] == plain[0]:
+        failures.append(f"the losses did not move: {plain}")
+    same = {p: hexes[p] == hexes[None] for p in P18_POLICIES[1:]}
+    rel = {p: max(abs(a - b) / abs(b) for a, b in zip(runs[p]["losses"],
+                                                      plain))
+           for p in P18_POLICIES[1:]}
+    peaks = {p or "none": runs[p]["peak"] for p in P18_POLICIES}
+    if not peaks["full"] < peaks["dots"] <= peaks["save_all"]:
+        failures.append(f"peak memory not ordered full < dots <= save_all: "
+                        f"{peaks}")
+    saved = runs["full"]["saved"]
+    at_bwd = {p or "none": runs[p]["at_bwd"] for p in P18_POLICIES}
+    log(f"[remat] 18b: what the forward leaves for the backward (GiB above "
+        f"the state) { {k: round(v / 2**30, 3) for k, v in at_bwd.items()} }"
+        f"; save_all - full {(at_bwd['save_all'] - at_bwd['full']) / 2**30:.3f}"
+        f" GiB, save_all - dots "
+        f"{(at_bwd['save_all'] - at_bwd['dots']) / 2**30:.3f} GiB, against "
+        f"the names' bytes: save_all {saved.get('save_all', 0) / 2**30:.3f}, "
+        f"dots {saved.get('dots', 0) / 2**30:.3f} (views such as a "
+        f"reshape's output share their input's storage)")
+    log(f"[remat] 18b: losses bit-equal across full, dots and save_all: "
+        f"{hexes['full'] == hexes['dots'] == hexes['save_all']}; against no "
+        f"recompute bit-equal {same}, largest relative difference {rel}")
+    log(f"[remat] 18b memory peaks (GiB) "
+        f"{ {k: round(v / 2**30, 3) for k, v in peaks.items()} }; full "
+        f"saves {(peaks['save_all'] - peaks['full']) / 2**30:.3f} GiB against "
+        f"save_all, the save_all names hold "
+        f"{saved.get('save_all', 0) / 2**30:.3f} GiB (dots "
+        f"{saved.get('dots', 0) / 2**30:.3f}) at batch {TRAIN_BATCH}; "
+        f"step p50 (ms) { {p or 'none': round(runs[p]['p50'], 2) for p in P18_POLICIES} }, "
+        f"idle share { {p or 'none': round(runs[p]['idle'], 4) for p in P18_POLICIES} }")
+    log(f"[remat] phase 18 {time.perf_counter() - t_phase:.1f}s; launches "
+        f"on the path (the startup and the 4 runs) "
+        f"{ {n: c for n, c in path.items() if c} }")
+    if failures:
+        raise AssertionError("phase 18: " + "; ".join(failures))
+    return path
+
+
+PHASES = tuple(str(n) for n in range(1, 19))
 
 
 def parse_phases(argv):
@@ -8425,6 +8839,7 @@ def main(phases=frozenset(PHASES)):
                     else zero)
     p16_launches = timed("16", phase_hybrid) if "16" in phases else zero
     p17_launches = timed("17", phase_m12a) if "17" in phases else zero
+    p18_launches = timed("18", phase_remat) if "18" in phases else zero
     log(f"[done] paged_attention launches: phase 3 "
         f"{engine_launches['paged_attention']}, phase 3b {modes_launches}, "
         f"phase 3c {beam_launches}, phase 3d {overload_launches}")
@@ -8448,7 +8863,8 @@ def main(phases=frozenset(PHASES)):
     path_launches.update({n: (amp_launches[n] if n.endswith(("_bf16", "_f16"))
                               else train_launches[n] + ckpt_launches[n]
                               + dp_launches.get(n, 0)
-                              + p16_launches.get(n, 0))
+                              + p16_launches.get(n, 0)
+                              + p18_launches.get(n, 0))
                           + infer_launches.get(n, 0)
                           for n in KERNELS if n.startswith("flash_attention")})
     # K8: phase 5's startup (random_bits) and dropout sites, phase 5b's,
@@ -8469,6 +8885,7 @@ def main(phases=frozenset(PHASES)):
                           + p15_launches.get(n, 0)
                           + p16_launches.get(n, 0)
                           + p17_launches.get(n, 0)
+                          + p18_launches.get(n, 0)
                           for n in KERNELS if n.startswith("threefry")})
     log(f"[done] K8 launches: phase 5 "
         f"{ {n: train_launches[n] for n in path_launches if n.startswith('threefry')} }, "
@@ -8491,6 +8908,8 @@ def main(phases=frozenset(PHASES)):
         f"{ {n: c for n, c in p16_launches.items() if c} }")
     log(f"[done] phase 17 launches (the MobileNet startups and steps): "
         f"{ {n: c for n, c in p17_launches.items() if c} }")
+    log(f"[done] phase 18 launches (BERT-base's startup and its 4 runs): "
+        f"{ {n: c for n, c in p18_launches.items() if c} }")
     log(f"[done] phase 10 launches: "
         f"{ {n: c for n, c in ckpt_launches.items() if c} }; phase 11: "
         f"{ {n: c for n, c in infer_launches.items() if c} }")

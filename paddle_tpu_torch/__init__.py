@@ -54,6 +54,7 @@ from paddle_tpu_torch import io
 from paddle_tpu_torch import initializer
 from paddle_tpu_torch import optimizer
 from paddle_tpu_torch import regularizer
+from paddle_tpu_torch import clip
 from paddle_tpu_torch.param_attr import ParamAttr
 from paddle_tpu_torch import reader
 from paddle_tpu_torch.reader import DataLoader, PyReader

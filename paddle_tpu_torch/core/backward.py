@@ -18,6 +18,14 @@ Function's backward kernels. Eager PyTorch has no XLA to CSE the rerun
 forward against the forward pass, so each grad op recomputes its op's
 forward: the cost of a generic first slice.
 
+Recompute segments (``program._recompute_checkpoints``, set by
+``RecomputeOptimizer``): as in the JAX package, the relevant forward ops
+between two checkpoints collapse into one ``recompute_segment`` pseudo-op
+whose ``recompute_segment_grad`` replays them at backward time
+(``ops/recompute.py``); the per-op grad ops of the segment are not
+emitted. The pseudo-op itself is never appended: the forward ops run as
+they are.
+
 Grad op calling convention (desc-level):
   type:    f"{fwd_type}_grad"
   inputs:  every forward input slot, every forward output slot, plus
@@ -163,6 +171,135 @@ def _requires_grad_vars(block, ops, no_grad_set, extra_seeds=()):
     return requires
 
 
+def _is_float_var(block, name, default=True):
+    v = block._find_var_recursive(name)
+    if v is None or v.dtype is None:
+        return default
+    return "float" in str(v.dtype)
+
+
+#: op types that must not be folded into a recompute segment (they run
+#: sub-blocks or have host side effects)
+_NO_SEGMENT_OPS = {"while", "conditional_block", "recurrent", "print", "py_func"}
+
+
+def _make_segment_op(block, seg_ops, ckpt_set, loss_name, requires, readers):
+    """Collapse ``seg_ops`` (consecutive forward ops) into one pseudo
+    recompute_segment op; its grad op replays the segment at backward time
+    (ops/recompute.py). Only the segment's boundary values stay live
+    across fwd->bwd, and what the policy keeps (reference:
+    python/paddle/fluid/backward.py:618). ``readers`` maps name -> set of
+    reader op ids over the whole block (precomputed once so segmentation
+    stays linear in block size)."""
+    from paddle_tpu_torch.core.ir import Operator
+    from paddle_tpu_torch.kernels import remat as _remat
+
+    seg_ids = {id(o) for o in seg_ops}
+    in_names, inner_produced = [], set()
+    for o in seg_ops:
+        for n in o.input_names():
+            if n not in inner_produced and n not in in_names:
+                in_names.append(n)
+        inner_produced.update(o.output_names())
+
+    def read_outside(n):
+        return bool(readers.get(n, set()) - seg_ids)
+    out_names = []
+    for o in seg_ops:
+        for n in o.output_names():
+            if n in out_names:
+                continue
+            v = block._find_var_recursive(n)
+            if (
+                read_outside(n)
+                or n in ckpt_set
+                or n == loss_name
+                or (v is not None and v.persistable)
+            ):
+                out_names.append(n)
+    segment = [
+        (
+            o.type,
+            {k: list(v) for k, v in o.inputs.items()},
+            {k: list(v) for k, v in o.outputs.items()},
+            {k: v for k, v in o.attrs.items() if k != "op_callstack"},
+        )
+        for o in seg_ops
+    ]
+    # the policy rides in op attrs, with the NAME lists of what each
+    # policy keeps across fwd->bwd: the executor keeps the chosen
+    # policy's names alive for the grad op and drops every other interior
+    # value after its last forward reader (kernels/remat.py)
+    policy = _remat.validate_policy(
+        getattr(block.program, "_recompute_policy", None)
+        or _remat.DEFAULT_POLICY
+    )
+    out_set = set(out_names)
+    dots_saved, all_saved = [], []
+    for o in seg_ops:
+        for n in o.output_names():
+            if n in out_set:
+                continue           # boundary values are saved regardless
+            all_saved.append(n)
+            if o.type in _remat.DOT_OPS:
+                dots_saved.append(n)
+    attrs = {
+        "__segment__": segment,
+        "__in_names__": list(in_names),
+        "__out_names__": list(out_names),
+        "__diff_ins__": [
+            n for n in in_names if n in requires and _is_float_var(block, n)
+        ],
+        "__diff_outs__": [n for n in out_names if _is_float_var(block, n)],
+        "__remat_policy__": policy,
+        "__segment_saved_names__": {
+            "full": [], "dots": dots_saved, "dots_no_batch": dots_saved,
+            "save_all": all_saved,
+        },
+    }
+    return Operator(
+        block, "recompute_segment", {"X": in_names}, {"Out": out_names}, attrs
+    )
+
+
+def _collapse_segments(block, ops, checkpoints, loss_name, requires):
+    """Greedy segmentation of the relevant forward ops: a segment closes at
+    each op producing a checkpoint var; control-flow/side-effect ops stay
+    outside segments; 1-op segments aren't worth a replay."""
+    from paddle_tpu_torch.analysis.usedef import build_usedef
+
+    ckpt_set = set(checkpoints)
+    walk, cur = [], []
+    # control-flow-aware readers (analysis/usedef.py): a var read inside a
+    # while/cond body counts its control-flow op as a reader, so a segment
+    # producing it keeps it as a boundary output
+    readers = {
+        n: {id(c) for c in cons}
+        for n, cons in build_usedef(block).consumers.items()
+    }
+
+    def flush():
+        nonlocal cur
+        if len(cur) >= 2:
+            walk.append(
+                _make_segment_op(block, cur, ckpt_set, loss_name, requires, readers)
+            )
+        else:
+            walk.extend(cur)
+        cur = []
+
+    for op in ops:
+        if op.type in _NO_SEGMENT_OPS:
+            flush()
+            walk.append(op)
+            continue
+        cur.append(op)
+        if any(n in ckpt_set for n in op.output_names()):
+            flush()
+    flush()
+    return walk
+
+
 def _create_grad_var(block, fwd_name, grad_name):
     if grad_name in block.vars:
         return block.vars[grad_name]
@@ -182,15 +319,9 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
     ``[(param, grad)]`` (reference: python/paddle/fluid/backward.py:1139).
     ``extra_seeds`` names vars whose ``@GRAD`` is finalized too, as in the
     JAX package (``fleet/parameter_server.py`` seeds each PS table's rows
-    feed and each remote lookup's output).
-
-    Recompute segments (``program._recompute_checkpoints``) are not
-    ported yet (ROADMAP M8)."""
+    feed and each remote lookup's output)."""
     block = loss.block
     program = block.program
-    if getattr(program, "_recompute_checkpoints", None):
-        raise NotImplementedError(
-            "recompute segments are not ported yet (ROADMAP M8)")
     no_grad_set = set(no_grad_set or ())
     enforce(
         loss.shape is None or all(d == 1 or d == -1 for d in loss.shape),
@@ -280,7 +411,14 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
     )
     partials[loss.name] = [loss_grad_name]
 
-    walk_ops = [op for op in fwd_ops if id(op) in relevant_set]
+    ordered_relevant = [op for op in fwd_ops if id(op) in relevant_set]
+    checkpoints = getattr(program, "_recompute_checkpoints", None)
+    if checkpoints:
+        walk_ops = _collapse_segments(
+            block, ordered_relevant, checkpoints, loss.name, requires
+        )
+    else:
+        walk_ops = ordered_relevant
     for op in reversed(walk_ops):
         # outputs' grads must be finalized before this op's grad runs
         out_grad_slots = {}

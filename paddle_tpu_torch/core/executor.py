@@ -35,6 +35,16 @@ sub-blocks' plans through ``ops/control_flow.py``, as the JAX executor
 dispatches them (``paddle_tpu/core/executor.py`` ``CONTROL_FLOW_OPS``):
 a ``while`` reads its condition on the host once an iteration.
 
+Remat (``RecomputeOptimizer``): in a program with
+``recompute_segment_grad`` ops, the plan drops each segment's interior
+values after their last forward reader (``segment_liveness``), keeping
+those the segment's policy names (``kernels/remat.py``), which the grad
+op receives as ``ins["__saved__"]`` and which are dropped after it. A
+fetched value, a persistable and a value a sub-block reads are never
+dropped. The grad op replays the segment (``ops/recompute.py``) with the
+run key as ``ins["__base_rng__"]`` (``needs_base_rng``). A program
+without segments keeps every value to the end of the run, as before.
+
 A ``CompiledProgram`` (``compiler.py``) runs through its own ``_run``,
 which calls back into ``run`` with this rank's rows of the batch (and,
 for dense data parallelism, a plan with the collectives in place).
@@ -172,6 +182,42 @@ def block_plan(block):
     return plan
 
 
+def segment_liveness(block, steps, persistable):
+    """``{id(op): (drop, saved)}`` for the steps of a plan of ``block``
+    with recompute segments, else ``{}``: ``drop`` names the segment
+    interiors that go from the env after that step (their last reader or
+    writer; for a kept value, its segment's grad op), ``saved`` a grad
+    op's kept values. Persistables and values read inside a sub-block
+    stay."""
+    from paddle_tpu_torch.kernels import remat
+
+    grads = [i for i, s in enumerate(steps)
+             if s.op.type == "recompute_segment_grad"]
+    if not grads:
+        return {}
+    hold = set(persistable) | {
+        n for b in block.program.blocks if b is not block
+        for op in b.ops for n in op.input_names()}
+    last = {}
+    for i, s in enumerate(steps):
+        for _, names in list(s.inputs) + list(s.outputs):
+            for n in names:
+                last[n] = i
+    drops, saved = {}, {}
+    for gi in grads:
+        attrs = steps[gi].op.attrs
+        kept = remat.kept_names(attrs)
+        saved[gi] = tuple(kept)
+        kept = set(kept)
+        for n in attrs["__segment_saved_names__"]["save_all"]:
+            if n in hold or n not in last:
+                continue
+            at = max(last[n], gi) if n in kept else last[n]
+            drops.setdefault(at, []).append(n)
+    return {id(s.op): (tuple(drops.get(i, ())), saved.get(i, ()))
+            for i, s in enumerate(steps) if i in drops or i in saved}
+
+
 def host_read_feeds(program):
     """The feeds of ``program`` that the host reads: the raw ids of its
     sharded-engine, PS and remote tables (``_sharded_tables``,
@@ -239,7 +285,9 @@ class Executor:
             # a feed read only inside a sub-block is read too
             read = {n for b in program.blocks for op in b.ops
                     for n in op.input_names()}
-            plan = (block_plan(block), persistable, read)
+            steps = block_plan(block)
+            plan = (steps, persistable, read,
+                    segment_liveness(block, steps, persistable))
             self._plans[key] = plan
         return plan
 
@@ -302,11 +350,16 @@ class Executor:
                 f"lowering failed: {e}", op_type=step.op.type,
                 op_callstack=step.op.attrs.get("op_callstack")) from e
 
-    def _run_steps(self, steps, env, scope, block, run_key):
+    def _run_steps(self, steps, env, scope, block, run_key, live=None,
+                   keep=()):
+        """Run ``steps`` over ``env``. ``live`` (``segment_liveness``)
+        drops segment interiors after their last reader and hands the kept
+        ones to their grad op; names in ``keep`` (the fetches) stay."""
         for step in steps:
             if step.control_flow:
                 self._control_flow(step, env, scope, block, run_key)
                 continue
+            entry = live.get(id(step.op)) if live else None
             ins = {}
             for slot, names in step.inputs:
                 vals = []
@@ -320,6 +373,10 @@ class Executor:
                 ins["__rng_key__"] = [prng.fold_in(run_key, step.rng_id)]
                 if step.rng_block is not None:
                     ins["__rng_block__"] = [step.rng_block]
+            if step.op_def.needs_base_rng:
+                ins["__base_rng__"] = [run_key]
+            if entry is not None and entry[1]:
+                ins["__saved__"] = [{n: env[n] for n in entry[1] if n in env}]
             if step.op_def.creates:
                 ins["__device__"] = [self.device]
             if step.op_def.needs_block:
@@ -342,6 +399,10 @@ class Executor:
                 for name, val in zip(names, vals):
                     if val is not None:
                         env[name] = val
+            if entry is not None:
+                for n in entry[0]:
+                    if n not in keep:
+                        env.pop(n, None)
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True, _rank=None, _rewrite_plan=None):
@@ -367,7 +428,7 @@ class Executor:
         ]
         scope = scope if scope is not None else global_scope()
         block = program.global_block()
-        steps, persistable, read = self._plan(program)
+        steps, persistable, read, live = self._plan(program)
         if _rewrite_plan is not None:
             steps = _rewrite_plan(steps)
         late = kernel_registry.late_launches()
@@ -380,7 +441,8 @@ class Executor:
             if name in read or name in fetch_names
         }
         with torch.no_grad():
-            self._run_steps(steps, env, scope, block, run_key)
+            self._run_steps(steps, env, scope, block, run_key, live,
+                            set(fetch_names))
         for name in persistable:
             if name in env:
                 (scope._find_owner(name) or scope).set(name, env[name])

@@ -30,7 +30,10 @@ their grads) run sub-blocks: they receive the block they sit in as
 ``ins["__runner__"]`` (``runner.plan(block)``, ``runner.run(steps, env,
 key, block)``). A ``saves_for_grad`` op gets ``_save_for_grad`` in its
 attrs when its block holds its grad op, which then reads what the
-forward kept.
+forward kept. A ``needs_base_rng`` op (``recompute_segment_grad``, which
+replays other ops) receives the run's key itself, unfolded, as
+``ins["__base_rng__"]``, so that it can fold each replayed op's
+``__rng_id__`` in as the forward did.
 """
 
 from paddle_tpu_torch.utils.enforce import EnforceError
@@ -39,7 +42,8 @@ from paddle_tpu_torch.utils.enforce import EnforceError
 class OpDef:
     def __init__(self, type, lower, kernel=None, grad=None,
                  nondiff_inputs=(), stateful=False, creates=False,
-                 reports_late=False, needs_block=False, saves_for_grad=False):
+                 reports_late=False, needs_block=False, saves_for_grad=False,
+                 needs_base_rng=False):
         self.type = type
         self.lower = lower
         self.kernel = kernel
@@ -50,6 +54,7 @@ class OpDef:
         self.reports_late = reports_late
         self.needs_block = needs_block
         self.saves_for_grad = saves_for_grad
+        self.needs_base_rng = needs_base_rng
 
     def lowering(self):
         """What the executor runs: the kernel lowering when the op has
@@ -84,7 +89,7 @@ class OpRegistry:
 
 def register_op(type, kernel=None, nondiff_inputs=(), stateful=False,
                 creates=False, reports_late=False, needs_block=False,
-                saves_for_grad=False):
+                saves_for_grad=False, needs_base_rng=False):
     """Decorator form:  @register_op("relu")  def _(ins, attrs): ..."""
 
     def deco(fn):
@@ -92,7 +97,8 @@ def register_op(type, kernel=None, nondiff_inputs=(), stateful=False,
             OpDef(type, fn, kernel=kernel, nondiff_inputs=nondiff_inputs,
                   stateful=stateful, creates=creates,
                   reports_late=reports_late, needs_block=needs_block,
-                  saves_for_grad=saves_for_grad)
+                  saves_for_grad=saves_for_grad,
+                  needs_base_rng=needs_base_rng)
         )
         return fn
 

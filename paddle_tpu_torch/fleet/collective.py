@@ -31,9 +31,11 @@ class DistributedStrategy(BuildStrategy):
     __init__.py:134), with the JAX package's fields: ``mesh_shape`` and
     ``mesh_axis_names`` build the mesh, ``param_rules``, ``param_specs``
     and ``spec_layout`` place the parameters (``CompiledProgram.
-    with_parallel``). ``input_specs``, ``mesh_axis_tags`` and the
-    pipeline schedules raise naming ROADMAP M11, ``recompute`` naming M8.
-    NCCL tuning knobs are accepted and change nothing."""
+    with_parallel``). ``recompute`` (or ``forward_recompute``) wraps the
+    optimizer in ``RecomputeOptimizer`` at ``recompute_checkpoints``.
+    ``input_specs``, ``mesh_axis_tags`` and the pipeline schedules raise
+    naming ROADMAP M11. NCCL tuning knobs are accepted and change
+    nothing."""
 
     def __init__(self):
         super().__init__()
@@ -71,13 +73,11 @@ class CollectiveOptimizer(DistributedOptimizer):
     def minimize(
         self, loss, startup_program=None, parameter_list=None, no_grad_set=None
     ):
-        """The optimizer pass (under AMP with ``use_amp``), then
+        """The optimizer pass (with recompute segments under
+        ``recompute``, under AMP with ``use_amp``), then
         ``fleet.main_program``: a ``CompiledProgram`` over the strategy's
         mesh. What is not ported raises before the program changes."""
         strategy = self._strategy
-        if strategy.recompute or strategy.forward_recompute:
-            raise NotImplementedError(
-                "DistributedStrategy.recompute is not ported yet (ROADMAP M8)")
         given = [f for f in _NOT_PORTED
                  if getattr(strategy, f) not in (None, False)]
         if given:
@@ -86,6 +86,12 @@ class CollectiveOptimizer(DistributedOptimizer):
                 "ported yet (ROADMAP M11)")
         mesh = strategy.build_mesh()
         opt = self._optimizer
+        if strategy.recompute or strategy.forward_recompute:
+            from paddle_tpu_torch.optimizer import RecomputeOptimizer
+
+            opt = RecomputeOptimizer(opt)
+            if strategy.recompute_checkpoints:
+                opt._set_checkpoints(strategy.recompute_checkpoints)
         if strategy.use_amp:
             from paddle_tpu_torch import amp
 

@@ -91,6 +91,9 @@ __all__ = [
     "erf",
     "argmax",
     "argmin",
+    # M1b
+    "clip_by_norm",
+    "l2_normalize",
 ]
 
 
@@ -847,6 +850,29 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
 
 def clip(x, min, max, name=None):
     return _single_op("clip", x, {"min": min, "max": max}, name=name)
+
+
+def clip_by_norm(x, max_norm, name=None):
+    return _single_op("clip_by_norm", x, {"max_norm": max_norm}, name=name)
+
+
+def l2_normalize(x, axis=-1, epsilon=1e-12, name=None):
+    """``x / sqrt(sum(x^2, axis) + epsilon)`` as a composite of layers, the
+    JAX package's ``layers/nn.py`` form (``layers.l2_normalize`` is
+    ``layers/extras.py``'s, over the ``norm`` op, as in the JAX
+    package)."""
+    LayerHelper("l2_normalize", name=name)
+    sq = square(x)
+    ssum = reduce_sum(sq, dim=[axis] if axis is not None else None,
+                      keep_dim=True)
+    norm = sqrt(elementwise_add(ssum, fill_constant_like(ssum, epsilon)))
+    return elementwise_div(x, norm)
+
+
+def fill_constant_like(x, value):
+    from paddle_tpu_torch.layers.tensor import fill_constant
+
+    return fill_constant(shape=[1], dtype=x.dtype, value=value)
 
 
 def softmax_with_cross_entropy(

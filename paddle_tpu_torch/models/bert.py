@@ -295,6 +295,22 @@ def bert_pretrain_net(cfg, seq_len=128, max_predictions_per_seq=None):
     return feeds, [loss, mlm_loss, nsp_loss]
 
 
+def encoder_checkpoints(program):
+    """The encoder layers' outputs (each ``layer_{i}.ln2`` LayerNorm's
+    ``Y``) of a program ``bert_encoder`` built, in layer order: the
+    checkpoints of ``RecomputeOptimizer`` at each encoder layer. Found by
+    their parameters' names, so the JAX package's programs answer too."""
+    outs = {}
+    for op in program.global_block().ops:
+        if op.type != "layer_norm":
+            continue
+        scale = op.input("Scale")[0] if op.input("Scale") else ""
+        head, _, rest = scale.partition(".ln2")
+        if head.startswith("layer_") and rest and head[6:].isdigit():
+            outs[int(head[6:])] = op.output("Y")[0]
+    return [outs[i] for i in sorted(outs)]
+
+
 def synthetic_batch(rng, batch, seq_len, cfg, max_predictions_per_seq=None):
     ids = rng.randint(0, cfg.vocab_size, (batch, seq_len)).astype("int64")
     types = np.zeros((batch, seq_len), dtype="int64")

@@ -2,4 +2,4 @@
 
 from paddle_tpu_torch.ops import (  # noqa: F401
     control_flow, extras, fused, math, misc_extra, nn, nn_extra, optimizers,
-    pipeline, sharded_embedding, tensor)
+    pipeline, recompute, sharded_embedding, tensor)

@@ -1,5 +1,5 @@
 """Ops of the JAX package's ``ops/extras.py`` that the common surface
-reaches, with its semantics: ``hinge_loss``."""
+reaches, with its semantics: ``hinge_loss`` and ``norm``."""
 
 import torch
 
@@ -17,3 +17,16 @@ def _hinge_loss(ins, attrs):
     labels = first(ins, "Labels").to(logits.dtype)
     margin = 1.0 - (2.0 * labels - 1.0) * logits
     return {"Loss": [torch.maximum(torch.zeros_like(margin), margin)]}
+
+
+@register_op("norm")
+def _norm(ins, attrs):
+    """reference: paddle/fluid/operators/norm_op.cc — l2-normalize along
+    ``axis`` (the sum of squares in float32), emitting the norm as a saved
+    output."""
+    x = first(ins, "X")
+    axis = attrs.get("axis", -1)
+    eps = attrs.get("epsilon", 1e-10)
+    sq = torch.sum(torch.square(x.to(torch.float32)), dim=axis, keepdim=True)
+    norm = torch.sqrt(sq + eps)
+    return {"Out": [(x / norm).to(x.dtype)], "Norm": [norm]}

@@ -172,6 +172,22 @@ def _clip(ins, attrs):
                              attrs.get("max"))]}
 
 
+@register_op("clip_by_norm")
+def _clip_by_norm(ins, attrs):
+    """``x * (max_norm / ||x||)`` where ``||x|| > max_norm``, else ``x``."""
+    x = first(ins, "X")
+    max_norm = attrs["max_norm"]
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    scaled = x * (torch.full((), max_norm, dtype=norm.dtype,
+                             device=norm.device) / norm)
+    return {"Out": [torch.where(norm > max_norm, scaled, x)]}
+
+
+@register_op("squared_l2_norm")
+def _squared_l2_norm(ins, attrs):
+    return {"Out": [torch.sum(torch.square(first(ins, "X"))).reshape((1,))]}
+
+
 def _batch_axis(attrs):
     """The data axis a batch reduction all-reduces over: that of a dense
     data-parallel run, for the ops its plan marks ``_dp_batch`` (their

@@ -1,9 +1,15 @@
 """Optimizer update op lowerings, with the semantics of the JAX package's
-``ops/optimizers.py``: the arithmetic runs in float32 and the updated
-parameter is cast back to its own dtype. ``sgd``, ``momentum``, ``adam``
-and ``dgc_momentum`` return new tensors for ``ParamOut`` and the
+``ops/optimizers.py``: the arithmetic runs in float32 (moments and other
+accumulators stay float32) and the updated parameter is cast back to its
+own dtype. The update ops return new tensors for ``ParamOut`` and the
 accumulators (whose names equal the inputs'); the executor writes them
-back to the scope. ``sgd_sparse`` updates its parameter in place (the
+back to the scope. A scalar divides as a 0-d float32 tensor: torch
+multiplies by the reciprocal of a Python-scalar divisor on CUDA (and
+``scalar / tensor`` is ``reciprocal(tensor) * scalar``), where the JAX
+op divides. ``lamb``'s and ``lars_momentum``'s trust ratios take the JAX
+``where`` branch at a zero norm. ``dpsgd`` draws its noise as the JAX
+op's ``jax.random.normal`` at the op's key, its bits through K8's
+``random_bits`` on the card (``ops/tensor.py`` ``draw``). ``sgd_sparse`` updates its parameter in place (the
 counterpart of the JAX package's donated buffer): an optimizer op runs
 after every op that reads the parameter, and rewriting a whole ``[V, D]``
 table to touch a few thousand rows would cost far more than the update."""
@@ -13,7 +19,10 @@ import torch
 from paddle_tpu_torch.core.registry import register_op
 from paddle_tpu_torch.kernels import registry as kernel_registry
 from paddle_tpu_torch.kernels import sparse_update, topk
-from paddle_tpu_torch.ops.common import first, maybe, segment_sum
+from paddle_tpu_torch.core import prng
+from paddle_tpu_torch.ops.common import (
+    first, jnp_clip, maybe, rng_key, segment_sum)
+from paddle_tpu_torch.ops.tensor import draw
 from paddle_tpu_torch.parallel import env as penv
 from paddle_tpu_torch.utils.enforce import EnforceError
 from paddle_tpu_torch.utils.flags import flags
@@ -111,6 +120,224 @@ def _adam(ins, attrs):
         "Beta1PowOut": [b1p * b1],
         "Beta2PowOut": [b2p * b2],
     }
+
+
+def _scalar(v, like):
+    """``v`` as a 0-d float32 tensor beside ``like`` (a true divisor)."""
+    return torch.full((), prng.f32(v), dtype=torch.float32, device=like.device)
+
+
+def _norm(x):
+    return torch.sqrt(torch.sum(torch.square(x)))
+
+
+def _param_out(p_out, ins):
+    return p_out.to(first(ins, "Param").dtype)
+
+
+@register_op("adamw")
+def _adamw(ins, attrs):
+    """Decoupled weight decay on top of adam."""
+    coeff = attrs.get("coeff", 0.01)
+    p = _f32(first(ins, "Param"))
+    lr = _f32(first(ins, "LearningRate"))
+    outs = _adam(ins, attrs)
+    decayed = _f32(outs["ParamOut"][0]) - lr * coeff * p
+    outs["ParamOut"] = [_param_out(decayed, ins)]
+    return outs
+
+
+@register_op("adagrad")
+def _adagrad(ins, attrs):
+    p, g = _f32(first(ins, "Param")), _f32(first(ins, "Grad"))
+    moment, lr = _f32(first(ins, "Moment")), _f32(first(ins, "LearningRate"))
+    eps = attrs.get("epsilon", 1e-6)
+    m_out = moment + torch.square(g)
+    p_out = p - lr * g / (torch.sqrt(m_out) + eps)
+    return {"ParamOut": [_param_out(p_out, ins)], "MomentOut": [m_out]}
+
+
+@register_op("rmsprop")
+def _rmsprop(ins, attrs):
+    p, g = _f32(first(ins, "Param")), _f32(first(ins, "Grad"))
+    ms, lr = _f32(first(ins, "MeanSquare")), _f32(first(ins, "LearningRate"))
+    mom = _f32(first(ins, "Moment"))
+    rho = attrs.get("decay", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    momentum = attrs.get("momentum", 0.0)
+    ms_out = rho * ms + (1 - rho) * torch.square(g)
+    mg_out = None
+    if attrs.get("centered", False):
+        mg_out = rho * _f32(first(ins, "MeanGrad")) + (1 - rho) * g
+        denom = torch.sqrt(ms_out - torch.square(mg_out) + eps)
+    else:
+        denom = torch.sqrt(ms_out + eps)
+    mom_out = momentum * mom + lr * g / denom
+    outs = {
+        "ParamOut": [_param_out(p - mom_out, ins)],
+        "MomentOut": [mom_out],
+        "MeanSquareOut": [ms_out],
+    }
+    if mg_out is not None:
+        outs["MeanGradOut"] = [mg_out]
+    return outs
+
+
+@register_op("adamax")
+def _adamax(ins, attrs):
+    p, g = _f32(first(ins, "Param")), _f32(first(ins, "Grad"))
+    m, inf_norm = _f32(first(ins, "Moment")), _f32(first(ins, "InfNorm"))
+    b1p, lr = _f32(first(ins, "Beta1Pow")), _f32(first(ins, "LearningRate"))
+    b1, b2 = attrs.get("beta1", 0.9), attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-8)
+    m_out = b1 * m + (1 - b1) * g
+    inf_out = torch.maximum(b2 * inf_norm, torch.abs(g))
+    p_out = p - (lr / (1 - b1p)) * m_out / (inf_out + eps)
+    return {"ParamOut": [_param_out(p_out, ins)], "MomentOut": [m_out],
+            "InfNormOut": [inf_out]}
+
+
+@register_op("adadelta")
+def _adadelta(ins, attrs):
+    p, g = _f32(first(ins, "Param")), _f32(first(ins, "Grad"))
+    avg_sq_grad = _f32(first(ins, "AvgSquaredGrad"))
+    avg_sq_upd = _f32(first(ins, "AvgSquaredUpdate"))
+    rho, eps = attrs.get("rho", 0.95), attrs.get("epsilon", 1e-6)
+    asg_out = rho * avg_sq_grad + (1 - rho) * torch.square(g)
+    update = -torch.sqrt((avg_sq_upd + eps) / (asg_out + eps)) * g
+    asu_out = rho * avg_sq_upd + (1 - rho) * torch.square(update)
+    return {"ParamOut": [_param_out(p + update, ins)],
+            "AvgSquaredGradOut": [asg_out],
+            "AvgSquaredUpdateOut": [asu_out]}
+
+
+@register_op("decayed_adagrad")
+def _decayed_adagrad(ins, attrs):
+    p, g = _f32(first(ins, "Param")), _f32(first(ins, "Grad"))
+    moment, lr = _f32(first(ins, "Moment")), _f32(first(ins, "LearningRate"))
+    decay, eps = attrs.get("decay", 0.95), attrs.get("epsilon", 1e-6)
+    m_out = decay * moment + (1 - decay) * torch.square(g)
+    p_out = p - lr * g / (torch.sqrt(m_out) + eps)
+    return {"ParamOut": [_param_out(p_out, ins)], "MomentOut": [m_out]}
+
+
+@register_op("ftrl")
+def _ftrl(ins, attrs):
+    p, g = _f32(first(ins, "Param")), _f32(first(ins, "Grad"))
+    sq = _f32(first(ins, "SquaredAccumulator"))
+    lin = _f32(first(ins, "LinearAccumulator"))
+    lr = _f32(first(ins, "LearningRate"))
+    l1 = attrs.get("l1", 0.0)
+    l2 = attrs.get("l2", 0.0)
+    power = attrs.get("lr_power", -0.5)
+    new_sq = sq + torch.square(g)
+    sigma = (torch.pow(new_sq, -power) - torch.pow(sq, -power)) / lr
+    new_lin = lin + g - sigma * p
+    x = jnp_clip(new_lin, -l1, l1) - new_lin
+    y = torch.pow(new_sq, -power) / lr + 2 * l2
+    return {"ParamOut": [_param_out(x / y, ins)],
+            "SquaredAccumOut": [new_sq], "LinearAccumOut": [new_lin]}
+
+
+@register_op("lamb")
+def _lamb(ins, attrs):
+    """reference: paddle/fluid/operators/optimizers/lamb_op.h — layerwise
+    adaptive moments, the large-batch BERT optimizer."""
+    p = _f32(first(ins, "Param"))
+    g = _f32(first(ins, "Grad"))
+    m1, m2 = _f32(first(ins, "Moment1")), _f32(first(ins, "Moment2"))
+    b1p, b2p = _f32(first(ins, "Beta1Pow")), _f32(first(ins, "Beta2Pow"))
+    lr = _f32(first(ins, "LearningRate"))
+    b1 = attrs.get("beta1", 0.9)
+    b2 = attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-6)
+    wd = attrs.get("weight_decay", 0.01)
+    m1n = b1 * m1 + (1 - b1) * g
+    m2n = b2 * m2 + (1 - b2) * torch.square(g)
+    m1_hat = m1n / (1 - b1p)
+    m2_hat = m2n / (1 - b2p)
+    r = m1_hat / (torch.sqrt(m2_hat) + eps) + wd * p
+    p_norm, r_norm = _norm(p), _norm(r)
+    trust = torch.where((p_norm > 0) & (r_norm > 0), p_norm / r_norm,
+                        _scalar(1.0, p))
+    p_out = p - lr * trust * r
+    return {
+        "ParamOut": [_param_out(p_out, ins)],
+        "Moment1Out": [m1n],
+        "Moment2Out": [m2n],
+        "Beta1PowOut": [b1p * b1],
+        "Beta2PowOut": [b2p * b2],
+    }
+
+
+@register_op("lars_momentum")
+def _lars_momentum(ins, attrs):
+    p, g = _f32(first(ins, "Param")), _f32(first(ins, "Grad"))
+    v, lr = _f32(first(ins, "Velocity")), _f32(first(ins, "LearningRate"))
+    mu = attrs.get("mu", 0.9)
+    coeff = attrs.get("lars_coeff", 0.001)
+    wd = attrs.get("lars_weight_decay", 0.0005)
+    eps = attrs.get("epsilon", 0.0)
+    p_norm, g_norm = _norm(p), _norm(g)
+    local_lr = torch.where(
+        (p_norm > 0) & (g_norm > 0),
+        lr * coeff * p_norm / (g_norm + wd * p_norm + eps),
+        lr,
+    )
+    v_out = mu * v + local_lr * (g + wd * p)
+    return {"ParamOut": [_param_out(p - v_out, ins)], "VelocityOut": [v_out]}
+
+
+@register_op("dpsgd", stateful=True)
+def _dpsgd(ins, attrs):
+    """Differentially-private SGD (reference: paddle/fluid/operators/
+    optimizers/dpsgd_op.cc): clip the grad to ``clip`` in norm, add
+    Gaussian noise (``jax.random.normal`` at the op's key)."""
+    p, g = _f32(first(ins, "Param")), _f32(first(ins, "Grad"))
+    lr = _f32(first(ins, "LearningRate"))
+    clip = attrs.get("clip", 10.0)
+    batch_size = attrs.get("batch_size", 16.0)
+    sigma = attrs.get("sigma", 1.0)
+    g_norm = _norm(g)
+    g = torch.where(g_norm > clip, g * (_scalar(clip, g) / g_norm), g)
+    z = draw({"__rng_key__": [rng_key(ins)]}, {}, tuple(g.shape),
+             prng.normal, g.device)
+    noise = sigma * clip * z
+    p_out = p - lr * (g + noise / _scalar(batch_size, g))
+    return {"ParamOut": [_param_out(p_out, ins)]}
+
+
+@register_op("ema_update")
+def _ema_update(ins, attrs):
+    """Shadow-parameter EMA step (reference: python/paddle/fluid/
+    optimizer.py:3166 ExponentialMovingAverage — its in-graph ema ops)."""
+    p, s = first(ins, "Param"), first(ins, "Shadow")
+    decay = attrs.get("decay", 0.999)
+    return {"ShadowOut": [decay * s + (1.0 - decay) * p.to(s.dtype)]}
+
+
+@register_op("model_average_update")
+def _model_average_update(ins, attrs):
+    """Windowed running parameter sum (reference: python/paddle/fluid/
+    optimizer.py:2862 ModelAverage accumulators). The window is
+    clamp(rate * total_updates, min_window, max_window); once ``count``
+    reaches it the sum decays geometrically. Count stores
+    (window_count, total_updates)."""
+    p = first(ins, "Param")
+    s, c = first(ins, "Sum"), first(ins, "Count")
+    rate = attrs.get("rate", 0.15)
+    min_w = attrs.get("min_window", 10000.0)
+    max_w = attrs.get("max_window", 10000.0)
+    flat = c.reshape(-1)
+    cnt = flat[0]
+    total = flat[1] if c.numel() > 1 else cnt
+    window = jnp_clip(rate * (total + 1.0), min_w, max_w)
+    at_cap = cnt >= window
+    new_sum = torch.where(at_cap, s * (window - 1.0) / window, s) \
+        + p.to(s.dtype)
+    new_cnt = torch.minimum(cnt + 1.0, window)
+    return {"SumOut": [new_sum],
+            "CountOut": [torch.stack([new_cnt, total + 1.0])]}
 
 
 def dgc_ratio(step, begin, ramp, sparsity):

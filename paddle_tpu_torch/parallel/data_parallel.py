@@ -42,7 +42,15 @@ version, feed signature) and returns a new plan:
   JAX global draw hashes each element's flat index. Replicated random
   ops draw from counter 0 on every rank;
 * fetches come back as the JAX global values: ``ROWS`` all-gathered on
-  dim 0, ``PARTIAL`` all-reduced, ``REPL`` as they are.
+  dim 0, ``PARTIAL`` all-reduced, ``REPL`` as they are;
+* a recompute segment's grad op (``ops/recompute.py``) learns from its
+  serialized segment what the forward's ops were: its ``_dp_replay``
+  names the segment's batch reductions (replayed with the global value in
+  the graph of the local sum) and its random ops on rows (replayed on
+  this rank's block of the draw), and a replicated input's grad is
+  ``PARTIAL`` where the segment carries it into rows. A batch reduction
+  whose value flows back into rows inside a segment raises (its
+  cotangent would need an all-reduce inside the replay).
 
 An op that reads rows must be one whose effect on the batch this module
 knows (``_rows_kind``); an unknown one, or one that moves the batch off
@@ -275,6 +283,36 @@ def check_program(block):
             "yet (ROADMAP M11)")
 
 
+def _segment_replay(attrs, kinds, batch_ops, row_random, rank):
+    """The ``_dp_replay`` attrs of a ``recompute_segment_grad`` and the
+    replicated names whose grads its replay makes ``PARTIAL`` (those the
+    segment carries, through replicated values, into an op on rows)."""
+    seg = attrs["__segment__"]
+    ids = [a.get("__rng_id__") for _, _, _, a in seg]
+
+    def names(slots):
+        return [n for ns in slots.values() for n in ns]
+
+    batch_outs = {n for (_, _, outs, a) in seg
+                  if a.get("__rng_id__") in batch_ops for n in names(outs)}
+    partial = set()
+    for op_type, ins, outs, a in reversed(seg):
+        io = names(ins) + names(outs)
+        on_rows = any(kinds.get(n) == ROWS for n in io)
+        if on_rows and a.get("__rng_id__") not in batch_ops and \
+                batch_outs & set(names(ins)):
+            raise _not_ported(
+                "recompute_segment_grad",
+                f"a batch reduction's value read by '{op_type}' on rows "
+                "inside a recompute segment (its cotangent would need an "
+                "all-reduce inside the replay)")
+        if on_rows or partial & set(names(outs)):
+            partial.update(n for n in names(ins) if kinds.get(n) != ROWS)
+    replay = {"rerun": [i for i in ids if i in batch_ops],
+              "rng_block": {i: rank for i in ids if i in row_random}}
+    return replay, partial
+
+
 def plan_dense(steps, block, feed_kinds, fetch_names, rank):
     """The ``DensePlan`` of the executor plan ``steps`` (``_OpStep`` list)
     of ``block``: ``feed_kinds`` maps each feed to ``ROWS`` or ``REPL``
@@ -294,8 +332,9 @@ def plan_dense(steps, block, feed_kinds, fetch_names, rank):
         last_read[n] = end
 
     out = []
-    # the batch reductions, by the __rng_id__ their grad ops carry too
-    batch_ops = set()
+    # the batch reductions, by the __rng_id__ their grad ops carry too,
+    # and the random ops on rows
+    batch_ops, row_random = set(), set()
 
     def live_partials(i):
         return sorted(n for n, k in kinds.items()
@@ -333,16 +372,22 @@ def plan_dense(steps, block, feed_kinds, fetch_names, rank):
                 attrs = dict(attrs, _dp_batch="rerun")
             if rows_in and step.op_def.stateful:
                 rng_block = rank
+            seg_partial = None
+            if t == "recompute_segment_grad":
+                replay, seg_partial = _segment_replay(
+                    attrs, kinds, batch_ops, row_random, rank)
+                attrs = dict(attrs, _dp_replay=replay)
             for slot, names in step.outputs:
                 base = slot[:-len("@GRAD")] if slot.endswith("@GRAD") \
                     else None
                 fwd_names = dict(step.inputs).get(base, [])
                 for j, n in enumerate(names):
-                    k = kinds.get(fwd_names[j], REPL) \
-                        if j < len(fwd_names) else REPL
+                    fwd = fwd_names[j] if j < len(fwd_names) else None
+                    k = kinds.get(fwd, REPL)
                     if k == ROWS:
                         kinds[n] = ROWS
-                    elif rows_out or partial_cot:
+                    elif partial_cot or (rows_out if seg_partial is None
+                                         else fwd in seg_partial):
                         kinds[n] = PARTIAL
                     else:
                         kinds[n] = REPL
@@ -373,6 +418,7 @@ def plan_dense(steps, block, feed_kinds, fetch_names, rank):
                     batch_ops.add(attrs.get("__rng_id__"))
                 if step.op_def.stateful and kind == ROWS:
                     rng_block = rank
+                    row_random.add(attrs.get("__rng_id__"))
             for _, names in step.outputs:
                 for n in names:
                     kinds[n] = kind

@@ -27,7 +27,8 @@ Weight decay: ``Momentum`` with ``L2Decay`` on every parameter, one of
 them carrying its own ``ParamAttr(regularizer=L1Decay)``, emits the same
 program in both packages (``scale``/``sign``/``sum`` ops, names, attrs);
 from the same weights two steps give the same losses (rtol 1e-5) and
-parameters (atol 1e-6).
+parameters (atol 1e-6). With ``grad_clip=`` the clip ops come first, as
+in the JAX package.
 """
 
 import numpy as np
@@ -240,7 +241,7 @@ def test_batch_norm_grad_rerun_leaves_running_stats_alone():
 # -- weight decay ------------------------------------------------------------
 
 
-def _decay_program(mod, names):
+def _decay_program(mod, names, grad_clip=None):
     with names.guard():
         main, startup = mod.Program(), mod.Program()
         with mod.program_guard(main, startup):
@@ -252,7 +253,8 @@ def _decay_program(mod, names):
             loss = mod.layers.mean(mod.layers.square_error_cost(pred, y))
             mod.optimizer.Momentum(
                 learning_rate=0.1, momentum=0.9,
-                regularization=mod.regularizer.L2Decay(0.05)).minimize(loss)
+                regularization=mod.regularizer.L2Decay(0.05),
+                grad_clip=grad_clip).minimize(loss)
     return main, startup, loss
 
 
@@ -296,5 +298,15 @@ def test_weight_decay_steps_match_jax():
 
 
 def test_grad_clip_still_raises_naming_m1b():
-    with pytest.raises(NotImplementedError, match="M1b"):
-        pt.optimizer.SGD(0.1, grad_clip=object())
+    """``grad_clip=`` no longer raises (M1b landed): the clip comes before
+    the weight decay, in the same program as the JAX package's."""
+    jmain = _decay_program(fluid, jax_names,
+                           fluid.clip.GradientClipByNorm(0.5))[0]
+    tmain = _decay_program(pt, torch_names,
+                           pt.clip.GradientClipByNorm(0.5))[0]
+    want = [op.desc() for op in jmain.global_block().ops]
+    assert [op.desc() for op in tmain.global_block().ops] == want
+    types = [op["type"] for op in want]
+    assert types.count("clip_by_norm") == 4
+    assert max(i for i, t in enumerate(types) if t == "clip_by_norm") < \
+        types.index("sign")

@@ -252,8 +252,23 @@ def test_strategy_forms_not_ported_raise():
                                         strategy).minimize(loss)
         return main
 
-    with pytest.raises(NotImplementedError, match="recompute.*M8"):
-        build(recompute=True)
+    # recompute builds since M8 landed: without checkpoints nothing
+    # changes; at the hidden layer's output, two segments replay
+    main = build(recompute=True)
+    assert "recompute_segment_grad" not in [
+        op.type for op in main.global_block().ops]
+    main = pt.Program()
+    with torch_names.guard(), pt.program_guard(main, pt.Program()):
+        loss = _fleet_model(pt)
+        strategy = DistributedStrategy()
+        strategy.recompute = True
+        strategy.recompute_checkpoints = [next(
+            op.output("Out")[0] for op in main.global_block().ops
+            if op.type == "relu")]
+        fleet.distributed_optimizer(pt.optimizer.SGD(0.1),
+                                    strategy).minimize(loss)
+    types = [op.type for op in main.global_block().ops]
+    assert types.count("recompute_segment_grad") == 2 and "sgd" in types
     # the placement fields and a multi-axis mesh build since they were
     # ported (tests/test_torch_hybrid.py runs them across ranks); feed
     # specs, axis tags and the pipeline runtime's schedules still raise
@@ -277,11 +292,11 @@ def test_strategy_forms_not_ported_raise():
             build(**{field: value})
     # refused before the program changed: no optimizer op was added
     main = pt.Program()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="M11"):
         with torch_names.guard(), pt.program_guard(main, pt.Program()):
             loss = _fleet_model(pt)
             strategy = DistributedStrategy()
-            strategy.recompute = True
+            strategy.pipeline_schedule = "1f1b"
             fleet.distributed_optimizer(pt.optimizer.SGD(0.1),
                                         strategy).minimize(loss)
     assert "sgd" not in [op.type for op in main.global_block().ops]

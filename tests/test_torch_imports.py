@@ -18,6 +18,7 @@ import sys
 import paddle_tpu_torch
 import paddle_tpu_torch.amp
 import paddle_tpu_torch.amp.decorator
+import paddle_tpu_torch.clip
 import paddle_tpu_torch.compiler
 import paddle_tpu_torch.convert
 import paddle_tpu_torch.core.prng
@@ -56,12 +57,14 @@ import paddle_tpu_torch.kernels.build
 import paddle_tpu_torch.kernels.embedding
 import paddle_tpu_torch.kernels.flash_attention
 import paddle_tpu_torch.kernels.random
+import paddle_tpu_torch.kernels.remat
 import paddle_tpu_torch.kernels.sparse_update
 import paddle_tpu_torch.kernels.topk
 import paddle_tpu_torch.layers.collective
 import paddle_tpu_torch.layers.control_flow
 import paddle_tpu_torch.layers.extra3
 import paddle_tpu_torch.layers.extras
+import paddle_tpu_torch.layers.learning_rate_scheduler
 import paddle_tpu_torch.layers.nn_extra
 import paddle_tpu_torch.layers.pipeline
 import paddle_tpu_torch.models.bert
@@ -80,6 +83,7 @@ import paddle_tpu_torch.ops.fused
 import paddle_tpu_torch.ops.misc_extra
 import paddle_tpu_torch.ops.nn_extra
 import paddle_tpu_torch.ops.pipeline
+import paddle_tpu_torch.ops.recompute
 import paddle_tpu_torch.ops.sharded_embedding
 import paddle_tpu_torch.optimizer
 import paddle_tpu_torch.parallel

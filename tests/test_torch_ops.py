@@ -114,6 +114,7 @@ def _run_torch(op_type, ins, attrs):
 
 def test_cases_cover_every_ported_op_type():
     from test_torch_amp import CASES as AMP_CASES
+    from test_torch_clip_lr import CASES as CLIP_CASES
     from test_torch_control_flow import CASES as CONTROL_FLOW_CASES
     from test_torch_conv import CASES as CONV_CASES
     from test_torch_ctr import CASES as CTR_CASES
@@ -122,8 +123,10 @@ def test_cases_cover_every_ported_op_type():
     from test_torch_ops_m12a_nn import CASES as M12A_NN_CASES
     from test_torch_ops_m12a_nn_extra import CASES as M12A_NN_EXTRA_CASES
     from test_torch_ops_m12a_tensor import CASES as M12A_TENSOR_CASES
+    from test_torch_optimizers import CASES as OPTIMIZER_CASES
     from test_torch_ps_ctr import CASES as PS_CASES
     from test_torch_random import CASES as RANDOM_CASES
+    from test_torch_recompute import CASES as RECOMPUTE_CASES
     from test_torch_train_ops import CASES as TRAIN_CASES
     from test_torch_transformer import CASES as DGC_CASES
 
@@ -132,6 +135,8 @@ def test_cases_cover_every_ported_op_type():
                   | set(CONV_CASES) | set(AMP_CASES) | set(HYBRID_CASES)
                   | set(M12A_MATH_CASES) | set(M12A_NN_CASES)
                   | set(M12A_NN_EXTRA_CASES) | set(M12A_TENSOR_CASES)
+                  | set(OPTIMIZER_CASES) | set(CLIP_CASES)
+                  | set(RECOMPUTE_CASES)
                   | {op for op, _, _ in CONTROL_FLOW_CASES.values()}
                   ) == TorchOps.all_types()
 

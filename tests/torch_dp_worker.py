@@ -29,7 +29,11 @@ they compute while the ranks run (``run_gang``). Cases:
   form);
 * ``fleet``: the loss-parity program of ``tests/test_fleet.py`` through
   ``fleet.distributed_optimizer(...).minimize`` and
-  ``exe.run(fleet.main_program)``, with ``use_amp`` where asked.
+  ``exe.run(fleet.main_program)``, with ``use_amp`` where asked;
+* ``fleet_bert``: tiny BERT (hidden dropout 0.1) with LAMB and a
+  global-norm clip through the fleet, with ``DistributedStrategy.recompute``
+  at the encoder layers' outputs where asked
+  (``tests/test_torch_recompute.py``): losses and the whole state.
 """
 
 import hashlib
@@ -268,6 +272,64 @@ def run_fleet(case, data, mesh):
         "first": fleet.is_first_worker()}
 
 
+def build_bert_lamb(seq, P, recompute=False, fleet=None):
+    """``tests/test_torch_recompute.py``'s tiny BERT with LAMB, its
+    warm-up into polynomial decay and a global-norm clip, minimized
+    through ``fleet`` with ``DistributedStrategy.recompute`` (or, without
+    a fleet, directly, under ``RecomputeOptimizer`` with ``recompute``)."""
+    from paddle_tpu_torch.fleet import DistributedStrategy
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.tiny()
+    cfg.use_flash_attention = True
+    cfg.hidden_dropout_prob = 0.1
+    cfg.attention_probs_dropout_prob = 0.0
+    sched = pt.layers.learning_rate_scheduler
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 5
+    with unique_name.guard(), pt.program_guard(main, startup):
+        _, fetches = bert.bert_pretrain_net(cfg, seq, P)
+        lr = sched.linear_lr_warmup(sched.polynomial_decay(1e-3, 1000, 0.0,
+                                                           1.0),
+                                    10, 0.0, 1e-3)
+        opt = pt.optimizer.Lamb(
+            learning_rate=lr, lamb_weight_decay=0.01,
+            exclude_from_weight_decay_fn=lambda p: "ln" in p.name
+            or p.name.endswith((".b", ".b_0")),
+            grad_clip=pt.clip.GradientClipByGlobalNorm(1.0))
+        if fleet is None:
+            if recompute:
+                opt = pt.optimizer.RecomputeOptimizer(opt)
+                opt._set_checkpoints(bert.encoder_checkpoints(main))
+            opt.minimize(fetches[0])
+        else:
+            strategy = DistributedStrategy()
+            strategy.recompute = recompute
+            strategy.recompute_checkpoints = bert.encoder_checkpoints(main)
+            fleet.distributed_optimizer(opt, strategy).minimize(fetches[0])
+    return main, startup, fetches
+
+
+def run_fleet_bert(case, data, mesh):
+    from paddle_tpu_torch.fleet import PaddleCloudRoleMaker, fleet
+
+    fleet.init(PaddleCloudRoleMaker())
+    main, startup, fetches = build_bert_lamb(case["seq"], case["P"],
+                                             case["recompute"], fleet)
+    exe, scope = pt.Executor(pt.CPUPlace()), pt.Scope()
+    exe.run(fleet.startup_program, scope=scope)
+    names = json.loads(str(data["names"]))
+    load_params(scope, {n: data[f"s_{i}"] for i, n in enumerate(names)})
+    feed = {k[len("feed_"):]: data[k] for k in data if k.startswith("feed_")}
+    losses = [exe.run(fleet.main_program, feed=feed, fetch_list=[fetches[0]],
+                      scope=scope)[0] for _ in range(case["steps"])]
+    state = persistables_to_numpy(scope, main)
+    arrays = {"losses": np.stack(losses)}
+    arrays.update({f"s_{i}": state[n] for i, n in enumerate(names)})
+    return arrays, {"segments": sum(op.type == "recompute_segment_grad"
+                                    for op in main.global_block().ops)}
+
+
 def run_gang(cases, inputs, tmp, meanwhile, n=2):
     """Start ``n`` ranks of this worker on ``cases`` (under ``tmp``, with a
     ``file://`` rendezvous there), call ``meanwhile()`` while they run, and
@@ -294,7 +356,7 @@ def run_gang(cases, inputs, tmp, meanwhile, n=2):
 RUNNERS = {"regression": run_regression, "bert": run_bert,
            "unequal": run_unequal, "errors": run_errors,
            "collective": run_collective, "dgc_dense": run_dgc_dense,
-           "fleet": run_fleet}
+           "fleet": run_fleet, "fleet_bert": run_fleet_bert}
 
 
 def main(cases_path, inputs_path, out_dir):
